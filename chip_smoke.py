@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GIMM-VFI-R 8x path once on one CUDA card.
+"""Drive the PyTorch port's GIMM-VFI-R 8x path and its two probe entry
+points once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
-  2. builds the CUDA splat kernel from gimmvfi_tpu_torch/csrc/;
+  2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
+     conv3x3.cu, gather_probe.cu) all at once, one nvcc each;
   3. kernel against its plain PyTorch version on the card, float32, at the
      main path's 736x1280x17 shape, the reference test shapes, and a case
      with non-finite and far out-of-frame flows; times both at 720p;
@@ -14,18 +16,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
      736x1280 pair, 7 timesteps through interpolate_sequential; checks shape,
      finiteness, range and exactly 14 kernel launches; prints fps, stage ms
-     and peak memory from CUDA events after one warm-up.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+     and peak memory from CUDA events after one warm-up;
+  6. the probes: the conv kernel against its plain version at the probe
+     shape (1,736,1280,256) and three ragged shapes, each gather kernel
+     against its plain version at its probe shape and with out-of-range
+     indices; then the two probe entry points, `conv_proto.main` (kernel,
+     cuDNN NCHW, cuDNN channels-last, plain, bound) and
+     `gather_cost_probe.main` (torch.gather / torch.sort table, kernels),
+     each of whose kernels must launch.
+The launch counts are set to 0 just before each path (5 and the probes
+of 6) and read just after it. The line before the last is the kernels'
+JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
-import copy
 import json
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,10 +43,21 @@ import torch
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
 from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, splat_sum_plain
+from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
+from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
+from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
+from gimmvfi_tpu_torch.utils.kernel_build import build_libraries
+from gimmvfi_tpu_torch.utils.timing import bound_ms, cuda_ms
 
 H, W = 736, 1280
 N_T = 7
 SEED = 0
+SPLAT_C = 17
+PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
+KERNELS = [SPLAT_KERNEL] + PROBE_KERNELS
+# (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks
+CONV_CASES = [((1, H, W, 256), 256), ((1, 17, 23, 256), 256), ((2, 33, 40, 64), 64),
+              ((1, 5, 130, 48), 80)]
 
 
 def check_card() -> str:
@@ -52,29 +73,17 @@ def check_card() -> str:
     return smi
 
 
-def build_kernel():
+def build_kernels():
     t0 = time.perf_counter()
-    log = SPLAT_KERNEL.build()
+    logs = build_libraries(Path(k.source).name for k in KERNELS)
     dt = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"[2] built {SPLAT_KERNEL.source} in {dt:.2f} s; ptxas: {' | '.join(ptxas)}", flush=True)
-
-
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Median ms of fn() over `iters` runs, CUDA events around each."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    for k in KERNELS:
+        k.build()  # loads the library just built
+    for name, log in logs.items():
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"[2] built gimmvfi_tpu_torch/csrc/{name} (nvcc, sm_90a); ptxas: {' | '.join(ptxas)}",
+              flush=True)
+    print(f"[2] {len(logs)} sources built in parallel in {dt:.2f} s", flush=True)
 
 
 def check_kernel() -> dict:
@@ -94,8 +103,8 @@ def check_kernel() -> dict:
         return torch.from_numpy(vals).to(dev), torch.from_numpy(flow).to(dev)
 
     cases = [
-        ((1, H, W, 17), 20.0, False),
-        ((1, H, W, 17), 20.0, True),
+        ((1, H, W, SPLAT_C), 20.0, False),
+        ((1, H, W, SPLAT_C), 20.0, True),
         ((1, 16, 24, 5), 3.0, False),
         ((2, 24, 16, 3), 30.0, False),
         ((1, 8, 8, 1), 0.6, False),
@@ -114,11 +123,15 @@ def check_kernel() -> dict:
             raise AssertionError(f"splat kernel disagrees with its plain version at {shape}")
         worst = max(worst, err)
 
-    vals, flow = case((1, H, W, 17), 20.0)
-    ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow))
-    plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow))
-    print(f"[3] splat (1,{H},{W},17) median: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    vals, flow = case((1, H, W, SPLAT_C), 20.0)
+    ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
+    plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow), warmup=3)
+    # vals and flow read once, the output written once
+    bound, bound_by = bound_ms(4 * (vals.numel() + flow.numel() + vals.numel()))
+    print(f"[3] splat (1,{H},{W},{SPLAT_C}) median: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -130,10 +143,11 @@ def check_small_e2e():
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.random((1, 2, 128, 192, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
-    cpu_model = init_normal_(GIMMVFI_R(raft_iters=2), SEED)
-    gpu_model = copy.deepcopy(cpu_model).cuda()
+    cpu_model = init_normal_(GIMMVFI_R(raft_iters=2, device="cpu"), SEED)
+    gpu_model = init_normal_(GIMMVFI_R(raft_iters=2), SEED)  # the card, same seeded weights
     ref = interpolate_sequential(cpu_model, img, ts)["imgt_pred"]
-    got = interpolate_sequential(gpu_model, img.cuda(), ts)["imgt_pred"].cpu()
+    # the host frames go in as they are: prepare moves them to the card
+    got = interpolate_sequential(gpu_model, img, ts)["imgt_pred"].cpu()
     db = psnr(got, ref)
     print(f"[4] GIMMVFI_R(raft_iters=2) f32 128x192, t={ts}: GPU vs CPU PSNR {db:.2f} dB", flush=True)
     if not db >= 50.0:
@@ -141,10 +155,10 @@ def check_small_e2e():
 
 
 def run_main_path() -> int:
-    dev = torch.device("cuda")
-    model = init_normal_(GIMMVFI_R(raft_iters=20, dtype=torch.bfloat16), SEED).to(dev)
+    model = init_normal_(GIMMVFI_R(raft_iters=20, dtype=torch.bfloat16), SEED)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    img_xs = torch.rand((1, 2, H, W, 3), generator=gen).to(dev)
+    # loading the frames is set-up: they are on the card before the clock starts
+    img_xs = torch.rand((1, 2, H, W, 3), generator=gen).cuda()
     ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
 
     interpolate_sequential(model, img_xs, ts)  # warm-up
@@ -152,7 +166,7 @@ def run_main_path() -> int:
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    SPLAT_KERNEL.launches = 0
+    reset_counts()
     start.record()
     out = interpolate_sequential(model, img_xs, ts)
     end.record()
@@ -192,19 +206,111 @@ def run_main_path() -> int:
     return launches
 
 
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def check_conv() -> float:
+    """The conv kernel against conv3x3_plain on the card, elementwise in f32:
+    |got - plain| <= 2**-6 |plain| + 1e-4 max|plain| (two bf16 roundings of
+    f32 sums taken in another order, plus slack for outputs near zero)."""
+    worst = 0.0
+    for i, (shape, cout) in enumerate(CONV_CASES):
+        x, w = conv_proto.probe_inputs(shape, cout, seed=SEED + i)
+        got = CONV3X3_KERNEL(x, w).float()
+        ref = conv3x3_plain(x, w).float()
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        limit = 2.0**-6 * ref.abs() + 1e-4 * float(ref.abs().max())
+        bad = int((err > limit).sum()) + int((~torch.isfinite(got)).sum())
+        print(f"[6] conv3x3 {shape}x(3,3,{shape[3]},{cout}): max_abs_err "
+              f"{float(err.max()):.3e}, max|plain| {float(ref.abs().max()):.3e}, "
+              f"{bad} elements over the bound", flush=True)
+        if bad:
+            raise AssertionError(f"conv3x3 kernel disagrees with its plain version at {shape}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def check_gathers() -> dict:
+    """Each gather kernel against its plain version at its probe shape, and
+    with out-of-range and negative indices: exactly equal, NaN at the same
+    places (none for subgather_grid, whose `% 512` keeps every index in range)."""
+    rng = np.random.default_rng(SEED)
+    worst = {}
+    for name, (xn, idxn) in gather_cost_probe.gather_tables(SEED).items():
+        kernel, plain, _ = GATHERS[name]
+        n = xn.shape[1] if name == "lanegather" else xn.shape[0]
+        bad_idx = idxn.copy()
+        pick = rng.random(idxn.shape) < 0.05
+        bad_idx[pick] = rng.choice([-1, -n, n, n + 7, -n - 1, 2**31 - 1, -2**31], int(pick.sum()))
+        worst[name] = 0.0
+        for label, idx_np in (("probe", idxn), ("out-of-range", bad_idx)):
+            x, idx = torch.from_numpy(xn).cuda(), torch.from_numpy(idx_np).cuda()
+            got = kernel(x, idx)
+            ref = plain(x, idx)
+            torch.cuda.synchronize()
+            nan = torch.isnan(ref)
+            same = torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], ref[~nan])
+            n_nan = int(nan.sum())
+            err = float((got[~nan] - ref[~nan]).abs().max())
+            worst[name] = max(worst[name], err)
+            print(f"[6] {name} {tuple(x.shape)} {label} indices: equal {same}, "
+                  f"max_abs_err {err:.3e}, NaN {n_nan}", flush=True)
+            if not same:
+                raise AssertionError(f"{name} kernel differs from its plain version ({label})")
+            if label == "out-of-range" and (n_nan == 0) != (name == "subgather_grid"):
+                raise AssertionError(f"{name}: wrong NaN fill for out-of-range indices")
+    return worst
+
+
+def run_probes() -> tuple[dict, dict, dict]:
+    """The two probe entry points, with the probe kernels' counts from 0."""
+    reset_counts()
+    conv = conv_proto.main()
+    table, gathers = gather_cost_probe.main()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in PROBE_KERNELS}
+    print(f"[6] probe kernel launches: {launches}", flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the probe path launched {name} no time")
+    return conv, gathers, launches
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    check_card()
-    build_kernel()
+    smi = check_card()
+    build_kernels()
     kstats = check_kernel()
     check_small_e2e()
-    launches = run_main_path()
-    record = {
-        "name": SPLAT_KERNEL.name, "route": "cuda", "source": SPLAT_KERNEL.source,
-        "replaces": SPLAT_KERNEL.replaces, "launches": launches, **kstats,
-    }
-    print(json.dumps({"kernels": [record]}))
+    splat_launches = run_main_path()
+    torch.cuda.empty_cache()
+    conv_err = check_conv()
+    gather_err = check_gathers()
+    conv, gathers, launches = run_probes()
+    print(f"[6] conv3x3 (1,{H},{W},256): kernel {conv['kernel_ms']:.4f} ms "
+          f"({100 * conv['bound_ms'] / conv['kernel_ms']:.1f}% of its {conv['bound_ms']:.4f} ms "
+          f"bound), cuDNN NCHW {conv['cudnn_nchw_ms']:.4f} ms, cuDNN channels-last "
+          f"{conv['cudnn_channels_last_ms']:.4f} ms, plain {conv['plain_ms']:.4f} ms; {smi}",
+          flush=True)
+
+    def record(kernel, launches, **numbers):
+        return {"name": kernel.name, "route": "cuda", "source": kernel.source,
+                "replaces": kernel.replaces, "launches": launches, **numbers}
+
+    records = [
+        record(SPLAT_KERNEL, splat_launches, **kstats),
+        record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
+               ms=conv["kernel_ms"], plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
+               bound_by=conv["bound_by"], library_ms=conv["cudnn_channels_last_ms"]),
+    ] + [
+        record(GATHERS[name][0], launches[name], max_abs_err=gather_err[name], **gathers[name])
+        for name in GATHERS
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -162,15 +162,19 @@ class RAFT(nn.Module):
     (the reference's `bidir=True`): forward in rows :N, backward in rows
     N:. The reverse volume is the transpose of the forward one. Returns
     (flow_up, [feat_1/4, feat_1/8] from cnet, fnet output), each 2N rows.
+
+    The module is built on `device`, the CUDA card when None; the CPU only
+    when asked (`device="cpu"`). Without a card the default raises.
     """
 
-    def __init__(self, iters=20, dtype=None):
+    def __init__(self, iters=20, dtype=None, device=None):
         super().__init__()
         self.iters = iters
         self.dtype = dtype
         self.fnet = BasicEncoder(256, "instance", dtype)
         self.cnet = BasicEncoder(256, "batch", dtype)
         self.update_block = BasicUpdateBlock(128, dtype)
+        self.to(torch.device("cuda") if device is None else device)
 
     def forward(self, image1, image2):
         image1 = 2 * (image1 / 255.0) - 1.0

@@ -32,14 +32,19 @@ from .synthesis import InitDecoder, MultiFlowDecoder, UpdateBlock, comb_block, m
 class GIMMVFI_R(nn.Module):
     """dtype None computes in float32; torch.bfloat16 runs convolutions and
     correlation volumes in bf16 while flow/coordinate state, the HypoNet,
-    normalization statistics, splatting and bilinear weights stay float32."""
+    normalization statistics, splatting and bilinear weights stay float32.
 
-    def __init__(self, raft_iters=20, dtype=None):
+    The model is built on `device`, the CUDA card when None; the CPU only
+    when asked (`device="cpu"`, as the CPU tests do). Without a card the
+    default raises. Outputs stay on the model's device."""
+
+    def __init__(self, raft_iters=20, dtype=None, device=None):
         super().__init__()
+        device = torch.device("cuda") if device is None else torch.device(device)
         self.dtype = dtype
         f0, f1 = 256, 128
         skip = f1 // 2
-        self.flow_estimator = RAFT(raft_iters, dtype=dtype)
+        self.flow_estimator = RAFT(raft_iters, dtype=dtype, device=device)
         self.amt_last_cproj = conv(128, f0, 1, 1, 0, dtype)
         self.amt_second_last_cproj = conv(96, f1, 1, 1, 0, dtype)
         self.amt_fproj = conv(256, f0, 1, 1, 0, dtype)
@@ -53,6 +58,7 @@ class GIMMVFI_R(nn.Module):
         self.hyponet = HypoNet()
         self.alpha_v = nn.Parameter(torch.ones(1))
         self.alpha_fe = nn.Parameter(torch.ones(1))
+        self.to(device)
 
     # ------------------------------------------------------------------ flow
     def cal_bidirection_flow(self, img0, img1):
@@ -138,7 +144,9 @@ class GIMMVFI_R(nn.Module):
 
     # ----------------------------------------------------------- entry points
     def prepare(self, img_xs: torch.Tensor) -> dict:
-        """Everything t-independent, once per pair. img_xs (N, 2, H, W, 3)."""
+        """Everything t-independent, once per pair. img_xs (N, 2, H, W, 3),
+        moved to the model's device (frames loaded on the host run there)."""
+        img_xs = img_xs.to(self.alpha_v.device)
         img0 = img_xs[:, 0].permute(0, 3, 1, 2).float()
         img1 = img_xs[:, 1].permute(0, 3, 1, 2).float()
         nflows, f01, f10, scalers, features, corr_pyrs = self.cal_bidirection_flow(

@@ -21,30 +21,22 @@ import ctypes
 
 import torch
 
-from ..utils.kernel_build import build_library
+from ..utils.kernel_build import CudaKernel
 
 _EPS = 1e-7
 
 
-class SplatKernel:
+class SplatKernel(CudaKernel):
     """The CUDA splat kernel: built at first use, with a launch counter."""
 
-    name = "softsplat_sum"
-    source = "gimmvfi_tpu_torch/csrc/softsplat.cu"
-    replaces = "gimmvfi_tpu/ops/splat_pallas.py:136"
-
     def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def build(self) -> str:
-        """Build (or load from the cache) the library; returns the ptxas log."""
-        lib, log = build_library("softsplat.cu")
-        fn = lib.softsplat_sum_f32
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        self._fn = fn
-        return log
+        super().__init__(
+            name="softsplat_sum",
+            source="gimmvfi_tpu_torch/csrc/softsplat.cu",
+            symbol="softsplat_sum_f32",
+            argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
+            replaces="gimmvfi_tpu/ops/splat_pallas.py:136",
+        )
 
     def __call__(self, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         n, h, w, c = vals.shape
@@ -59,16 +51,8 @@ class SplatKernel:
             raise ValueError("splat kernel takes contiguous (N, H, W, C) tensors")
         if torch.is_grad_enabled() and (vals.requires_grad or flow.requires_grad):
             raise NotImplementedError("the splat kernel has no backward yet")
-        if self._fn is None:
-            self.build()
         out = torch.zeros_like(vals)
-        with torch.cuda.device(vals.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = self._fn(vals.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                           n, h, w, c, stream)
-        if err != 0:
-            raise RuntimeError(f"softsplat_sum_f32 launch failed: cudaError {err}")
-        self.launches += 1
+        self.launch(vals.device, vals.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c)
         return out
 
 

@@ -5,6 +5,11 @@ PyTorch headers). Builds go to `build/kernels/` at the repository root,
 keyed by a hash of the source and the flags, so a fresh checkout builds
 each kernel once at first use. A missing `nvcc` or a failed build raises
 with the compiler's output.
+
+`CudaKernel` is the wrapper base every kernel shares: it binds one
+`extern "C"` launcher, builds its library at first use, launches on the
+current stream of the tensors' device, raises on a non-zero `cudaError`
+and counts its launches.
 """
 
 from __future__ import annotations
@@ -14,7 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,7 +55,7 @@ def build_library(source_name: str) -> tuple[ctypes.CDLL, str]:
     log = ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib_path.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
         proc = subprocess.run(
             [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             capture_output=True, text=True,
@@ -59,3 +68,65 @@ def build_library(source_name: str) -> tuple[ctypes.CDLL, str]:
         os.replace(tmp, lib_path)
         log = proc.stdout + proc.stderr
     return ctypes.CDLL(str(lib_path)), log
+
+
+def build_libraries(source_names) -> dict[str, str]:
+    """Compile several `csrc/` sources at once, one `nvcc` each; returns
+    {source name: ptxas log}. Any failed build raises."""
+    names = sorted(set(source_names))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        logs = list(pool.map(lambda name: build_library(name)[1], names))
+    return dict(zip(names, logs))
+
+
+class CudaKernel:
+    """One `extern "C"` launcher of a `csrc/` library, bound with ctypes.
+
+    The launcher takes `argtypes` followed by the stream and returns
+    `cudaGetLastError()` as an int. `launches` moves only in `launch`.
+    """
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes, replaces: str):
+        self.name = name
+        self.source = source  # path in the repository, e.g. gimmvfi_tpu_torch/csrc/x.cu
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.replaces = replaces  # file:line of the TPU kernel
+        self.launches = 0
+        self._fn = None
+
+    def build(self) -> str:
+        """Build (or load from the cache) the library; returns the ptxas log."""
+        lib, log = build_library(Path(self.source).name)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return log
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Run the launcher on `device`'s current stream; raise on a launch error."""
+        if self._fn is None:
+            self.build()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: cudaError {err}")
+        self.launches += 1
+
+    def check(self, what: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
+              device: torch.device | None = None) -> None:
+        """Raise unless `t` is a contiguous, 16-byte aligned CUDA tensor of
+        `dtype` (and of `shape` on `device`, where given)."""
+        if not t.is_cuda:
+            raise ValueError(f"{self.name}: {what} must be a CUDA tensor, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{self.name}: {what} must be {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{self.name}: {what} must have shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if device is not None and t.device != device:
+            raise ValueError(f"{self.name}: {what} is on {t.device}, expected {device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{self.name}: {what} must be contiguous and 16-byte aligned")

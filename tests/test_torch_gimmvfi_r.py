@@ -17,6 +17,7 @@ import torch
 from gimmvfi_tpu.models.gimmvfi_r import GIMMVFI_R as JaxGIMMVFI_R
 from gimmvfi_tpu.models.gimmvfi_r import interpolate_sequential as jax_interpolate_sequential
 from gimmvfi_tpu.utils.convert import convert_gimmvfi_r
+from gimmvfi_tpu_torch.flow.raft import RAFT
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.utils.convert import jax_params_to_torch, load_jax_params
 
@@ -43,7 +44,8 @@ def _run_both(setup, jax_dtype, torch_dtype):
     ref = jax.jit(lambda v, x: jax_interpolate_sequential(jm, v, x, jnp.asarray(T_VALUES)))(
         variables, jnp.asarray(img)
     )
-    model = load_jax_params(GIMMVFI_R(raft_iters=2, dtype=torch_dtype), params, stats)
+    model = load_jax_params(GIMMVFI_R(raft_iters=2, dtype=torch_dtype, device="cpu"),
+                            params, stats)
     got = interpolate_sequential(model, torch.from_numpy(img), T_VALUES)
     ref = {k: np.asarray(v).astype(np.float32) for k, v in ref.items()}
     got = {k: v.float().numpy() for k, v in got.items()}
@@ -76,7 +78,7 @@ def test_batch_of_two_equals_two_single_pairs(setup):
     img, _, params, stats = setup
     crop = img[:, :, :, :128]
     pair = np.concatenate([crop, crop[:, ::-1]], axis=0)  # second pair reversed in time
-    model = load_jax_params(GIMMVFI_R(raft_iters=1), params, stats)
+    model = load_jax_params(GIMMVFI_R(raft_iters=1, device="cpu"), params, stats)
     both = interpolate_sequential(model, torch.from_numpy(pair), [0.5])
     for i in range(2):
         one = interpolate_sequential(model, torch.from_numpy(pair[i : i + 1].copy()), [0.5])
@@ -84,6 +86,21 @@ def test_batch_of_two_equals_two_single_pairs(setup):
             np.testing.assert_allclose(
                 both[key][:, i : i + 1].numpy(), one[key].numpy(), rtol=0, atol=1e-5
             )
+
+
+@pytest.mark.parametrize("entry", ["GIMMVFI_R", "RAFT"])
+def test_entry_points_default_to_the_card(entry):
+    """Built without `device`, a model lives on the CUDA card; without a
+    card that raises instead of falling back to the CPU."""
+    def build(**kw):
+        return GIMMVFI_R(raft_iters=1, **kw) if entry == "GIMMVFI_R" else RAFT(iters=1, **kw)
+
+    if torch.cuda.is_available():
+        assert all(p.is_cuda for p in build().parameters())
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            build()
+    assert all(p.device.type == "cpu" for p in build(device="cpu").parameters())
 
 
 def test_weight_round_trip_is_exact(setup):

@@ -132,9 +132,11 @@ def test_windowed_volume_raises(build):
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys, gimmvfi_tpu_torch\n"
+        "import gimmvfi_tpu_torch.tools.conv_proto, gimmvfi_tpu_torch.tools.gather_cost_probe\n"
         "for m in pkgutil.walk_packages(gimmvfi_tpu_torch.__path__, 'gimmvfi_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'gimmvfi_tpu')]\n"
+        "ref = ('jax', 'flax', 'gimmvfi_tpu', 'tools', 'conv_pallas_proto', 'gather_cost_probe')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ref]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=Path(__file__).resolve().parents[1])

@@ -42,7 +42,7 @@ def _bound(ref):
 
 def test_raft_bidir_matches_jax(raft_pair):
     img1, img2, params, stats, (ref_flow, ref_feats, ref_fmaps) = raft_pair
-    model = RAFT(iters=2)
+    model = RAFT(iters=2, device="cpu")
     model.load_state_dict(jax_raft_params_to_torch(params, stats), strict=True)
     with torch.inference_mode():
         flow, feats, fmaps = model(
