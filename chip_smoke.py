@@ -18,15 +18,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      finiteness, range and exactly 14 kernel launches; prints fps, stage ms
      and peak memory from CUDA events after one warm-up;
   6. the probes: the conv kernel against its plain version at the probe
-     shape (1,736,1280,256) and three ragged shapes, each gather kernel
+     shape (1,736,1280,256) and six ragged shapes, each gather kernel
      against its plain version at its probe shape and with out-of-range
      indices; then the two probe entry points, `conv_proto.main` (kernel,
      cuDNN NCHW, cuDNN channels-last, plain, bound) and
      `gather_cost_probe.main` (torch.gather / torch.sort table, kernels),
      each of whose kernels must launch.
-The launch counts are set to 0 just before each path (5 and the probes
-of 6) and read just after it. The line before the last is the kernels'
-JSON record; the last line is {"ok": true, "device": {...}}.
+Phase 2 prints ptxas's registers, spills and warnings for each source and
+whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
+with CUDA events around each call (`ms`) and also read its own device time
+from a `torch.profiler` trace (`device_ms`; for the probes' library calls
+`library_device_ms`; the conv and cuDNN are traced in turns). The launch counts are set to 0 just before each path
+(5 and the probes of 6) and read just after it. The line before the last
+is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
 from gimmvfi_tpu_torch.utils.kernel_build import build_libraries
-from gimmvfi_tpu_torch.utils.timing import bound_ms, cuda_ms
+from gimmvfi_tpu_torch.utils.timing import bound_ms, cuda_ms, device_ms, fmt_ms
 
 H, W = 736, 1280
 N_T = 7
@@ -55,9 +59,12 @@ SEED = 0
 SPLAT_C = 17
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
 KERNELS = [SPLAT_KERNEL] + PROBE_KERNELS
-# (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks
+# (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
+# then one pixel, W one over a 128-pixel tile multiple, and Cin off the
+# 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
 CONV_CASES = [((1, H, W, 256), 256), ((1, 17, 23, 256), 256), ((2, 33, 40, 64), 64),
-              ((1, 5, 130, 48), 80)]
+              ((1, 5, 130, 48), 80), ((1, 1, 1, 16), 16), ((2, 9, 257, 64), 256),
+              ((1, 7, 200, 80), 96)]
 
 
 def check_card() -> str:
@@ -80,9 +87,14 @@ def build_kernels():
     for k in KERNELS:
         k.build()  # loads the library just built
     for name, log in logs.items():
-        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        lines = [ln.strip() for ln in log.splitlines()]
+        keep = ("registers", "spill", "wgmma", "setmaxnreg")
+        ptxas = [ln for ln in lines if any(k in ln for k in keep) or "warning" in ln.lower()]
+        serial = [ln for ln in lines if "wgmma" in ln and "serializ" in ln]
         print(f"[2] built gimmvfi_tpu_torch/csrc/{name} (nvcc, sm_90a); ptxas: {' | '.join(ptxas)}",
               flush=True)
+        print(f"[2] {name}: wgmma.mma_async serialised by ptxas: "
+              f"{'yes: ' + ' | '.join(serial) if serial else 'no'}", flush=True)
     print(f"[2] {len(logs)} sources built in parallel in {dt:.2f} s", flush=True)
 
 
@@ -126,12 +138,14 @@ def check_kernel() -> dict:
     vals, flow = case((1, H, W, SPLAT_C), 20.0)
     ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
     plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow), warmup=3)
+    dev_ms, by_name = device_ms(lambda: SPLAT_KERNEL(vals, flow))
     # vals and flow read once, the output written once
     bound, bound_by = bound_ms(4 * (vals.numel() + flow.numel() + vals.numel()))
     print(f"[3] splat (1,{H},{W},{SPLAT_C}) median: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({bound_by})", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None}
+          f"bound {bound:.4f} ms ({bound_by}); device time from the profiler {fmt_ms(dev_ms)} "
+          f"({'; '.join(f'{k[:60]} {v:.4f}' for k, v in by_name.items())})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -293,8 +307,10 @@ def main():
     conv, gathers, launches = run_probes()
     print(f"[6] conv3x3 (1,{H},{W},256): kernel {conv['kernel_ms']:.4f} ms "
           f"({100 * conv['bound_ms'] / conv['kernel_ms']:.1f}% of its {conv['bound_ms']:.4f} ms "
-          f"bound), cuDNN NCHW {conv['cudnn_nchw_ms']:.4f} ms, cuDNN channels-last "
-          f"{conv['cudnn_channels_last_ms']:.4f} ms, plain {conv['plain_ms']:.4f} ms; {smi}",
+          f"bound; device time {fmt_ms(conv['kernel_device_ms'])}), cuDNN NCHW "
+          f"{conv['cudnn_nchw_ms']:.4f} ms, cuDNN channels-last {conv['cudnn_channels_last_ms']:.4f} "
+          f"ms (device time {fmt_ms(conv['cudnn_channels_last_device_ms'])}), plain "
+          f"{conv['plain_ms']:.4f} ms; {smi}",
           flush=True)
 
     def record(kernel, launches, **numbers):
@@ -304,8 +320,10 @@ def main():
     records = [
         record(SPLAT_KERNEL, splat_launches, **kstats),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
-               ms=conv["kernel_ms"], plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
-               bound_by=conv["bound_by"], library_ms=conv["cudnn_channels_last_ms"]),
+               ms=conv["kernel_ms"], device_ms=conv["kernel_device_ms"],
+               plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
+               library_ms=conv["cudnn_channels_last_ms"],
+               library_device_ms=conv["cudnn_channels_last_device_ms"]),
     ] + [
         record(GATHERS[name][0], launches[name], max_abs_err=gather_err[name], **gathers[name])
         for name in GATHERS

@@ -7,7 +7,8 @@ hand-written tensor-core kernel against cuDNN and the compute bound
 Card only: without CUDA `main` raises. At (1,736,1280,256)x(3,3,256,256)
 bf16 it times the kernel (`csrc/conv3x3.cu`), cuDNN with an NCHW-contiguous
 input, cuDNN with a channels-last input and the plain version, and prints
-each in ms and TFLOP/s with its max difference from the plain version.
+each in ms and TFLOP/s with its max difference from the plain version, and
+the device time of the first three from `torch.profiler` traces, in turns.
 
 Layouts are the JAX probe's: activations (N, H, W, C), weights
 (3, 3, Cin, Cout) HWIO. `conv3x3` takes the kernel for CUDA tensors and the
@@ -18,17 +19,18 @@ plain version for CPU tensors. The port's model never calls this kernel or
 from __future__ import annotations
 
 import ctypes
+import statistics
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..utils.kernel_build import CudaKernel
-from ..utils.timing import bound_ms, cuda_ms
+from ..utils.timing import bound_ms, cuda_ms, device_ms, fmt_ms
 
 PROBE_SHAPE = (1, 736, 1280, 256)  # (N, H, W, C) of conv_pallas_proto.main
-MAX_GRID_X = 2**31 - 1
-BLOCK_PIXELS = 128  # output pixels a block computes (kBM in conv3x3.cu)
+MAX_TILES = 2**31 - 1  # the kernel counts tiles in an int
+TILE_PIXELS, TILE_CHANNELS = 128, 256  # one tile's output pixels and channels (kBM, kBN)
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -62,8 +64,17 @@ def conv3x3_library(xc: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
     return F.conv2d(xc, wc, padding=1).permute(0, 2, 3, 1)
 
 
+def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO weights (3, 3, Cin, Cout) as the kernel reads them: (3, 3, Cout,
+    Cin) contiguous, each tap transposed so that K (Cin) is innermost."""
+    return w.permute(0, 1, 3, 2).contiguous()
+
+
 class Conv3x3Kernel(CudaKernel):
-    """The CUDA implicit-GEMM conv: built at first use, with a launch counter."""
+    """The CUDA implicit-GEMM conv (TMA-fed, warp-specialised `wgmma`):
+    built at first use, with a launch counter. The weights go to the kernel
+    as `kernel_weights(w)`, so that K is innermost for both operands; that
+    repack is one copy on the card inside the call."""
 
     def __init__(self):
         super().__init__(
@@ -85,10 +96,12 @@ class Conv3x3Kernel(CudaKernel):
         if min(n, h, wd) < 1 or cin % 16 or cout % 16 or cin < 16 or cout < 16:
             raise ValueError(f"conv3x3 takes N, H, W >= 1 and Cin, Cout multiples of 16, "
                              f"got x {tuple(x.shape)}, Cout {cout}")
-        if n * h * -(-wd // BLOCK_PIXELS) > MAX_GRID_X:
-            raise ValueError(f"conv3x3: x {tuple(x.shape)} needs more blocks than one grid holds")
+        if n * h * -(-wd // TILE_PIXELS) * -(-cout // TILE_CHANNELS) > MAX_TILES:
+            raise ValueError(f"conv3x3: x {tuple(x.shape)} x Cout {cout} has more tiles "
+                             f"than the kernel counts")
+        wt = kernel_weights(w)
         out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-        self.launch(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, cin, cout)
+        self.launch(x.device, x.data_ptr(), wt.data_ptr(), out.data_ptr(), n, h, wd, cin, cout)
         return out
 
 
@@ -129,7 +142,11 @@ def conv_bound(x: torch.Tensor, w: torch.Tensor) -> tuple[float, str]:
 
 def measure(x: torch.Tensor, w: torch.Tensor, iters=20) -> dict:
     """Time the kernel, cuDNN NCHW, cuDNN channels-last and the plain version
-    on the card (median of `iters` after one warm-up) and print each."""
+    on the card (median of `iters` after one warm-up, CUDA events) and print
+    each. Then the first three's own device time from `torch.profiler`
+    traces, taken in turns (A B C C B A) because the card's clocks drift
+    within a run: `<name>_device_ms` is the mean of a variant's two turns,
+    None where a trace shows no device time."""
     flops = conv_flops(x, w)
     ref = conv3x3_plain(x, w).float()
     nchw = library_operands(x, w, channels_last=False)
@@ -148,6 +165,15 @@ def measure(x: torch.Tensor, w: torch.Tensor, iters=20) -> dict:
         res[f"{name}_max_diff"] = diff
         print(f"conv3x3 {tuple(x.shape)} {name:22s} {ms:9.4f} ms "
               f"{flops / ms / 1e9:7.1f} TFLOP/s  max diff vs plain {diff:.3e}", flush=True)
+    turns = {"kernel": [], "cudnn_channels_last": [], "cudnn_nchw": []}
+    for name in list(turns) + list(reversed(turns)):
+        dev, by_name = device_ms(variants[name], iters=iters)
+        turns[name].append(dev)
+        split = "; ".join(f"{k[:60]} {v:.4f}" for k, v in by_name.items())
+        print(f"conv3x3 {tuple(x.shape)} {name:22s} device time {fmt_ms(dev)} ({split})",
+              flush=True)
+    for name, devs in turns.items():
+        res[f"{name}_device_ms"] = None if None in devs else statistics.mean(devs)
     res["bound_ms"], res["bound_by"] = conv_bound(x, w)
     print(f"conv3x3 {tuple(x.shape)} bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
           f"kernel at {100 * res['bound_ms'] / res['kernel_ms']:.1f}% of it", flush=True)

@@ -10,7 +10,8 @@ measures, at its shapes and index recipes (draws from numpy with a seed):
   - `torch.sort` of int32 keys carrying an int32 payload, 941,056 and
     5,646,336 keys;
   - the probe's three in-kernel gathers (`csrc/gather_probe.cu`) beside
-    their plain versions and `torch.gather`.
+    their plain versions and `torch.gather`, by CUDA events around each
+    call and by the device's own time in a `torch.profiler` trace.
 
 Layouts are the JAX probe's: (rows, lanes) float32 tables with int32 index
 tables of the same shape. Indices follow `jnp.take_along_axis`: negative
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.kernel_build import CudaKernel
-from ..utils.timing import bound_ms, cuda_ms
+from ..utils.timing import bound_ms, cuda_ms, device_ms, fmt_ms
 
 PIXELS = 941_056  # ~720p pixel count, the probe's p
 ROWS, LANES = 512, 128  # subgather / lanegather table
@@ -161,7 +162,10 @@ def gather_bound(x: torch.Tensor) -> tuple[float, str]:
 
 def measure_kernels(seed=0, iters=20) -> dict:
     """Each gather kernel, its plain version and torch.gather at the probe's
-    shapes on the card (median ms of `iters` after one warm-up); prints each."""
+    shapes on the card (median ms of `iters` after one warm-up, CUDA events),
+    and the kernel's and torch.gather's own device time from a
+    `torch.profiler` trace (`device_ms`, `library_device_ms`; None where the
+    trace shows none); prints each."""
     res = {}
     for name, (xn, idxn) in gather_tables(seed).items():
         kernel, plain, library = GATHERS[name]
@@ -172,10 +176,14 @@ def measure_kernels(seed=0, iters=20) -> dict:
             "plain_ms": cuda_ms(lambda: plain(x, idx), iters=iters),
             "library_ms": cuda_ms(lambda: library(x, idx64), iters=iters),
         }
+        row["device_ms"] = device_ms(lambda: kernel(x, idx))[0]
+        row["library_device_ms"] = device_ms(lambda: library(x, idx64))[0]
         row["bound_ms"], row["bound_by"] = gather_bound(x)
         res[name] = row
         print(f"{name} {tuple(x.shape)}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"torch.gather {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms", flush=True)
+              f"torch.gather {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms; "
+              f"device time from the profiler: kernel {fmt_ms(row['device_ms'], 6)}, "
+              f"torch.gather {fmt_ms(row['library_device_ms'], 6)}", flush=True)
     return res
 
 

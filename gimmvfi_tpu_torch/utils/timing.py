@@ -1,10 +1,12 @@
-"""Time work on the CUDA card with CUDA events."""
+"""Time work on the CUDA card: CUDA events around each call (`cuda_ms`),
+or the device's own time from a `torch.profiler` trace (`device_ms`)."""
 
 from __future__ import annotations
 
 import statistics
 
 import torch
+from torch.autograd import DeviceType
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 peak, H100 SXM data sheet
@@ -25,6 +27,45 @@ def cuda_ms(fn, iters=20, warmup=1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters=10, warmup=1) -> tuple[float | None, dict[str, float]]:
+    """fn()'s own device time per call from `torch.profiler` (CPU and CUDA
+    activities): the kernels, copies and sets its `iters` calls ran on the
+    card, by name (`per_call_ms`) and summed over names. Unlike `cuda_ms` it
+    leaves out the host's work between launches. Returns (ms per call,
+    {name: ms per call}); None when the trace holds no device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = per_call_ms(prof.key_averages(), iters)
+    total = sum(by_name.values())
+    return (total if total > 0 else None), by_name
+
+
+def per_call_ms(events, iters: int) -> dict[str, float]:
+    """{name: ms per call} from a trace's averaged events over `iters` calls:
+    the device rows only (a host op's device time repeats its kernels'
+    rows), each as its mean duration times its launches a call. A trace may
+    drop some records, so the launches a call are its recorded count over
+    `iters`, rounded, and at least 1; the mean is over what was recorded."""
+    by_name = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA or ev.count == 0 or ev.self_device_time_total <= 0:
+            continue
+        per_launch = ev.self_device_time_total / ev.count / 1e3
+        by_name[ev.key] = per_launch * max(1, round(ev.count / iters))
+    return by_name
+
+
+def fmt_ms(value: float | None, digits: int = 4) -> str:
+    """A time in ms for a printed line; `device_ms`'s None as such."""
+    return "none in the trace" if value is None else f"{value:.{digits}f} ms"
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
