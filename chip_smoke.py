@@ -8,15 +8,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
      conv3x3.cu, gather_probe.cu) all at once, one nvcc each;
-  3. kernel against its plain PyTorch version on the card, float32, at the
-     main path's 736x1280x17 shape, the reference test shapes, and a case
-     with non-finite and far out-of-frame flows; times both at 720p;
+  3. the splat kernel against its plain PyTorch version on the card, float32,
+     in every case of `tools/splat_ablate.py: CHECK_CASES` (the main path's
+     (1,736,1280,17) on a random, a smooth and a non-finite/far flow field;
+     C in {1, 3, 5, 17, 33, 64}; N = 2; value counts off a multiple of 4);
+     times it at 720p on the random and the smooth field, and reads the
+     launch floor, the device time of one block at (1,8,8,1);
   4. GIMMVFI_R(raft_iters=2) float32 at 128x192 on the card (kernel) against
      the CPU (plain core), same seeded weights, TF32 off: PSNR >= 50 dB;
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
      736x1280 pair, 7 timesteps through interpolate_sequential; checks shape,
      finiteness, range and exactly 14 kernel launches; prints fps, stage ms
-     and peak memory from CUDA events after one warm-up;
+     and peak memory from CUDA events after one warm-up; then reads the
+     splat where it runs: its device time in a trace of one decode_one, and
+     the kernel timed alone on the two inputs that decode_one gave it;
   6. the probes: the conv kernel against its plain version at the probe
      shape (1,736,1280,256) and six ragged shapes, each gather kernel
      against its plain version at its probe shape and with out-of-range
@@ -28,9 +33,10 @@ Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
 from a `torch.profiler` trace (`device_ms`; for the probes' library calls
-`library_device_ms`; the conv and cuDNN are traced in turns). The launch counts are set to 0 just before each path
-(5 and the probes of 6) and read just after it. The line before the last
-is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+`library_device_ms`; the conv and cuDNN are traced in turns). The launch
+counts are set to 0 just before each path (5 and the probes of 6) and read
+just after it. The line before the last is the kernels' JSON record; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -46,17 +52,24 @@ import torch
 
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
+from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
 from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, splat_sum_plain
 from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
+from gimmvfi_tpu_torch.tools.splat_ablate import (
+    CHECK_CASES,
+    MAIN_SHAPE,
+    kernel_bound_ok,
+    splat_bound,
+    splat_inputs,
+)
 from gimmvfi_tpu_torch.utils.kernel_build import build_libraries
-from gimmvfi_tpu_torch.utils.timing import bound_ms, cuda_ms, device_ms, fmt_ms
+from gimmvfi_tpu_torch.utils.timing import cuda_ms, device_ms, fmt_ms
 
 H, W = 736, 1280
 N_T = 7
 SEED = 0
-SPLAT_C = 17
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
 KERNELS = [SPLAT_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
@@ -98,54 +111,74 @@ def build_kernels():
     print(f"[2] {len(logs)} sources built in parallel in {dt:.2f} s", flush=True)
 
 
+def splat_reading(vals, flow, label: str) -> dict:
+    """Events time, device time (the kernel alone and the call with its zero
+    fill) and plain time of the splat on these inputs, printed against the
+    bound."""
+    ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
+    plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow), warmup=3)
+    dev_ms, by_name = device_ms(lambda: SPLAT_KERNEL(vals, flow))
+    own = kernel_row(by_name)
+    bound, bound_by = splat_bound(vals)
+    print(f"{label}: kernel {ms:.4f} ms by events ({100 * bound / ms:.1f}% of bound), device "
+          f"{own:.4f} ms ({100 * bound / own:.1f}% of bound), call with zero fill "
+          f"{fmt_ms(dev_ms)}; plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}) "
+          f"[{'; '.join(f'{k[:60]} {v:.4f}' for k, v in by_name.items())}]", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "kernel_device_ms": own, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def kernel_row(by_name: dict) -> float:
+    """The splat kernel's own row of a `device_ms` reading."""
+    rows = [v for k, v in by_name.items() if "splat_sum_kernel" in k]
+    if len(rows) != 1:
+        raise AssertionError(f"no single splat kernel row in the trace: {list(by_name)}")
+    return rows[0]
+
+
 def check_kernel() -> dict:
-    rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
-
-    def case(shape, flow_std, corrupt=False):
-        n, h, w, c = shape
-        vals = rng.standard_normal(shape).astype(np.float32)
-        flow = (rng.standard_normal((n, h, w, 2)) * flow_std).astype(np.float32)
-        if corrupt:
-            pick = rng.random((n, h, w, 2))
-            flow[pick < 0.01] = np.nan
-            flow[(pick >= 0.01) & (pick < 0.02)] = np.inf
-            flow[(pick >= 0.02) & (pick < 0.03)] = -np.inf
-            flow[(pick >= 0.03) & (pick < 0.08)] *= 1e4
-        return torch.from_numpy(vals).to(dev), torch.from_numpy(flow).to(dev)
-
-    cases = [
-        ((1, H, W, SPLAT_C), 20.0, False),
-        ((1, H, W, SPLAT_C), 20.0, True),
-        ((1, 16, 24, 5), 3.0, False),
-        ((2, 24, 16, 3), 30.0, False),
-        ((1, 8, 8, 1), 0.6, False),
-    ]
     worst = 0.0
-    for shape, std, corrupt in cases:
-        vals, flow = case(shape, std, corrupt)
+    for i, (shape, field, std) in enumerate(CHECK_CASES):
+        vals, flow = splat_inputs(shape, field, std, seed=SEED + i)
         got = SPLAT_KERNEL(vals, flow)
         ref = splat_sum_plain(vals, flow)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        bound = 1e-5 * max(1.0, float(ref.abs().max()))
-        print(f"[3] splat {shape} flow_std={std} non-finite={corrupt}: "
-              f"max_abs_err={err:.3e} (bound {bound:.3e})", flush=True)
-        if not err <= bound:
-            raise AssertionError(f"splat kernel disagrees with its plain version at {shape}")
+        ok, bound = kernel_bound_ok(err, ref)
+        print(f"[3] splat {shape} {field} flow std {std}: max_abs_err={err:.3e} "
+              f"(bound {bound:.3e})", flush=True)
+        if not ok:
+            raise AssertionError(f"splat kernel disagrees with its plain version at {shape} {field}")
         worst = max(worst, err)
 
-    vals, flow = case((1, H, W, SPLAT_C), 20.0)
-    ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
-    plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow), warmup=3)
-    dev_ms, by_name = device_ms(lambda: SPLAT_KERNEL(vals, flow))
-    # vals and flow read once, the output written once
-    bound, bound_by = bound_ms(4 * (vals.numel() + flow.numel() + vals.numel()))
-    print(f"[3] splat (1,{H},{W},{SPLAT_C}) median: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({bound_by}); device time from the profiler {fmt_ms(dev_ms)} "
-          f"({'; '.join(f'{k[:60]} {v:.4f}' for k, v in by_name.items())})", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    stats = {"max_abs_err": worst}
+    for field in ("random", "smooth"):
+        vals, flow = splat_inputs(MAIN_SHAPE, field, 20.0, seed=SEED)
+        reading = splat_reading(vals, flow, f"[3] splat {MAIN_SHAPE} {field} flow std 20")
+        if field == "random":
+            stats.update(reading, library_ms=None)
+        else:
+            stats.update({f"smooth_{k}": reading[k]
+                          for k in ("ms", "kernel_device_ms", "plain_ms")})
+    # the launch floor: one block of one channel
+    vals, flow = splat_inputs((1, 8, 8, 1), "random", 0.6, seed=SEED)
+    _, by_name = device_ms(lambda: SPLAT_KERNEL(vals, flow), iters=50)
+    stats["floor_device_ms"] = kernel_row(by_name)
+    print(f"[3] splat (1, 8, 8, 1), one block: device {stats['floor_device_ms']:.6f} ms "
+          f"(the launch floor)", flush=True)
+    return stats
+
+
+class SplatRecorder:
+    """Stands in for the splat kernel in `ops.softsplat` and keeps a copy of
+    each input it is given."""
+
+    def __init__(self):
+        self.inputs = []
+
+    def __call__(self, vals, flow):
+        self.inputs.append((vals.clone(), flow.clone()))
+        return SPLAT_KERNEL(vals, flow)
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -168,7 +201,7 @@ def check_small_e2e():
         raise AssertionError(f"GPU and CPU disagree: {db:.2f} dB < 50 dB")
 
 
-def run_main_path() -> int:
+def run_main_path() -> tuple[int, dict]:
     model = init_normal_(GIMMVFI_R(raft_iters=20, dtype=torch.bfloat16), SEED)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     # loading the frames is set-up: they are on the card before the clock starts
@@ -212,12 +245,35 @@ def run_main_path() -> int:
     prepare_ms = events[0].elapsed_time(events[1])
     decode_ms = [events[i + 1].elapsed_time(events[i + 2]) for i in range(N_T)]
 
+    # the splat where it runs: its own device time in a trace of one
+    # decode_one (2 launches), then the kernel alone on the inputs the path
+    # gave it in that call
+    with torch.inference_mode():
+        _, by_name = device_ms(lambda: model.decode_one(prep, ts[N_T // 2]), iters=3)
+        recorder = SplatRecorder()
+        softsplat_ops.SPLAT_KERNEL = recorder
+        try:
+            model.decode_one(prep, ts[N_T // 2])
+        finally:
+            softsplat_ops.SPLAT_KERNEL = SPLAT_KERNEL
+    in_situ = kernel_row(by_name) / 2
+    readings = [splat_reading(vals, flow, f"[5] splat on the main path's input {k} "
+                                          f"{tuple(vals.shape)} at t={ts[N_T // 2]}")
+                for k, (vals, flow) in enumerate(recorder.inputs)]
+    if len(readings) != 2 or any(tuple(v.shape) != MAIN_SHAPE for v, _ in recorder.inputs):
+        raise AssertionError(f"decode_one gave the splat {[tuple(v.shape) for v, _ in recorder.inputs]}")
+    splat = {"main_path_in_situ_device_ms": in_situ}
+    for key in ("ms", "kernel_device_ms", "plain_ms"):
+        splat[f"main_path_{key}"] = statistics.mean(r[key] for r in readings)
+    print(f"[5] splat inside decode_one: device {in_situ:.4f} ms a launch "
+          f"({100 * readings[0]['bound_ms'] / in_situ:.1f}% of bound)", flush=True)
+
     print(f"[5] main path bf16 {H}x{W} 8x: imgt_pred {tuple(imgs.shape)} finite in "
           f"[{float(imgs.min()):.4f}, {float(imgs.max()):.4f}]; splat launches {launches}", flush=True)
     print(f"[5] {N_T / (total_ms / 1000):.4f} fps ({total_ms:.2f} ms per pair); "
           f"prepare {prepare_ms:.2f} ms; decode_one mean {statistics.mean(decode_ms):.2f} ms; "
           f"peak allocated {peak} B ({peak / 2**30:.3f} GiB)", flush=True)
-    return launches
+    return launches, splat
 
 
 def reset_counts():
@@ -300,7 +356,7 @@ def main():
     build_kernels()
     kstats = check_kernel()
     check_small_e2e()
-    splat_launches = run_main_path()
+    splat_launches, main_splat = run_main_path()
     torch.cuda.empty_cache()
     conv_err = check_conv()
     gather_err = check_gathers()
@@ -318,7 +374,7 @@ def main():
                 "replaces": kernel.replaces, "launches": launches, **numbers}
 
     records = [
-        record(SPLAT_KERNEL, splat_launches, **kstats),
+        record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
                ms=conv["kernel_ms"], device_ms=conv["kernel_device_ms"],
                plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],

@@ -39,16 +39,14 @@ class SplatKernel(CudaKernel):
         )
 
     def __call__(self, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        if vals.dim() != 4:
+            raise ValueError(f"splat kernel takes vals (N, H, W, C), got {tuple(vals.shape)}")
         n, h, w, c = vals.shape
-        if vals.dtype != torch.float32 or flow.dtype != torch.float32:
-            raise TypeError(f"splat kernel takes float32, got {vals.dtype}, {flow.dtype}")
-        if flow.shape != (n, h, w, 2) or flow.device != vals.device:
-            raise ValueError(
-                f"flow {tuple(flow.shape)} on {flow.device} does not match "
-                f"vals {tuple(vals.shape)} on {vals.device}"
-            )
-        if not (vals.is_contiguous() and flow.is_contiguous()):
-            raise ValueError("splat kernel takes contiguous (N, H, W, C) tensors")
+        self.check(("vals", vals, torch.float32),
+                   ("flow", flow, torch.float32, (n, h, w, 2), vals.device))
+        if n * h * w >= 2**31 or not 1 <= c <= 2**22:
+            raise ValueError(f"splat kernel takes N*H*W < 2**31 and 1 <= C <= 2**22, "
+                             f"got {tuple(vals.shape)}")
         if torch.is_grad_enabled() and (vals.requires_grad or flow.requires_grad):
             raise NotImplementedError("the splat kernel has no backward yet")
         out = torch.zeros_like(vals)
@@ -126,12 +124,15 @@ def softsplat(
     flow: torch.Tensor,
     metric: torch.Tensor | None,
     mode: str,
-) -> torch.Tensor:
+    return_norm: bool = False,
+):
     """Forward-splat with mode/eps handling.
 
     mode: "sum" | "avg" | "linear[-eps]" | "softmax[-eps]", eps one of
     "addeps" (default), "zeroeps", "clipeps". Returns ten_in's dtype
-    promoted with metric's, like the reference.
+    promoted with metric's, like the reference. With `return_norm` a
+    normalising mode returns (splatted values, eps-adjusted weight) instead
+    of their quotient; "sum" returns its one output either way.
     """
     base, _, eps_policy = mode.partition("-")
     if base not in ("sum", "avg", "linear", "softmax"):
@@ -162,4 +163,6 @@ def softsplat(
         norm = torch.clamp_min(norm, _EPS)
     else:
         raise ValueError(f"unknown eps policy: {mode}")
+    if return_norm:
+        return out[..., :-1], norm
     return out[..., :-1] / norm

@@ -91,8 +91,8 @@ class Conv3x3Kernel(CudaKernel):
                              f"got {tuple(x.shape)} and {tuple(w.shape)}")
         n, h, wd, cin = x.shape
         cout = w.shape[3]
-        self.check("x", x, torch.bfloat16)
-        self.check("w", w, torch.bfloat16, (3, 3, cin, cout), x.device)
+        self.check(("x", x, torch.bfloat16),
+                   ("w", w, torch.bfloat16, (3, 3, cin, cout), x.device))
         if min(n, h, wd) < 1 or cin % 16 or cout % 16 or cin < 16 or cout < 16:
             raise ValueError(f"conv3x3 takes N, H, W >= 1 and Cin, Cout multiples of 16, "
                              f"got x {tuple(x.shape)}, Cout {cout}")

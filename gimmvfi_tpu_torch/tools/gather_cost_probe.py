@@ -88,8 +88,7 @@ class GatherKernel(CudaKernel):
         if x.dim() != 2:
             raise ValueError(f"{self.name} takes a (rows, lanes) table, got {tuple(x.shape)}")
         rows, lanes = x.shape
-        self.check("x", x, torch.float32)
-        self.check("idx", idx, torch.int32, x.shape, x.device)
+        self.check(("x", x, torch.float32), ("idx", idx, torch.int32, x.shape, x.device))
         if rows % self.row_multiple or rows * lanes >= 2**31:
             raise ValueError(f"{self.name}: rows must be a multiple of {self.row_multiple} "
                              f"and rows * lanes < 2**31, got {tuple(x.shape)}")

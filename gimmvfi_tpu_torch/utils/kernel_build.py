@@ -115,18 +115,22 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} launch failed: cudaError {err}")
         self.launches += 1
 
-    def check(self, what: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
-              device: torch.device | None = None) -> None:
-        """Raise unless `t` is a contiguous, 16-byte aligned CUDA tensor of
-        `dtype` (and of `shape` on `device`, where given)."""
-        if not t.is_cuda:
-            raise ValueError(f"{self.name}: {what} must be a CUDA tensor, got {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{self.name}: {what} must be {dtype}, got {t.dtype}")
-        if shape is not None and tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{self.name}: {what} must have shape {tuple(shape)}, "
-                             f"got {tuple(t.shape)}")
-        if device is not None and t.device != device:
-            raise ValueError(f"{self.name}: {what} is on {t.device}, expected {device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{self.name}: {what} must be contiguous and 16-byte aligned")
+    def check(self, *specs) -> None:
+        """Raise unless every spec `(what, tensor, dtype[, shape[, device]])`
+        names a contiguous, 16-byte aligned CUDA tensor of `dtype` (and of
+        `shape` on `device`, where given). Whether the tensors lie on a CUDA
+        device is checked last, so CPU tensors show every other fault first."""
+        for what, t, dtype, *where in specs:
+            shape, device = (where + [None, None])[:2]
+            if t.dtype != dtype:
+                raise TypeError(f"{self.name}: {what} must be {dtype}, got {t.dtype}")
+            if shape is not None and tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{self.name}: {what} must have shape {tuple(shape)}, "
+                                 f"got {tuple(t.shape)}")
+            if device is not None and t.device != device:
+                raise ValueError(f"{self.name}: {what} is on {t.device}, expected {device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{self.name}: {what} must be contiguous and 16-byte aligned")
+        for what, t, *_ in specs:
+            if not t.is_cuda:
+                raise ValueError(f"{self.name}: {what} must be a CUDA tensor, got {t.device}")
