@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GIMM-VFI-R 8x path and its two probe entry
-points once on one CUDA card.
+"""Drive the PyTorch port's GIMM-VFI-R 8x paths (720p, and 2K/4K through
+DS_SCALE and the windowed correlation) and its two probe entry points once
+on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
-     conv3x3.cu, gather_probe.cu) all at once, one nvcc each;
+     windowed_corr.cu, conv3x3.cu, gather_probe.cu) all at once, one nvcc
+     each;
   3. the splat kernel against its plain PyTorch version on the card, float32,
      in every case of `tools/splat_ablate.py: CHECK_CASES` (the main path's
      (1,736,1280,17) on a random, a smooth and a non-finite/far flow field;
      C in {1, 3, 5, 17, 33, 64}; N = 2; value counts off a multiple of 4);
-     times it at 720p on the random and the smooth field, and reads the
-     launch floor, the device time of one block at (1,8,8,1);
+     times it at 720p on the random and the smooth field;
   4. GIMMVFI_R(raft_iters=2) float32 at 128x192 on the card (kernel) against
      the CPU (plain core), same seeded weights, TF32 off: PSNR >= 50 dB;
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
      736x1280 pair, 7 timesteps through interpolate_sequential; checks shape,
-     finiteness, range and exactly 14 kernel launches; prints fps, stage ms
+     finiteness, range, exactly 14 splat launches and no windowed-correlation
+     launch (the 720p volumes fit under the 2 GiB limit); prints fps, stage ms
      and peak memory from CUDA events after one warm-up; then reads the
      splat where it runs: its device time in a trace of one decode_one, and
      the kernel timed alone on the two inputs that decode_one gave it;
@@ -28,14 +30,36 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      indices; then the two probe entry points, `conv_proto.main` (kernel,
      cuDNN NCHW, cuDNN channels-last, plain, bound) and
      `gather_cost_probe.main` (torch.gather / torch.sort table, kernels),
-     each of whose kernels must launch.
+     each of whose kernels must launch; then the launch floor, the device
+     time of an empty kernel, and each gather against max(floor, bound);
+  7. the windowed-correlation kernel against its plain version on the card
+     (`tools/windowed_ablate.py: windowed_agreement`: float32 <= 1e-5 of the
+     largest value, bf16 within one bf16 step, NaN at the same places), at
+     C = 256 and small C, an odd level size, in-frame, border and far or
+     non-finite coordinates, and at the shapes the 2048x1088 DS 1.0 path
+     gives it (RAFT's (2,136,256) and the AMT's (1,136,256), C = 256, bf16;
+     the kernels record's `max_abs_err` is theirs); against the
+     materialized `corr_lookup` at the 720p fmap (92x160, C = 256,
+     float32, <= 1e-4); its times and % of bound
+     at the 2048x1088 DS 1.0 RAFT lookup and at 720p, beside the
+     materialized lookup's time there;
+  8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
+     (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
+     1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
+     checks shapes, finiteness, range, 14 splat launches and exactly 0, 0
+     and 20 + 2 x 7 windowed launches; prints fps, the prepare/decode_one
+     split and peak memory (beside the reference's V100 envelopes for (a)
+     and (b)); then GPU vs CPU float32 >= 50 dB with the windowed path
+     forced at 128x192 and with DS 0.5 at 256x384.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
 from a `torch.profiler` trace (`device_ms`; for the probes' library calls
-`library_device_ms`; the conv and cuDNN are traced in turns). The launch
-counts are set to 0 just before each path (5 and the probes of 6) and read
-just after it. The line before the last is the kernels' JSON record; the
+`library_device_ms`; the conv and cuDNN are traced in turns). Where the
+profiler records no device activity, those readings are null and print as
+"not measured"; the events' times, the checks and the counts stand. The launch
+counts are set to 0 just before each path (5, the probes of 6 and each path
+of 8) and read just after it. The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -52,11 +76,21 @@ import torch
 
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
+from gimmvfi_tpu_torch.ops import corr as corr_ops
+from gimmvfi_tpu_torch.ops.corr import WINDOWED_CORR_KERNEL, windowed_corr_lookup_plain
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
 from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, splat_sum_plain
 from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
+from gimmvfi_tpu_torch.tools.windowed_ablate import (
+    AMT_2K,
+    RAFT_2K,
+    RAFT_720P,
+    WINDOWED_CASES,
+    windowed_agreement,
+    windowed_inputs,
+)
 from gimmvfi_tpu_torch.tools.splat_ablate import (
     CHECK_CASES,
     MAIN_SHAPE,
@@ -65,13 +99,21 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
     splat_inputs,
 )
 from gimmvfi_tpu_torch.utils.kernel_build import build_libraries
-from gimmvfi_tpu_torch.utils.timing import cuda_ms, device_ms, fmt_ms
+from gimmvfi_tpu_torch.utils.timing import (
+    bound_ms,
+    cuda_ms,
+    device_ms,
+    fmt_ms,
+    fmt_share,
+    kernel_row,
+    launch_floor_ms,
+)
 
 H, W = 736, 1280
 N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
-KERNELS = [SPLAT_KERNEL] + PROBE_KERNELS
+KERNELS = [SPLAT_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
 # 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
@@ -118,22 +160,14 @@ def splat_reading(vals, flow, label: str) -> dict:
     ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
     plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow), warmup=3)
     dev_ms, by_name = device_ms(lambda: SPLAT_KERNEL(vals, flow))
-    own = kernel_row(by_name)
+    own = kernel_row(by_name, "splat_sum_kernel")
     bound, bound_by = splat_bound(vals)
-    print(f"{label}: kernel {ms:.4f} ms by events ({100 * bound / ms:.1f}% of bound), device "
-          f"{own:.4f} ms ({100 * bound / own:.1f}% of bound), call with zero fill "
+    print(f"{label}: kernel {ms:.4f} ms by events ({fmt_share(bound, ms)}), device "
+          f"{fmt_ms(own)} ({fmt_share(bound, own)}), call with zero fill "
           f"{fmt_ms(dev_ms)}; plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}) "
           f"[{'; '.join(f'{k[:60]} {v:.4f}' for k, v in by_name.items())}]", flush=True)
     return {"ms": ms, "device_ms": dev_ms, "kernel_device_ms": own, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by}
-
-
-def kernel_row(by_name: dict) -> float:
-    """The splat kernel's own row of a `device_ms` reading."""
-    rows = [v for k, v in by_name.items() if "splat_sum_kernel" in k]
-    if len(rows) != 1:
-        raise AssertionError(f"no single splat kernel row in the trace: {list(by_name)}")
-    return rows[0]
 
 
 def check_kernel() -> dict:
@@ -160,12 +194,6 @@ def check_kernel() -> dict:
         else:
             stats.update({f"smooth_{k}": reading[k]
                           for k in ("ms", "kernel_device_ms", "plain_ms")})
-    # the launch floor: one block of one channel
-    vals, flow = splat_inputs((1, 8, 8, 1), "random", 0.6, seed=SEED)
-    _, by_name = device_ms(lambda: SPLAT_KERNEL(vals, flow), iters=50)
-    stats["floor_device_ms"] = kernel_row(by_name)
-    print(f"[3] splat (1, 8, 8, 1), one block: device {stats['floor_device_ms']:.6f} ms "
-          f"(the launch floor)", flush=True)
     return stats
 
 
@@ -186,19 +214,91 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
 
 
-def check_small_e2e():
+def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
+                    limit=corr_ops.MAX_VOLUME_BYTES) -> float:
     rng = np.random.default_rng(SEED)
-    img = torch.from_numpy(rng.random((1, 2, 128, 192, 3), dtype=np.float32))
+    img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
-    cpu_model = init_normal_(GIMMVFI_R(raft_iters=2, device="cpu"), SEED)
-    gpu_model = init_normal_(GIMMVFI_R(raft_iters=2), SEED)  # the card, same seeded weights
-    ref = interpolate_sequential(cpu_model, img, ts)["imgt_pred"]
+    cpu_model = init_normal_(GIMMVFI_R(raft_iters=2, device="cpu", corr_max_volume_bytes=limit), SEED)
+    # the card, same seeded weights
+    gpu_model = init_normal_(GIMMVFI_R(raft_iters=2, corr_max_volume_bytes=limit), SEED)
+    ref = interpolate_sequential(cpu_model, img, ts, ds_factor)["imgt_pred"]
     # the host frames go in as they are: prepare moves them to the card
-    got = interpolate_sequential(gpu_model, img, ts)["imgt_pred"].cpu()
+    before = WINDOWED_CORR_KERNEL.launches
+    got = interpolate_sequential(gpu_model, img, ts, ds_factor)["imgt_pred"].cpu()
+    windowed = WINDOWED_CORR_KERNEL.launches - before
+    if got.shape != (len(ts), 1, *hw, 3):
+        raise AssertionError(f"imgt_pred shape {tuple(got.shape)}")
+    if windowed != (2 + 2 * len(ts) if limit == 0 else 0):
+        raise AssertionError(f"{windowed} windowed-correlation launches")
     db = psnr(got, ref)
-    print(f"[4] GIMMVFI_R(raft_iters=2) f32 128x192, t={ts}: GPU vs CPU PSNR {db:.2f} dB", flush=True)
+    print(f"[{phase}] GIMMVFI_R(raft_iters=2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
+          f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB "
+          f"({windowed} windowed-correlation launches on the card)", flush=True)
     if not db >= 50.0:
         raise AssertionError(f"GPU and CPU disagree: {db:.2f} dB < 50 dB")
+    return db
+
+
+def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str):
+    """One main path through `interpolate_sequential`: a warm-up, then the
+    timed run with every count set to 0 just before it and read just after;
+    checks the shapes, finiteness, range and launch counts; then the stage
+    split on the same inputs, CUDA events around `prepare` and each
+    `decode_one`. Returns (numbers, the split run's prepare output)."""
+    _, _, h, w, _ = img_xs.shape
+    scale = ds_factor or 1
+    interpolate_sequential(model, img_xs, ts, ds_factor)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    out = interpolate_sequential(model, img_xs, ts, ds_factor)
+    end.record()
+    end.synchronize()
+    splats, wins = SPLAT_KERNEL.launches, WINDOWED_CORR_KERNEL.launches
+    total_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+
+    imgs, flows = out["imgt_pred"], out["flowt"]
+    if tuple(imgs.shape) != (len(ts), 1, h, w, 3):
+        raise AssertionError(f"{label}: imgt_pred shape {tuple(imgs.shape)}")
+    if tuple(flows.shape) != (len(ts), 1, int(h * scale), int(w * scale), 2):
+        raise AssertionError(f"{label}: flowt shape {tuple(flows.shape)}")
+    if not (bool(torch.isfinite(imgs).all()) and bool(torch.isfinite(flows).all())):
+        raise AssertionError(f"{label}: non-finite outputs")
+    lo, hi = float(imgs.min()), float(imgs.max())
+    if not (lo >= 0.0 and hi <= 1.0):
+        raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
+    if splats != 2 * len(ts) or wins != windowed_expected:
+        raise AssertionError(f"{label}: {splats} splat and {wins} windowed-correlation launches, "
+                             f"expected {2 * len(ts)} and {windowed_expected}")
+    del out, imgs, flows
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
+    with torch.inference_mode():
+        events[0].record()
+        prep = model.prepare(img_xs, ds_factor)
+        events[1].record()
+        for i, tv in enumerate(ts):
+            model.decode_one(prep, tv)
+            events[i + 2].record()
+    torch.cuda.synchronize()
+    decode_ms = [events[i + 1].elapsed_time(events[i + 2]) for i in range(len(ts))]
+    return {"fps": len(ts) / (total_ms / 1000), "pair_ms": total_ms,
+            "prepare_ms": events[0].elapsed_time(events[1]),
+            "decode_ms": statistics.mean(decode_ms), "peak_bytes": peak,
+            "splat_launches": splats, "windowed_launches": wins, "range": (lo, hi)}, prep
+
+
+def path_lines(phase: int, res: dict) -> str:
+    return (f"imgt_pred finite in [{res['range'][0]:.4f}, {res['range'][1]:.4f}]; splat launches "
+            f"{res['splat_launches']}, windowed-correlation launches {res['windowed_launches']}\n"
+            f"[{phase}] {res['fps']:.4f} fps ({res['pair_ms']:.2f} ms per pair); prepare "
+            f"{res['prepare_ms']:.2f} ms; decode_one mean {res['decode_ms']:.2f} ms; peak "
+            f"allocated {res['peak_bytes']} B ({res['peak_bytes'] / 2**20:.1f} MiB)")
 
 
 def run_main_path() -> tuple[int, dict]:
@@ -207,43 +307,8 @@ def run_main_path() -> tuple[int, dict]:
     # loading the frames is set-up: they are on the card before the clock starts
     img_xs = torch.rand((1, 2, H, W, 3), generator=gen).cuda()
     ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
-
-    interpolate_sequential(model, img_xs, ts)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    reset_counts()
-    start.record()
-    out = interpolate_sequential(model, img_xs, ts)
-    end.record()
-    end.synchronize()
-    launches = SPLAT_KERNEL.launches
-    total_ms = start.elapsed_time(end)
-    peak = torch.cuda.max_memory_allocated()
-
-    imgs = out["imgt_pred"]
-    if tuple(imgs.shape) != (N_T, 1, H, W, 3):
-        raise AssertionError(f"imgt_pred shape {tuple(imgs.shape)}")
-    if not bool(torch.isfinite(imgs).all()):
-        raise AssertionError("imgt_pred has non-finite values")
-    if not (float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0):
-        raise AssertionError("imgt_pred leaves [0, 1]")
-    if launches != 2 * N_T:
-        raise AssertionError(f"{launches} splat kernel launches, expected {2 * N_T}")
-
-    # stage split, same inputs, CUDA events around prepare and each decode_one
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(N_T + 2)]
-    with torch.inference_mode():
-        events[0].record()
-        prep = model.prepare(img_xs)
-        events[1].record()
-        for i, tv in enumerate(ts):
-            model.decode_one(prep, tv)
-            events[i + 2].record()
-    torch.cuda.synchronize()
-    prepare_ms = events[0].elapsed_time(events[1])
-    decode_ms = [events[i + 1].elapsed_time(events[i + 2]) for i in range(N_T)]
+    # the 720p volumes (1.16 GB) fit under the limit: no windowed lookup
+    res, prep = drive_path(model, img_xs, ts, None, 0, "720p")
 
     # the splat where it runs: its own device time in a trace of one
     # decode_one (2 launches), then the kernel alone on the inputs the path
@@ -256,7 +321,8 @@ def run_main_path() -> tuple[int, dict]:
             model.decode_one(prep, ts[N_T // 2])
         finally:
             softsplat_ops.SPLAT_KERNEL = SPLAT_KERNEL
-    in_situ = kernel_row(by_name) / 2
+    row = kernel_row(by_name, "splat_sum_kernel")
+    in_situ = None if row is None else row / 2
     readings = [splat_reading(vals, flow, f"[5] splat on the main path's input {k} "
                                           f"{tuple(vals.shape)} at t={ts[N_T // 2]}")
                 for k, (vals, flow) in enumerate(recorder.inputs)]
@@ -264,16 +330,12 @@ def run_main_path() -> tuple[int, dict]:
         raise AssertionError(f"decode_one gave the splat {[tuple(v.shape) for v, _ in recorder.inputs]}")
     splat = {"main_path_in_situ_device_ms": in_situ}
     for key in ("ms", "kernel_device_ms", "plain_ms"):
-        splat[f"main_path_{key}"] = statistics.mean(r[key] for r in readings)
-    print(f"[5] splat inside decode_one: device {in_situ:.4f} ms a launch "
-          f"({100 * readings[0]['bound_ms'] / in_situ:.1f}% of bound)", flush=True)
-
-    print(f"[5] main path bf16 {H}x{W} 8x: imgt_pred {tuple(imgs.shape)} finite in "
-          f"[{float(imgs.min()):.4f}, {float(imgs.max()):.4f}]; splat launches {launches}", flush=True)
-    print(f"[5] {N_T / (total_ms / 1000):.4f} fps ({total_ms:.2f} ms per pair); "
-          f"prepare {prepare_ms:.2f} ms; decode_one mean {statistics.mean(decode_ms):.2f} ms; "
-          f"peak allocated {peak} B ({peak / 2**30:.3f} GiB)", flush=True)
-    return launches, splat
+        values = [r[key] for r in readings]
+        splat[f"main_path_{key}"] = None if None in values else statistics.mean(values)
+    print(f"[5] splat inside decode_one: device {fmt_ms(in_situ)} a launch "
+          f"({fmt_share(readings[0]['bound_ms'], in_situ)})", flush=True)
+    print(f"[5] main path bf16 {H}x{W} 8x: {path_lines(5, res)}", flush=True)
+    return res["splat_launches"], splat
 
 
 def reset_counts():
@@ -349,6 +411,147 @@ def run_probes() -> tuple[dict, dict, dict]:
     return conv, gathers, launches
 
 
+def windowed_agrees(label: str, wc, coords, radius: int = 4) -> float:
+    """The kernel against its plain version on these inputs, by
+    `windowed_agreement`'s tolerance; prints the line and raises on
+    disagreement. Returns the max-abs error."""
+    got = corr_ops.windowed_corr_lookup(wc, coords, radius)
+    ref = windowed_corr_lookup_plain(wc, coords, radius)
+    torch.cuda.synchronize()
+    agree = windowed_agreement(got, ref)
+    print(f"{label}: max_abs_err {agree['max_abs_err']:.3e}, max|plain| {agree['scale']:.3e}, "
+          f"NaN {agree['nan']}, {agree['bad']} over the bound, agrees {agree['ok']}", flush=True)
+    if not agree["ok"]:
+        raise AssertionError(f"windowed kernel disagrees with its plain version: {label}")
+    return agree["max_abs_err"]
+
+
+def windowed_reading(shape, label: str, materialized: bool) -> dict:
+    """Events and device time of the kernel at a lookup shape (C = 256,
+    bf16, 4 levels, coordinates in the frame), against its bound; with
+    `materialized`, the materialized lookup's times on the same maps, else
+    the plain version's."""
+    wc, coords, (f1, f2) = windowed_inputs(shape, 256, torch.bfloat16, "in_frame")
+    call = lambda: corr_ops.windowed_corr_lookup(wc, coords)  # noqa: E731
+    ms = cuda_ms(call, warmup=3)
+    _, by_name = device_ms(call)
+    own = kernel_row(by_name, "windowed_corr_kernel")
+    nbytes, flops = corr_ops.windowed_corr_work(wc, coords)
+    bound, bound_by = bound_ms(nbytes, flops)
+    out = {"ms": ms, "device_ms": own, "bound_ms": bound, "bound_by": bound_by,
+           "bytes": nbytes, "flops": flops}
+    text = (f"{label} {shape} C=256 bf16: kernel {ms:.4f} ms by events "
+            f"({fmt_share(bound, ms)}), device {fmt_ms(own)} "
+            f"({fmt_share(bound, own)}); bound {bound:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    if materialized:
+        n = shape[0] // 2
+        fwd, bwd = corr_ops.bidir_corr_pyramid(f1[:n], f2[:n])
+        levels = tuple(torch.cat([a, b], dim=0) for a, b in zip(fwd, bwd))
+        mat = lambda: corr_ops.corr_lookup(levels, coords)  # noqa: E731
+        out["materialized_ms"] = cuda_ms(mat, warmup=3)
+        out["materialized_device_ms"], _ = device_ms(mat)
+        text += (f"; materialized corr_lookup (grid_sample over the bf16 volume) "
+                 f"{out['materialized_ms']:.4f} ms by events, "
+                 f"device {fmt_ms(out['materialized_device_ms'])}")
+    else:
+        out["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
+        text += f"; plain {out['plain_ms']:.4f} ms"
+    print(text, flush=True)
+    return out
+
+
+def check_windowed() -> dict:
+    """Phase 7: the windowed kernel against its plain version in the check
+    cases and at the 2K DS 1.0 path's two lookup shapes, against the
+    materialized lookup, then its times."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(WINDOWED_CASES):
+        wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + i)
+        err = windowed_agrees(f"[7] windowed_corr {shape} C={c} {str(dtype)[6:]} r={radius} "
+                              f"L={levels} {kind}", wc, coords, radius)
+        worst[dtype] = max(worst[dtype], err)
+
+    # the shapes the 2K DS 1.0 path gives it: RAFT's (both directions) and
+    # the AMT's (one direction)
+    path_err = 0.0
+    for label, shape in (("RAFT", RAFT_2K), ("AMT", AMT_2K)):
+        wc, coords, _ = windowed_inputs(shape, 256, torch.bfloat16, "in_frame", seed=SEED)
+        path_err = max(path_err, windowed_agrees(
+            f"[7] windowed_corr at the 2048x1088 DS 1.0 {label} lookup {shape} C=256 bf16 r=4 L=4",
+            wc, coords))
+        del wc, coords
+        torch.cuda.empty_cache()
+
+    # the identity the windowed path rests on, at the 720p fmap
+    wc, coords, (f1, f2) = windowed_inputs((1, 92, 160), 256, torch.float32, "in_frame")
+    got = corr_ops.windowed_corr_lookup(wc, coords)
+    ref = corr_ops.corr_lookup(corr_ops.corr_pyramid(f1, f2), coords)
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"[7] windowed_corr vs materialized corr_lookup (1, 92, 160) C=256 f32: "
+          f"max_abs_err {err:.3e}, max|materialized| {scale:.3e}", flush=True)
+    if not err <= 1e-4 * scale:
+        raise AssertionError("windowed and materialized lookups disagree at 720p")
+    del wc, coords, f1, f2, got, ref
+    torch.cuda.empty_cache()
+
+    stats = {"max_abs_err": path_err, "max_abs_err_cases_f32": worst[torch.float32],
+             "max_abs_err_cases_bf16": worst[torch.bfloat16],
+             "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|",
+             "library_ms": None}
+    main = windowed_reading(RAFT_2K, "[7] windowed_corr at the 2048x1088 DS 1.0 RAFT lookup",
+                            materialized=False)
+    stats.update({k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    at720 = windowed_reading(RAFT_720P, "[7] windowed_corr at the 720p RAFT lookup",
+                             materialized=True)
+    stats.update({f"p720_{k}": at720[k] for k in
+                  ("ms", "device_ms", "bound_ms", "materialized_ms", "materialized_device_ms")})
+    torch.cuda.empty_cache()
+    return stats
+
+
+# (label, (H, W), ds_factor, the reference's V100 envelope in MiB or None)
+DS_PATHS = [
+    ("a", (1088, 2048), 0.5, 7932),
+    ("b", (2176, 4096), 0.25, 10922),
+    ("c", (1088, 2048), 1.0, None),
+]
+
+
+def run_ds_paths() -> dict:
+    """Phase 8: the 2K/4K main paths, then GPU vs CPU at two small points."""
+    model = init_normal_(GIMMVFI_R(raft_iters=20, dtype=torch.bfloat16), SEED)
+    ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
+    results = {}
+    for label, (h, w), ds, envelope in DS_PATHS:
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+        img_xs = torch.rand((1, 2, h, w, 3), generator=gen).cuda()
+        # counted from the code, by each volume's bf16 size against the
+        # limit: one lookup each RAFT iteration (both directions batched),
+        # two a timestep in the AMT (one a direction)
+        fmap = (int(h * ds) // 8) * (int(w * ds) // 8)
+        limit = model.corr_max_volume_bytes
+        raft_windowed = 2 * (fmap * fmap * 2 * 4 // 3) > limit
+        amt_windowed = 2 * fmap * fmap * 2 * 4 // 3 > limit
+        expect = model.flow_estimator.iters * raft_windowed + 2 * N_T * amt_windowed
+        res, prep = drive_path(model, img_xs, ts, ds, expect, f"({label})")
+        del prep, img_xs
+        mib = res["peak_bytes"] / 2**20
+        env = (f" (the reference's V100 envelope {envelope} MiB: {100 * mib / envelope:.1f}%)"
+               if envelope else "")
+        print(f"[8] ({label}) {w}x{h} DS {ds} bf16 8x, working {int(w * ds)}x{int(h * ds)}, "
+              f"{'windowed' if expect else 'materialized'} correlation: "
+              f"{path_lines(8, res)}{env}", flush=True)
+        results[label] = res
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    results["db_windowed"] = check_small_e2e(8, (128, 192), None, 0)
+    results["db_ds"] = check_small_e2e(8, (256, 384), 0.5)
+    return results
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -361,6 +564,16 @@ def main():
     conv_err = check_conv()
     gather_err = check_gathers()
     conv, gathers, launches = run_probes()
+    floor = launch_floor_ms()
+    print(f"[6] launch floor: an empty kernel of one warp, device {fmt_ms(floor, 6)}", flush=True)
+    for name, g in gathers.items():
+        g["floor_ms"] = floor
+        g["floor_bound_ms"] = None if floor is None else max(floor, g["bound_ms"])
+        dev = g["device_ms"]
+        share = ("not measured" if g["floor_bound_ms"] is None
+                 else fmt_share(g["floor_bound_ms"], dev))
+        print(f"[6] {name}: device {fmt_ms(dev, 6)}; against max(launch floor, bound) "
+              f"{fmt_ms(g['floor_bound_ms'], 6)}: {share}", flush=True)
     print(f"[6] conv3x3 (1,{H},{W},256): kernel {conv['kernel_ms']:.4f} ms "
           f"({100 * conv['bound_ms'] / conv['kernel_ms']:.1f}% of its {conv['bound_ms']:.4f} ms "
           f"bound; device time {fmt_ms(conv['kernel_device_ms'])}), cuDNN NCHW "
@@ -368,6 +581,9 @@ def main():
           f"ms (device time {fmt_ms(conv['cudnn_channels_last_device_ms'])}), plain "
           f"{conv['plain_ms']:.4f} ms; {smi}",
           flush=True)
+    torch.cuda.empty_cache()
+    wstats = check_windowed()
+    ds = run_ds_paths()
 
     def record(kernel, launches, **numbers):
         return {"name": kernel.name, "route": "cuda", "source": kernel.source,
@@ -375,6 +591,7 @@ def main():
 
     records = [
         record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat),
+        record(WINDOWED_CORR_KERNEL, ds["c"]["windowed_launches"], **wstats),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
                ms=conv["kernel_ms"], device_ms=conv["kernel_device_ms"],
                plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],

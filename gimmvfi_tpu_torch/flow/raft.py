@@ -163,14 +163,21 @@ class RAFT(nn.Module):
     N:. The reverse volume is the transpose of the forward one. Returns
     (flow_up, [feat_1/4, feat_1/8] from cnet, fnet output), each 2N rows.
 
+    Above `corr_max_volume_bytes` (both directions' pyramids together) no
+    volume is formed: the loop looks up the windowed state
+    (`ops/corr.py: WindowedCorr`), whose rows are the forward direction's
+    queries against the second frame, then the backward's against the first.
+
     The module is built on `device`, the CUDA card when None; the CPU only
     when asked (`device="cpu"`). Without a card the default raises.
     """
 
-    def __init__(self, iters=20, dtype=None, device=None):
+    def __init__(self, iters=20, dtype=None, device=None,
+                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES):
         super().__init__()
         self.iters = iters
         self.dtype = dtype
+        self.corr_max_volume_bytes = corr_max_volume_bytes
         self.fnet = BasicEncoder(256, "instance", dtype)
         self.cnet = BasicEncoder(256, "batch", dtype)
         self.update_block = BasicUpdateBlock(128, dtype)
@@ -185,8 +192,12 @@ class RAFT(nn.Module):
         fmaps = fmaps.to(fdt)
         fmap1, fmap2 = fmaps[:n], fmaps[n:]
 
-        fwd, bwd = corr_ops.bidir_corr_pyramid_auto(fmap1, fmap2)
-        levels = tuple(torch.cat([f, b], dim=0) for f, b in zip(fwd, bwd))
+        if 2 * corr_ops.volume_bytes(fmap1, fmap2) > self.corr_max_volume_bytes:
+            # both directions batched: queries [fmap1; fmap2] against [fmap2; fmap1]
+            corr_state = corr_ops.windowed_corr_pyramid(fmaps, torch.cat([fmap2, fmap1], dim=0))
+        else:
+            fwd, bwd = corr_ops.bidir_corr_pyramid(fmap1, fmap2)
+            corr_state = tuple(torch.cat([f, b], dim=0) for f, b in zip(fwd, bwd))
 
         cnet, feats = self.cnet(torch.cat([image1, image2], dim=0))
         net = torch.tanh(cnet[:, :128])
@@ -196,7 +207,7 @@ class RAFT(nn.Module):
         coords0 = coords_grid(2 * n, h8, w8, image1.device)
         coords1 = coords0
         for _ in range(self.iters):
-            corr = corr_ops.corr_lookup(levels, coords1)
+            corr = corr_ops.corr_lookup_any(corr_state, coords1)
             net, delta_flow = self.update_block(net, inp, corr, coords1 - coords0)
             coords1 = coords1 + delta_flow
 

@@ -7,6 +7,12 @@ runs once per timestep (latent splat, HypoNet flow, synthesis).
 `interpolate_sequential` is the 8x entry point: one `prepare`, then a
 Python loop of `decode_one`.
 
+DS_SCALE (`ds_factor`, the reference's 2K/4K operating points): `prepare`
+downsizes the pair by `ds_factor` and keeps the full-resolution frames;
+every stage runs at the working size, and only the final flows, masks and
+residuals are upsampled for the full-resolution blend. `imgt_pred` comes
+back at full resolution, `flowt` at the working size.
+
 Entry points take `img_xs` (N, 2, H, W, 3) in [0, 1], channels-last like
 the reference, and return channels-last outputs; internals are NCHW.
 Parameter names follow the reference GIMM-VFI-R state dict.
@@ -36,15 +42,22 @@ class GIMMVFI_R(nn.Module):
 
     The model is built on `device`, the CUDA card when None; the CPU only
     when asked (`device="cpu"`, as the CPU tests do). Without a card the
-    default raises. Outputs stay on the model's device."""
+    default raises. Outputs stay on the model's device.
 
-    def __init__(self, raft_iters=20, dtype=None, device=None):
+    Above `corr_max_volume_bytes` RAFT and the AMT pyramid use the windowed
+    correlation instead of a materialized volume (each decides on its own
+    volume's size); the setting holds no parameter."""
+
+    def __init__(self, raft_iters=20, dtype=None, device=None,
+                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES):
         super().__init__()
         device = torch.device("cuda") if device is None else torch.device(device)
         self.dtype = dtype
+        self.corr_max_volume_bytes = corr_max_volume_bytes
         f0, f1 = 256, 128
         skip = f1 // 2
-        self.flow_estimator = RAFT(raft_iters, dtype=dtype, device=device)
+        self.flow_estimator = RAFT(raft_iters, dtype=dtype, device=device,
+                                   corr_max_volume_bytes=corr_max_volume_bytes)
         self.amt_last_cproj = conv(128, f0, 1, 1, 0, dtype)
         self.amt_second_last_cproj = conv(96, f1, 1, 1, 0, dtype)
         self.amt_fproj = conv(256, f0, 1, 1, 0, dtype)
@@ -68,7 +81,8 @@ class GIMMVFI_R(nn.Module):
         flow_2n, feats_2n, fnet_2n = self.flow_estimator(img0, img1)
         f01, f10 = flow_2n[:n], flow_2n[n:]
         corr_pyrs = corr_ops.bidir_corr_pyramid_auto(
-            self.amt_fproj(fnet_2n[:n]), self.amt_fproj(fnet_2n[n:])
+            self.amt_fproj(fnet_2n[:n]), self.amt_fproj(fnet_2n[n:]),
+            max_volume_bytes=self.corr_max_volume_bytes,
         )
         features = [self.amt_second_last_cproj(feats_2n[0]), self.amt_last_cproj(feats_2n[1])]
         nflows, scalers = normalize_flow(torch.stack([f01, -f10], dim=1))
@@ -96,9 +110,13 @@ class GIMMVFI_R(nn.Module):
         mask = torch.sigmoid(resize(mask, scale))
         return mask * warp(img0, ft0) + (1 - mask) * warp(img1, ft1)
 
-    def frame_synthesize(self, img0, img1, flow_t, f8_up, f4_up, corr_pyrs, cur_t):
+    def frame_synthesize(self, img0, img1, flow_t, f8_up, f4_up, corr_pyrs, cur_t,
+                         full_img=None):
         """AMT coarse-to-fine synthesis. img0/img1 (N, 3, H, W) in [-1, 1];
-        flow_t (N, 2, H, W); cur_t (N, 1, 1, 1)."""
+        flow_t (N, 2, H, W); cur_t (N, 1, 1, 1). With `full_img`, the
+        full-resolution pair (N, 3, H', W') in [0, 1], the final flows
+        (scaled by H'/H), masks and residuals are resized by H'/H and the
+        blend runs on the full-resolution frames."""
         n, _, h, w = img0.shape
         lookup_coord = coords_grid(n, h // 8, w // 8, img0.device)
         flow_t0_4 = 0.25 * resize(flow_t * (-cur_t), 0.25)
@@ -132,6 +150,14 @@ class GIMMVFI_R(nn.Module):
         flowt0_1, flowt1_1, mask, img_res = self.amt_final_decoder(
             ft_4_, f4_up[0], f4_up[1], flowt0_4, flowt1_4, mask_4_, img0, img1
         )
+        if full_img is not None:
+            img0 = 2.0 * full_img[0] - 1.0
+            img1 = 2.0 * full_img[1] - 1.0
+            inv = img1.shape[2] / flowt0_1.shape[2]
+            flowt0_1 = inv * resize(flowt0_1, inv)
+            flowt1_1 = inv * resize(flowt1_1, inv)
+            mask = resize(mask, inv)
+            img_res = resize(img_res, inv)
         imgt_pred = multi_flow_combine(
             self.amt_comb_block, img0, img1, flowt0_1, flowt1_1, mask, img_res, self.dtype
         )
@@ -143,12 +169,18 @@ class GIMMVFI_R(nn.Module):
         }
 
     # ----------------------------------------------------------- entry points
-    def prepare(self, img_xs: torch.Tensor) -> dict:
+    def prepare(self, img_xs: torch.Tensor, ds_factor: float | None = None) -> dict:
         """Everything t-independent, once per pair. img_xs (N, 2, H, W, 3),
-        moved to the model's device (frames loaded on the host run there)."""
+        moved to the model's device (frames loaded on the host run there).
+        With `ds_factor` (not None or 1) the pair is resized by it and the
+        full-resolution frames are kept as `full_img`."""
         img_xs = img_xs.to(self.alpha_v.device)
         img0 = img_xs[:, 0].permute(0, 3, 1, 2).float()
         img1 = img_xs[:, 1].permute(0, 3, 1, 2).float()
+        full_img = None
+        if ds_factor is not None and ds_factor != 1:
+            full_img = (img0, img1)
+            img0, img1 = resize(img0, ds_factor), resize(img1, ds_factor)
         nflows, f01, f10, scalers, features, corr_pyrs = self.cal_bidirection_flow(
             255.0 * img0, 255.0 * img1
         )
@@ -162,13 +194,14 @@ class GIMMVFI_R(nn.Module):
             "flow01": f01, "flow10": f10, "w1": w1, "w2": w2,
             "latent0": latents[:n], "latent1": latents[n:],
             "f8_up": (u8[:n], u8[n:]), "f4_up": (u4[:n], u4[n:]),
-            "corr_pyrs": corr_pyrs,
+            "corr_pyrs": corr_pyrs, "full_img": full_img,
         }
 
     def decode_one(self, prep: dict, tv: float) -> dict:
         """One timestep: splat the latents to t, decode the flow with the
         HypoNet, synthesize. Outputs are channels-last: imgt_pred
-        (N, H, W, 3), flowt (N, H, W, 2), ninrflow (N, 1, H, W, 2)."""
+        (N, H, W, 3) at full resolution, flowt (N, h, w, 2) and ninrflow
+        (N, 1, h, w, 2) at the working size."""
         img0, img1 = prep["img0"], prep["img1"]
         n, _, h, w = img0.shape
         dev = img0.device
@@ -183,6 +216,7 @@ class GIMMVFI_R(nn.Module):
         out = self.frame_synthesize(
             2.0 * img0 - 1.0, 2.0 * img1 - 1.0, flow_t.permute(0, 3, 1, 2),
             prep["f8_up"], prep["f4_up"], prep["corr_pyrs"], t.view(n, 1, 1, 1),
+            full_img=prep["full_img"],
         )
         out["imgt_pred"] = out["imgt_pred"].permute(0, 2, 3, 1)
         out["flowt"] = flow_t
@@ -190,9 +224,10 @@ class GIMMVFI_R(nn.Module):
         return out
 
     @torch.inference_mode()
-    def interpolate(self, img_xs: torch.Tensor, t_values: Sequence[float]) -> dict:
+    def interpolate(self, img_xs: torch.Tensor, t_values: Sequence[float],
+                    ds_factor: float | None = None) -> dict:
         """Interpolate at shared timesteps; per-timestep lists of outputs."""
-        prep = self.prepare(img_xs)
+        prep = self.prepare(img_xs, ds_factor)
         outs = [self.decode_one(prep, tv) for tv in t_values]
         return {
             "imgt_pred": [o["imgt_pred"] for o in outs],
@@ -205,11 +240,11 @@ class GIMMVFI_R(nn.Module):
 
 @torch.inference_mode()
 def interpolate_sequential(model: GIMMVFI_R, img_xs: torch.Tensor,
-                           t_values: Sequence[float]) -> dict:
+                           t_values: Sequence[float], ds_factor: float | None = None) -> dict:
     """Nx interpolation: one `prepare`, then one `decode_one` per timestep,
     keeping only the outputs. Returns {imgt_pred: (T, N, H, W, 3),
-    flowt: (T, N, H, W, 2)}."""
-    prep = model.prepare(img_xs)
+    flowt: (T, N, h, w, 2)}, (h, w) the working size."""
+    prep = model.prepare(img_xs, ds_factor)
     imgs, flows = [], []
     for tv in t_values:
         out = model.decode_one(prep, tv)

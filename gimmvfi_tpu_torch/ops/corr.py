@@ -1,20 +1,31 @@
 """All-pairs correlation pyramids and window lookups (`gimmvfi_tpu/ops/corr.py`).
 
-Materialized path only: the volume corr[n, p, q] = <fmap1[n, :, p],
-fmap2[n, :, q]> / sqrt(C) is one batched matmul, stored in the feature
-dtype (bf16 halves it), pooled 2x2 over the target dims per level. A lookup
-samples a (2r+1)^2 window per level with `F.grid_sample` (zeros padding,
-align_corners=True). The windowed path for volumes over the size limit is
-not ported yet.
+Materialized path: the volume corr[n, p, q] = <fmap1[n, :, p], fmap2[n, :, q]>
+/ sqrt(C) is one batched matmul, stored in the feature dtype (bf16 halves
+it), pooled 2x2 over the target dims per level. A lookup samples a
+(2r+1)^2 window per level with `F.grid_sample` (zeros padding,
+align_corners=True).
+
+Windowed path, taken when the volume would pass `max_volume_bytes`
+(`corr_pyramid_auto`): pooling and window sampling are linear in the
+volume, which is linear in fmap2, so a lookup can sample the pooled
+target *features* and dot them with the query feature on the fly. The
+state (`WindowedCorr`) is O(HW*C) instead of O((HW)^2). Its lookup is the
+hand-written CUDA kernel `csrc/windowed_corr.cu` for CUDA tensors and
+`windowed_corr_lookup_plain` for CPU tensors; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.kernel_build import CudaKernel
 from .interp import bilinear_sampler
 
 MAX_VOLUME_BYTES = 2 << 30
@@ -55,26 +66,30 @@ def bidir_corr_pyramid(fmap1, fmap2, num_levels: int = 4):
     return _pool_levels(corr, num_levels), _pool_levels(corr_t, num_levels)
 
 
-def _check_volume(fmap1, fmap2, copies: int, max_volume_bytes: int):
+def volume_bytes(fmap1, fmap2) -> int:
+    """Bytes of one materialized pyramid (all levels: 4/3 of level 0)."""
     n, _, h1, w1 = fmap1.shape
     h2, w2 = fmap2.shape[-2:]
-    vol = copies * n * h1 * w1 * h2 * w2 * fmap1.element_size() * 4 // 3
-    if vol > max_volume_bytes:
-        raise NotImplementedError("windowed correlation not yet ported")
+    return n * h1 * w1 * h2 * w2 * fmap1.element_size() * 4 // 3
 
 
 def corr_pyramid_auto(fmap1, fmap2, num_levels: int = 4,
                       max_volume_bytes: int = MAX_VOLUME_BYTES):
-    """`corr_pyramid`, after the reference's size check."""
-    _check_volume(fmap1, fmap2, 1, max_volume_bytes)
-    return corr_pyramid(fmap1, fmap2, num_levels)
+    """`corr_pyramid` when the volume fits `max_volume_bytes`, else the
+    windowed state. The choice depends on shapes only."""
+    if volume_bytes(fmap1, fmap2) <= max_volume_bytes:
+        return corr_pyramid(fmap1, fmap2, num_levels)
+    return windowed_corr_pyramid(fmap1, fmap2, num_levels)
 
 
 def bidir_corr_pyramid_auto(fmap1, fmap2, num_levels: int = 4,
                             max_volume_bytes: int = MAX_VOLUME_BYTES):
-    """`bidir_corr_pyramid`, after the reference's size check (both volumes)."""
-    _check_volume(fmap1, fmap2, 2, max_volume_bytes)
-    return bidir_corr_pyramid(fmap1, fmap2, num_levels)
+    """`bidir_corr_pyramid` when both volumes fit, else the windowed pair."""
+    n, _, h1, w1 = fmap1.shape
+    h2, w2 = fmap2.shape[-2:]
+    if 2 * n * h1 * w1 * h2 * w2 * fmap1.element_size() * 4 // 3 <= max_volume_bytes:
+        return bidir_corr_pyramid(fmap1, fmap2, num_levels)
+    return bidir_windowed_corr_pyramid(fmap1, fmap2, num_levels)
 
 
 def corr_lookup(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
@@ -101,7 +116,205 @@ def corr_lookup(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
+# ---------------------------------------------------------------- windowed
+
+
+class WindowedCorr(NamedTuple):
+    """On-the-fly correlation state: query features and pooled target maps."""
+
+    f1: torch.Tensor  # (N, P, C) level-0 query features, pre-scaled by 1/sqrt(C)
+    f2_levels: tuple[torch.Tensor, ...]  # (N, h_l, w_l, C), channels last
+    shape_hw: tuple[int, int]  # query (H, W)
+
+
+def _avg_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 mean of (N, h, w, C), flooring odd sizes. The sum and
+    the division are float32 and the result is cast once, as JAX's `mean`
+    does for bf16."""
+    n, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    xf = x[:, : h2 * 2, : w2 * 2].float().reshape(n, h2, 2, w2, 2, c)
+    return (xf.sum(dim=(2, 4)) / 4.0).to(x.dtype)
+
+
+def windowed_corr_pyramid(fmap1, fmap2, num_levels: int = 4) -> WindowedCorr:
+    """The windowed state of NCHW feature maps; no volume is formed."""
+    n, c, h1, w1 = fmap1.shape
+    f1 = (fmap1.float() / math.sqrt(c)).to(fmap1.dtype)
+    f1 = f1.reshape(n, c, h1 * w1).transpose(1, 2).contiguous()
+    levels = [fmap2.permute(0, 2, 3, 1).contiguous()]
+    for _ in range(num_levels - 1):
+        levels.append(_avg_pool_nhwc(levels[-1]))
+    return WindowedCorr(f1, tuple(levels), (h1, w1))
+
+
+def bidir_windowed_corr_pyramid(fmap1, fmap2, num_levels: int = 4):
+    """Forward and transposed windowed states: the transposed volume
+    corr_T[q, r] = <fmap2[q], fmap1[r]> is the state with roles swapped."""
+    return (windowed_corr_pyramid(fmap1, fmap2, num_levels),
+            windowed_corr_pyramid(fmap2, fmap1, num_levels))
+
+
+def _window_base(c: torch.Tensor, radius: int, size: int):
+    """Integer window start (floor(c) - r) and fractional offset of level
+    coordinates c. The start is clamped before the integer conversion: past
+    either end every tap is off the map, so the clamp changes no result, and
+    a non-finite c takes the low end (its offset is NaN and makes every
+    output of the window NaN, as in JAX)."""
+    span = 2 * radius + 2
+    fl = torch.floor(c)
+    start = torch.where(torch.isfinite(fl), fl - radius, -span - 1.0)
+    return start.clamp(-span - 1, size + 1).long(), c - fl
+
+
+def windowed_corr_lookup_plain(wc: WindowedCorr, coords: torch.Tensor,
+                               radius: int = 4) -> torch.Tensor:
+    """Plain torch windowed lookup: a transcription of JAX
+    `windowed_corr_lookup` (`gimmvfi_tpu/ops/corr.py:249-314`).
+
+    coords (N, 2, H, W) float pixel (x, y) in level-0 target space. Per
+    level: gather, for each query and each of its 2r+2 tap rows, the 2r+2
+    target pixels of the row from a zero-padded map as one contiguous band
+    of (2r+2)*C values; dot with f1 in float32; tent-blend the (2r+2)^2
+    integer taps to the (2r+1)^2 real-valued ones in float32 in JAX's order;
+    cast once to the feature dtype. Taps off the map count as zero.
+    Returns (N, levels*(2r+1)^2, H, W), x offset outer.
+
+    Non-finite coordinates: a NaN or infinite x or y makes all (2r+1)^2
+    outputs of every level NaN for that query, which is what the JAX
+    function returns on the CPU (its fractional offset is NaN).
+    """
+    n, _, h, w = coords.shape
+    p = h * w
+    win, span = 2 * radius + 1, 2 * radius + 2
+    m = span + 1  # zero margin: the clamped window start is >= -m and <= size + 1
+    f1 = wc.f1.float()
+    c = f1.shape[-1]
+    flat = coords.float().reshape(n, 2, p)
+    rows = torch.arange(span, device=coords.device)
+    out = []
+    for i, f2 in enumerate(wc.f2_levels):
+        _, hl, wl, _ = f2.shape
+        x0, fx = _window_base(flat[:, 0] / 2.0**i, radius, wl)
+        y0, fy = _window_base(flat[:, 1] / 2.0**i, radius, hl)
+        f2p = F.pad(f2, (0, 0, m, m, m, m))
+        wlp = wl + 2 * m
+        rows_total = (hl + 2 * m) * wlp
+        # banded view: row r holds the padded map's pixels r .. r+span-1
+        bands = f2p.reshape(n, rows_total * c).as_strided(
+            (n, rows_total - span + 1, span * c), (rows_total * c, c, 1))
+        # (N, P, span): the band of each tap row, from the window's corner
+        idx = ((y0 + m).unsqueeze(-1) + rows) * wlp + (x0 + m).unsqueeze(-1)
+        g = bands[torch.arange(n, device=coords.device).view(n, 1), idx.reshape(n, p * span)]
+        g = g.reshape(n, p, span, span, c).float()  # [query, tap row y, col x, C]
+        s = torch.einsum("npyxc,npc->npyx", g, f1)
+        fy_ = fy.reshape(n, p, 1, 1)
+        fx_ = fx.reshape(n, p, 1, 1)
+        sy = s[:, :, :win] * (1.0 - fy_) + s[:, :, 1:] * fy_
+        v = sy[..., :win] * (1.0 - fx_) + sy[..., 1:] * fx_  # (N, P, y, x)
+        v = v.transpose(2, 3).to(wc.f1.dtype)  # x offset outer
+        out.append(v.reshape(n, h, w, win * win).permute(0, 3, 1, 2))
+    return torch.cat(out, dim=1)
+
+
+class WindowedCorrKernel(CudaKernel):
+    """The CUDA windowed-correlation lookup: built at first use, with a
+    launch counter. Takes C a multiple of 8 in [8, 256], 1-4 levels and a
+    radius of 0-4, in float32 or bf16."""
+
+    MAX_LEVELS = 4
+    MAX_RADIUS = 4
+    MAX_C = 256
+
+    def __init__(self):
+        super().__init__(
+            name="windowed_corr",
+            source="gimmvfi_tpu_torch/csrc/windowed_corr.cu",
+            symbol="windowed_corr_lookup",
+            argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + 2 * self.MAX_LEVELS),
+            replaces="gimmvfi_tpu/ops/corr.py:249",
+        )
+
+    def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+        f1, levels = wc.f1, wc.f2_levels
+        if f1.dim() != 3 or coords.dim() != 4 or coords.shape[1] != 2:
+            raise ValueError(f"{self.name}: takes f1 (N, P, C) and coords (N, 2, H, W), got "
+                             f"{tuple(f1.shape)} and {tuple(coords.shape)}")
+        n, p, c = f1.shape
+        h, w = coords.shape[-2:]
+        if f1.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{self.name}: f1 must be float32 or bfloat16, got {f1.dtype}")
+        if c % 8 or not 8 <= c <= self.MAX_C:
+            raise ValueError(f"{self.name}: takes C a multiple of 8 in [8, {self.MAX_C}], got {c}")
+        if not 1 <= len(levels) <= self.MAX_LEVELS or not 0 <= radius <= self.MAX_RADIUS:
+            raise ValueError(f"{self.name}: takes 1-{self.MAX_LEVELS} levels and radius "
+                             f"0-{self.MAX_RADIUS}, got {len(levels)} and {radius}")
+        if n * p >= 2**31 or h * w != p:
+            raise ValueError(f"{self.name}: needs N*P < 2**31 and H*W == P, got "
+                             f"f1 {tuple(f1.shape)}, coords {tuple(coords.shape)}")
+        specs = [("f1", f1, f1.dtype), ("coords", coords, torch.float32, (n, 2, h, w), f1.device)]
+        for i, f2 in enumerate(levels):
+            if f2.dim() != 4 or f2.shape[0] != n or f2.shape[3] != c:
+                raise ValueError(f"{self.name}: level {i} must be (N, h, w, C) = ({n}, h, w, {c}), "
+                                 f"got {tuple(f2.shape)}")
+            specs.append((f"level {i}", f2, f1.dtype, tuple(f2.shape), f1.device))
+        self.check(*specs)
+        nl = len(levels)
+        out = torch.empty((n, nl * (2 * radius + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)
+        ptrs = [f2.data_ptr() for f2 in levels] + [0] * (self.MAX_LEVELS - nl)
+        hs = [f2.shape[1] for f2 in levels] + [0] * (self.MAX_LEVELS - nl)
+        ws = [f2.shape[2] for f2 in levels] + [0] * (self.MAX_LEVELS - nl)
+        self.launch(f1.device, f1.data_ptr(), *ptrs, coords.data_ptr(), out.data_ptr(),
+                    n, p, c, nl, radius, int(f1.dtype == torch.bfloat16), *hs, *ws)
+        return out
+
+
+WINDOWED_CORR_KERNEL = WindowedCorrKernel()
+
+
+def windowed_corr_lookup(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """Windowed lookup, the same output as `corr_lookup` on the materialized
+    pyramid: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors, an error for anything else."""
+    if coords.is_cuda:
+        return WINDOWED_CORR_KERNEL(wc, coords.float().contiguous(), radius)
+    if coords.device.type == "cpu":
+        return windowed_corr_lookup_plain(wc, coords, radius)
+    raise NotImplementedError(f"no windowed correlation lookup for device {coords.device}")
+
+
+def windowed_corr_work(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> tuple[int, int]:
+    """(bytes, operations) a windowed lookup needs on these inputs: f1, the
+    levels and the coordinates read once and the output written once; two
+    operations a channel for each tap that lies on its level's map (taps off
+    the map are zeros and need no dot; a non-finite coordinate needs none)."""
+    n, p, c = wc.f1.shape
+    win, span = 2 * radius + 1, 2 * radius + 2
+    esize = wc.f1.element_size()
+    nbytes = (wc.f1.numel() + sum(f2.numel() for f2 in wc.f2_levels)) * esize
+    nbytes += coords.numel() * 4 + n * len(wc.f2_levels) * win * win * p * esize
+    flat = coords.float().reshape(n, 2, p)
+    ok = torch.isfinite(flat).all(dim=1)
+    taps = 0
+    for i, f2 in enumerate(wc.f2_levels):
+        counts = []
+        for axis, size in ((0, f2.shape[2]), (1, f2.shape[1])):
+            start, _ = _window_base(flat[:, axis] / 2.0**i, radius, size)
+            counts.append((torch.clamp(start + span, max=size) - start.clamp(min=0)).clamp(0, span))
+        taps += int((counts[0] * counts[1] * ok).sum())
+    return nbytes, 2 * c * taps
+
+
+def corr_lookup_any(pyr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """`windowed_corr_lookup` for a `WindowedCorr`, `corr_lookup` for a
+    materialized pyramid (a tuple of levels)."""
+    if isinstance(pyr, WindowedCorr):
+        return windowed_corr_lookup(pyr, coords, radius)
+    return corr_lookup(pyr, coords, radius)
+
+
 def bidir_corr_lookup(pyramids, coords0, coords1, radius: int = 4):
-    """Look up the forward pyramid at coords0 and the transposed one at coords1."""
+    """Look up the forward state at coords0 and the transposed one at
+    coords1; either pair of materialized pyramids or of windowed states."""
     fwd, bwd = pyramids
-    return corr_lookup(fwd, coords0, radius), corr_lookup(bwd, coords1, radius)
+    return corr_lookup_any(fwd, coords0, radius), corr_lookup_any(bwd, coords1, radius)

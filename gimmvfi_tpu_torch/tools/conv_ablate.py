@@ -29,7 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..utils.kernel_build import BUILD_DIR, CSRC, NVCC_FLAGS, find_nvcc
+from ..utils.kernel_build import CSRC, build_text, substitute
 from ..utils.timing import device_ms
 from .conv_proto import (
     conv3x3_library,
@@ -71,25 +71,13 @@ VARIANTS = {
 
 def variant_source(name: str, src: str) -> str:
     """`src` with variant `name`'s substitutions; each must match exactly once."""
-    for old, new in VARIANTS[name][0]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} occurs {src.count(old)} times in the source")
-        src = src.replace(old, new)
-    return src
+    return substitute(src, VARIANTS[name][0], f"variant {name}")
 
 
 def build_variant(name: str):
     """Build variant `name` into build/kernels/ablate/ and bind its launcher."""
-    out_dir = BUILD_DIR / "ablate"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / f"conv3x3_{name}.cu"
-    src.write_text(variant_source(name, (CSRC / "conv3x3.cu").read_text()))
-    lib_path = out_dir / f"conv3x3_{name}.so"
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).conv3x3_bf16
+    lib, _ = build_text(f"conv3x3_{name}", variant_source(name, (CSRC / "conv3x3.cu").read_text()))
+    fn = lib.conv3x3_bf16
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.softsplat import splat_sum_plain
-from ..utils.kernel_build import BUILD_DIR, CSRC, NVCC_FLAGS, find_nvcc
+from ..utils.kernel_build import CSRC, build_text, substitute
 from ..utils.timing import bound_ms, device_ms
 
 MAIN_SHAPE = (1, 736, 1280, 17)  # one latent splat of the 720p main path
@@ -220,31 +220,18 @@ def kernel_bound_ok(err: float, ref: torch.Tensor) -> tuple[bool, float]:
 
 def variant_source(name: str, src: str) -> str:
     """`src` with variant `name`'s substitutions; each must match exactly once."""
-    for old, new in VARIANTS[name][0]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} occurs {src.count(old)} times in the source")
-        src = src.replace(old, new)
-    return src
+    return substitute(src, VARIANTS[name][0], f"variant {name}")
 
 
 def build_source(name: str, text: str):
     """Build `text` as build/kernels/ablate/softsplat_<name>.cu and bind its
     launcher; returns (function, ptxas register lines)."""
-    out_dir = BUILD_DIR / "ablate"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / f"softsplat_{name}.cu"
-    src.write_text(text)
-    lib_path = out_dir / f"softsplat_{name}.so"
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).softsplat_sum_f32
+    lib, log = build_text(f"softsplat_{name}", text)
+    fn = lib.softsplat_sum_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    log = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-           if "registers" in ln or "spill" in ln]
-    return fn, " | ".join(log)
+    keep = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    return fn, " | ".join(keep)
 
 
 def main(argv=None, iters=20):

@@ -70,6 +70,32 @@ def build_library(source_name: str) -> tuple[ctypes.CDLL, str]:
     return ctypes.CDLL(str(lib_path)), log
 
 
+def substitute(src: str, subs, what: str) -> str:
+    """`src` with each (old, new) of `subs` replaced in turn; each `old`
+    must occur exactly once, or it raises naming `what`."""
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise ValueError(f"{what}: {old!r} occurs {src.count(old)} times in the source")
+        src = src.replace(old, new)
+    return src
+
+
+def build_text(name: str, text: str) -> tuple[ctypes.CDLL, str]:
+    """Build CUDA source `text` (a kernel's variant, or a measurement
+    fixture) as `build/kernels/ablate/<name>.cu` with the kernels' nvcc
+    flags; returns (library, ptxas log). A failed build raises."""
+    out_dir = BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / f"{name}.cu"
+    src.write_text(text)
+    lib_path = out_dir / f"{name}.so"
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+    return ctypes.CDLL(str(lib_path)), proc.stdout + proc.stderr
+
+
 def build_libraries(source_names) -> dict[str, str]:
     """Compile several `csrc/` sources at once, one `nvcc` each; returns
     {source name: ptxas log}. Any failed build raises."""

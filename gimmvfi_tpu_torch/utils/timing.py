@@ -1,12 +1,18 @@
 """Time work on the CUDA card: CUDA events around each call (`cuda_ms`),
-or the device's own time from a `torch.profiler` trace (`device_ms`)."""
+or the device's own time from a `torch.profiler` trace (`device_ms`,
+`kernel_row`); the launch floor (`launch_floor_ms`) and the bound
+(`bound_ms`). A profiler may record no device activity at all; the trace
+readings are then None ("not measured") and only the events' times stand."""
 
 from __future__ import annotations
 
+import ctypes
 import statistics
 
 import torch
 from torch.autograd import DeviceType
+
+from .kernel_build import build_text
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 peak, H100 SXM data sheet
@@ -63,9 +69,53 @@ def per_call_ms(events, iters: int) -> dict[str, float]:
     return by_name
 
 
+def kernel_row(by_name: dict[str, float], kernel: str) -> float | None:
+    """A kernel's own ms per call from a `device_ms` reading: the one row
+    whose name holds `kernel`, or None where the trace holds no such row.
+    Raises if several rows match."""
+    rows = [v for k, v in by_name.items() if kernel in k]
+    if len(rows) > 1:
+        raise AssertionError(f"several {kernel} rows in the trace: {list(by_name)}")
+    return rows[0] if rows else None
+
+
+EMPTY_KERNEL = r"""#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def launch_floor_ms(iters: int = 50) -> float | None:
+    """The launch floor: the device time of a kernel of one warp that does
+    nothing, from a `torch.profiler` trace; None where the trace holds no
+    row for it. It estimates the least time any launch takes, not a strict
+    lower bound: a kernel's row may read a little under it."""
+    lib, _ = build_text("empty", EMPTY_KERNEL)
+    fn = lib.empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty_launch failed: cudaError {err}")
+
+    _, by_name = device_ms(run, iters=iters)
+    return kernel_row(by_name, "empty_kernel")
+
+
 def fmt_ms(value: float | None, digits: int = 4) -> str:
     """A time in ms for a printed line; `device_ms`'s None as such."""
     return "none in the trace" if value is None else f"{value:.{digits}f} ms"
+
+
+def fmt_share(bound: float, value: float | None) -> str:
+    """A bound's share of a measured time for a printed line, as "x% of
+    bound"; "not measured" for `device_ms`'s None."""
+    return "not measured" if value is None else f"{100 * bound / value:.1f}% of bound"
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:

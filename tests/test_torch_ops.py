@@ -124,9 +124,12 @@ def test_corr_lookup_channel_order(rng):
 
 @pytest.mark.parametrize("build", [tcorr.corr_pyramid_auto, tcorr.bidir_corr_pyramid_auto])
 def test_windowed_volume_raises(build):
-    f = torch.zeros(1, 1, 64, 64)
-    with pytest.raises(NotImplementedError, match="windowed correlation"):
-        build(f, f, max_volume_bytes=1000)
+    """Above the limit the builders no longer raise: they return the
+    windowed state (one for each direction from the bidirectional one)."""
+    f = torch.zeros(1, 8, 64, 64)
+    state = build(f, f, max_volume_bytes=1000)
+    states = state if build is tcorr.bidir_corr_pyramid_auto else (state,)
+    assert all(isinstance(s, tcorr.WindowedCorr) for s in states)
 
 
 def test_port_imports_no_jax():

@@ -7,7 +7,7 @@ from types import SimpleNamespace
 import pytest
 from torch.autograd import DeviceType
 
-from gimmvfi_tpu_torch.utils.timing import bound_ms, fmt_ms, per_call_ms
+from gimmvfi_tpu_torch.utils.timing import bound_ms, fmt_ms, fmt_share, kernel_row, per_call_ms
 
 
 def _event(key, device_type, count, total_us):
@@ -43,3 +43,22 @@ def test_bound_and_format():
     assert bound_ms(0.0, 989e12)[1] == "operations"
     assert fmt_ms(None) == "none in the trace"
     assert fmt_ms(1.23456, 2) == "1.23 ms"
+
+
+def test_kernel_row_of_a_trace_with_and_without_device_rows():
+    """A kernel's one row is its time; a trace in which the profiler
+    recorded no device activity gives None, not a failure; two rows that
+    match are an error."""
+    by_name = per_call_ms([_event("void splat_sum_kernel<4>", DeviceType.CUDA, 10, 1800.0),
+                           _event("fill_kernel", DeviceType.CUDA, 10, 30.0)], iters=10)
+    assert kernel_row(by_name, "splat_sum_kernel") == pytest.approx(0.18)
+    assert kernel_row(by_name, "windowed_corr_kernel") is None
+    assert kernel_row(per_call_ms([_event("aten::empty", DeviceType.CPU, 10, 0.0)], 10),
+                      "splat_sum_kernel") is None
+    with pytest.raises(AssertionError, match="several"):
+        kernel_row({"a_kernel<1>": 1.0, "a_kernel<2>": 2.0}, "a_kernel")
+
+
+def test_fmt_share():
+    assert fmt_share(0.5, 2.0) == "25.0% of bound"
+    assert fmt_share(0.5, None) == "not measured"
