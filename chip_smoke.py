@@ -8,8 +8,9 @@ on one CUDA card.
 Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
-     windowed_corr.cu, conv3x3.cu, gather_probe.cu) all at once, one nvcc
-     each;
+     windowed_corr_mma.cu, windowed_corr.cu, conv3x3.cu, gather_probe.cu)
+     all at once, one nvcc each; counts the HMMA (tensor-core) instructions
+     in windowed_corr_mma's SASS (`cuobjdump -sass`) and fails on none;
   3. the splat kernel against its plain PyTorch version on the card, float32,
      in every case of `tools/splat_ablate.py: CHECK_CASES` (the main path's
      (1,736,1280,17) on a random, a smooth and a non-finite/far flow field;
@@ -32,25 +33,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      `gather_cost_probe.main` (torch.gather / torch.sort table, kernels),
      each of whose kernels must launch; then the launch floor, the device
      time of an empty kernel, and each gather against max(floor, bound);
-  7. the windowed-correlation kernel against its plain version on the card
-     (`tools/windowed_ablate.py: windowed_agreement`: float32 <= 1e-5 of the
-     largest value, bf16 within one bf16 step, NaN at the same places), at
-     C = 256 and small C, an odd level size, in-frame, border and far or
-     non-finite coordinates, and at the shapes the 2048x1088 DS 1.0 path
-     gives it (RAFT's (2,136,256) and the AMT's (1,136,256), C = 256, bf16;
-     the kernels record's `max_abs_err` is theirs); against the
-     materialized `corr_lookup` at the 720p fmap (92x160, C = 256,
-     float32, <= 1e-4); its times and % of bound
-     at the 2048x1088 DS 1.0 RAFT lookup and at 720p, beside the
-     materialized lookup's time there;
+  7. the windowed lookup's two kernels against the plain version on the
+     card, each through the route (`ops/corr.py: windowed_corr_kernel_for`:
+     bf16 to the tensor-core `windowed_corr_mma.cu`, float32 to the
+     CUDA-core `windowed_corr.cu`; `tools/windowed_ablate.py:
+     windowed_agreement`: float32 <= 1e-5 of the largest value, bf16 within
+     one bf16 step, NaN at the same places), in `WINDOWED_CASES` and
+     `MMA_CASES` (C = 256 and small C, an odd level size, in-frame, smooth,
+     border and far or non-finite coordinates, each float32 case also in
+     bf16), and at the shapes the 2048x1088 DS 1.0 path gives it (RAFT's
+     (2,136,256) and the AMT's (1,136,256), C = 256, bf16) on in-frame and
+     smooth coordinates; the float32 lookup against the materialized
+     `corr_lookup` at the 720p fmap (92x160, C = 256, <= 1e-4); then both
+     kernels timed in bf16 in the same run, against the bound, with the
+     tile walk's union extent (`mma_tile_extents`): at the 2048x1088 DS 1.0
+     RAFT lookup on in-frame and smooth coordinates, at 720p beside the
+     materialized lookup, and (after phase 8 (c)) on the inputs of the
+     first and last RAFT lookups of a `prepare` of that path, captured;
   8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
      (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
      1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
      checks shapes, finiteness, range, 14 splat launches and exactly 0, 0
-     and 20 + 2 x 7 windowed launches; prints fps, the prepare/decode_one
+     and 20 + 2 x 7 launches of the tensor-core windowed kernel, and none
+     of the CUDA-core one; prints fps, the prepare/decode_one
      split and peak memory (beside the reference's V100 envelopes for (a)
      and (b)); then GPU vs CPU float32 >= 50 dB with the windowed path
-     forced at 128x192 and with DS 0.5 at 256x384.
+     forced at 128x192 (float32 lookups: the CUDA-core kernel, 8 launches
+     counted from 0) and with DS 0.5 at 256x384.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -58,8 +67,8 @@ from a `torch.profiler` trace (`device_ms`; for the probes' library calls
 `library_device_ms`; the conv and cuDNN are traced in turns). Where the
 profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
-counts are set to 0 just before each path (5, the probes of 6 and each path
-of 8) and read just after it. The line before the last is the kernels' JSON record; the
+counts are set to 0 just before each path (5, the probes of 6, each path
+of 8 and each GPU-vs-CPU run) and read just after it. The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -77,7 +86,12 @@ import torch
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
 from gimmvfi_tpu_torch.ops import corr as corr_ops
-from gimmvfi_tpu_torch.ops.corr import WINDOWED_CORR_KERNEL, windowed_corr_lookup_plain
+from gimmvfi_tpu_torch.ops.corr import (
+    WINDOWED_CORR_KERNEL,
+    WINDOWED_CORR_MMA_KERNEL,
+    WindowedCorr,
+    windowed_corr_lookup_plain,
+)
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
 from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, splat_sum_plain
 from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
@@ -85,9 +99,14 @@ from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
 from gimmvfi_tpu_torch.tools.windowed_ablate import (
     AMT_2K,
+    MMA_CASES,
+    PATH_KINDS,
     RAFT_2K,
     RAFT_720P,
     WINDOWED_CASES,
+    extent_summary,
+    fmt_extent,
+    mma_tile_extents,
     windowed_agreement,
     windowed_inputs,
 )
@@ -98,7 +117,7 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
     splat_bound,
     splat_inputs,
 )
-from gimmvfi_tpu_torch.utils.kernel_build import build_libraries
+from gimmvfi_tpu_torch.utils.kernel_build import build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
     bound_ms,
     cuda_ms,
@@ -113,7 +132,7 @@ H, W = 736, 1280
 N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
-KERNELS = [SPLAT_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
+KERNELS = [SPLAT_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
 # 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
@@ -151,6 +170,13 @@ def build_kernels():
         print(f"[2] {name}: wgmma.mma_async serialised by ptxas: "
               f"{'yes: ' + ' | '.join(serial) if serial else 'no'}", flush=True)
     print(f"[2] {len(logs)} sources built in parallel in {dt:.2f} s", flush=True)
+    name = Path(WINDOWED_CORR_MMA_KERNEL.source).name
+    sass = subprocess.run([str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
+                           str(library_path(name))], capture_output=True, text=True, check=True)
+    hmma = sum("HMMA" in ln for ln in sass.stdout.splitlines())
+    print(f"[2] {name}: {hmma} HMMA instructions in its SASS (cuobjdump -sass)", flush=True)
+    if not hmma:
+        raise AssertionError(f"{name} holds no tensor-core instruction")
 
 
 def splat_reading(vals, flow, label: str) -> dict:
@@ -215,7 +241,10 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
-                    limit=corr_ops.MAX_VOLUME_BYTES) -> float:
+                    limit=corr_ops.MAX_VOLUME_BYTES) -> tuple[float, int]:
+    """GPU vs CPU float32 on one small pair, same seeded weights; the
+    card's windowed lookups are float32, so they go to the CUDA-core kernel.
+    Returns (PSNR, that kernel's launches, counted from 0)."""
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
@@ -224,20 +253,20 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
     gpu_model = init_normal_(GIMMVFI_R(raft_iters=2, corr_max_volume_bytes=limit), SEED)
     ref = interpolate_sequential(cpu_model, img, ts, ds_factor)["imgt_pred"]
     # the host frames go in as they are: prepare moves them to the card
-    before = WINDOWED_CORR_KERNEL.launches
+    reset_counts()
     got = interpolate_sequential(gpu_model, img, ts, ds_factor)["imgt_pred"].cpu()
-    windowed = WINDOWED_CORR_KERNEL.launches - before
+    windowed, mma = WINDOWED_CORR_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
     if got.shape != (len(ts), 1, *hw, 3):
         raise AssertionError(f"imgt_pred shape {tuple(got.shape)}")
-    if windowed != (2 + 2 * len(ts) if limit == 0 else 0):
-        raise AssertionError(f"{windowed} windowed-correlation launches")
+    if windowed != (2 + 2 * len(ts) if limit == 0 else 0) or mma:
+        raise AssertionError(f"{windowed} windowed-correlation launches, {mma} of the mma kernel")
     db = psnr(got, ref)
     print(f"[{phase}] GIMMVFI_R(raft_iters=2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
           f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB "
           f"({windowed} windowed-correlation launches on the card)", flush=True)
     if not db >= 50.0:
         raise AssertionError(f"GPU and CPU disagree: {db:.2f} dB < 50 dB")
-    return db
+    return db, windowed
 
 
 def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str):
@@ -258,7 +287,8 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str)
     out = interpolate_sequential(model, img_xs, ts, ds_factor)
     end.record()
     end.synchronize()
-    splats, wins = SPLAT_KERNEL.launches, WINDOWED_CORR_KERNEL.launches
+    splats, wins = SPLAT_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
+    cuda_core = WINDOWED_CORR_KERNEL.launches
     total_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated()
 
@@ -272,9 +302,10 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str)
     lo, hi = float(imgs.min()), float(imgs.max())
     if not (lo >= 0.0 and hi <= 1.0):
         raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
-    if splats != 2 * len(ts) or wins != windowed_expected:
-        raise AssertionError(f"{label}: {splats} splat and {wins} windowed-correlation launches, "
-                             f"expected {2 * len(ts)} and {windowed_expected}")
+    if splats != 2 * len(ts) or wins != windowed_expected or cuda_core:
+        raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma and {cuda_core} "
+                             f"windowed_corr launches, expected {2 * len(ts)}, "
+                             f"{windowed_expected} and 0")
     del out, imgs, flows
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
@@ -290,12 +321,14 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str)
     return {"fps": len(ts) / (total_ms / 1000), "pair_ms": total_ms,
             "prepare_ms": events[0].elapsed_time(events[1]),
             "decode_ms": statistics.mean(decode_ms), "peak_bytes": peak,
-            "splat_launches": splats, "windowed_launches": wins, "range": (lo, hi)}, prep
+            "splat_launches": splats, "windowed_launches": wins,
+            "cuda_core_launches": cuda_core, "range": (lo, hi)}, prep
 
 
 def path_lines(phase: int, res: dict) -> str:
     return (f"imgt_pred finite in [{res['range'][0]:.4f}, {res['range'][1]:.4f}]; splat launches "
-            f"{res['splat_launches']}, windowed-correlation launches {res['windowed_launches']}\n"
+            f"{res['splat_launches']}, windowed_corr_mma launches {res['windowed_launches']}, "
+            f"windowed_corr launches {res['cuda_core_launches']}\n"
             f"[{phase}] {res['fps']:.4f} fps ({res['pair_ms']:.2f} ms per pair); prepare "
             f"{res['prepare_ms']:.2f} ms; decode_one mean {res['decode_ms']:.2f} ms; peak "
             f"allocated {res['peak_bytes']} B ({res['peak_bytes'] / 2**20:.1f} MiB)")
@@ -412,63 +445,73 @@ def run_probes() -> tuple[dict, dict, dict]:
 
 
 def windowed_agrees(label: str, wc, coords, radius: int = 4) -> float:
-    """The kernel against its plain version on these inputs, by
-    `windowed_agreement`'s tolerance; prints the line and raises on
-    disagreement. Returns the max-abs error."""
+    """The routed kernel (`windowed_corr_kernel_for` the features' dtype)
+    against the plain version on these inputs, by `windowed_agreement`'s
+    tolerance; checks that the routed kernel launched once; prints the line
+    and raises on disagreement. Returns the max-abs error."""
+    kernel = corr_ops.windowed_corr_kernel_for(wc.f1.dtype)
+    before = kernel.launches
     got = corr_ops.windowed_corr_lookup(wc, coords, radius)
     ref = windowed_corr_lookup_plain(wc, coords, radius)
     torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{label}: the lookup did not launch {kernel.name}")
     agree = windowed_agreement(got, ref)
-    print(f"{label}: max_abs_err {agree['max_abs_err']:.3e}, max|plain| {agree['scale']:.3e}, "
-          f"NaN {agree['nan']}, {agree['bad']} over the bound, agrees {agree['ok']}", flush=True)
+    print(f"{label} ({kernel.name}): max_abs_err {agree['max_abs_err']:.3e}, max|plain| "
+          f"{agree['scale']:.3e}, NaN {agree['nan']}, {agree['bad']} over the bound, agrees "
+          f"{agree['ok']}", flush=True)
     if not agree["ok"]:
         raise AssertionError(f"windowed kernel disagrees with its plain version: {label}")
     return agree["max_abs_err"]
 
 
-def windowed_reading(shape, label: str, materialized: bool) -> dict:
-    """Events and device time of the kernel at a lookup shape (C = 256,
-    bf16, 4 levels, coordinates in the frame), against its bound; with
-    `materialized`, the materialized lookup's times on the same maps, else
-    the plain version's."""
-    wc, coords, (f1, f2) = windowed_inputs(shape, 256, torch.bfloat16, "in_frame")
-    call = lambda: corr_ops.windowed_corr_lookup(wc, coords)  # noqa: E731
-    ms = cuda_ms(call, warmup=3)
-    _, by_name = device_ms(call)
-    own = kernel_row(by_name, "windowed_corr_kernel")
+# (record key prefix, wrapper, the kernel's row in a trace)
+WINDOWED_TIMED = [("mma", WINDOWED_CORR_MMA_KERNEL, "windowed_corr_mma_kernel"),
+                  ("cuda_core", WINDOWED_CORR_KERNEL, "windowed_corr_kernel")]
+
+
+def windowed_reading(wc, coords, label: str, levels_mat=None) -> dict:
+    """Both windowed kernels on the same bf16 inputs, in the same run: events
+    and device time of each against the bound; the tile walk's extents; with
+    `levels_mat` (a materialized pyramid of the same maps), that lookup's
+    times beside them."""
     nbytes, flops = corr_ops.windowed_corr_work(wc, coords)
     bound, bound_by = bound_ms(nbytes, flops)
-    out = {"ms": ms, "device_ms": own, "bound_ms": bound, "bound_by": bound_by,
-           "bytes": nbytes, "flops": flops}
-    text = (f"{label} {shape} C=256 bf16: kernel {ms:.4f} ms by events "
-            f"({fmt_share(bound, ms)}), device {fmt_ms(own)} "
-            f"({fmt_share(bound, own)}); bound {bound:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    if materialized:
-        n = shape[0] // 2
-        fwd, bwd = corr_ops.bidir_corr_pyramid(f1[:n], f2[:n])
-        levels = tuple(torch.cat([a, b], dim=0) for a, b in zip(fwd, bwd))
-        mat = lambda: corr_ops.corr_lookup(levels, coords)  # noqa: E731
+    ext = extent_summary(mma_tile_extents(wc, coords), wc.f1.shape[-1])
+    out = {"bound_ms": bound, "bound_by": bound_by, "bytes": nbytes, "flops": flops, **ext}
+    parts = []
+    for key, kernel, row in WINDOWED_TIMED:
+        call = lambda k=kernel: k(wc, coords)  # noqa: E731
+        ms = cuda_ms(call, warmup=3)
+        _, by_name = device_ms(call)
+        own = kernel_row(by_name, row)
+        out[f"{key}_ms"], out[f"{key}_device_ms"] = ms, own
+        parts.append(f"{kernel.name} {ms:.4f} ms by events ({fmt_share(bound, ms)}), device "
+                     f"{fmt_ms(own)} ({fmt_share(bound, own)})")
+    text = (f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} bf16: {'; '.join(parts)}; bound "
+            f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"tile walk: {fmt_extent(ext)}")
+    if levels_mat is not None:
+        mat = lambda: corr_ops.corr_lookup(levels_mat, coords)  # noqa: E731
         out["materialized_ms"] = cuda_ms(mat, warmup=3)
         out["materialized_device_ms"], _ = device_ms(mat)
         text += (f"; materialized corr_lookup (grid_sample over the bf16 volume) "
                  f"{out['materialized_ms']:.4f} ms by events, "
                  f"device {fmt_ms(out['materialized_device_ms'])}")
-    else:
-        out["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
-        text += f"; plain {out['plain_ms']:.4f} ms"
     print(text, flush=True)
     return out
 
 
 def check_windowed() -> dict:
-    """Phase 7: the windowed kernel against its plain version in the check
-    cases and at the 2K DS 1.0 path's two lookup shapes, against the
-    materialized lookup, then its times."""
+    """Phase 7: the routed windowed kernels against the plain version in the
+    check cases (float32 on the CUDA-core kernel, bf16 on the tensor-core
+    one) and at the 2K DS 1.0 path's two lookup shapes on in-frame and
+    smooth coordinates; the float32 lookup against the materialized one;
+    then both kernels' times in bf16."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (c, dtype, kind, radius, levels, shape) in enumerate(WINDOWED_CASES):
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(WINDOWED_CASES + MMA_CASES):
         wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + i)
-        err = windowed_agrees(f"[7] windowed_corr {shape} C={c} {str(dtype)[6:]} r={radius} "
+        err = windowed_agrees(f"[7] windowed {shape} C={c} {str(dtype)[6:]} r={radius} "
                               f"L={levels} {kind}", wc, coords, radius)
         worst[dtype] = max(worst[dtype], err)
 
@@ -476,12 +519,13 @@ def check_windowed() -> dict:
     # the AMT's (one direction)
     path_err = 0.0
     for label, shape in (("RAFT", RAFT_2K), ("AMT", AMT_2K)):
-        wc, coords, _ = windowed_inputs(shape, 256, torch.bfloat16, "in_frame", seed=SEED)
-        path_err = max(path_err, windowed_agrees(
-            f"[7] windowed_corr at the 2048x1088 DS 1.0 {label} lookup {shape} C=256 bf16 r=4 L=4",
-            wc, coords))
-        del wc, coords
-        torch.cuda.empty_cache()
+        for kind in PATH_KINDS:
+            wc, coords, _ = windowed_inputs(shape, 256, torch.bfloat16, kind, seed=SEED)
+            path_err = max(path_err, windowed_agrees(
+                f"[7] windowed at the 2048x1088 DS 1.0 {label} lookup {shape} C=256 bf16 r=4 L=4 "
+                f"{kind}", wc, coords))
+            del wc, coords
+            torch.cuda.empty_cache()
 
     # the identity the windowed path rests on, at the 720p fmap
     wc, coords, (f1, f2) = windowed_inputs((1, 92, 160), 256, torch.float32, "in_frame")
@@ -496,19 +540,69 @@ def check_windowed() -> dict:
     del wc, coords, f1, f2, got, ref
     torch.cuda.empty_cache()
 
-    stats = {"max_abs_err": path_err, "max_abs_err_cases_f32": worst[torch.float32],
+    stats = {"path_err": path_err, "max_abs_err_cases_f32": worst[torch.float32],
              "max_abs_err_cases_bf16": worst[torch.bfloat16],
-             "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|",
-             "library_ms": None}
-    main = windowed_reading(RAFT_2K, "[7] windowed_corr at the 2048x1088 DS 1.0 RAFT lookup",
-                            materialized=False)
-    stats.update({k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
-    at720 = windowed_reading(RAFT_720P, "[7] windowed_corr at the 720p RAFT lookup",
-                             materialized=True)
-    stats.update({f"p720_{k}": at720[k] for k in
-                  ("ms", "device_ms", "bound_ms", "materialized_ms", "materialized_device_ms")})
+             "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|"}
+    for kind in PATH_KINDS:
+        wc, coords, _ = windowed_inputs(RAFT_2K, 256, torch.bfloat16, kind)
+        stats[kind] = windowed_reading(
+            wc, coords, f"[7] at the 2048x1088 DS 1.0 RAFT lookup, {kind} coordinates")
+        if kind == "in_frame":
+            stats["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
+            print(f"[7] plain windowed_corr_lookup_plain there: {stats['plain_ms']:.4f} ms",
+                  flush=True)
+        del wc, coords
+        torch.cuda.empty_cache()
+    wc, coords, (f1, f2) = windowed_inputs(RAFT_720P, 256, torch.bfloat16, "in_frame")
+    n = RAFT_720P[0] // 2
+    fwd, bwd = corr_ops.bidir_corr_pyramid(f1[:n], f2[:n])
+    levels = tuple(torch.cat([a, b], dim=0) for a, b in zip(fwd, bwd))
+    stats["p720"] = windowed_reading(wc, coords, "[7] at the 720p RAFT lookup, in_frame "
+                                     "coordinates", levels)
+    del wc, coords, f1, f2, fwd, bwd, levels
     torch.cuda.empty_cache()
     return stats
+
+
+class LookupRecorder:
+    """Stands in for the tensor-core kernel in `ops.corr` and keeps a copy of
+    the inputs of the calls numbered in `keep` (from 0)."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.inputs = set(keep), 0, {}
+
+    def __call__(self, wc, coords, radius=4):
+        if self.calls in self.keep:
+            self.inputs[self.calls] = (WindowedCorr(wc.f1.clone(), tuple(x.clone() for x in wc.f2_levels),
+                                                    wc.shape_hw), coords.clone(), radius)
+        self.calls += 1
+        return WINDOWED_CORR_MMA_KERNEL(wc, coords, radius)
+
+
+def path_lookup_readings(model, img_xs, ds) -> dict:
+    """The tensor-core kernel where the 2K DS 1.0 path runs it: the inputs
+    of the first and the last RAFT lookup of one `prepare`, captured, each
+    checked against the plain version and timed beside the CUDA-core
+    kernel."""
+    iters = model.flow_estimator.iters
+    recorder = LookupRecorder([0, iters - 1])
+    corr_ops.WINDOWED_CORR_MMA_KERNEL = recorder
+    try:
+        with torch.inference_mode():
+            prep = model.prepare(img_xs, ds)
+    finally:
+        corr_ops.WINDOWED_CORR_MMA_KERNEL = WINDOWED_CORR_MMA_KERNEL
+    del prep
+    if recorder.calls != iters or len(recorder.inputs) != 2:
+        raise AssertionError(f"prepare made {recorder.calls} windowed lookups, expected {iters}")
+    out = {}
+    for call, name in ((0, "first"), (iters - 1, "last")):
+        wc, coords, radius = recorder.inputs[call]
+        label = f"[7] the 2048x1088 DS 1.0 path's {name} RAFT lookup (captured in phase 8 (c))"
+        err = windowed_agrees(label, wc, coords, radius)
+        out[name] = {**windowed_reading(wc, coords, label), "max_abs_err": err}
+    torch.cuda.empty_cache()
+    return out
 
 
 # (label, (H, W), ds_factor, the reference's V100 envelope in MiB or None)
@@ -536,7 +630,7 @@ def run_ds_paths() -> dict:
         amt_windowed = 2 * fmap * fmap * 2 * 4 // 3 > limit
         expect = model.flow_estimator.iters * raft_windowed + 2 * N_T * amt_windowed
         res, prep = drive_path(model, img_xs, ts, ds, expect, f"({label})")
-        del prep, img_xs
+        del prep
         mib = res["peak_bytes"] / 2**20
         env = (f" (the reference's V100 envelope {envelope} MiB: {100 * mib / envelope:.1f}%)"
                if envelope else "")
@@ -545,10 +639,13 @@ def run_ds_paths() -> dict:
               f"{path_lines(8, res)}{env}", flush=True)
         results[label] = res
         torch.cuda.empty_cache()
+        if raft_windowed:
+            results["lookups"] = path_lookup_readings(model, img_xs, ds)
+        del img_xs
     del model
     torch.cuda.empty_cache()
-    results["db_windowed"] = check_small_e2e(8, (128, 192), None, 0)
-    results["db_ds"] = check_small_e2e(8, (256, 384), 0.5)
+    results["db_windowed"], results["f32_windowed_launches"] = check_small_e2e(8, (128, 192), None, 0)
+    results["db_ds"], _ = check_small_e2e(8, (256, 384), 0.5)
     return results
 
 
@@ -589,9 +686,35 @@ def main():
         return {"name": kernel.name, "route": "cuda", "source": kernel.source,
                 "replaces": kernel.replaces, "launches": launches, **numbers}
 
+    def windowed_numbers(key):
+        """One windowed kernel's times from phase 7 (and the path's lookups)."""
+        main, lk = wstats["in_frame"], ds["lookups"]
+        out = {"ms": main[f"{key}_ms"], "device_ms": main[f"{key}_device_ms"],
+               "plain_ms": wstats["plain_ms"], "bound_ms": main["bound_ms"],
+               "bound_by": main["bound_by"], "library_ms": None}
+        for label, reading in (("smooth", wstats["smooth"]), ("p720", wstats["p720"]),
+                               ("path_first", lk["first"]), ("path_last", lk["last"])):
+            out.update({f"{label}_{k}": reading[f"{key}_{k}"] for k in ("ms", "device_ms")})
+            out[f"{label}_bound_ms"] = reading["bound_ms"]
+        out["p720_materialized_ms"] = wstats["p720"]["materialized_ms"]
+        out["p720_materialized_device_ms"] = wstats["p720"]["materialized_device_ms"]
+        return out
+
     records = [
         record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat),
-        record(WINDOWED_CORR_KERNEL, ds["c"]["windowed_launches"], **wstats),
+        record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
+               max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
+                               ds["lookups"]["last"]["max_abs_err"]),
+               max_abs_err_cases_bf16=wstats["max_abs_err_cases_bf16"],
+               tolerance=wstats["tolerance"], **windowed_numbers("mma"),
+               extent_in_frame=fmt_extent(wstats["in_frame"]),
+               extent_smooth=fmt_extent(wstats["smooth"]),
+               extent_path_first=fmt_extent(ds["lookups"]["first"])),
+        # the float32 route: launches from the float32 windowed GPU-vs-CPU
+        # path of phase 8; its times are bf16, the tensor-core kernel's "before"
+        record(WINDOWED_CORR_KERNEL, ds["f32_windowed_launches"],
+               max_abs_err=wstats["max_abs_err_cases_f32"], tolerance=wstats["tolerance"],
+               times_dtype="bfloat16", **windowed_numbers("cuda_core")),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
                ms=conv["kernel_ms"], device_ms=conv["kernel_device_ms"],
                plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],

@@ -10,10 +10,11 @@ Windowed path, taken when the volume would pass `max_volume_bytes`
 (`corr_pyramid_auto`): pooling and window sampling are linear in the
 volume, which is linear in fmap2, so a lookup can sample the pooled
 target *features* and dot them with the query feature on the fly. The
-state (`WindowedCorr`) is O(HW*C) instead of O((HW)^2). Its lookup is the
-hand-written CUDA kernel `csrc/windowed_corr.cu` for CUDA tensors and
-`windowed_corr_lookup_plain` for CPU tensors; a CUDA tensor launches the
-kernel or raises.
+state (`WindowedCorr`) is O(HW*C) instead of O((HW)^2). Its lookup is a
+hand-written CUDA kernel for CUDA tensors, `csrc/windowed_corr_mma.cu`
+(tensor cores) in bf16 and `csrc/windowed_corr.cu` (CUDA cores) in
+float32, and `windowed_corr_lookup_plain` for CPU tensors; a CUDA tensor
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -218,32 +219,38 @@ def windowed_corr_lookup_plain(wc: WindowedCorr, coords: torch.Tensor,
 
 
 class WindowedCorrKernel(CudaKernel):
-    """The CUDA windowed-correlation lookup: built at first use, with a
-    launch counter. Takes C a multiple of 8 in [8, 256], 1-4 levels and a
-    radius of 0-4, in float32 or bf16."""
+    """The CUDA-core windowed-correlation lookup (`csrc/windowed_corr.cu`):
+    built at first use, with a launch counter. Takes C a multiple of 8 in
+    [8, 256], 1-4 levels and a radius of 0-4, in float32 or bf16; the route
+    sends it float32 lookups."""
 
     MAX_LEVELS = 4
     MAX_RADIUS = 4
     MAX_C = 256
+    DTYPES = (torch.float32, torch.bfloat16)
 
-    def __init__(self):
+    def __init__(self, name="windowed_corr", source="gimmvfi_tpu_torch/csrc/windowed_corr.cu",
+                 symbol="windowed_corr_lookup"):
         super().__init__(
-            name="windowed_corr",
-            source="gimmvfi_tpu_torch/csrc/windowed_corr.cu",
-            symbol="windowed_corr_lookup",
+            name=name,
+            source=source,
+            symbol=symbol,
             argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + 2 * self.MAX_LEVELS),
             replaces="gimmvfi_tpu/ops/corr.py:249",
         )
 
-    def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    def checked(self, wc: WindowedCorr, coords: torch.Tensor, radius: int):
+        """Raise on what the kernel does not take; returns an empty output,
+        the level pointers and sizes (padded to MAX_LEVELS) and (N, C)."""
         f1, levels = wc.f1, wc.f2_levels
         if f1.dim() != 3 or coords.dim() != 4 or coords.shape[1] != 2:
             raise ValueError(f"{self.name}: takes f1 (N, P, C) and coords (N, 2, H, W), got "
                              f"{tuple(f1.shape)} and {tuple(coords.shape)}")
         n, p, c = f1.shape
         h, w = coords.shape[-2:]
-        if f1.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{self.name}: f1 must be float32 or bfloat16, got {f1.dtype}")
+        if f1.dtype not in self.DTYPES:
+            names = " or ".join(str(d).removeprefix("torch.") for d in self.DTYPES)
+            raise TypeError(f"{self.name}: f1 must be {names}, got {f1.dtype}")
         if c % 8 or not 8 <= c <= self.MAX_C:
             raise ValueError(f"{self.name}: takes C a multiple of 8 in [8, {self.MAX_C}], got {c}")
         if not 1 <= len(levels) <= self.MAX_LEVELS or not 0 <= radius <= self.MAX_RADIUS:
@@ -261,23 +268,61 @@ class WindowedCorrKernel(CudaKernel):
         self.check(*specs)
         nl = len(levels)
         out = torch.empty((n, nl * (2 * radius + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)
-        ptrs = [f2.data_ptr() for f2 in levels] + [0] * (self.MAX_LEVELS - nl)
-        hs = [f2.shape[1] for f2 in levels] + [0] * (self.MAX_LEVELS - nl)
-        ws = [f2.shape[2] for f2 in levels] + [0] * (self.MAX_LEVELS - nl)
+        pad = [0] * (self.MAX_LEVELS - nl)
+        ptrs = [f2.data_ptr() for f2 in levels] + pad
+        sizes = [f2.shape[1] for f2 in levels] + pad + [f2.shape[2] for f2 in levels] + pad
+        return out, ptrs, sizes, (n, c)
+
+    def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+        out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
+        f1 = wc.f1
         self.launch(f1.device, f1.data_ptr(), *ptrs, coords.data_ptr(), out.data_ptr(),
-                    n, p, c, nl, radius, int(f1.dtype == torch.bfloat16), *hs, *ws)
+                    n, f1.shape[1], c, len(wc.f2_levels), radius,
+                    int(f1.dtype == torch.bfloat16), *sizes)
+        return out
+
+
+class WindowedCorrMmaKernel(WindowedCorrKernel):
+    """The bf16 tensor-core windowed-correlation lookup
+    (`csrc/windowed_corr_mma.cu`): 16-query tiles, the union of their windows
+    staged once in shared memory, `mma.sync` dots. Takes what
+    `WindowedCorrKernel` takes, in bf16 only."""
+
+    DTYPES = (torch.bfloat16,)
+
+    def __init__(self):
+        super().__init__(name="windowed_corr_mma",
+                         source="gimmvfi_tpu_torch/csrc/windowed_corr_mma.cu",
+                         symbol="windowed_corr_mma_lookup")
+
+    def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+        out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
+        h, w = coords.shape[-2:]
+        self.launch(wc.f1.device, wc.f1.data_ptr(), *ptrs, coords.data_ptr(), out.data_ptr(),
+                    n, h, w, c, len(wc.f2_levels), radius, *sizes)
         return out
 
 
 WINDOWED_CORR_KERNEL = WindowedCorrKernel()
+WINDOWED_CORR_MMA_KERNEL = WindowedCorrMmaKernel()
+
+
+def windowed_corr_kernel_for(dtype: torch.dtype) -> WindowedCorrKernel:
+    """The kernel a CUDA lookup of this feature dtype goes to: the tensor-core
+    kernel for bf16, the CUDA-core one for float32; an error for any other."""
+    if dtype == torch.bfloat16:
+        return WINDOWED_CORR_MMA_KERNEL
+    if dtype == torch.float32:
+        return WINDOWED_CORR_KERNEL
+    raise TypeError(f"no windowed correlation kernel for {dtype}: takes bfloat16 or float32")
 
 
 def windowed_corr_lookup(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
     """Windowed lookup, the same output as `corr_lookup` on the materialized
-    pyramid: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors, an error for anything else."""
+    pyramid: for CUDA tensors the kernel of `windowed_corr_kernel_for`, for
+    CPU tensors the plain version, an error for anything else."""
     if coords.is_cuda:
-        return WINDOWED_CORR_KERNEL(wc, coords.float().contiguous(), radius)
+        return windowed_corr_kernel_for(wc.f1.dtype)(wc, coords.float().contiguous(), radius)
     if coords.device.type == "cpu":
         return windowed_corr_lookup_plain(wc, coords, radius)
     raise NotImplementedError(f"no windowed correlation lookup for device {coords.device}")

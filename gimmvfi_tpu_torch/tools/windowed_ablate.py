@@ -1,12 +1,14 @@
-"""The windowed-correlation kernel's inputs, its check on the card, and its
-ablations.
+"""The windowed-correlation kernels' inputs, their check on the card, their
+ablations, and a CPU model of the tensor-core kernel's tile walk.
 
-    python -m gimmvfi_tpu_torch.tools.windowed_ablate
+    python -m gimmvfi_tpu_torch.tools.windowed_ablate          # CUDA-core kernel
+    python -m gimmvfi_tpu_torch.tools.windowed_ablate --mma    # tensor-core kernel
 
-Card only: without CUDA `main` raises. Each variant is
-`csrc/windowed_corr.cu` with text substitutions, built with the same nvcc
-flags into `build/kernels/ablate/`. The design's steps, each variant with
-the steps before it and none after:
+Card only: without CUDA `main` raises. Each variant is a kernel's source
+with text substitutions, built with the same nvcc flags into
+`build/kernels/ablate/`. Without `--mma`, the variants of
+`csrc/windowed_corr.cu`; the design's steps, each variant with the steps
+before it and none after:
   - first: one query's levels inside the block's query loop, one FMA chain
     over a lane's chunks, no unroll of the tap loop, no minimum of blocks
     an SM in `__launch_bounds__`, the output staging in rows of 32 queries;
@@ -31,22 +33,47 @@ Every variant that computes the lookup is checked against
 variant is timed by its own device time from a `torch.profiler` trace, at
 `RAFT_2K` and `RAFT_720P` in bf16, twice, in opposite orders.
 
+With `--mma`, `csrc/windowed_corr_mma.cu` as it is (`mma`), beside
+`csrc/windowed_corr.cu` as it is (`cuda_core`), and two ablations of the
+new kernel (`MMA_ABLATIONS`), which do not compute the lookup:
+  - mma_no_stage: no `cp.async` of the window rows (the ring's stale
+    contents are multiplied; the A staging, the walk and the waits stay);
+  - mma_no_dots: no `mma`; the staged rows are still read by `ldmatrix` and
+    folded into the accumulators with one xor.
+`mma` is checked against `windowed_corr_lookup_plain` in the bf16 cases and
+at both path shapes on `in_frame` and `smooth` coordinates; all four are
+timed at `RAFT_2K` on both kinds, twice, in opposite orders.
+
+`mma_tile_walk` computes the lookup by the tensor-core kernel's own
+decomposition in plain torch, and `mma_tile_extents` its union extents
+alone, for the CPU tests and `chip_smoke.py` phase 7.
+
 `WINDOWED_CASES`, the lookup shapes, `windowed_inputs` and
 `windowed_agreement` are shared with `chip_smoke.py` phase 7.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import math
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..ops import corr as corr_ops
-from ..ops.corr import WindowedCorrKernel, windowed_corr_lookup_plain
+from ..ops.corr import (
+    WindowedCorr,
+    WindowedCorrKernel,
+    WindowedCorrMmaKernel,
+    _window_base,
+    windowed_corr_lookup_plain,
+)
 from ..utils.kernel_build import CSRC, build_text, substitute
 from ..utils.timing import bound_ms, device_ms
+from .splat_ablate import smooth_flow
 
 # (C, dtype, coordinate kind, radius, levels, (N, h, w)): the path's C at
 # two sizes; a small C on an odd size (13x23 pools to 6x11, 3x5, 1x2);
@@ -68,6 +95,18 @@ WINDOWED_CASES = [
 RAFT_2K = (2, 136, 256)
 AMT_2K = (1, 136, 256)
 RAFT_720P = (2, 92, 160)
+# the tensor-core kernel's bf16 checks beyond the bf16 cases of
+# WINDOWED_CASES: bf16 copies of its float32 cases, and smooth coordinates at
+# C = 256 and C = 8; and the coordinate kinds it is checked and timed on at
+# the path shapes
+MMA_CASES = [(c, torch.bfloat16, kind, radius, levels, shape)
+             for c, dtype, kind, radius, levels, shape in WINDOWED_CASES
+             if dtype == torch.float32] + [
+    (256, torch.bfloat16, "smooth", 4, 4, (2, 40, 48)),
+    (8, torch.bfloat16, "smooth", 4, 4, (1, 36, 64)),
+]
+PATH_KINDS = ("in_frame", "smooth")
+TILE_Q = 16  # queries a tile of csrc/windowed_corr_mma.cu: the mma's M
 
 _LEVELS_OUTER = """  for (int l = 0; l < levels; ++l) {
     const int hl = lv.h[l], wl = lv.w[l];
@@ -131,22 +170,43 @@ def _variants() -> dict[str, tuple[list, bool]]:
 
 VARIANTS = _variants()
 
+# ablations of csrc/windowed_corr_mma.cu, which do not compute the lookup
+_MMA_STAGE = ("    cp_async16(dst + px * px_bytes + ch * 16, real ? row + px * c + ch * 8 : any, "
+              "real ? 16 : 0);\n")
+_MMA_DOTS = "mma_bf16(acc[t][ks & 1], a[ks], b[2 * t], b[2 * t + 1]);"
+_MMA_STAGE_FAST = "      cp_async16(to, src, 16);\n"
+MMA_ABLATIONS = {
+    "mma_no_stage": [(_MMA_STAGE_FAST, "      (void)src;\n"), (_MMA_STAGE, "    (void)real;\n")],
+    "mma_no_dots": [(_MMA_DOTS, "acc[t][ks & 1][0] += __uint_as_float("
+                                "(b[2 * t] ^ b[2 * t + 1] ^ a[ks][0]) & 0x007fffffu);")],
+}
+
 
 def variant_source(name: str, src: str) -> str:
     """`src` with variant `name`'s substitutions; each must match exactly once."""
-    return substitute(src, VARIANTS[name][0], f"variant {name}")
+    subs = MMA_ABLATIONS[name] if name in MMA_ABLATIONS else VARIANTS[name][0]
+    return substitute(src, subs, f"variant {name}")
+
+
+SMOOTH_STD = 4.0  # px at the fmap, the `smooth` kind's flow
 
 
 def windowed_inputs(shape, c, dtype, kind, levels=4, seed=0, device="cuda"):
     """A windowed state from seeded NCHW maps and (N, 2, h, w) coordinates:
-    in the frame (the grid plus N(0, 3 px)), around its border, or far off
-    it (1e3 and 1e10 px, NaN and inf). Returns (state, coords, (f1, f2))."""
+    in the frame (the grid plus independent N(0, 3 px) a query), the grid
+    plus a smooth flow (`splat_ablate.smooth_flow`, std 4 px at the fmap, one
+    independent vector every ~12 px), around its border, or far off it (1e3
+    and 1e10 px, NaN and inf). Returns (state, coords, (f1, f2))."""
     n, h, w = shape
     gen = torch.Generator(device="cpu").manual_seed(seed)
     f1, f2 = (torch.randn((n, c, h, w), generator=gen).to(dtype) for _ in range(2))
     grid = torch.stack(torch.meshgrid(torch.arange(w), torch.arange(h), indexing="xy")).float()
     if kind == "in_frame":
         coords = grid + 3.0 * torch.randn((n, 2, h, w), generator=gen)
+    elif kind == "smooth":
+        flow = smooth_flow(np.random.default_rng(seed), n, h, w, SMOOTH_STD,
+                           coarse=(max(2, h // 12), max(2, w // 12)))
+        coords = grid + torch.from_numpy(flow).permute(0, 3, 1, 2)
     elif kind == "border":
         edge = torch.tensor([-4.5, -1.25, -0.5, 0.0, 0.75])[
             torch.randint(5, (n, 2, h, w), generator=gen)]
@@ -184,11 +244,12 @@ def windowed_agreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "bad": bad, "nan": int(nan.sum()), "ok": bad == 0 and same_nan}
 
 
-def bind(name: str, text: str) -> tuple[WindowedCorrKernel, str]:
-    """Build a source with the kernel's launcher; returns a wrapper that
-    launches it (with launch counts of its own) and the ptxas lines."""
+def bind(name: str, text: str, kind=WindowedCorrKernel) -> tuple[WindowedCorrKernel, str]:
+    """Build a source with the launcher of wrapper class `kind`; returns a
+    wrapper that launches it (with launch counts of its own) and the ptxas
+    lines."""
     lib, log = build_text(f"windowed_corr_{name}", text)
-    kernel = WindowedCorrKernel()
+    kernel = kind()
     fn = getattr(lib, kernel.symbol)
     fn.argtypes = kernel.argtypes
     fn.restype = ctypes.c_int
@@ -197,12 +258,216 @@ def bind(name: str, text: str) -> tuple[WindowedCorrKernel, str]:
     return kernel, " | ".join(keep)
 
 
-def main(iters=10):
+def _level_windows(coords: torch.Tensor, radius: int, level: int, hl: int, wl: int):
+    """Level `level`'s windows of (N, 2, H, W) coordinates, each (N, H, W):
+    the start (x0, y0) and fractional offsets (fx, fy) as the plain version
+    takes them, and the window's part on the map [wx0, wx1) x [wy0, wy1),
+    with `live` false where it is empty (a window off the map, or a
+    non-finite coordinate)."""
+    span = 2 * radius + 2
+    flat = coords.float()
+    x0, fx = _window_base(flat[:, 0] / 2.0**level, radius, wl)
+    y0, fy = _window_base(flat[:, 1] / 2.0**level, radius, hl)
+    wx0, wx1 = x0.clamp(min=0), (x0 + span).clamp(max=wl)
+    wy0, wy1 = y0.clamp(min=0), (y0 + span).clamp(max=hl)
+    return x0, y0, fx, fy, (wx0 < wx1) & (wy0 < wy1), wx0, wx1, wy0, wy1
+
+
+EXTENT_KEYS = ("rows", "blocks", "pixels")
+
+
+def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4):
+    """The lookup by `csrc/windowed_corr_mma.cu`'s own decomposition, in
+    float32 on the host (slow: a Python loop over tiles and rows).
+
+    Tiles of 16 consecutive queries of one image row (the last one of a row
+    short). For each level, the union of the tile's windows over its live
+    queries (finite coordinates, window touching the map), clipped to the
+    map; walked one union row at a time, a row's columns those of the
+    windows that cover it, in blocks of 8 pixels (the last one past the
+    row's end zero); each block a (16 x C) @ (C x 8) product; each product
+    element (query, pixel) put into the query's (2r+2)^2 sums `s` if the
+    pixel lies in its window; then the plain version's tent blend and one
+    cast. Returns (out (N, L*(2r+1)^2, H, W), extents): `extents` maps
+    "rows" (union rows walked), "blocks" (8-pixel blocks over those rows,
+    the n-tiles a k-step multiplies) and "pixels" (pixels staged) to
+    (L, N, H, tiles a row) integer tensors."""
+    n, _, c = wc.f1.shape
+    h, w = coords.shape[-2:]
+    win, span = 2 * radius + 1, 2 * radius + 2
+    nl = len(wc.f2_levels)
+    tiles_x = -(-w // TILE_Q)
+    f1 = wc.f1.float().reshape(n, h, w, c)
+    out = torch.empty((n, nl, win, win, h, w))  # [.., x offset i, y offset j, ..]
+    extents = {k: torch.zeros((nl, n, h, tiles_x), dtype=torch.long) for k in EXTENT_KEYS}
+    for lvl, f2 in enumerate(wc.f2_levels):
+        hl, wl = f2.shape[1:3]
+        f2 = f2.float()
+        x0, y0, fx, fy, live, wx0, wx1, wy0, wy1 = _level_windows(coords, radius, lvl, hl, wl)
+        for b in range(n):
+            for qy in range(h):
+                for tx in range(tiles_x):
+                    q = slice(tx * TILE_Q, min(w, (tx + 1) * TILE_Q))
+                    m = q.stop - q.start
+                    a = torch.zeros(TILE_Q, c)
+                    a[:m] = f1[b, qy, q]
+                    s = torch.zeros(TILE_Q, span, span)
+                    ok, ty0, ty1 = live[b, qy, q], wy0[b, qy, q], wy1[b, qy, q]
+                    rows = range(int(ty0[ok].min()), int(ty1[ok].max())) if ok.any() else ()
+                    for y in rows:
+                        cover = ok & (ty0 <= y) & (y < ty1)
+                        if not cover.any():
+                            continue
+                        rx0, rx1 = int(wx0[b, qy, q][cover].min()), int(wx1[b, qy, q][cover].max())
+                        nb = -(-(rx1 - rx0) // 8)
+                        pix = torch.zeros(nb * 8, c)
+                        pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
+                        prod = torch.einsum("qc,kpc->qkp", a, pix.view(nb, 8, c)).reshape(TILE_Q, -1)
+                        cols = rx0 + torch.arange(nb * 8)
+                        dy = y - y0[b, qy, q]
+                        dx = cols.view(1, -1) - x0[b, qy, q].view(-1, 1)
+                        take = (((dy >= 0) & (dy < span)).view(-1, 1) & (dx >= 0) & (dx < span)
+                                & (cols < rx1).view(1, -1))
+                        r, k = take.nonzero(as_tuple=True)
+                        s[r, dy[r], dx[r, k]] = prod[r, k]
+                        for key, v in zip(EXTENT_KEYS, (1, nb, rx1 - rx0)):
+                            extents[key][lvl, b, qy, tx] += v
+                    fyq, fxq = fy[b, qy, q].view(m, 1, 1), fx[b, qy, q].view(m, 1, 1)
+                    sy = s[:m, :win] * (1.0 - fyq) + s[:m, 1:] * fyq
+                    v = sy[..., :win] * (1.0 - fxq) + sy[..., 1:] * fxq  # (query, y, x)
+                    out[b, lvl, :, :, qy, q] = v.permute(2, 1, 0)
+    return out.reshape(n, nl * win * win, h, w).to(wc.f1.dtype), extents
+
+
+def mma_tile_extents(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> dict:
+    """`mma_tile_walk`'s extents without the dots, vectorised over tiles (on
+    the coordinates' device)."""
+    n = coords.shape[0]
+    h, w = coords.shape[-2:]
+    tiles_x = -(-w // TILE_Q)
+    far = 1 << 30
+
+    def tiles(t, fill):
+        out = torch.full((n, h, tiles_x * TILE_Q), fill, dtype=t.dtype, device=t.device)
+        out[..., :w] = t
+        return out.view(n, h, tiles_x, TILE_Q)
+
+    per_level = {k: [] for k in EXTENT_KEYS}
+    for lvl, f2 in enumerate(wc.f2_levels):
+        hl, wl = f2.shape[1:3]
+        _, _, _, _, live, wx0, wx1, wy0, wy1 = _level_windows(coords, radius, lvl, hl, wl)
+        live, wx0, wx1, wy0, wy1 = (tiles(t, f) for t, f in
+                                    ((live, False), (wx0, 0), (wx1, 0), (wy0, 0), (wy1, 0)))
+        uy0 = torch.where(live, wy0, far).amin(-1)
+        height = (torch.where(live, wy1, -far).amax(-1) - uy0).clamp(min=0)
+        got = {k: torch.zeros((n, h, tiles_x), dtype=torch.long, device=coords.device)
+               for k in EXTENT_KEYS}
+        for d in range(int(height.max()) if height.numel() else 0):
+            y = (uy0 + d).unsqueeze(-1)
+            cover = live & (wy0 <= y) & (y < wy1)
+            width = (torch.where(cover, wx1, -far).amax(-1)
+                     - torch.where(cover, wx0, far).amin(-1)).clamp(min=0)
+            got["rows"] += width > 0
+            got["blocks"] += (width + 7) // 8
+            got["pixels"] += width
+        for k in EXTENT_KEYS:
+            per_level[k].append(got[k])
+    return {k: torch.stack(v) for k, v in per_level.items()}
+
+
+def extent_summary(extents: dict, c: int) -> dict:
+    """What a tensor-core lookup walks, from `mma_tile_extents`: the mean
+    level-0 union of a tile (rows, and 8-pixel-rounded columns a row, over
+    tiles with any row), the bytes staged from the levels (bf16) and the
+    `mma` issued (m16n8k16, K = C padded to 16)."""
+    rows, blocks = extents["rows"][0].float(), extents["blocks"][0].float()
+    walked = rows > 0
+    return {"rows0": float(rows[walked].mean()) if walked.any() else 0.0,
+            "cols0": float(8 * blocks[walked].sum() / rows[walked].sum()) if walked.any() else 0.0,
+            "staged_bytes": int(extents["pixels"].sum()) * c * 2,
+            "mma": int(extents["blocks"].sum()) * -(-c // 16)}
+
+
+def fmt_extent(ext: dict) -> str:
+    return (f"mean level-0 union {ext['rows0']:.2f} rows x {ext['cols0']:.2f} columns; "
+            f"{ext['staged_bytes'] / 1e9:.3f} GB staged, {ext['mma'] / 1e6:.3f} M mma")
+
+
+def _card() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this probe needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    return smi
+
+
+def _timed_turns(built: dict, wc, coords, iters: int) -> dict[str, list[float]]:
+    """Each built kernel's own device time on these inputs, twice, the
+    second turn in the opposite order."""
+    calls = {name: (lambda k=kernel: k(wc, coords)) for name, (kernel, _) in built.items()}
+    times = {name: [] for name in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for name in order:
+            _, by_name = device_ms(calls[name], iters=iters)
+            times[name].append(sum(v for k, v in by_name.items() if "windowed_corr" in k))
+    return times
+
+
+def _print_turns(times: dict, label: str, bound: float, bound_by: str, smi: str) -> None:
+    for name, turns in times.items():
+        print(f"windowed_corr {label} {name:13s} device "
+              f"{' / '.join(f'{t:.4f}' for t in turns)} ms "
+              f"({' / '.join(f'{100 * bound / t:.1f}' if t else 'n/a' for t in turns)}% of the "
+              f"{bound:.4f} ms {bound_by} bound); {smi}", flush=True)
+
+
+def main_mma(iters=10):
+    """The tensor-core kernel, its two ablations and the CUDA-core kernel:
+    checked (the two that compute the lookup), then timed at `RAFT_2K`."""
+    smi = _card()
+    mma_src = (CSRC / "windowed_corr_mma.cu").read_text()
+    texts = {"mma": (mma_src, WindowedCorrMmaKernel)}
+    texts.update({name: (variant_source(name, mma_src), WindowedCorrMmaKernel)
+                  for name in MMA_ABLATIONS})
+    texts["cuda_core"] = ((CSRC / "windowed_corr.cu").read_text(), WindowedCorrKernel)
+    with ThreadPoolExecutor(max_workers=len(texts)) as pool:
+        built = dict(zip(texts, pool.map(lambda name: bind(name, *texts[name]), texts)))
+    for name, (_, log) in built.items():
+        print(f"{name}: ptxas {log}", flush=True)
+
+    checks = [(shape, c, kind, radius, levels)
+              for c, dtype, kind, radius, levels, shape in WINDOWED_CASES + MMA_CASES
+              if dtype == torch.bfloat16]
+    checks += [(shape, 256, kind, 4, 4) for shape in (RAFT_2K, AMT_2K) for kind in PATH_KINDS]
+    for i, (shape, c, kind, radius, levels) in enumerate(checks):
+        wc, coords, _ = windowed_inputs(shape, c, torch.bfloat16, kind, levels, seed=i)
+        ref = windowed_corr_lookup_plain(wc, coords, radius)
+        for name in ("mma", "cuda_core"):
+            agree = windowed_agreement(built[name][0](wc, coords, radius), ref)
+            print(f"{name} {shape} C={c} r={radius} L={levels} {kind}: {agree}", flush=True)
+            if not agree["ok"]:
+                raise AssertionError(f"{name} disagrees with the plain version at {shape} "
+                                     f"C={c} {kind}: {agree}")
+        del wc, coords, ref
+        torch.cuda.empty_cache()
+
+    res = {}
+    for kind in PATH_KINDS:
+        wc, coords, _ = windowed_inputs(RAFT_2K, 256, torch.bfloat16, kind)
+        bound, bound_by = bound_ms(*corr_ops.windowed_corr_work(wc, coords))
+        print(f"{kind}: {fmt_extent(extent_summary(mma_tile_extents(wc, coords), 256))}",
+              flush=True)
+        res[kind] = _timed_turns(built, wc, coords, iters)
+        _print_turns(res[kind], f"2048x1088 DS 1.0 RAFT {RAFT_2K} C=256 bf16 {kind}",
+                     bound, bound_by, smi)
+        del wc, coords
+        torch.cuda.empty_cache()
+    return res
+
+
+def main(iters=10):
+    smi = _card()
     src = (CSRC / "windowed_corr.cu").read_text()
     texts = {name: variant_source(name, src) for name in VARIANTS}
     with ThreadPoolExecutor(max_workers=len(texts)) as pool:
@@ -230,17 +495,8 @@ def main(iters=10):
     for label, shape in (("2048x1088 DS 1.0 RAFT", RAFT_2K), ("720p RAFT", RAFT_720P)):
         wc, coords, _ = windowed_inputs(shape, 256, torch.bfloat16, "in_frame")
         bound, bound_by = bound_ms(*corr_ops.windowed_corr_work(wc, coords))
-        calls = {name: (lambda k=kernel: k(wc, coords)) for name, (kernel, _) in built.items()}
-        times = {name: [] for name in calls}
-        for order in (list(calls), list(reversed(calls))):
-            for name in order:
-                _, by_name = device_ms(calls[name], iters=iters)
-                times[name].append(sum(v for k, v in by_name.items() if "windowed_corr" in k))
-        for name, turns in times.items():
-            print(f"windowed_corr {label} {shape} C=256 bf16 {name:13s} device "
-                  f"{' / '.join(f'{t:.4f}' for t in turns)} ms "
-                  f"({' / '.join(f'{100 * bound / t:.1f}' for t in turns)}% of the "
-                  f"{bound:.4f} ms {bound_by} bound); {smi}", flush=True)
+        times = _timed_turns(built, wc, coords, iters)
+        _print_turns(times, f"{label} {shape} C=256 bf16", bound, bound_by, smi)
         res[label] = times
         del wc, coords
         torch.cuda.empty_cache()
@@ -248,4 +504,7 @@ def main(iters=10):
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--mma", action="store_true",
+                        help="the tensor-core kernel and its ablations, beside the CUDA-core kernel")
+    (main_mma if parser.parse_args().mma else main)()

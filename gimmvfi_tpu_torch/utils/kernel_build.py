@@ -44,14 +44,20 @@ def find_nvcc() -> str:
     )
 
 
+def library_path(source_name: str) -> Path:
+    """Where `csrc/<source_name>` builds to, keyed by its text and the flags."""
+    src = CSRC / source_name
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{key}.so"
+
+
 def build_library(source_name: str) -> tuple[ctypes.CDLL, str]:
     """Compile `csrc/<source_name>` (cached) and return (library, ptxas log).
 
     The log is empty when the library came from the cache.
     """
     src = CSRC / source_name
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{src.stem}-{key}.so"
+    lib_path = library_path(source_name)
     log = ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,7 +9,8 @@ JAX, NCHW for the port). Tolerances (ROADMAP C4):
     largest value (measured: equal or within one bf16 step);
   * windowed vs the port's materialized lookup, float32: <= 1e-4 of the
     largest value (the identity of corr.py:185-202, summed in other orders).
-The CUDA kernel runs only on the card (`cuda` marker).
+The CUDA kernels run only on the card (`cuda` marker): a bf16 lookup goes to
+the tensor-core kernel, a float32 one to the CUDA-core kernel.
 """
 
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ import torch
 from gimmvfi_tpu.ops import corr as jcorr
 from gimmvfi_tpu_torch.ops import corr as tcorr
 from gimmvfi_tpu_torch.tools import windowed_ablate
+from gimmvfi_tpu_torch.tools.splat_ablate import smooth_flow
 from gimmvfi_tpu_torch.tools.windowed_ablate import windowed_agreement, windowed_inputs
 from gimmvfi_tpu_torch.utils.kernel_build import CSRC
 
@@ -41,10 +43,13 @@ def _maps(rng, n, h, w, c):
 
 
 def _coords(rng, n, h, w, kind):
-    """(N, H, W, 2) pixel coordinates: in the frame, around its border, or
-    far off it with non-finite values mixed in."""
+    """(N, H, W, 2) pixel coordinates: in the frame, the grid plus a smooth
+    flow, around its border, or far off it with non-finite values mixed in."""
     if kind == "in_frame":
         return (rng.random((n, h, w, 2)) * [w - 1, h - 1]).astype(np.float32)
+    if kind == "smooth":
+        grid = np.stack(np.meshgrid(np.arange(w), np.arange(h), indexing="xy"), axis=-1)
+        return (grid + smooth_flow(rng, n, h, w, 4.0, coarse=(2, 3))).astype(np.float32)
     if kind == "span":  # in-bounds, sub-pixel and off the frame by up to 7 px
         return (rng.random((n, h, w, 2)) * (w + 14) - 7).astype(np.float32)
     if kind == "border":
@@ -177,22 +182,37 @@ def test_windowed_work_counts_taps_on_the_map(rng):
     assert nbytes == 4 * (f1.size + sum(x.numel() for x in wc.f2_levels)) + coords.size * 4 + out_bytes
 
 
-@pytest.mark.parametrize("fault,match", [
-    ("dtype", "must be float32 or bfloat16"),
+FAULTS = [
+    ("dtype", "must be {dtypes}"),
     ("c", "multiple of 8"),
     ("wide", "multiple of 8"),
     ("levels", "1-4 levels"),
     ("radius", "radius"),
-    ("level_dtype", "level 1 must be torch.float32"),
+    ("level_dtype", "level 1 must be torch.{dtype}"),
     ("level_shape", "level 2 must be"),
     ("coords_shape", "H\\*W == P"),
     ("cpu", "must be a CUDA tensor"),
+]
+# (wrapper, the dtype it is given, the dtypes it names); the CUDA-core
+# kernel's cases keep their ids
+WRAPPERS = [("cuda_core", torch.float32, "float32 or bfloat16"), ("mma", torch.bfloat16, "bfloat16")]
+
+
+@pytest.mark.parametrize("fault,match,wrapper", [
+    pytest.param(fault, match.format(dtypes=names, dtype=str(dtype)[6:]), wrapper,
+                 id=f"{fault}-{match.format(dtypes=names, dtype=str(dtype)[6:])}"
+                 if wrapper == "cuda_core" else f"mma-{fault}")
+    for wrapper, dtype, names in WRAPPERS for fault, match in FAULTS
 ])
-def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match):
-    """The wrapper's checks run before any build, so they hold on the CPU."""
+def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper):
+    """The wrappers' checks run before any build, so they hold on the CPU;
+    the tensor-core wrapper takes bf16 only."""
+    kernel = {"cuda_core": tcorr.WINDOWED_CORR_KERNEL, "mma": tcorr.WINDOWED_CORR_MMA_KERNEL}[wrapper]
+    dtype = dict((w, d) for w, d, _ in WRAPPERS)[wrapper]
     c = {"c": 20, "wide": 264}.get(fault, 16)
     f1, f2 = _maps(rng, 1, 8, 8, c)
-    wc = tcorr.windowed_corr_pyramid(nchw(f1), nchw(f2), 5 if fault == "levels" else 3)
+    wc = tcorr.windowed_corr_pyramid(nchw(f1).to(dtype), nchw(f2).to(dtype),
+                                     5 if fault == "levels" else 3)
     coords = torch.zeros(1, 2, 8, 7 if fault == "coords_shape" else 8)
     if fault == "dtype":
         wc = wc._replace(f1=wc.f1.double())
@@ -200,10 +220,17 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match):
         wc = wc._replace(f2_levels=(wc.f2_levels[0], wc.f2_levels[1].half(), wc.f2_levels[2]))
     elif fault == "level_shape":
         wc = wc._replace(f2_levels=wc.f2_levels[:2] + (wc.f2_levels[2][..., :8],))
-    before = tcorr.WINDOWED_CORR_KERNEL.launches
+    before = kernel.launches
     with pytest.raises((TypeError, ValueError), match=match):
-        tcorr.WINDOWED_CORR_KERNEL(wc, coords, 5 if fault == "radius" else 4)
-    assert tcorr.WINDOWED_CORR_KERNEL.launches == before
+        kernel(wc, coords, 5 if fault == "radius" else 4)
+    assert kernel.launches == before
+
+
+def test_mma_wrapper_refuses_float32():
+    """A float32 state never reaches the tensor-core kernel."""
+    wc = tcorr.windowed_corr_pyramid(torch.zeros(1, 16, 8, 8), torch.zeros(1, 16, 8, 8), 2)
+    with pytest.raises(TypeError, match="f1 must be bfloat16"):
+        tcorr.WINDOWED_CORR_MMA_KERNEL(wc, torch.zeros(1, 2, 8, 8))
 
 
 # (C, dtype, coordinate kind, radius, levels, map size)
@@ -214,6 +241,9 @@ CARD_CASES = [
     (24, torch.bfloat16, "far", 4, 4, (13, 23)),
     (64, torch.float32, "span", 3, 2, (9, 15)),
     (8, torch.float32, "far", 1, 1, (7, 9)),
+    (256, torch.bfloat16, "smooth", 4, 4, (20, 40)),
+    (8, torch.bfloat16, "smooth", 4, 4, (13, 23)),
+    (8, torch.bfloat16, "span", 1, 1, (7, 9)),
 ]
 
 
@@ -223,7 +253,7 @@ def test_kernel_matches_plain_on_card(rng, c, dtype, kind, radius, levels, hw):
     """`windowed_agreement`: float32 <= 1e-5 of the largest value (sums in
     another order); bf16 within one bf16 step (2**-7 relative) of the plain
     version, whose float32 sums may round the other way; NaN at the same
-    places."""
+    places. The lookup launches the kernel its dtype routes to, once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc; run on the card")
     f1, f2 = _maps(rng, 2, *hw, c)
@@ -231,10 +261,12 @@ def test_kernel_matches_plain_on_card(rng, c, dtype, kind, radius, levels, hw):
     wc = tcorr.windowed_corr_pyramid(nchw(f1).to(dtype), nchw(f2).to(dtype), levels)
     ref = tcorr.windowed_corr_lookup_plain(wc, coords, radius)
     cwc = tcorr.WindowedCorr(wc.f1.cuda(), tuple(x.cuda() for x in wc.f2_levels), wc.shape_hw)
-    before = tcorr.WINDOWED_CORR_KERNEL.launches
+    kernels = (tcorr.WINDOWED_CORR_MMA_KERNEL, tcorr.WINDOWED_CORR_KERNEL)
+    routed = kernels[0] if dtype == torch.bfloat16 else kernels[1]
+    before = [k.launches for k in kernels]
     got = tcorr.windowed_corr_lookup(cwc, coords.cuda(), radius)
     torch.cuda.synchronize()
-    assert tcorr.WINDOWED_CORR_KERNEL.launches == before + 1
+    assert [k.launches - b for k, b in zip(kernels, before)] == [int(k is routed) for k in kernels]
     agree = windowed_agreement(got.cpu(), ref)
     assert agree["ok"], agree
 
@@ -250,7 +282,7 @@ def test_ablation_variants_apply_to_the_kernel_source(name):
     assert "extern \"C\" int windowed_corr_lookup(" in out
 
 
-@pytest.mark.parametrize("kind", ["in_frame", "border", "far"])
+@pytest.mark.parametrize("kind", ["in_frame", "border", "far", "smooth"])
 def test_windowed_inputs_and_agreement(kind):
     """The card checks' inputs, made on the CPU: a state of the asked
     shape, NaN/inf only where `far` puts them; and the tolerance accepts
