@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GIMM-VFI-R 8x paths (720p, and 2K/4K through
-DS_SCALE and the windowed correlation) and its two probe entry points once
-on one CUDA card.
+DS_SCALE and the windowed correlation), its GIMM-VFI-F 8x path at 720p,
+its bench entry and its two probe entry points once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -59,7 +59,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      split and peak memory (beside the reference's V100 envelopes for (a)
      and (b)); then GPU vs CPU float32 >= 50 dB with the windowed path
      forced at 128x192 (float32 lookups: the CUDA-core kernel, 8 launches
-     counted from 0) and with DS 0.5 at 256x384.
+     counted from 0) and with DS 0.5 at 256x384;
+  9. GIMM-VFI-F: (a) GIMMVFI_F(ff_iters=32, dtype=bfloat16) on the seeded
+     736x1280 pair, 7 timesteps, through `drive_path`: shape, finiteness,
+     range, exactly 14 splat, 14 `windowed_corr` and 0 `windowed_corr_mma`
+     launches (FlowFormer's float32 feature map gives a 2.31 GB volume,
+     over the limit, so the AMT takes the float32 windowed route); fps,
+     split, peak and FlowFormer alone beside the card's name and power
+     limit; then the CUDA-core kernel on the captured inputs of one AMT
+     lookup of that path against its plain version (<= 1e-5 max|plain|),
+     timed by events and device against its bound at the float32 peak;
+     (b) `gimmvfi_tpu_torch.bench.main` for `--model r` and `--model f` at
+     736x1280 in this process, each printing one JSON line with its label;
+     (c) GIMMVFI_F(ff_iters=2) float32 at 128x192, GPU vs CPU >= 50 dB, at
+     the default limit and at `corr_max_volume_bytes=0` (exactly 2 x 3
+     CUDA-core launches: only the AMT goes windowed).
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -68,12 +82,14 @@ from a `torch.profiler` trace (`device_ms`; for the probes' library calls
 profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
 counts are set to 0 just before each path (5, the probes of 6, each path
-of 8 and each GPU-vs-CPU run) and read just after it. The line before the last is the kernels' JSON record; the
+of 8, 9 (a) and each GPU-vs-CPU run) and read just after it. The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -83,6 +99,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gimmvfi_tpu_torch import bench
+from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
 from gimmvfi_tpu_torch.ops import corr as corr_ops
@@ -119,6 +137,7 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
 )
 from gimmvfi_tpu_torch.utils.kernel_build import build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
+    H100_F32_FLOPS,
     bound_ms,
     cuda_ms,
     device_ms,
@@ -144,10 +163,7 @@ CONV_CASES = [((1, H, W, 256), 256), ((1, 17, 23, 256), 256), ((2, 33, 40, 64), 
 def check_card() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this check needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = ", ".join(bench.card_info())
     print(smi, flush=True)
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
@@ -241,16 +257,17 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
-                    limit=corr_ops.MAX_VOLUME_BYTES) -> tuple[float, int]:
-    """GPU vs CPU float32 on one small pair, same seeded weights; the
-    card's windowed lookups are float32, so they go to the CUDA-core kernel.
-    Returns (PSNR, that kernel's launches, counted from 0)."""
+                    limit=corr_ops.MAX_VOLUME_BYTES, family=GIMMVFI_R) -> tuple[float, int]:
+    """GPU vs CPU float32 on one small pair, same seeded weights, of
+    `family` with 2 flow iterations; the card's windowed lookups are
+    float32, so they go to the CUDA-core kernel. Returns (PSNR, that
+    kernel's launches, counted from 0)."""
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
-    cpu_model = init_normal_(GIMMVFI_R(raft_iters=2, device="cpu", corr_max_volume_bytes=limit), SEED)
+    cpu_model = init_normal_(family(2, device="cpu", corr_max_volume_bytes=limit), SEED)
     # the card, same seeded weights
-    gpu_model = init_normal_(GIMMVFI_R(raft_iters=2, corr_max_volume_bytes=limit), SEED)
+    gpu_model = init_normal_(family(2, corr_max_volume_bytes=limit), SEED)
     ref = interpolate_sequential(cpu_model, img, ts, ds_factor)["imgt_pred"]
     # the host frames go in as they are: prepare moves them to the card
     reset_counts()
@@ -258,10 +275,13 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
     windowed, mma = WINDOWED_CORR_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
     if got.shape != (len(ts), 1, *hw, 3):
         raise AssertionError(f"imgt_pred shape {tuple(got.shape)}")
-    if windowed != (2 + 2 * len(ts) if limit == 0 else 0) or mma:
+    # RAFT's 2 lookups (FlowFormer's own volume is always materialized),
+    # then the AMT's two a timestep
+    flow_lookups = 2 if family is GIMMVFI_R else 0
+    if windowed != (flow_lookups + 2 * len(ts) if limit == 0 else 0) or mma:
         raise AssertionError(f"{windowed} windowed-correlation launches, {mma} of the mma kernel")
     db = psnr(got, ref)
-    print(f"[{phase}] GIMMVFI_R(raft_iters=2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
+    print(f"[{phase}] {family.__name__}(2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
           f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB "
           f"({windowed} windowed-correlation launches on the card)", flush=True)
     if not db >= 50.0:
@@ -269,12 +289,15 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
     return db, windowed
 
 
-def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str):
+def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
+               cuda_core_expected: int = 0):
     """One main path through `interpolate_sequential`: a warm-up, then the
     timed run with every count set to 0 just before it and read just after;
-    checks the shapes, finiteness, range and launch counts; then the stage
-    split on the same inputs, CUDA events around `prepare` and each
-    `decode_one`. Returns (numbers, the split run's prepare output)."""
+    checks the shapes, finiteness, range and launch counts (14 splats,
+    `windowed_expected` of the tensor-core lookup, `cuda_core_expected` of
+    the CUDA-core one); then the stage split on the same inputs, CUDA events
+    around `prepare` and each `decode_one`. Returns (numbers, the split
+    run's prepare output)."""
     _, _, h, w, _ = img_xs.shape
     scale = ds_factor or 1
     interpolate_sequential(model, img_xs, ts, ds_factor)  # warm-up
@@ -302,10 +325,10 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str)
     lo, hi = float(imgs.min()), float(imgs.max())
     if not (lo >= 0.0 and hi <= 1.0):
         raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
-    if splats != 2 * len(ts) or wins != windowed_expected or cuda_core:
+    if splats != 2 * len(ts) or wins != windowed_expected or cuda_core != cuda_core_expected:
         raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma and {cuda_core} "
                              f"windowed_corr launches, expected {2 * len(ts)}, "
-                             f"{windowed_expected} and 0")
+                             f"{windowed_expected} and {cuda_core_expected}")
     del out, imgs, flows
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
@@ -565,18 +588,18 @@ def check_windowed() -> dict:
 
 
 class LookupRecorder:
-    """Stands in for the tensor-core kernel in `ops.corr` and keeps a copy of
-    the inputs of the calls numbered in `keep` (from 0)."""
+    """Stands in for a windowed kernel in `ops.corr` and keeps a copy of the
+    inputs of the calls numbered in `keep` (from 0)."""
 
-    def __init__(self, keep):
-        self.keep, self.calls, self.inputs = set(keep), 0, {}
+    def __init__(self, keep, kernel=WINDOWED_CORR_MMA_KERNEL):
+        self.keep, self.kernel, self.calls, self.inputs = set(keep), kernel, 0, {}
 
     def __call__(self, wc, coords, radius=4):
         if self.calls in self.keep:
             self.inputs[self.calls] = (WindowedCorr(wc.f1.clone(), tuple(x.clone() for x in wc.f2_levels),
                                                     wc.shape_hw), coords.clone(), radius)
         self.calls += 1
-        return WINDOWED_CORR_MMA_KERNEL(wc, coords, radius)
+        return self.kernel(wc, coords, radius)
 
 
 def path_lookup_readings(model, img_xs, ds) -> dict:
@@ -649,6 +672,81 @@ def run_ds_paths() -> dict:
     return results
 
 
+def cuda_core_reading(wc, coords, label: str) -> dict:
+    """The CUDA-core kernel on these float32 inputs: events and device time
+    against the bound (float32 operations over the CUDA-core peak) and the
+    plain version's time."""
+    nbytes, flops = corr_ops.windowed_corr_work(wc, coords)
+    bound, bound_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
+    call = lambda: WINDOWED_CORR_KERNEL(wc, coords)  # noqa: E731
+    ms = cuda_ms(call, warmup=3)
+    _, by_name = device_ms(call)
+    own = kernel_row(by_name, "windowed_corr_kernel")
+    plain_ms = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
+    print(f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} f32: {WINDOWED_CORR_KERNEL.name} "
+          f"{ms:.4f} ms by events ({fmt_share(bound, ms)}), device {fmt_ms(own)} "
+          f"({fmt_share(bound, own)}); plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 CUDA-core peak)",
+          flush=True)
+    return {"ms": ms, "device_ms": own, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+
+
+def run_f_path(smi: str) -> dict:
+    """Phase 9 (a): GIMMVFI_F(ff_iters=32, bf16) at 720p, 7 timesteps. The
+    float32 feature map's bidirectional volume (2.31 GB) is over the limit,
+    so the AMT looks up the float32 windowed state: 14 CUDA-core launches a
+    pair. Then the flow estimator alone, and the CUDA-core kernel on the
+    inputs of the first AMT lookup of one `decode_one`, captured, against
+    its plain version and timed."""
+    model = init_normal_(GIMMVFI_F(ff_iters=32, dtype=torch.bfloat16), SEED)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    img_xs = torch.rand((1, 2, H, W, 3), generator=gen).cuda()
+    ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
+    res, prep = drive_path(model, img_xs, ts, None, 0, "F 720p", cuda_core_expected=2 * N_T)
+    img0, img1 = 255.0 * prep["img0"], 255.0 * prep["img1"]
+    with torch.inference_mode():
+        res["flow_ms"] = cuda_ms(lambda: model.bidir_flow(img0, img1), iters=3)
+        recorder = LookupRecorder([0], WINDOWED_CORR_KERNEL)
+        corr_ops.WINDOWED_CORR_KERNEL = recorder
+        try:
+            model.decode_one(prep, ts[N_T // 2])
+        finally:
+            corr_ops.WINDOWED_CORR_KERNEL = WINDOWED_CORR_KERNEL
+    print(f"[9] (a) GIMMVFI_F(ff_iters=32) bf16 {H}x{W} 8x, float32 windowed AMT correlation: "
+          f"{path_lines(9, res)}; FlowFormer alone (both directions) {res['flow_ms']:.2f} ms; "
+          f"{smi}", flush=True)
+    if recorder.calls != 2:
+        raise AssertionError(f"decode_one made {recorder.calls} float32 windowed lookups, expected 2")
+    del model, prep, img0, img1, img_xs
+    torch.cuda.empty_cache()
+    wc, coords, radius = recorder.inputs[0]
+    label = "[9] (a) windowed_corr on the F path's first AMT lookup (captured)"
+    res["lookup_max_abs_err"] = windowed_agrees(label, wc, coords, radius)
+    res["lookup"] = cuda_core_reading(wc, coords, label)
+    return res
+
+
+def run_bench_entries() -> dict:
+    """Phase 9 (b): `gimmvfi_tpu_torch.bench.main` for R and F at 720p, in
+    this process; each must print one JSON line, last, with its label."""
+    records = {}
+    for family in ("r", "f"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            record = bench.main(["--model", family])
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"[9] (b) bench --model {family}: {line}", flush=True)
+        label = bench.metric_label(family, "736x1280", None)
+        if (json.loads(lines[-1]) != record or record["metric"] != label
+                or sum(line.startswith("{") for line in lines) != 1):
+            raise AssertionError(f"bench --model {family} printed no single {label} line")
+        records[family] = record
+        torch.cuda.empty_cache()
+    return records
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -681,6 +779,10 @@ def main():
     torch.cuda.empty_cache()
     wstats = check_windowed()
     ds = run_ds_paths()
+    f720 = run_f_path(smi)
+    benches = run_bench_entries()
+    f_db = {label: check_small_e2e(9, (128, 192), None, limit, family=GIMMVFI_F)
+            for label, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES), ("windowed", 0))}
 
     def record(kernel, launches, **numbers):
         return {"name": kernel.name, "route": "cuda", "source": kernel.source,
@@ -710,11 +812,21 @@ def main():
                extent_in_frame=fmt_extent(wstats["in_frame"]),
                extent_smooth=fmt_extent(wstats["smooth"]),
                extent_path_first=fmt_extent(ds["lookups"]["first"])),
-        # the float32 route: launches from the float32 windowed GPU-vs-CPU
-        # path of phase 8; its times are bf16, the tensor-core kernel's "before"
-        record(WINDOWED_CORR_KERNEL, ds["f32_windowed_launches"],
-               max_abs_err=wstats["max_abs_err_cases_f32"], tolerance=wstats["tolerance"],
-               times_dtype="bfloat16", **windowed_numbers("cuda_core")),
+        # the float32 route, on the 720p F path: its launches there and its
+        # times on that path's captured AMT lookup; the bf16_* times are the
+        # tensor-core kernel's "before" at the 2K DS 1.0 lookups
+        record(WINDOWED_CORR_KERNEL, f720["cuda_core_launches"],
+               launches_f720=f720["cuda_core_launches"],
+               launches_f32_gpu_vs_cpu={"r": ds["f32_windowed_launches"],
+                                        "f": f_db["windowed"][1]},
+               max_abs_err=f720["lookup_max_abs_err"],
+               max_abs_err_cases_f32=wstats["max_abs_err_cases_f32"],
+               tolerance=wstats["tolerance"], times_dtype="float32",
+               **{k: f720["lookup"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")},
+               library_ms=None,
+               **{f"bf16_{k}": v for k, v in windowed_numbers("cuda_core").items()
+                  if k != "library_ms"}),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
                ms=conv["kernel_ms"], device_ms=conv["kernel_device_ms"],
                plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
@@ -724,6 +836,9 @@ def main():
         record(GATHERS[name][0], launches[name], max_abs_err=gather_err[name], **gathers[name])
         for name in GATHERS
     ]
+    print(f"[9] F path: {f720['fps']:.4f} fps at 720p; bench lines "
+          f"{json.dumps(benches)}; GPU vs CPU F {f_db['materialized'][0]:.2f} dB materialized, "
+          f"{f_db['windowed'][0]:.2f} dB windowed", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

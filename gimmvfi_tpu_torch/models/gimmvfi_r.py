@@ -56,11 +56,7 @@ class GIMMVFI_R(nn.Module):
         self.corr_max_volume_bytes = corr_max_volume_bytes
         f0, f1 = 256, 128
         skip = f1 // 2
-        self.flow_estimator = RAFT(raft_iters, dtype=dtype, device=device,
-                                   corr_max_volume_bytes=corr_max_volume_bytes)
-        self.amt_last_cproj = conv(128, f0, 1, 1, 0, dtype)
-        self.amt_second_last_cproj = conv(96, f1, 1, 1, 0, dtype)
-        self.amt_fproj = conv(256, f0, 1, 1, 0, dtype)
+        self._setup_flow_estimator(raft_iters, device)
         self.amt_init_decoder = InitDecoder(f0, skip, dtype)
         self.amt_final_decoder = MultiFlowDecoder(f1, skip, dtype)
         self.amt_update4_low = UpdateBlock(scale_factor=2.0, dtype=dtype)
@@ -74,11 +70,27 @@ class GIMMVFI_R(nn.Module):
         self.to(device)
 
     # ------------------------------------------------------------------ flow
+    def _setup_flow_estimator(self, iters, device):
+        """RAFT and the three 1x1 projections R adds on top of it; GIMMVFI_F
+        overrides this."""
+        dt = self.dtype
+        self.flow_estimator = RAFT(iters, dtype=dt, device=device,
+                                   corr_max_volume_bytes=self.corr_max_volume_bytes)
+        self.amt_last_cproj = conv(128, 256, 1, 1, 0, dt)
+        self.amt_second_last_cproj = conv(96, 128, 1, 1, 0, dt)
+        self.amt_fproj = conv(256, 256, 1, 1, 0, dt)
+
+    def bidir_flow(self, img0, img1):
+        """The flow estimator alone, both directions in one batched pass:
+        (flow_up, [feature 1/4, feature 1/8], feature map), forward in rows
+        :N, backward in rows N:. img0/img1 (N, 3, H, W) in [0, 255]."""
+        return self.flow_estimator(img0, img1)
+
     def cal_bidirection_flow(self, img0, img1):
         """Batched bidirectional RAFT, AMT features and the bidirectional
         correlation pyramid. img0/img1 (N, 3, H, W) in [0, 255]."""
         n = img0.shape[0]
-        flow_2n, feats_2n, fnet_2n = self.flow_estimator(img0, img1)
+        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1)
         f01, f10 = flow_2n[:n], flow_2n[n:]
         corr_pyrs = corr_ops.bidir_corr_pyramid_auto(
             self.amt_fproj(fnet_2n[:n]), self.amt_fproj(fnet_2n[n:]),

@@ -29,6 +29,29 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class GemmConv2d(Conv2d):
+    """A stride-1, ungrouped Conv2d computed as unfold + one matmul, with
+    Conv2d's weights, keys and dtype policy. cuDNN 9.2 sends some float32
+    3x3 convs (256 input channels at 92x160, as in FlowFormer's motion
+    encoder at 720p) to an FFT path that takes 390-450 ms a call on an
+    H100; as a GEMM the same conv takes 0.7-1 ms."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.stride != (1, 1) or self.groups != 1 or self.padding_mode != "zeros":
+            raise ValueError("GemmConv2d takes stride 1, groups 1 and zero padding")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.float32
+        n, _, h, w = x.shape
+        (kh, kw), (ph, pw), (dh, dw) = self.kernel_size, self.padding, self.dilation
+        cols = F.unfold(x.to(dt), self.kernel_size, self.dilation, self.padding)
+        out = self.weight.to(dt).flatten(1) @ cols  # (N, Cout, H' * W')
+        if self.bias is not None:
+            out = out + self.bias.to(dt).view(1, -1, 1)
+        return out.view(n, -1, h + 2 * ph - dh * (kh - 1), w + 2 * pw - dw * (kw - 1))
+
+
 class PReLU(nn.Module):
     """Per-channel PReLU that keeps the input's dtype (state key `weight`)."""
 

@@ -15,6 +15,7 @@ from torch.autograd import DeviceType
 from .kernel_build import build_text
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 peak, H100 SXM data sheet
 
 
@@ -118,9 +119,12 @@ def fmt_share(bound: float, value: float | None) -> str:
     return "not measured" if value is None else f"{100 * bound / value:.1f}% of bound"
 
 
-def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float = 0.0,
+             peak_flops: float = H100_BF16_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the HBM
-    rate and bf16 operations over the tensor-core peak, and which bounds it."""
+    rate and operations over the peak for their type (default bf16 on the
+    tensor cores; `H100_F32_FLOPS` for float32 on the CUDA cores), and which
+    bounds it."""
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    by_ops = flops / H100_BF16_FLOPS * 1e3
+    by_ops = flops / peak_flops * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")

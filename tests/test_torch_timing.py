@@ -7,7 +7,14 @@ from types import SimpleNamespace
 import pytest
 from torch.autograd import DeviceType
 
-from gimmvfi_tpu_torch.utils.timing import bound_ms, fmt_ms, fmt_share, kernel_row, per_call_ms
+from gimmvfi_tpu_torch.utils.timing import (
+    H100_F32_FLOPS,
+    bound_ms,
+    fmt_ms,
+    fmt_share,
+    kernel_row,
+    per_call_ms,
+)
 
 
 def _event(key, device_type, count, total_us):
@@ -43,6 +50,16 @@ def test_bound_and_format():
     assert bound_ms(0.0, 989e12)[1] == "operations"
     assert fmt_ms(None) == "none in the trace"
     assert fmt_ms(1.23456, 2) == "1.23 ms"
+
+
+def test_float32_bound_takes_the_cuda_core_peak():
+    """67 TFLOP/s for float32 outside the tensor cores (H100 SXM data
+    sheet): the same operations bound 989 / 67 times later than in bf16."""
+    assert H100_F32_FLOPS == 67e12
+    assert bound_ms(0.0, 67e9, H100_F32_FLOPS) == (pytest.approx(1.0), "operations")
+    ms, by = bound_ms(3.35e9 / 2, 67e9, H100_F32_FLOPS)  # 0.5 ms of bytes, 1 ms of ops
+    assert by == "operations" and ms == pytest.approx(1.0)
+    assert bound_ms(3.35e9, 67e9)[1] == "bytes"  # at the bf16 peak the bytes bound it
 
 
 def test_kernel_row_of_a_trace_with_and_without_device_rows():
