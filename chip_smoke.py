@@ -8,9 +8,12 @@ its bench entry and its two probe entry points once on one CUDA card.
 Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
-     windowed_corr_mma.cu, windowed_corr.cu, conv3x3.cu, gather_probe.cu)
-     all at once, one nvcc each; counts the HMMA (tensor-core) instructions
-     in windowed_corr_mma's SASS (`cuobjdump -sass`) and fails on none;
+     windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
+     conv3x3.cu, gather_probe.cu) all at once, one nvcc each; counts the
+     HMMA (tensor-core) instructions in the SASS of windowed_corr_mma and
+     windowed_corr_tf32 (`cuobjdump -sass`) and fails on none; prints the
+     shared memory a block and the blocks an SM of windowed_corr_tf32 at
+     C = 256, from its library;
   3. the splat kernel against its plain PyTorch version on the card, float32,
      in every case of `tools/splat_ablate.py: CHECK_CASES` (the main path's
      (1,736,1280,17) on a random, a smooth and a non-finite/far flow field;
@@ -33,47 +36,57 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      `gather_cost_probe.main` (torch.gather / torch.sort table, kernels),
      each of whose kernels must launch; then the launch floor, the device
      time of an empty kernel, and each gather against max(floor, bound);
-  7. the windowed lookup's two kernels against the plain version on the
-     card, each through the route (`ops/corr.py: windowed_corr_kernel_for`:
-     bf16 to the tensor-core `windowed_corr_mma.cu`, float32 to the
-     CUDA-core `windowed_corr.cu`; `tools/windowed_ablate.py:
+  7. the windowed lookup's kernels against the plain version on the card,
+     each through the route (`ops/corr.py: windowed_corr_kernel_for`: bf16
+     to the tensor-core `windowed_corr_mma.cu`, float32 to the 3xTF32
+     tensor-core `windowed_corr_tf32.cu`; `tools/windowed_ablate.py:
      windowed_agreement`: float32 <= 1e-5 of the largest value, bf16 within
-     one bf16 step, NaN at the same places), in `WINDOWED_CASES` and
-     `MMA_CASES` (C = 256 and small C, an odd level size, in-frame, smooth,
-     border and far or non-finite coordinates, each float32 case also in
-     bf16), and at the shapes the 2048x1088 DS 1.0 path gives it (RAFT's
-     (2,136,256) and the AMT's (1,136,256), C = 256, bf16) on in-frame and
-     smooth coordinates; the float32 lookup against the materialized
-     `corr_lookup` at the 720p fmap (92x160, C = 256, <= 1e-4); then both
-     kernels timed in bf16 in the same run, against the bound, with the
-     tile walk's union extent (`mma_tile_extents`): at the 2048x1088 DS 1.0
-     RAFT lookup on in-frame and smooth coordinates, at 720p beside the
-     materialized lookup, and (after phase 8 (c)) on the inputs of the
+     one bf16 step, NaN at the same places), in `WINDOWED_CASES`,
+     `MMA_CASES` and `TF32_CASES` (C = 256 and small C, C = 200, an odd
+     level size, in-frame, smooth, border and far or non-finite
+     coordinates, each float32 case also in bf16), at the shapes the
+     2048x1088 DS 1.0 path gives it (RAFT's (2,136,256) and the AMT's
+     (1,136,256), C = 256, bf16) and the 720p F path's AMT shape
+     (1,92,160), C = 256, float32, on in-frame and smooth coordinates; the
+     float32 lookup against the materialized `corr_lookup` at the 720p
+     fmap (92x160, C = 256, <= 1e-4); the CUDA-core `windowed_corr.cu`,
+     called directly, on the float32 cases of `WINDOWED_CASES`; then the
+     bf16 kernel and the CUDA-core one, each checked on the inputs first,
+     timed in bf16 in the same run, against the bound, with
+     the tile walk's union extent (`mma_tile_extents`): at the 2048x1088
+     DS 1.0 RAFT lookup on in-frame and smooth coordinates, at 720p beside
+     the materialized lookup, and (after phase 8 (c)) on the inputs of the
      first and last RAFT lookups of a `prepare` of that path, captured;
   8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
      (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
      1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
      checks shapes, finiteness, range, 14 splat launches and exactly 0, 0
-     and 20 + 2 x 7 launches of the tensor-core windowed kernel, and none
-     of the CUDA-core one; prints fps, the prepare/decode_one
-     split and peak memory (beside the reference's V100 envelopes for (a)
-     and (b)); then GPU vs CPU float32 >= 50 dB with the windowed path
-     forced at 128x192 (float32 lookups: the CUDA-core kernel, 8 launches
-     counted from 0) and with DS 0.5 at 256x384;
+     and 20 + 2 x 7 launches of the bf16 tensor-core windowed kernel, and
+     none of the float32 or the CUDA-core one; prints fps, the
+     prepare/decode_one split and peak memory (beside the reference's V100
+     envelopes for (a) and (b)); then GPU vs CPU float32 >= 50 dB with the
+     windowed path forced at 128x192 (float32 lookups: the 3xTF32 kernel,
+     8 launches counted from 0) and with DS 0.5 at 256x384;
   9. GIMM-VFI-F: (a) GIMMVFI_F(ff_iters=32, dtype=bfloat16) on the seeded
      736x1280 pair, 7 timesteps, through `drive_path`: shape, finiteness,
-     range, exactly 14 splat, 14 `windowed_corr` and 0 `windowed_corr_mma`
-     launches (FlowFormer's float32 feature map gives a 2.31 GB volume,
-     over the limit, so the AMT takes the float32 windowed route); fps,
-     split, peak and FlowFormer alone beside the card's name and power
-     limit; then the CUDA-core kernel on the captured inputs of one AMT
-     lookup of that path against its plain version (<= 1e-5 max|plain|),
-     timed by events and device against its bound at the float32 peak;
+     range, exactly 14 splat, 14 `windowed_corr_tf32`, 0 `windowed_corr`
+     and 0 `windowed_corr_mma` launches (FlowFormer's float32 feature map
+     gives a 2.31 GB volume, over the limit, so the AMT takes the float32
+     windowed route); fps, split, peak and FlowFormer alone beside the
+     card's name and power limit; then, on the captured inputs of one AMT
+     lookup of that path, the routed 3xTF32 kernel and the CUDA-core
+     kernel against the plain version (<= 1e-5 max|plain|) and the
+     3xTF32 kernel against the materialized `corr_lookup` over a pyramid
+     of the same maps (<= 1e-4 max); the two kernels and that materialized
+     lookup timed in the same run by events and device time, each kernel
+     against its own bound (the 3xTF32 kernel: its bytes, or three TF32
+     products a float32 one at the TF32 tensor-core peak; the CUDA-core
+     kernel: float32 operations at the CUDA-core peak);
      (b) `gimmvfi_tpu_torch.bench.main` for `--model r` and `--model f` at
      736x1280 in this process, each printing one JSON line with its label;
      (c) GIMMVFI_F(ff_iters=2) float32 at 128x192, GPU vs CPU >= 50 dB, at
      the default limit and at `corr_max_volume_bytes=0` (exactly 2 x 3
-     CUDA-core launches: only the AMT goes windowed).
+     3xTF32 launches: only the AMT goes windowed).
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -89,8 +102,10 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -107,6 +122,7 @@ from gimmvfi_tpu_torch.ops import corr as corr_ops
 from gimmvfi_tpu_torch.ops.corr import (
     WINDOWED_CORR_KERNEL,
     WINDOWED_CORR_MMA_KERNEL,
+    WINDOWED_CORR_TF32_KERNEL,
     WindowedCorr,
     windowed_corr_lookup_plain,
 )
@@ -117,14 +133,18 @@ from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
 from gimmvfi_tpu_torch.tools.windowed_ablate import (
     AMT_2K,
+    F_AMT_720P,
     MMA_CASES,
     PATH_KINDS,
     RAFT_2K,
     RAFT_720P,
+    TF32_CASES,
     WINDOWED_CASES,
     extent_summary,
+    f32_lookup_bounds,
     fmt_extent,
     mma_tile_extents,
+    tf32_config,
     windowed_agreement,
     windowed_inputs,
 )
@@ -135,9 +155,9 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
     splat_bound,
     splat_inputs,
 )
-from gimmvfi_tpu_torch.utils.kernel_build import build_libraries, find_nvcc, library_path
+from gimmvfi_tpu_torch.utils.kernel_build import CSRC, build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
-    H100_F32_FLOPS,
+    H100_BYTES_PER_S,
     bound_ms,
     cuda_ms,
     device_ms,
@@ -151,7 +171,8 @@ H, W = 736, 1280
 N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
-KERNELS = [SPLAT_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
+KERNELS = [SPLAT_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL,
+           WINDOWED_CORR_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
 # 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
@@ -186,13 +207,20 @@ def build_kernels():
         print(f"[2] {name}: wgmma.mma_async serialised by ptxas: "
               f"{'yes: ' + ' | '.join(serial) if serial else 'no'}", flush=True)
     print(f"[2] {len(logs)} sources built in parallel in {dt:.2f} s", flush=True)
-    name = Path(WINDOWED_CORR_MMA_KERNEL.source).name
-    sass = subprocess.run([str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
-                           str(library_path(name))], capture_output=True, text=True, check=True)
-    hmma = sum("HMMA" in ln for ln in sass.stdout.splitlines())
-    print(f"[2] {name}: {hmma} HMMA instructions in its SASS (cuobjdump -sass)", flush=True)
-    if not hmma:
-        raise AssertionError(f"{name} holds no tensor-core instruction")
+    for kernel in (WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL):
+        name = Path(kernel.source).name
+        sass = subprocess.run([str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
+                               str(library_path(name))], capture_output=True, text=True, check=True)
+        hmma = sum("HMMA" in ln for ln in sass.stdout.splitlines())
+        print(f"[2] {name}: {hmma} HMMA instructions in its SASS (cuobjdump -sass)", flush=True)
+        if not hmma:
+            raise AssertionError(f"{name} holds no tensor-core instruction")
+    name = Path(WINDOWED_CORR_TF32_KERNEL.source).name
+    warps = tf32_config((CSRC / name).read_text())[0]
+    lib = ctypes.CDLL(str(library_path(name)))
+    print(f"[2] {name}: {lib.windowed_corr_tf32_smem_bytes(256)} B of shared memory a block, "
+          f"{lib.windowed_corr_tf32_blocks_per_sm(256)} blocks of {warps} warps an SM at C=256",
+          flush=True)
 
 
 def splat_reading(vals, flow, label: str) -> dict:
@@ -260,8 +288,8 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
                     limit=corr_ops.MAX_VOLUME_BYTES, family=GIMMVFI_R) -> tuple[float, int]:
     """GPU vs CPU float32 on one small pair, same seeded weights, of
     `family` with 2 flow iterations; the card's windowed lookups are
-    float32, so they go to the CUDA-core kernel. Returns (PSNR, that
-    kernel's launches, counted from 0)."""
+    float32, so they go to the 3xTF32 kernel. Returns (PSNR, that kernel's
+    launches, counted from 0)."""
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
@@ -272,14 +300,16 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
     # the host frames go in as they are: prepare moves them to the card
     reset_counts()
     got = interpolate_sequential(gpu_model, img, ts, ds_factor)["imgt_pred"].cpu()
-    windowed, mma = WINDOWED_CORR_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
+    windowed, mma = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
+    cuda_core = WINDOWED_CORR_KERNEL.launches
     if got.shape != (len(ts), 1, *hw, 3):
         raise AssertionError(f"imgt_pred shape {tuple(got.shape)}")
     # RAFT's 2 lookups (FlowFormer's own volume is always materialized),
     # then the AMT's two a timestep
     flow_lookups = 2 if family is GIMMVFI_R else 0
-    if windowed != (flow_lookups + 2 * len(ts) if limit == 0 else 0) or mma:
-        raise AssertionError(f"{windowed} windowed-correlation launches, {mma} of the mma kernel")
+    if windowed != (flow_lookups + 2 * len(ts) if limit == 0 else 0) or mma or cuda_core:
+        raise AssertionError(f"{windowed} float32 windowed-correlation launches, {mma} of the "
+                             f"bf16 kernel, {cuda_core} of the CUDA-core one")
     db = psnr(got, ref)
     print(f"[{phase}] {family.__name__}(2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
           f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB "
@@ -290,14 +320,14 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
 
 
 def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
-               cuda_core_expected: int = 0):
+               tf32_expected: int = 0):
     """One main path through `interpolate_sequential`: a warm-up, then the
     timed run with every count set to 0 just before it and read just after;
     checks the shapes, finiteness, range and launch counts (14 splats,
-    `windowed_expected` of the tensor-core lookup, `cuda_core_expected` of
-    the CUDA-core one); then the stage split on the same inputs, CUDA events
-    around `prepare` and each `decode_one`. Returns (numbers, the split
-    run's prepare output)."""
+    `windowed_expected` of the bf16 tensor-core lookup, `tf32_expected` of
+    the float32 one, none of the CUDA-core one); then the stage split on the
+    same inputs, CUDA events around `prepare` and each `decode_one`.
+    Returns (numbers, the split run's prepare output)."""
     _, _, h, w, _ = img_xs.shape
     scale = ds_factor or 1
     interpolate_sequential(model, img_xs, ts, ds_factor)  # warm-up
@@ -311,7 +341,7 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     end.record()
     end.synchronize()
     splats, wins = SPLAT_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
-    cuda_core = WINDOWED_CORR_KERNEL.launches
+    tf32, cuda_core = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_KERNEL.launches
     total_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated()
 
@@ -325,10 +355,11 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     lo, hi = float(imgs.min()), float(imgs.max())
     if not (lo >= 0.0 and hi <= 1.0):
         raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
-    if splats != 2 * len(ts) or wins != windowed_expected or cuda_core != cuda_core_expected:
-        raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma and {cuda_core} "
-                             f"windowed_corr launches, expected {2 * len(ts)}, "
-                             f"{windowed_expected} and {cuda_core_expected}")
+    if (splats != 2 * len(ts) or wins != windowed_expected or tf32 != tf32_expected
+            or cuda_core != 0):
+        raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma, {tf32} "
+                             f"windowed_corr_tf32 and {cuda_core} windowed_corr launches, expected "
+                             f"{2 * len(ts)}, {windowed_expected}, {tf32_expected} and 0")
     del out, imgs, flows
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
@@ -344,13 +375,14 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     return {"fps": len(ts) / (total_ms / 1000), "pair_ms": total_ms,
             "prepare_ms": events[0].elapsed_time(events[1]),
             "decode_ms": statistics.mean(decode_ms), "peak_bytes": peak,
-            "splat_launches": splats, "windowed_launches": wins,
+            "splat_launches": splats, "windowed_launches": wins, "tf32_launches": tf32,
             "cuda_core_launches": cuda_core, "range": (lo, hi)}, prep
 
 
 def path_lines(phase: int, res: dict) -> str:
     return (f"imgt_pred finite in [{res['range'][0]:.4f}, {res['range'][1]:.4f}]; splat launches "
             f"{res['splat_launches']}, windowed_corr_mma launches {res['windowed_launches']}, "
+            f"windowed_corr_tf32 launches {res['tf32_launches']}, "
             f"windowed_corr launches {res['cuda_core_launches']}\n"
             f"[{phase}] {res['fps']:.4f} fps ({res['pair_ms']:.2f} ms per pair); prepare "
             f"{res['prepare_ms']:.2f} ms; decode_one mean {res['decode_ms']:.2f} ms; peak "
@@ -467,14 +499,16 @@ def run_probes() -> tuple[dict, dict, dict]:
     return conv, gathers, launches
 
 
-def windowed_agrees(label: str, wc, coords, radius: int = 4) -> float:
-    """The routed kernel (`windowed_corr_kernel_for` the features' dtype)
-    against the plain version on these inputs, by `windowed_agreement`'s
-    tolerance; checks that the routed kernel launched once; prints the line
-    and raises on disagreement. Returns the max-abs error."""
-    kernel = corr_ops.windowed_corr_kernel_for(wc.f1.dtype)
+def windowed_agrees(label: str, wc, coords, radius: int = 4, kernel=None) -> float:
+    """The routed kernel (`windowed_corr_kernel_for` the features' dtype), or
+    `kernel` called directly, against the plain version on these inputs, by
+    `windowed_agreement`'s tolerance; checks that the kernel launched once;
+    prints the line and raises on disagreement. Returns the max-abs error."""
+    routed = kernel is None
+    kernel = corr_ops.windowed_corr_kernel_for(wc.f1.dtype) if routed else kernel
     before = kernel.launches
-    got = corr_ops.windowed_corr_lookup(wc, coords, radius)
+    got = (corr_ops.windowed_corr_lookup(wc, coords, radius) if routed
+           else kernel(wc, coords.float().contiguous(), radius))
     ref = windowed_corr_lookup_plain(wc, coords, radius)
     torch.cuda.synchronize()
     if kernel.launches != before + 1:
@@ -494,16 +528,19 @@ WINDOWED_TIMED = [("mma", WINDOWED_CORR_MMA_KERNEL, "windowed_corr_mma_kernel"),
 
 
 def windowed_reading(wc, coords, label: str, levels_mat=None) -> dict:
-    """Both windowed kernels on the same bf16 inputs, in the same run: events
-    and device time of each against the bound; the tile walk's extents; with
-    `levels_mat` (a materialized pyramid of the same maps), that lookup's
-    times beside them."""
+    """Both windowed kernels on the same bf16 inputs, in the same run, each
+    checked against the plain version first: events and device time of each
+    against the bound; the tile walk's extents; with `levels_mat` (a
+    materialized pyramid of the same maps), that lookup's times beside
+    them."""
     nbytes, flops = corr_ops.windowed_corr_work(wc, coords)
     bound, bound_by = bound_ms(nbytes, flops)
     ext = extent_summary(mma_tile_extents(wc, coords), wc.f1.shape[-1])
     out = {"bound_ms": bound, "bound_by": bound_by, "bytes": nbytes, "flops": flops, **ext}
     parts = []
     for key, kernel, row in WINDOWED_TIMED:
+        out[f"{key}_max_abs_err"] = windowed_agrees(f"{label}, {kernel.name} called directly",
+                                                    wc, coords, kernel=kernel)
         call = lambda k=kernel: k(wc, coords)  # noqa: E731
         ms = cuda_ms(call, warmup=3)
         _, by_name = device_ms(call)
@@ -527,16 +564,23 @@ def windowed_reading(wc, coords, label: str, levels_mat=None) -> dict:
 
 def check_windowed() -> dict:
     """Phase 7: the routed windowed kernels against the plain version in the
-    check cases (float32 on the CUDA-core kernel, bf16 on the tensor-core
-    one) and at the 2K DS 1.0 path's two lookup shapes on in-frame and
-    smooth coordinates; the float32 lookup against the materialized one;
-    then both kernels' times in bf16."""
+    check cases (float32 on the 3xTF32 kernel, bf16 on the bf16 tensor-core
+    one), at the 2K DS 1.0 path's two lookup shapes and the 720p F path's
+    AMT shape on in-frame and smooth coordinates; the float32 lookup against
+    the materialized one; then the bf16 kernel's and the CUDA-core kernel's
+    times in bf16."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (c, dtype, kind, radius, levels, shape) in enumerate(WINDOWED_CASES + MMA_CASES):
+    cuda_core_err = 0.0
+    cases = WINDOWED_CASES + MMA_CASES + TF32_CASES
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(cases):
         wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + i)
-        err = windowed_agrees(f"[7] windowed {shape} C={c} {str(dtype)[6:]} r={radius} "
-                              f"L={levels} {kind}", wc, coords, radius)
-        worst[dtype] = max(worst[dtype], err)
+        label = f"[7] windowed {shape} C={c} {str(dtype)[6:]} r={radius} L={levels} {kind}"
+        worst[dtype] = max(worst[dtype], windowed_agrees(label, wc, coords, radius))
+        # the CUDA-core kernel, timed beside the tensor-core ones, on the
+        # float32 cases the route sent it before the 3xTF32 kernel
+        if i < len(WINDOWED_CASES) and dtype == torch.float32:
+            cuda_core_err = max(cuda_core_err, windowed_agrees(
+                f"{label}, called directly", wc, coords, radius, kernel=WINDOWED_CORR_KERNEL))
 
     # the shapes the 2K DS 1.0 path gives it: RAFT's (both directions) and
     # the AMT's (one direction)
@@ -549,6 +593,12 @@ def check_windowed() -> dict:
                 f"{kind}", wc, coords))
             del wc, coords
             torch.cuda.empty_cache()
+    for kind in PATH_KINDS:
+        wc, coords, _ = windowed_inputs(F_AMT_720P, 256, torch.float32, kind, seed=SEED)
+        worst[torch.float32] = max(worst[torch.float32], windowed_agrees(
+            f"[7] windowed at the 720p F AMT lookup {F_AMT_720P} C=256 f32 r=4 L=4 {kind}",
+            wc, coords))
+        del wc, coords
 
     # the identity the windowed path rests on, at the 720p fmap
     wc, coords, (f1, f2) = windowed_inputs((1, 92, 160), 256, torch.float32, "in_frame")
@@ -556,7 +606,7 @@ def check_windowed() -> dict:
     ref = corr_ops.corr_lookup(corr_ops.corr_pyramid(f1, f2), coords)
     torch.cuda.synchronize()
     err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-    print(f"[7] windowed_corr vs materialized corr_lookup (1, 92, 160) C=256 f32: "
+    print(f"[7] windowed_corr_tf32 vs materialized corr_lookup (1, 92, 160) C=256 f32: "
           f"max_abs_err {err:.3e}, max|materialized| {scale:.3e}", flush=True)
     if not err <= 1e-4 * scale:
         raise AssertionError("windowed and materialized lookups disagree at 720p")
@@ -565,6 +615,7 @@ def check_windowed() -> dict:
 
     stats = {"path_err": path_err, "max_abs_err_cases_f32": worst[torch.float32],
              "max_abs_err_cases_bf16": worst[torch.bfloat16],
+             "cuda_core_max_abs_err_cases_f32": cuda_core_err,
              "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|"}
     for kind in PATH_KINDS:
         wc, coords, _ = windowed_inputs(RAFT_2K, 256, torch.bfloat16, kind)
@@ -672,58 +723,118 @@ def run_ds_paths() -> dict:
     return results
 
 
-def cuda_core_reading(wc, coords, label: str) -> dict:
-    """The CUDA-core kernel on these float32 inputs: events and device time
-    against the bound (float32 operations over the CUDA-core peak) and the
-    plain version's time."""
-    nbytes, flops = corr_ops.windowed_corr_work(wc, coords)
-    bound, bound_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
-    call = lambda: WINDOWED_CORR_KERNEL(wc, coords)  # noqa: E731
-    ms = cuda_ms(call, warmup=3)
-    _, by_name = device_ms(call)
-    own = kernel_row(by_name, "windowed_corr_kernel")
-    plain_ms = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
-    print(f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} f32: {WINDOWED_CORR_KERNEL.name} "
-          f"{ms:.4f} ms by events ({fmt_share(bound, ms)}), device {fmt_ms(own)} "
-          f"({fmt_share(bound, own)}); plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}: "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 CUDA-core peak)",
+# (record key, wrapper, the kernel's row in a trace) of the float32 kernels
+F32_TIMED = [("tf32", WINDOWED_CORR_TF32_KERNEL, "windowed_corr_tf32_kernel"),
+             ("cuda_core", WINDOWED_CORR_KERNEL, "windowed_corr_kernel")]
+
+
+def f32_lookup_reading(wc, coords, label: str) -> dict:
+    """The two float32 windowed kernels on these inputs in the same run, by
+    events and device time, each against its bound (`f32_lookup_bounds`:
+    the 3xTF32 kernel's three TF32 products a float32 one at the TF32
+    tensor-core peak, or its bytes; the CUDA-core kernel's float32
+    operations at the CUDA-core peak); the CUDA-core kernel checked
+    against the plain version and the 3xTF32 one against the materialized
+    `corr_lookup` over a pyramid of the same maps (<= 1e-4 of the largest
+    value), whose lookup is timed beside them (the pyramid is built before
+    the clock starts); the plain version's time."""
+    bounds = f32_lookup_bounds(wc, coords)
+    nbytes, flops = bounds["bytes"], bounds["flops"]
+    out = {"bytes_bound_ms": 1e3 * nbytes / H100_BYTES_PER_S, "bytes": nbytes, "flops": flops}
+    for key in ("tf32", "cuda_core"):
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = bounds[key]
+    out["cuda_core_max_abs_err"] = windowed_agrees(
+        f"{label}, {WINDOWED_CORR_KERNEL.name} called directly", wc, coords,
+        kernel=WINDOWED_CORR_KERNEL)
+    n, _, c = wc.f1.shape
+    h, w = coords.shape[-2:]
+    fmap1 = (wc.f1 * math.sqrt(c)).transpose(1, 2).reshape(n, c, h, w)
+    levels = corr_ops.corr_pyramid(fmap1, wc.f2_levels[0].permute(0, 3, 1, 2), len(wc.f2_levels))
+    got = WINDOWED_CORR_TF32_KERNEL(wc, coords)
+    ref = corr_ops.corr_lookup(levels, coords)
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"{label}: {WINDOWED_CORR_TF32_KERNEL.name} vs materialized corr_lookup: max_abs_err "
+          f"{err:.3e}, max|materialized| {scale:.3e}", flush=True)
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"{label}: the 3xTF32 lookup and the materialized one disagree")
+    parts = []
+    for key, kernel, row in F32_TIMED:
+        call = lambda k=kernel: k(wc, coords)  # noqa: E731
+        ms = cuda_ms(call, warmup=3)
+        _, by_name = device_ms(call)
+        own = kernel_row(by_name, row)
+        out[f"{key}_ms"], out[f"{key}_device_ms"] = ms, own
+        bound = out[f"{key}_bound_ms"]
+        parts.append(f"{kernel.name} {ms:.4f} ms by events ({fmt_share(bound, ms)}), device "
+                     f"{fmt_ms(own)} ({fmt_share(bound, own)} {bound:.4f} ms, "
+                     f"{out[f'{key}_bound_by']})")
+    mat = lambda: corr_ops.corr_lookup(levels, coords)  # noqa: E731
+    out["materialized_ms"] = cuda_ms(mat, warmup=3)
+    out["materialized_device_ms"], _ = device_ms(mat)
+    out["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
+    ext = extent_summary(mma_tile_extents(wc, coords), c, 4)
+    out["extent"] = fmt_extent(ext)
+    print(f"{label} {tuple(coords.shape)} C={c} f32: {'; '.join(parts)}; materialized "
+          f"corr_lookup (grid_sample over the float32 volume) {out['materialized_ms']:.4f} ms "
+          f"by events, device {fmt_ms(out['materialized_device_ms'])}; plain "
+          f"{out['plain_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP float32 (x3 in TF32), "
+          f"{nbytes / 1e6:.1f} MB: {out['bytes_bound_ms']:.4f} ms; tile walk: {out['extent']}",
           flush=True)
-    return {"ms": ms, "device_ms": own, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    return out
+
+
+def decode_turns(model, prep, tv, iters: int = 5) -> dict:
+    """`decode_one` by CUDA events with the float32 route's kernel as it is
+    and with the CUDA-core kernel in its place, in turns (3xTF32, CUDA
+    core, CUDA core, 3xTF32): the lookups' change end to end, in one run."""
+    times = {"tf32": [], "cuda_core": []}
+    for key in ("tf32", "cuda_core", "cuda_core", "tf32"):
+        corr_ops.WINDOWED_CORR_TF32_KERNEL = (WINDOWED_CORR_TF32_KERNEL if key == "tf32"
+                                              else WINDOWED_CORR_KERNEL)
+        try:
+            with torch.inference_mode():
+                times[key].append(cuda_ms(lambda: model.decode_one(prep, tv), iters=iters))
+        finally:
+            corr_ops.WINDOWED_CORR_TF32_KERNEL = WINDOWED_CORR_TF32_KERNEL
+    return {k: statistics.mean(v) for k, v in times.items()}
 
 
 def run_f_path(smi: str) -> dict:
     """Phase 9 (a): GIMMVFI_F(ff_iters=32, bf16) at 720p, 7 timesteps. The
     float32 feature map's bidirectional volume (2.31 GB) is over the limit,
-    so the AMT looks up the float32 windowed state: 14 CUDA-core launches a
-    pair. Then the flow estimator alone, and the CUDA-core kernel on the
-    inputs of the first AMT lookup of one `decode_one`, captured, against
-    its plain version and timed."""
+    so the AMT looks up the float32 windowed state: 14 launches of the
+    3xTF32 kernel a pair. Then the flow estimator alone, `decode_one` with
+    either float32 kernel in turns, and both kernels on the inputs of the
+    first AMT lookup of one `decode_one`, captured: checked and timed."""
     model = init_normal_(GIMMVFI_F(ff_iters=32, dtype=torch.bfloat16), SEED)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     img_xs = torch.rand((1, 2, H, W, 3), generator=gen).cuda()
     ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
-    res, prep = drive_path(model, img_xs, ts, None, 0, "F 720p", cuda_core_expected=2 * N_T)
+    res, prep = drive_path(model, img_xs, ts, None, 0, "F 720p", tf32_expected=2 * N_T)
     img0, img1 = 255.0 * prep["img0"], 255.0 * prep["img1"]
     with torch.inference_mode():
         res["flow_ms"] = cuda_ms(lambda: model.bidir_flow(img0, img1), iters=3)
-        recorder = LookupRecorder([0], WINDOWED_CORR_KERNEL)
-        corr_ops.WINDOWED_CORR_KERNEL = recorder
+        recorder = LookupRecorder([0], WINDOWED_CORR_TF32_KERNEL)
+        corr_ops.WINDOWED_CORR_TF32_KERNEL = recorder
         try:
             model.decode_one(prep, ts[N_T // 2])
         finally:
-            corr_ops.WINDOWED_CORR_KERNEL = WINDOWED_CORR_KERNEL
+            corr_ops.WINDOWED_CORR_TF32_KERNEL = WINDOWED_CORR_TF32_KERNEL
+    res["decode_turns"] = decode_turns(model, prep, ts[N_T // 2])
     print(f"[9] (a) GIMMVFI_F(ff_iters=32) bf16 {H}x{W} 8x, float32 windowed AMT correlation: "
           f"{path_lines(9, res)}; FlowFormer alone (both directions) {res['flow_ms']:.2f} ms; "
-          f"{smi}", flush=True)
+          f"decode_one at t={ts[N_T // 2]} in turns: {res['decode_turns']['tf32']:.3f} ms with "
+          f"{WINDOWED_CORR_TF32_KERNEL.name}, {res['decode_turns']['cuda_core']:.3f} ms with "
+          f"{WINDOWED_CORR_KERNEL.name}; {smi}", flush=True)
     if recorder.calls != 2:
         raise AssertionError(f"decode_one made {recorder.calls} float32 windowed lookups, expected 2")
     del model, prep, img0, img1, img_xs
     torch.cuda.empty_cache()
     wc, coords, radius = recorder.inputs[0]
-    label = "[9] (a) windowed_corr on the F path's first AMT lookup (captured)"
+    label = "[9] (a) the F path's first AMT lookup (captured)"
     res["lookup_max_abs_err"] = windowed_agrees(label, wc, coords, radius)
-    res["lookup"] = cuda_core_reading(wc, coords, label)
+    res["lookup"] = f32_lookup_reading(wc, coords, label)
     return res
 
 
@@ -802,6 +913,7 @@ def main():
         out["p720_materialized_device_ms"] = wstats["p720"]["materialized_device_ms"]
         return out
 
+    lk = f720["lookup"]
     records = [
         record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat),
         record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
@@ -813,18 +925,32 @@ def main():
                extent_smooth=fmt_extent(wstats["smooth"]),
                extent_path_first=fmt_extent(ds["lookups"]["first"])),
         # the float32 route, on the 720p F path: its launches there and its
-        # times on that path's captured AMT lookup; the bf16_* times are the
-        # tensor-core kernel's "before" at the 2K DS 1.0 lookups
-        record(WINDOWED_CORR_KERNEL, f720["cuda_core_launches"],
-               launches_f720=f720["cuda_core_launches"],
+        # times on that path's captured AMT lookup, beside the materialized
+        # float32 lookup's (library_ms stays null: no PyTorch call computes
+        # the lookup from the same inputs)
+        record(WINDOWED_CORR_TF32_KERNEL, f720["tf32_launches"],
                launches_f32_gpu_vs_cpu={"r": ds["f32_windowed_launches"],
                                         "f": f_db["windowed"][1]},
                max_abs_err=f720["lookup_max_abs_err"],
                max_abs_err_cases_f32=wstats["max_abs_err_cases_f32"],
-               tolerance=wstats["tolerance"], times_dtype="float32",
-               **{k: f720["lookup"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                 "bound_by")},
-               library_ms=None,
+               tolerance=wstats["tolerance"], ms=lk["tf32_ms"], device_ms=lk["tf32_device_ms"],
+               plain_ms=lk["plain_ms"], bound_ms=lk["tf32_bound_ms"], bound_by=lk["tf32_bound_by"],
+               bytes_bound_ms=lk["bytes_bound_ms"], library_ms=None,
+               materialized_ms=lk["materialized_ms"],
+               materialized_device_ms=lk["materialized_device_ms"], extent=lk["extent"],
+               decode_one_ms=f720["decode_turns"]["tf32"]),
+        # the "before" kernel, on no path: its times on the same captured
+        # lookup in the same run; the bf16_* times are the bf16 tensor-core
+        # kernel's "before" at the 2K DS 1.0 lookups
+        record(WINDOWED_CORR_KERNEL, f720["cuda_core_launches"],
+               max_abs_err=lk["cuda_core_max_abs_err"],
+               max_abs_err_cases_f32=wstats["cuda_core_max_abs_err_cases_f32"],
+               max_abs_err_bf16_timed=max(wstats[k]["cuda_core_max_abs_err"]
+                                          for k in PATH_KINDS + ("p720",)),
+               tolerance=wstats["tolerance"], times_dtype="float32", ms=lk["cuda_core_ms"],
+               device_ms=lk["cuda_core_device_ms"], plain_ms=lk["plain_ms"],
+               bound_ms=lk["cuda_core_bound_ms"], bound_by=lk["cuda_core_bound_by"],
+               library_ms=None, decode_one_ms=f720["decode_turns"]["cuda_core"],
                **{f"bf16_{k}": v for k, v in windowed_numbers("cuda_core").items()
                   if k != "library_ms"}),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,

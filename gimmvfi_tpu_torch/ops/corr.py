@@ -11,10 +11,11 @@ Windowed path, taken when the volume would pass `max_volume_bytes`
 volume, which is linear in fmap2, so a lookup can sample the pooled
 target *features* and dot them with the query feature on the fly. The
 state (`WindowedCorr`) is O(HW*C) instead of O((HW)^2). Its lookup is a
-hand-written CUDA kernel for CUDA tensors, `csrc/windowed_corr_mma.cu`
-(tensor cores) in bf16 and `csrc/windowed_corr.cu` (CUDA cores) in
-float32, and `windowed_corr_lookup_plain` for CPU tensors; a CUDA tensor
-launches its kernel or raises.
+hand-written CUDA kernel for CUDA tensors, on the tensor cores:
+`csrc/windowed_corr_mma.cu` in bf16 and `csrc/windowed_corr_tf32.cu`
+(3xTF32) in float32; `windowed_corr_lookup_plain` for CPU tensors. A CUDA
+tensor launches its kernel or raises. `csrc/windowed_corr.cu` (CUDA cores)
+takes both dtypes; no route sends it a lookup.
 """
 
 from __future__ import annotations
@@ -221,8 +222,9 @@ def windowed_corr_lookup_plain(wc: WindowedCorr, coords: torch.Tensor,
 class WindowedCorrKernel(CudaKernel):
     """The CUDA-core windowed-correlation lookup (`csrc/windowed_corr.cu`):
     built at first use, with a launch counter. Takes C a multiple of 8 in
-    [8, 256], 1-4 levels and a radius of 0-4, in float32 or bf16; the route
-    sends it float32 lookups."""
+    [8, 256], 1-4 levels and a radius of 0-4, in float32 or bf16; the
+    tensor-core kernels took over both routes, and it stays to be timed
+    beside them."""
 
     MAX_LEVELS = 4
     MAX_RADIUS = 4
@@ -282,18 +284,11 @@ class WindowedCorrKernel(CudaKernel):
         return out
 
 
-class WindowedCorrMmaKernel(WindowedCorrKernel):
-    """The bf16 tensor-core windowed-correlation lookup
-    (`csrc/windowed_corr_mma.cu`): 16-query tiles, the union of their windows
-    staged once in shared memory, `mma.sync` dots. Takes what
-    `WindowedCorrKernel` takes, in bf16 only."""
-
-    DTYPES = (torch.bfloat16,)
-
-    def __init__(self):
-        super().__init__(name="windowed_corr_mma",
-                         source="gimmvfi_tpu_torch/csrc/windowed_corr_mma.cu",
-                         symbol="windowed_corr_mma_lookup")
+class WindowedCorrTileKernel(WindowedCorrKernel):
+    """The tensor-core windowed-correlation lookups' launcher: 16-query
+    tiles of one image row, the union of their windows staged once in
+    shared memory, `mma.sync` dots. Takes what `WindowedCorrKernel` takes, in
+    the subclass's `DTYPES`."""
 
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
         out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
@@ -303,17 +298,43 @@ class WindowedCorrMmaKernel(WindowedCorrKernel):
         return out
 
 
+class WindowedCorrMmaKernel(WindowedCorrTileKernel):
+    """The bf16 tensor-core lookup (`csrc/windowed_corr_mma.cu`), bf16 `mma`
+    dots with float32 sums."""
+
+    DTYPES = (torch.bfloat16,)
+
+    def __init__(self):
+        super().__init__(name="windowed_corr_mma",
+                         source="gimmvfi_tpu_torch/csrc/windowed_corr_mma.cu",
+                         symbol="windowed_corr_mma_lookup")
+
+
+class WindowedCorrTf32Kernel(WindowedCorrTileKernel):
+    """The float32 tensor-core lookup (`csrc/windowed_corr_tf32.cu`), 3xTF32
+    `mma` dots, float32-exact to ~2**-22 a product."""
+
+    DTYPES = (torch.float32,)
+
+    def __init__(self):
+        super().__init__(name="windowed_corr_tf32",
+                         source="gimmvfi_tpu_torch/csrc/windowed_corr_tf32.cu",
+                         symbol="windowed_corr_tf32_lookup")
+
+
 WINDOWED_CORR_KERNEL = WindowedCorrKernel()
 WINDOWED_CORR_MMA_KERNEL = WindowedCorrMmaKernel()
+WINDOWED_CORR_TF32_KERNEL = WindowedCorrTf32Kernel()
 
 
 def windowed_corr_kernel_for(dtype: torch.dtype) -> WindowedCorrKernel:
-    """The kernel a CUDA lookup of this feature dtype goes to: the tensor-core
-    kernel for bf16, the CUDA-core one for float32; an error for any other."""
+    """The kernel a CUDA lookup of this feature dtype goes to, on the tensor
+    cores: bf16 `mma` for bf16, 3xTF32 `mma` for float32; an error for any
+    other."""
     if dtype == torch.bfloat16:
         return WINDOWED_CORR_MMA_KERNEL
     if dtype == torch.float32:
-        return WINDOWED_CORR_KERNEL
+        return WINDOWED_CORR_TF32_KERNEL
     raise TypeError(f"no windowed correlation kernel for {dtype}: takes bfloat16 or float32")
 
 

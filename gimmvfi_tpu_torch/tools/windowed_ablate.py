@@ -2,7 +2,8 @@
 ablations, and a CPU model of the tensor-core kernel's tile walk.
 
     python -m gimmvfi_tpu_torch.tools.windowed_ablate          # CUDA-core kernel
-    python -m gimmvfi_tpu_torch.tools.windowed_ablate --mma    # tensor-core kernel
+    python -m gimmvfi_tpu_torch.tools.windowed_ablate --mma    # bf16 tensor-core kernel
+    python -m gimmvfi_tpu_torch.tools.windowed_ablate --tf32   # float32 tensor-core kernel
 
 Card only: without CUDA `main` raises. Each variant is a kernel's source
 with text substitutions, built with the same nvcc flags into
@@ -44,12 +45,31 @@ new kernel (`MMA_ABLATIONS`), which do not compute the lookup:
 at both path shapes on `in_frame` and `smooth` coordinates; all four are
 timed at `RAFT_2K` on both kinds, twice, in opposite orders.
 
-`mma_tile_walk` computes the lookup by the tensor-core kernel's own
-decomposition in plain torch, and `mma_tile_extents` its union extents
-alone, for the CPU tests and `chip_smoke.py` phase 7.
+With `--tf32`, `csrc/windowed_corr_tf32.cu` as it is (`tf32`), beside its
+stage configurations (`TF32_CONFIGS`: warps a block, each a slice of the
+channels; pixels a stage; ring stages a warp; each built as a variant where
+it is not the source's own) and two ablations that do not compute the
+lookup (`TF32_ABLATIONS`):
+  - tf32_no_stage: no `cp.async` of the window pixels (the ring's stale
+    contents are multiplied; the walk and the waits stay);
+  - tf32_no_mma: no `mma`; the B fragments are still loaded and split, and
+    folded into the accumulators with one xor;
+and `csrc/windowed_corr.cu` as it is (`cuda_core`). The ones that compute
+the lookup are checked against `windowed_corr_lookup_plain` in the float32
+cases of `WINDOWED_CASES`, in `TF32_CASES` and at `F_AMT_720P` on
+`in_frame` and `smooth` coordinates; then all are timed at `F_AMT_720P`
+on both kinds, twice, in opposite orders, with each configuration's shared
+memory and blocks an SM (read from its library) and ptxas lines, against
+the 3xTF32 bound and the CUDA-core one (`f32_lookup_bounds`).
 
-`WINDOWED_CASES`, the lookup shapes, `windowed_inputs` and
-`windowed_agreement` are shared with `chip_smoke.py` phase 7.
+`mma_tile_walk` computes the lookup by the tensor-core kernels' own
+decomposition in plain torch, with a `dot` for the products (float32, or
+`split_tf32_dot`: the float32 kernel's 3xTF32), and `mma_tile_extents`
+its union extents alone, for the CPU tests and `chip_smoke.py` phase 7.
+
+`WINDOWED_CASES`, `MMA_CASES`, `TF32_CASES`, the lookup shapes,
+`windowed_inputs` and `windowed_agreement` are shared with `chip_smoke.py`
+phases 7 and 9.
 """
 
 from __future__ import annotations
@@ -57,6 +77,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
@@ -68,11 +89,12 @@ from ..ops.corr import (
     WindowedCorr,
     WindowedCorrKernel,
     WindowedCorrMmaKernel,
+    WindowedCorrTf32Kernel,
     _window_base,
     windowed_corr_lookup_plain,
 )
 from ..utils.kernel_build import CSRC, build_text, substitute
-from ..utils.timing import bound_ms, device_ms
+from ..utils.timing import H100_F32_FLOPS, H100_TF32_FLOPS, bound_ms, device_ms
 from .splat_ablate import smooth_flow
 
 # (C, dtype, coordinate kind, radius, levels, (N, h, w)): the path's C at
@@ -95,6 +117,9 @@ WINDOWED_CASES = [
 RAFT_2K = (2, 136, 256)
 AMT_2K = (1, 136, 256)
 RAFT_720P = (2, 92, 160)
+# the AMT lookup of the 720p GIMM-VFI-F path (one direction; float32,
+# FlowFormer's feature map)
+F_AMT_720P = (1, 92, 160)
 # the tensor-core kernel's bf16 checks beyond the bf16 cases of
 # WINDOWED_CASES: bf16 copies of its float32 cases, and smooth coordinates at
 # C = 256 and C = 8; and the coordinate kinds it is checked and timed on at
@@ -106,6 +131,16 @@ MMA_CASES = [(c, torch.bfloat16, kind, radius, levels, shape)
     (8, torch.bfloat16, "smooth", 4, 4, (1, 36, 64)),
 ]
 PATH_KINDS = ("in_frame", "smooth")
+# the float32 tensor-core kernel's checks beyond the float32 cases of
+# WINDOWED_CASES: smooth coordinates at C = 256 and C = 8, a C whose 25
+# k-steps of 8 channels the 4 warps of a block split unevenly (6, 6, 6, 7),
+# and far coordinates at r = 1 with one level
+TF32_CASES = [
+    (256, torch.float32, "smooth", 4, 4, (2, 40, 48)),
+    (8, torch.float32, "smooth", 4, 4, (1, 36, 64)),
+    (200, torch.float32, "in_frame", 4, 4, (1, 13, 40)),
+    (24, torch.float32, "far", 1, 1, (2, 7, 9)),
+]
 TILE_Q = 16  # queries a tile of csrc/windowed_corr_mma.cu: the mma's M
 
 _LEVELS_OUTER = """  for (int l = 0; l < levels; ++l) {
@@ -188,6 +223,91 @@ def variant_source(name: str, src: str) -> str:
     return substitute(src, subs, f"variant {name}")
 
 
+# configurations of csrc/windowed_corr_tf32.cu: name -> (warps a block,
+# each a slice of the channels; target pixels a stage; ring stages a warp):
+# 2 x 16-pixel stages, 2 x 8-pixel stages, and a 4-deep ring of 16 pixels
+# of a warp's 64 channels
+TF32_CONFIGS = {
+    "w4px16x2": (4, 16, 2),
+    "w4px8x2": (4, 8, 2),
+    "w4px16x4": (4, 16, 4),
+}
+_TF32_CONSTANTS = ("kWarps", "kStagePx", "kStages")
+_TF32_MMA = """        mma_tf32(acc[nt][0], ahi[ks], bhi[0], bhi[1]);
+        mma_tf32(acc[nt][1], alo[ks], bhi[0], bhi[1]);
+        mma_tf32(acc[nt][1], ahi[ks], blo[0], blo[1]);
+"""
+_TF32_STAGE = "    cp_async16(smem_addr(dst + px * rs + 4 * ch), src + px * c + 4 * ch);\n"
+TF32_ABLATIONS = {
+    "tf32_no_stage": [(_TF32_STAGE, "    (void)src;\n")],
+    "tf32_no_mma": [(_TF32_MMA, "        acc[nt][0][0] += __uint_as_float((ahi[ks][0] ^ alo[ks][1] ^ bhi[0] ^ "
+                                "bhi[1] ^ blo[0] ^ blo[1]) & 0x007fffffu);\n")],
+}
+TF32_PRODUCTS = 3  # TF32 `mma` products a float32 product takes in 3xTF32
+
+
+def tf32_config(src: str) -> tuple[int, int, int]:
+    """The (warps a block, pixels a stage, stages a warp) a float32 kernel
+    source is built with."""
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in _TF32_CONSTANTS)
+
+
+def tf32_variant_source(name: str, src: str) -> str:
+    """`csrc/windowed_corr_tf32.cu`'s text `src` as variant `name`: a
+    configuration of `TF32_CONFIGS` or an ablation of `TF32_ABLATIONS`.
+    Each substitution must match exactly once."""
+    if name in TF32_CONFIGS:
+        for const, value in zip(_TF32_CONSTANTS, TF32_CONFIGS[name]):
+            src, count = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};", src)
+            if count != 1:
+                raise ValueError(f"variant {name}: {const} is set {count} times in the source")
+        return src
+    return substitute(src, TF32_ABLATIONS[name], f"variant {name}")
+
+
+def f32_lookup_bounds(wc: WindowedCorr, coords: torch.Tensor) -> dict:
+    """The float32 lookup's bounds on these inputs, each (ms, what bounds
+    it): `tf32`, the 3xTF32 kernel's (its bytes, or `TF32_PRODUCTS` TF32
+    products a float32 one at the dense TF32 tensor-core peak), and
+    `cuda_core`, the CUDA-core kernel's (float32 FMAs at the CUDA-core
+    peak); the bytes and float32 operations they come from."""
+    nbytes, flops = corr_ops.windowed_corr_work(wc, coords)
+    return {"tf32": bound_ms(nbytes, TF32_PRODUCTS * flops, H100_TF32_FLOPS),
+            "cuda_core": bound_ms(nbytes, flops, H100_F32_FLOPS),
+            "bytes": nbytes, "flops": flops}
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as `cvt.rna.tf32.f32`: half of the 13 dropped bits' range is
+    added to the magnitude's bits, which are then cut. Non-finite values
+    pass unchanged."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x.float())
+
+
+def _tile_products(a: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """(16, C) by (blocks, 8, C) -> (16, blocks, 8), float32 sums."""
+    return torch.einsum("qc,kpc->qkp", a, pix)
+
+
+def split_tf32_dot(a: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """`_tile_products` in 3xTF32, as `csrc/windowed_corr_tf32.cu` takes
+    them: each operand split into big = rna(x) and small = rna(x - big);
+    big*big + (small*big + big*small), the small*small term dropped. Each
+    product of two TF32 values is exact in float32."""
+    ahi, bhi = tf32_rna(a), tf32_rna(pix)
+    alo, blo = tf32_rna(a - ahi), tf32_rna(pix - bhi)
+    return _tile_products(ahi, bhi) + (_tile_products(alo, bhi) + _tile_products(ahi, blo))
+
+
+def one_pass_tf32_dot(a: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """`_tile_products` of the operands rounded once to TF32 (1xTF32)."""
+    return _tile_products(tf32_rna(a), tf32_rna(pix))
+
+
 SMOOTH_STD = 4.0  # px at the fmap, the `smooth` kind's flow
 
 
@@ -246,10 +366,11 @@ def windowed_agreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
 
 def bind(name: str, text: str, kind=WindowedCorrKernel) -> tuple[WindowedCorrKernel, str]:
     """Build a source with the launcher of wrapper class `kind`; returns a
-    wrapper that launches it (with launch counts of its own) and the ptxas
-    lines."""
+    wrapper that launches it (with launch counts of its own; its library as
+    `library`) and the ptxas lines."""
     lib, log = build_text(f"windowed_corr_{name}", text)
     kernel = kind()
+    kernel.library = lib
     fn = getattr(lib, kernel.symbol)
     fn.argtypes = kernel.argtypes
     fn.restype = ctypes.c_int
@@ -276,19 +397,21 @@ def _level_windows(coords: torch.Tensor, radius: int, level: int, hl: int, wl: i
 EXTENT_KEYS = ("rows", "blocks", "pixels")
 
 
-def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4):
-    """The lookup by `csrc/windowed_corr_mma.cu`'s own decomposition, in
-    float32 on the host (slow: a Python loop over tiles and rows).
+def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
+                  dot=_tile_products):
+    """The lookup by the tensor-core kernels' own decomposition
+    (`csrc/windowed_corr_mma.cu`, `csrc/windowed_corr_tf32.cu`), in float32
+    on the host (slow: a Python loop over tiles and rows).
 
     Tiles of 16 consecutive queries of one image row (the last one of a row
     short). For each level, the union of the tile's windows over its live
     queries (finite coordinates, window touching the map), clipped to the
     map; walked one union row at a time, a row's columns those of the
     windows that cover it, in blocks of 8 pixels (the last one past the
-    row's end zero); each block a (16 x C) @ (C x 8) product; each product
-    element (query, pixel) put into the query's (2r+2)^2 sums `s` if the
-    pixel lies in its window; then the plain version's tent blend and one
-    cast. Returns (out (N, L*(2r+1)^2, H, W), extents): `extents` maps
+    row's end zero); each block a (16 x C) @ (C x 8) product by `dot`
+    (float32 sums, or `split_tf32_dot`); each product element (query,
+    pixel) put into the query's (2r+2)^2 sums `s` if the pixel lies in its
+    window; then the plain version's tent blend and one cast. Returns (out (N, L*(2r+1)^2, H, W), extents): `extents` maps
     "rows" (union rows walked), "blocks" (8-pixel blocks over those rows,
     the n-tiles a k-step multiplies) and "pixels" (pixels staged) to
     (L, N, H, tiles a row) integer tensors."""
@@ -322,7 +445,7 @@ def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4):
                         nb = -(-(rx1 - rx0) // 8)
                         pix = torch.zeros(nb * 8, c)
                         pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
-                        prod = torch.einsum("qc,kpc->qkp", a, pix.view(nb, 8, c)).reshape(TILE_Q, -1)
+                        prod = dot(a, pix.view(nb, 8, c)).reshape(TILE_Q, -1)
                         cols = rx0 + torch.arange(nb * 8)
                         dy = y - y0[b, qy, q]
                         dx = cols.view(1, -1) - x0[b, qy, q].view(-1, 1)
@@ -375,17 +498,19 @@ def mma_tile_extents(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) ->
     return {k: torch.stack(v) for k, v in per_level.items()}
 
 
-def extent_summary(extents: dict, c: int) -> dict:
+def extent_summary(extents: dict, c: int, esize: int = 2) -> dict:
     """What a tensor-core lookup walks, from `mma_tile_extents`: the mean
     level-0 union of a tile (rows, and 8-pixel-rounded columns a row, over
-    tiles with any row), the bytes staged from the levels (bf16) and the
-    `mma` issued (m16n8k16, K = C padded to 16)."""
+    tiles with any row), the bytes staged from the levels (`esize` bytes a
+    value) and the `mma` issued: in bf16 m16n8k16 (K = C padded to 16), in
+    float32 three m16n8k8 a k-step of 8 channels (3xTF32)."""
     rows, blocks = extents["rows"][0].float(), extents["blocks"][0].float()
     walked = rows > 0
+    per_block = -(-c // 16) if esize == 2 else 3 * (c // 8)
     return {"rows0": float(rows[walked].mean()) if walked.any() else 0.0,
             "cols0": float(8 * blocks[walked].sum() / rows[walked].sum()) if walked.any() else 0.0,
-            "staged_bytes": int(extents["pixels"].sum()) * c * 2,
-            "mma": int(extents["blocks"].sum()) * -(-c // 16)}
+            "staged_bytes": int(extents["pixels"].sum()) * c * esize,
+            "mma": int(extents["blocks"].sum()) * per_block}
 
 
 def fmt_extent(ext: dict) -> str:
@@ -466,6 +591,72 @@ def main_mma(iters=10):
     return res
 
 
+def tf32_variants(src: str) -> dict[str, tuple[str, bool]]:
+    """name -> (source text, whether it computes the lookup) of the float32
+    kernel `src` (`tf32`), its configurations other than its own and the
+    ablations."""
+    own = tf32_config(src)
+    out = {"tf32": (src, True)}
+    out.update({name: (tf32_variant_source(name, src), True)
+                for name, cfg in TF32_CONFIGS.items() if cfg != own})
+    out.update({name: (tf32_variant_source(name, src), False) for name in TF32_ABLATIONS})
+    return out
+
+
+def main_tf32(iters=10):
+    """The float32 tensor-core kernel, its stage configurations, its
+    ablations and the CUDA-core kernel: those that compute the lookup
+    checked, then all timed at `F_AMT_720P`."""
+    smi = _card()
+    src = (CSRC / "windowed_corr_tf32.cu").read_text()
+    variants = tf32_variants(src)
+    texts = {name: (text, WindowedCorrTf32Kernel) for name, (text, _) in variants.items()}
+    texts["cuda_core"] = ((CSRC / "windowed_corr.cu").read_text(), WindowedCorrKernel)
+    with ThreadPoolExecutor(max_workers=len(texts)) as pool:
+        built = dict(zip(texts, pool.map(lambda name: bind(name, *texts[name]), texts)))
+    for name, (kernel, log) in built.items():
+        occupancy = ""
+        if name != "cuda_core":
+            cfg = tf32_config(texts[name][0])
+            smem = kernel.library.windowed_corr_tf32_smem_bytes(256)
+            blocks = kernel.library.windowed_corr_tf32_blocks_per_sm(256)
+            occupancy = (f"; config (warps, px, stages) {cfg}, {smem} B of shared memory a "
+                         f"block at C=256, {blocks} blocks = {blocks * cfg[0]} warps an SM")
+        print(f"{name}: ptxas {log}{occupancy}", flush=True)
+
+    checks = [(shape, c, kind, radius, levels)
+              for c, dtype, kind, radius, levels, shape in WINDOWED_CASES + TF32_CASES
+              if dtype == torch.float32]
+    checks += [(F_AMT_720P, 256, kind, 4, 4) for kind in PATH_KINDS]
+    computes = [name for name in built if name == "cuda_core" or variants[name][1]]
+    for i, (shape, c, kind, radius, levels) in enumerate(checks):
+        wc, coords, _ = windowed_inputs(shape, c, torch.float32, kind, levels, seed=i)
+        ref = windowed_corr_lookup_plain(wc, coords, radius)
+        for name in computes:
+            agree = windowed_agreement(built[name][0](wc, coords, radius), ref)
+            print(f"{name} {shape} C={c} r={radius} L={levels} {kind}: {agree}", flush=True)
+            if not agree["ok"]:
+                raise AssertionError(f"{name} disagrees with the plain version at {shape} "
+                                     f"C={c} {kind}: {agree}")
+        del wc, coords, ref
+        torch.cuda.empty_cache()
+
+    res = {}
+    for kind in PATH_KINDS:
+        wc, coords, _ = windowed_inputs(F_AMT_720P, 256, torch.float32, kind)
+        bounds = f32_lookup_bounds(wc, coords)
+        (bound, bound_by), (cc_bound, cc_by) = bounds["tf32"], bounds["cuda_core"]
+        print(f"{kind}: {fmt_extent(extent_summary(mma_tile_extents(wc, coords), 256, 4))}; "
+              f"{bounds['bytes'] / 1e6:.1f} MB, {bounds['flops'] / 1e9:.2f} GFLOP float32; the "
+              f"CUDA-core kernel's bound {cc_bound:.4f} ms ({cc_by})", flush=True)
+        res[kind] = _timed_turns(built, wc, coords, iters)
+        _print_turns(res[kind], f"720p F AMT {F_AMT_720P} C=256 f32 {kind}", bound,
+                     f"3xTF32 {bound_by}", smi)
+        del wc, coords
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(iters=10):
     smi = _card()
     src = (CSRC / "windowed_corr.cu").read_text()
@@ -505,6 +696,11 @@ def main(iters=10):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--mma", action="store_true",
-                        help="the tensor-core kernel and its ablations, beside the CUDA-core kernel")
-    (main_mma if parser.parse_args().mma else main)()
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--mma", action="store_true",
+                       help="the bf16 tensor-core kernel and its ablations, beside the CUDA-core kernel")
+    which.add_argument("--tf32", action="store_true",
+                       help="the float32 tensor-core kernel, its stage configurations and "
+                            "ablations, beside the CUDA-core kernel")
+    args = parser.parse_args()
+    (main_mma if args.mma else main_tf32 if args.tf32 else main)()

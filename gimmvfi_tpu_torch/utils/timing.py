@@ -15,6 +15,7 @@ from torch.autograd import DeviceType
 from .kernel_build import build_text
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 peak, H100 SXM data sheet
 
@@ -123,8 +124,8 @@ def bound_ms(nbytes: float, flops: float = 0.0,
              peak_flops: float = H100_BF16_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the HBM
     rate and operations over the peak for their type (default bf16 on the
-    tensor cores; `H100_F32_FLOPS` for float32 on the CUDA cores), and which
-    bounds it."""
+    tensor cores; `H100_TF32_FLOPS` for TF32 on the tensor cores;
+    `H100_F32_FLOPS` for float32 on the CUDA cores), and which bounds it."""
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
     by_ops = flops / peak_flops * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")

@@ -10,7 +10,7 @@ JAX, NCHW for the port). Tolerances (ROADMAP C4):
   * windowed vs the port's materialized lookup, float32: <= 1e-4 of the
     largest value (the identity of corr.py:185-202, summed in other orders).
 The CUDA kernels run only on the card (`cuda` marker): a bf16 lookup goes to
-the tensor-core kernel, a float32 one to the CUDA-core kernel.
+the bf16 tensor-core kernel, a float32 one to the 3xTF32 tensor-core kernel.
 """
 
 import jax.numpy as jnp
@@ -195,19 +195,22 @@ FAULTS = [
 ]
 # (wrapper, the dtype it is given, the dtypes it names); the CUDA-core
 # kernel's cases keep their ids
-WRAPPERS = [("cuda_core", torch.float32, "float32 or bfloat16"), ("mma", torch.bfloat16, "bfloat16")]
+WRAPPERS = [("cuda_core", torch.float32, "float32 or bfloat16"), ("mma", torch.bfloat16, "bfloat16"),
+            ("tf32", torch.float32, "float32")]
 
 
 @pytest.mark.parametrize("fault,match,wrapper", [
     pytest.param(fault, match.format(dtypes=names, dtype=str(dtype)[6:]), wrapper,
                  id=f"{fault}-{match.format(dtypes=names, dtype=str(dtype)[6:])}"
-                 if wrapper == "cuda_core" else f"mma-{fault}")
+                 if wrapper == "cuda_core" else f"{wrapper}-{fault}")
     for wrapper, dtype, names in WRAPPERS for fault, match in FAULTS
 ])
 def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper):
     """The wrappers' checks run before any build, so they hold on the CPU;
-    the tensor-core wrapper takes bf16 only."""
-    kernel = {"cuda_core": tcorr.WINDOWED_CORR_KERNEL, "mma": tcorr.WINDOWED_CORR_MMA_KERNEL}[wrapper]
+    the bf16 tensor-core wrapper takes bf16 only, the 3xTF32 one float32
+    only."""
+    kernel = {"cuda_core": tcorr.WINDOWED_CORR_KERNEL, "mma": tcorr.WINDOWED_CORR_MMA_KERNEL,
+              "tf32": tcorr.WINDOWED_CORR_TF32_KERNEL}[wrapper]
     dtype = dict((w, d) for w, d, _ in WRAPPERS)[wrapper]
     c = {"c": 20, "wide": 264}.get(fault, 16)
     f1, f2 = _maps(rng, 1, 8, 8, c)
@@ -261,7 +264,8 @@ def test_kernel_matches_plain_on_card(rng, c, dtype, kind, radius, levels, hw):
     wc = tcorr.windowed_corr_pyramid(nchw(f1).to(dtype), nchw(f2).to(dtype), levels)
     ref = tcorr.windowed_corr_lookup_plain(wc, coords, radius)
     cwc = tcorr.WindowedCorr(wc.f1.cuda(), tuple(x.cuda() for x in wc.f2_levels), wc.shape_hw)
-    kernels = (tcorr.WINDOWED_CORR_MMA_KERNEL, tcorr.WINDOWED_CORR_KERNEL)
+    kernels = (tcorr.WINDOWED_CORR_MMA_KERNEL, tcorr.WINDOWED_CORR_TF32_KERNEL,
+               tcorr.WINDOWED_CORR_KERNEL)
     routed = kernels[0] if dtype == torch.bfloat16 else kernels[1]
     before = [k.launches for k in kernels]
     got = tcorr.windowed_corr_lookup(cwc, coords.cuda(), radius)

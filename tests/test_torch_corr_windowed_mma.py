@@ -134,10 +134,11 @@ def test_mma_ablations_apply_to_the_new_source(name):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
 def test_route_picks_the_kernel_by_dtype(dtype):
-    """A CUDA lookup goes to the tensor-core kernel in bf16 and to the
-    CUDA-core kernel in float32; any other dtype raises, with no fallback."""
+    """A CUDA lookup goes to the bf16 tensor-core kernel in bf16 and to the
+    3xTF32 tensor-core kernel in float32 (the CUDA-core kernel takes no
+    route); any other dtype raises, with no fallback."""
     expected = {torch.bfloat16: tcorr.WINDOWED_CORR_MMA_KERNEL,
-                torch.float32: tcorr.WINDOWED_CORR_KERNEL}.get(dtype)
+                torch.float32: tcorr.WINDOWED_CORR_TF32_KERNEL}.get(dtype)
     if expected is None:
         with pytest.raises(TypeError, match="no windowed correlation kernel"):
             tcorr.windowed_corr_kernel_for(dtype)
@@ -148,7 +149,8 @@ def test_route_picks_the_kernel_by_dtype(dtype):
 def test_route_on_the_cpu_and_elsewhere():
     """CPU tensors take the plain version (no kernel launches); a device
     with no lookup raises."""
-    kernels = (tcorr.WINDOWED_CORR_MMA_KERNEL, tcorr.WINDOWED_CORR_KERNEL)
+    kernels = (tcorr.WINDOWED_CORR_MMA_KERNEL, tcorr.WINDOWED_CORR_KERNEL,
+               tcorr.WINDOWED_CORR_TF32_KERNEL)
     before = [k.launches for k in kernels]
     wc = tcorr.windowed_corr_pyramid(torch.ones(1, 8, 4, 4, dtype=torch.bfloat16),
                                      torch.ones(1, 8, 4, 4, dtype=torch.bfloat16), 1)
@@ -158,7 +160,8 @@ def test_route_on_the_cpu_and_elsewhere():
         tcorr.windowed_corr_lookup(wc, torch.zeros(1, 2, 4, 4, device="meta"), 1)
 
 
-@pytest.mark.parametrize("kernel", ["WINDOWED_CORR_MMA_KERNEL", "WINDOWED_CORR_KERNEL"])
+@pytest.mark.parametrize("kernel", ["WINDOWED_CORR_MMA_KERNEL", "WINDOWED_CORR_KERNEL",
+                                    "WINDOWED_CORR_TF32_KERNEL"])
 def test_wrapper_binds_every_launcher_argument(kernel):
     """The ctypes argument list has one entry for each parameter of the
     source's `extern "C"` launcher (the last is the stream)."""

@@ -71,8 +71,10 @@ def _run_both(setup, jax_dtype, torch_dtype, limit=tcorr.MAX_VOLUME_BYTES):
 
 
 def _psnr(a, b):
+    """PSNR in dB as a built-in float: `record_property` values travel
+    between xdist workers, which cannot send a numpy scalar."""
     mse = float(((a - b) ** 2).mean())
-    return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    return float("inf") if mse == 0 else float(10 * np.log10(1.0 / mse))
 
 
 @pytest.mark.parametrize("limit", [tcorr.MAX_VOLUME_BYTES, 0])

@@ -9,6 +9,7 @@ from torch.autograd import DeviceType
 
 from gimmvfi_tpu_torch.utils.timing import (
     H100_F32_FLOPS,
+    H100_TF32_FLOPS,
     bound_ms,
     fmt_ms,
     fmt_share,
@@ -60,6 +61,15 @@ def test_float32_bound_takes_the_cuda_core_peak():
     ms, by = bound_ms(3.35e9 / 2, 67e9, H100_F32_FLOPS)  # 0.5 ms of bytes, 1 ms of ops
     assert by == "operations" and ms == pytest.approx(1.0)
     assert bound_ms(3.35e9, 67e9)[1] == "bytes"  # at the bf16 peak the bytes bound it
+
+
+def test_tf32_bound_takes_the_tf32_tensor_core_peak():
+    """495 TFLOP/s for TF32 on the tensor cores (H100 SXM data sheet), half
+    the bf16 peak and over 7 times the CUDA-core float32 one."""
+    assert H100_TF32_FLOPS == 495e12
+    assert bound_ms(0.0, 495e9, H100_TF32_FLOPS) == (pytest.approx(1.0), "operations")
+    assert bound_ms(3.35e9, 495e9, H100_TF32_FLOPS)[0] == pytest.approx(1.0)
+    assert H100_F32_FLOPS < H100_TF32_FLOPS < 989e12
 
 
 def test_kernel_row_of_a_trace_with_and_without_device_rows():
