@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GIMM-VFI-R 8x paths (720p, and 2K/4K through
 DS_SCALE and the windowed correlation), its GIMM-VFI-F 8x path at 720p,
-its bench entry and its two probe entry points once on one CUDA card.
+its bench entry, its two probe entry points and its serving entry points
+(stage-1 GIMM, the video CLI, the four benchmark harnesses) once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -46,8 +48,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      level size, in-frame, smooth, border and far or non-finite
      coordinates, each float32 case also in bf16), at the shapes the
      2048x1088 DS 1.0 path gives it (RAFT's (2,136,256) and the AMT's
-     (1,136,256), C = 256, bf16) and the 720p F path's AMT shape
-     (1,92,160), C = 256, float32, on in-frame and smooth coordinates; the
+     (1,136,256), C = 256, bf16), the 720p F path's AMT shape (1,92,160)
+     and the float32 720p R path's RAFT shape (2,92,160), both C = 256,
+     float32, on in-frame and smooth coordinates; the
      float32 lookup against the materialized `corr_lookup` at the 720p
      fmap (92x160, C = 256, <= 1e-4); the CUDA-core `windowed_corr.cu`,
      called directly, on the float32 cases of `WINDOWED_CASES`; then the
@@ -86,7 +89,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      736x1280 in this process, each printing one JSON line with its label;
      (c) GIMMVFI_F(ff_iters=2) float32 at 128x192, GPU vs CPU >= 50 dB, at
      the default limit and at `corr_max_volume_bytes=0` (exactly 2 x 3
-     3xTF32 launches: only the AMT goes windowed).
+     3xTF32 launches: only the AMT goes windowed);
+ 10. the serving entry points, float32 (TF32 off), in build/chip_smoke_phase10/:
+     (a) stage-1 GIMM at full width with seeded weights on seeded smooth
+     flows at Vimeo's 256x448: one `forward` at t = 0.5 (exactly 2 splat
+     launches) and one `forward_multi` over VSF's five timesteps (10), each
+     by CUDA events after a warm-up, GPU vs CPU >= 50 dB on the normalized
+     flow; (b) the video CLI, `cli.video_nx.main`, on three seeded 720x1280
+     PPM frames, 8x, with a seeded GIMMVFI_R(raft_iters=20) saved as a
+     reference checkpoint (`state_dict` wrapper, `module.` prefixes,
+     `g_filter`, `num_batches_tracked`): 2 pairs, 17 frames written (mp4 or
+     PPM), exactly 28 splat launches and 2 x 34 float32 windowed lookups
+     (the 720p float32 volumes, 2 x 1.16 GB, are over the 2 GiB limit, so
+     RAFT's 20 lookups and the AMT's 2 a timestep are windowed), none of
+     the other two; ms a pair, the whole CLI's seconds and the peak; then,
+     on a model loaded from the same checkpoint, `interpolate_pair` on the
+     first pair against `interpolate_sequential` on inputs padded here
+     (<= 1e-5 max-abs: two runs differ by the order of the splat's float
+     atomics, up to 4.1e-6 measured), the CLI's frames of that pair against
+     the latter's quantized (<= 1 level), and the inputs of the pair's
+     first RAFT lookup (2,92,160) and first AMT lookup (1,92,160),
+     captured, held against the plain version; (c)
+     the four harnesses through `cli.benchmarks.main` on fabricated data:
+     SNU-FILM-arb medium (one row of five 720x1280 frames) and X4K 2k (one
+     scene of 33 4096x2160 frames, links to three: 7 items at DS 0.5), both
+     with a seeded LPIPS checkpoint; VTF and VSF on seeded 256x448 `.flo`
+     files with a seeded GIMM checkpoint; each JSON result finite, exact
+     launch counts, each harness's seconds.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -95,7 +124,9 @@ from a `torch.profiler` trace (`device_ms`; for the probes' library calls
 profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
 counts are set to 0 just before each path (5, the probes of 6, each path
-of 8, 9 (a) and each GPU-vs-CPU run) and read just after it. The line before the last is the kernels' JSON record; the
+of 8, 9 (a), each GPU-vs-CPU run and each path of 10) and read just after
+it; the splat's and the 3xTF32 kernel's records carry their phase 10
+counts (`launches_phase10`). The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -106,6 +137,8 @@ import ctypes
 import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import time
@@ -115,6 +148,10 @@ import numpy as np
 import torch
 
 from gimmvfi_tpu_torch import bench
+from gimmvfi_tpu_torch.cli import benchmarks as bench_cli
+from gimmvfi_tpu_torch.cli import video_nx
+from gimmvfi_tpu_torch.data.frame_io import read_image, read_ppm, write_flo, write_ppm
+from gimmvfi_tpu_torch.models.gimm import GIMM
 from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
@@ -127,6 +164,7 @@ from gimmvfi_tpu_torch.ops.corr import (
     windowed_corr_lookup_plain,
 )
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
+from gimmvfi_tpu_torch.ops.pad import InputPadder
 from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, splat_sum_plain
 from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
@@ -155,6 +193,7 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
     splat_bound,
     splat_inputs,
 )
+from gimmvfi_tpu_torch.train.lpips import LPIPS
 from gimmvfi_tpu_torch.utils.kernel_build import CSRC, build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
     H100_BYTES_PER_S,
@@ -565,8 +604,9 @@ def windowed_reading(wc, coords, label: str, levels_mat=None) -> dict:
 def check_windowed() -> dict:
     """Phase 7: the routed windowed kernels against the plain version in the
     check cases (float32 on the 3xTF32 kernel, bf16 on the bf16 tensor-core
-    one), at the 2K DS 1.0 path's two lookup shapes and the 720p F path's
-    AMT shape on in-frame and smooth coordinates; the float32 lookup against
+    one), at the 2K DS 1.0 path's two lookup shapes, the 720p F path's
+    AMT shape and the float32 720p R path's RAFT shape on in-frame and
+    smooth coordinates; the float32 lookup against
     the materialized one; then the bf16 kernel's and the CUDA-core kernel's
     times in bf16."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -593,12 +633,15 @@ def check_windowed() -> dict:
                 f"{kind}", wc, coords))
             del wc, coords
             torch.cuda.empty_cache()
-    for kind in PATH_KINDS:
-        wc, coords, _ = windowed_inputs(F_AMT_720P, 256, torch.float32, kind, seed=SEED)
-        worst[torch.float32] = max(worst[torch.float32], windowed_agrees(
-            f"[7] windowed at the 720p F AMT lookup {F_AMT_720P} C=256 f32 r=4 L=4 {kind}",
-            wc, coords))
-        del wc, coords
+    # the float32 shapes: the 720p F path's AMT lookup, and the float32
+    # 720p R path's RAFT lookup (both directions; the video CLI's)
+    for label, shape in (("F AMT", F_AMT_720P), ("R RAFT", RAFT_720P)):
+        for kind in PATH_KINDS:
+            wc, coords, _ = windowed_inputs(shape, 256, torch.float32, kind, seed=SEED)
+            worst[torch.float32] = max(worst[torch.float32], windowed_agrees(
+                f"[7] windowed at the 720p {label} lookup {shape} C=256 f32 r=4 L=4 {kind}",
+                wc, coords))
+            del wc, coords
 
     # the identity the windowed path rests on, at the 720p fmap
     wc, coords, (f1, f2) = windowed_inputs((1, 92, 160), 256, torch.float32, "in_frame")
@@ -857,6 +900,292 @@ def run_bench_entries() -> dict:
         torch.cuda.empty_cache()
     return records
 
+# ------------------------------------------------------------------ phase 10
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke_phase10"
+GIMM_HW = (256, 448)  # Vimeo's frame size, VTF's and VSF's flows
+VSF_TS = [t_id / 6.0 for t_id in range(2, 7)]
+VIDEO_HW = (720, 1280)
+VIDEO_N = 8
+X4K_HW = (2160, 4096)
+
+
+def counts() -> dict:
+    return {"splat": SPLAT_KERNEL.launches, "tf32": WINDOWED_CORR_TF32_KERNEL.launches,
+            "mma": WINDOWED_CORR_MMA_KERNEL.launches, "cuda_core": WINDOWED_CORR_KERNEL.launches}
+
+
+def expect_counts(label: str, got: dict, splat: int, tf32: int = 0):
+    """Exact launch counts of a phase 10 path: `splat` splats, `tf32`
+    float32 windowed lookups, no bf16 or CUDA-core lookup."""
+    want = {"splat": splat, "tf32": tf32, "mma": 0, "cuda_core": 0}
+    if got != want:
+        raise AssertionError(f"[10] {label}: launches {got}, expected {want}")
+
+
+# float32 windowed lookups a GIMMVFI_R(raft_iters=20) pair makes at 720p
+# with n_t timesteps: both 1/8-map volumes (92x160 squared, 2 x 1.16 GB) are
+# over the 2 GiB limit, so RAFT looks up the windowed state once an
+# iteration and the AMT twice a timestep. At X4K's 1024x544 (DS 0.5 of the
+# padded 2k frame) they are 2 x 0.40 GB and materialized: no lookup.
+def f32_windowed_720p(n_t: int) -> int:
+    return 20 + 2 * n_t
+
+
+def seeded_flows(hw, seed: int):
+    """(normalized xs, raw flows), (1, 2, H, W, 2) float32: smooth seeded
+    flows of a few pixels, normalized by their largest magnitude as VTF does."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    coarse = torch.randn((2, 2, hw[0] // 16, hw[1] // 16), generator=gen) * 6.0
+    ori = torch.nn.functional.interpolate(coarse, size=hw, mode="bilinear", align_corners=False)
+    ori = ori.permute(0, 2, 3, 1)[None].contiguous()
+    return (ori / ori.abs().max() + 1.0) / 2.0, ori
+
+
+def run_gimm() -> dict:
+    """Phase 10 (a): stage-1 GIMM, float32, at Vimeo's 256x448 on seeded
+    flows: one `forward` at t = 0.5 and one `forward_multi` over VSF's five
+    timesteps, each after a warm-up, with the counts from 0 (exactly 2 and
+    10 splats), by CUDA events; the same calls on the CPU with the same
+    seeded weights, PSNR of the normalized flow >= 50 dB."""
+    xs, ori = seeded_flows(GIMM_HW, SEED + 3)
+    t = torch.tensor([0.5])
+    gpu, cpu = (init_normal_(GIMM(device=d), SEED).eval() for d in (None, "cpu"))
+    res = {}
+    with torch.inference_mode():
+        for label, call, n_splat in (
+                ("forward", lambda m: m(xs, ori, t), 2),
+                ("forward_multi", lambda m: m.forward_multi(xs, ori, VSF_TS), 2 * len(VSF_TS))):
+            call(gpu)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            got, ms = bench.timed(lambda: call(gpu), torch.device("cuda"))
+            got_counts = counts()
+            expect_counts(f"(a) GIMM.{label}", got_counts, n_splat)
+            db = psnr(got.cpu(), call(cpu))
+            print(f"[10] (a) GIMM.{label} float32 {GIMM_HW[0]}x{GIMM_HW[1]}: {ms:.3f} ms by "
+                  f"events, {n_splat} splat launches, output {tuple(got.shape)}, GPU vs CPU "
+                  f"{db:.2f} dB", flush=True)
+            if not (bool(torch.isfinite(got).all()) and db >= 50.0):
+                raise AssertionError(f"[10] (a) GIMM.{label}: non-finite or GPU vs CPU {db:.2f} dB")
+            res[label] = {"ms": ms, "db": db, "launches": got_counts}
+    res["ms_per_t"] = res["forward_multi"]["ms"] / len(VSF_TS)
+    return res
+
+
+def reference_checkpoint(model: torch.nn.Module, path: Path, extras: dict) -> str:
+    """Save `model`'s weights as a reference training checkpoint has them: a
+    `state_dict` wrapper, DDP `module.` prefixes and keys the port holds
+    no parameter for (`extras`)."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    sd.update(extras)
+    sd.update({f"{k[:-len('running_mean')]}num_batches_tracked": torch.tensor(0)
+               for k in list(sd) if k.endswith("running_mean")})
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
+    return str(path)
+
+
+def seeded_frames(hw, k: int, seed: int) -> list[np.ndarray]:
+    """k (H, W, 3) uint8 frames: shifted crops of one seeded smooth image,
+    so the pair has motion to find."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    big = (hw[0] + 4 * k, hw[1] + 8 * k)
+    coarse = torch.rand((1, 3, big[0] // 8, big[1] // 8), generator=gen)
+    img = torch.nn.functional.interpolate(coarse, size=big, mode="bilinear", align_corners=False)
+    img = (img[0].permute(1, 2, 0).numpy() * 255).astype(np.uint8)
+    return [np.ascontiguousarray(img[4 * i:4 * i + hw[0], 8 * i:8 * i + hw[1]]) for i in range(k)]
+
+
+def run_video_cli(smi: str) -> dict:
+    """Phase 10 (b): `video_nx.main` on three seeded 720x1280 PPM frames
+    with a seeded R checkpoint in the reference's layout, 8x, float32, on
+    the card, counts from 0: 2 pairs, 1 + 2 x 8 frames, 28 splats and
+    2 x 34 float32 windowed lookups. Then, on a model loaded from the same
+    checkpoint, the first pair through `interpolate_pair` against
+    `interpolate_sequential` on inputs padded here (<= 1e-5 max-abs: two
+    runs differ by the order in which the splat's float atomics add), the
+    CLI's frames of that pair against the latter's quantized (<= 1 level),
+    and the inputs of the pair's first RAFT and first AMT lookup, captured,
+    against the plain version."""
+    src = WORK / "video_frames"
+    src.mkdir(parents=True)
+    for i, frame in enumerate(seeded_frames(VIDEO_HW, 3, SEED + 4)):
+        write_ppm(str(src / f"{i:03d}.ppm"), frame)
+    model = init_normal_(GIMMVFI_R(raft_iters=20), SEED)
+    ckpt = reference_checkpoint(model, WORK / "gimmvfi_r_random.pt",
+                                {"g_filter": torch.full((1, 1, 3, 3), 1 / 9)})
+    del model
+    torch.cuda.empty_cache()
+    n_t = VIDEO_N - 1
+
+    out_dir = WORK / "video_out"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = video_nx.main(["--source-path", str(src), "--N", str(VIDEO_N), "--ckpt", ckpt,
+                         "--output-path", str(out_dir)])
+    total_s = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_frames = 1 + 2 * VIDEO_N
+    if len(res["pair_ms"]) != 2 or len(res["frames"]) != n_frames:
+        raise AssertionError(f"[10] (b) {len(res['pair_ms'])} pairs, {len(res['frames'])} frames")
+    expect_counts("(b) video CLI", got, 2 * 2 * n_t, 2 * f32_windowed_720p(n_t))
+    written = res["written"]["output"]
+    if written.endswith(".frames"):
+        names = sorted(os.listdir(written))
+        if len(names) != n_frames:
+            raise AssertionError(f"[10] (b) {len(names)} PPM frames in {written}")
+        if not np.array_equal(read_ppm(os.path.join(written, names[1])), res["frames"][1]):
+            raise AssertionError("[10] (b) the PPM written is not the frame made")
+    elif not os.path.getsize(written):
+        raise AssertionError(f"[10] (b) {written} is empty")
+    print(f"[10] (b) video_nx.main {VIDEO_HW[0]}x{VIDEO_HW[1]} float32 8x: 2 pairs, {len(res['frames'])} frames "
+          f"written to {written}; launches {got}; ms a pair (host clock around interpolate_pair): "
+          f"{', '.join(f'{ms:.2f}' for ms in res['pair_ms'])}; the whole CLI {total_s:.2f} s; "
+          f"peak allocated {peak / 2**20:.1f} MiB; {smi}", flush=True)
+
+    # the first pair again on a reloaded model: interpolate_pair, with the
+    # float32 lookups' inputs captured, against interpolate_sequential on
+    # inputs padded here
+    i0, i1 = (read_image(str(src / f"{i:03d}.ppm")) for i in range(2))
+    model = video_nx.load_model(ckpt)
+    raft_iters = model.flow_estimator.iters
+    recorder = LookupRecorder([0, raft_iters], WINDOWED_CORR_TF32_KERNEL)
+    corr_ops.WINDOWED_CORR_TF32_KERNEL = recorder
+    try:
+        pair, _ = video_nx.interpolate_pair(model, i0, i1, VIDEO_N, None)
+    finally:
+        corr_ops.WINDOWED_CORR_TF32_KERNEL = WINDOWED_CORR_TF32_KERNEL
+    padder = InputPadder(VIDEO_HW, 32)
+    xs = padder.pad(torch.from_numpy(np.stack([i0, i1])).permute(0, 3, 1, 2))
+    ref = interpolate_sequential(model, xs.permute(0, 2, 3, 1)[None].cuda(),
+                                 [i / VIDEO_N for i in range(1, VIDEO_N)])["imgt_pred"][:, 0]
+    ref = padder.unpad(ref.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).cpu().numpy()
+    pair = np.stack(pair)
+    pair_err, pair_db = float(np.abs(pair - ref).max()), psnr(torch.from_numpy(pair), torch.from_numpy(ref))
+    cli_frames = np.stack([f[:, VIDEO_HW[1]:] for f in res["frames"][1:VIDEO_N]])
+    levels = int(np.abs(cli_frames.astype(np.int16) - (np.clip(ref, 0, 1) * 255).astype(np.uint8)
+                        ).max())
+    print(f"[10] (b) the first pair: interpolate_pair vs interpolate_sequential on inputs padded "
+          f"here: max_abs_err {pair_err:.3e}, {pair_db:.2f} dB; "
+          f"the CLI's frames vs the latter quantized: {levels} level(s) apart; "
+          f"{recorder.calls} float32 windowed lookups", flush=True)
+    if not (pair_err <= 1e-5 and levels <= 1 and recorder.calls == f32_windowed_720p(n_t)):
+        raise AssertionError(f"[10] (b) the first pair: {pair_err:.3e} off, CLI frames {levels} "
+                             f"levels off, {recorder.calls} float32 windowed lookups")
+    del model, pair, ref
+    torch.cuda.empty_cache()
+    lookup_err = {}
+    for call, label, shape in ((0, "RAFT", RAFT_720P), (raft_iters, "AMT", F_AMT_720P)):
+        wc, coords, radius = recorder.inputs[call]
+        if (coords.shape[0], *coords.shape[-2:]) != shape or wc.f1.dtype != torch.float32:
+            raise AssertionError(f"[10] (b) the first {label} lookup: {tuple(coords.shape)} "
+                                 f"{wc.f1.dtype}, expected {shape} float32")
+        lookup_err[label] = windowed_agrees(
+            f"[10] (b) the video CLI pair's first {label} lookup {shape} C={wc.f1.shape[-1]} f32 "
+            f"(captured)", wc, coords, radius)
+    del recorder
+    torch.cuda.empty_cache()
+    return {"pair_ms": res["pair_ms"], "total_s": total_s, "peak_bytes": peak,
+            "launches": got, "pair_err": pair_err, "lookup_max_abs_err": lookup_err, "ckpt": ckpt}
+
+
+def harness(argv: list[str]) -> tuple[dict, dict, float]:
+    """One harness through `benchmarks.main` with the counts from 0: its
+    result (the JSON line it printed last, which must be finite), the
+    launches and its seconds."""
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = bench_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[10] (c) {argv[0]}: {line}", flush=True)
+    values = [v for r in (res.values() if argv[0] == "snu_film_arb" else [res])
+              for v in r.values()]
+    if json.loads(lines[-1]) != json.loads(json.dumps(res)) or not all(
+            v is not None and math.isfinite(v) for v in values):
+        raise AssertionError(f"[10] (c) {argv[0]}: no finite JSON result last")
+    return res, counts(), seconds
+
+
+def run_harnesses(vfi_ckpt: str) -> dict:
+    """Phase 10 (c): the four harnesses on fabricated data, float32 on the
+    card: SNU-FILM-arb medium (one row of five 720x1280 frames) with a
+    seeded LPIPS checkpoint; X4K 2k, with it too (one scene of 33 4096x2160 frames,
+    links to three distinct ones: 7 items at DS 0.5); VTF and VSF on
+    seeded 256x448 `.flo` files with a seeded GIMM checkpoint. Each JSON
+    result finite; exact launch counts."""
+    root = WORK / "data"
+    lpips = reference_checkpoint(
+        init_normal_(LPIPS(), SEED), WORK / "lpips_random.pt",
+        {"scaling_layer.shift": torch.tensor([-0.030, -0.088, -0.188]).view(1, 3, 1, 1),
+         "scaling_layer.scale": torch.tensor([0.458, 0.448, 0.450]).view(1, 3, 1, 1)})
+    gimm = reference_checkpoint(init_normal_(GIMM(), SEED), WORK / "gimm_random.pt",
+                                {"g_filter": torch.full((1, 1, 3, 3), 1 / 9)})
+    results = {}
+
+    snu = root / "snu"
+    (snu / "frames").mkdir(parents=True)
+    row = []
+    for k, frame in enumerate(seeded_frames(VIDEO_HW, 5, SEED + 5)):
+        write_ppm(str(snu / "frames" / f"{k}.ppm"), frame)
+        row.append(f"frames/{k}.ppm")
+    (snu / "test-arb-medium.txt").write_text(" ".join(row) + "\n")
+    res, got, sec = harness(["snu_film_arb", "--data-root", str(snu), "--ckpt", vfi_ckpt,
+                             "--lpips-path", lpips])
+    expect_counts("(c) snu_film_arb", got, 2 * 3, f32_windowed_720p(3))
+    results["snu_film_arb"] = {"result": res, "launches": got, "seconds": sec}
+
+    scene = root / "x4k" / "Type1" / "TEST01"
+    scene.mkdir(parents=True)
+    distinct = [WORK / f"x4k_{k}.ppm" for k in range(3)]
+    for path, frame in zip(distinct, seeded_frames(X4K_HW, 3, SEED + 6)):
+        write_ppm(str(path), frame)
+    for i in range(33):
+        os.symlink(distinct[0 if i == 0 else 2 if i == 32 else 1], scene / f"{i:04d}.ppm")
+    res, got, sec = harness(["x4k", "--data-root", str(root / "x4k"), "--ckpt", vfi_ckpt,
+                             "--split", "2k", "--lpips-path", lpips])
+    expect_counts("(c) x4k 2k", got, 2 * 7)
+    results["x4k"] = {"result": res, "launches": got, "seconds": sec}
+
+    rng = np.random.default_rng(SEED + 7)
+    seqs = ["00001/0001", "00001/0002"]
+    for bench_name, names, listing in (
+            ("vtf", ["im1_im3", "im2_im3", "im2_im1", "im3_im1"], "tri_testlist.txt"),
+            ("vsf", ["im1_im7", "im7_im1"] + [f"im{t}_im{e}" for t in range(2, 7) for e in (1, 7)],
+             "sep_testlist.txt")):
+        data = root / bench_name
+        for seq in seqs:
+            (data / "flow_sequences" / seq).mkdir(parents=True)
+            for name in names:
+                _, flow = seeded_flows(GIMM_HW, int(rng.integers(1 << 30)))
+                write_flo(str(data / "flow_sequences" / seq / f"{name}.flo"), flow[0, 0].numpy())
+        (data / listing).write_text("\n".join(seqs) + "\n")
+        res, got, sec = harness([bench_name, "--data-root", str(data), "--ckpt", gimm])
+        per_seq = 1 if bench_name == "vtf" else len(VSF_TS)
+        expect_counts(f"(c) {bench_name}", got, 2 * per_seq * len(seqs))
+        results[bench_name] = {"result": res, "launches": got, "seconds": sec}
+    print(f"[10] (c) harness seconds: "
+          f"{', '.join(f'{k} {v['seconds']:.2f}' for k, v in results.items())}", flush=True)
+    return results
+
+
+def run_phase10(smi: str) -> dict:
+    """Phase 10: stage-1 GIMM, the video CLI and the four harnesses, in a
+    scratch directory under build/."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    t0 = time.perf_counter()
+    gimm = run_gimm()
+    video = run_video_cli(smi)
+    harnesses = run_harnesses(video["ckpt"])
+    print(f"[10] phase 10 took {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"gimm": gimm, "video": video, "harnesses": harnesses}
+
 
 def main():
     torch.backends.cudnn.allow_tf32 = False
@@ -894,6 +1223,13 @@ def main():
     benches = run_bench_entries()
     f_db = {label: check_small_e2e(9, (128, 192), None, limit, family=GIMMVFI_F)
             for label, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES), ("windowed", 0))}
+    torch.cuda.empty_cache()
+    p10 = run_phase10(smi)
+    # each kernel's launches on the phase 10 paths, each counted from 0
+    p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
+        "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
+    p10_launches = {key: {k: v["launches"][key] for k, v in p10_paths.items()}
+                    for key in ("splat", "tf32")}
 
     def record(kernel, launches, **numbers):
         return {"name": kernel.name, "route": "cuda", "source": kernel.source,
@@ -915,7 +1251,8 @@ def main():
 
     lk = f720["lookup"]
     records = [
-        record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat),
+        record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat,
+               launches_phase10=p10_launches["splat"]),
         record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
                max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
                                ds["lookups"]["last"]["max_abs_err"]),
@@ -931,14 +1268,17 @@ def main():
         record(WINDOWED_CORR_TF32_KERNEL, f720["tf32_launches"],
                launches_f32_gpu_vs_cpu={"r": ds["f32_windowed_launches"],
                                         "f": f_db["windowed"][1]},
-               max_abs_err=f720["lookup_max_abs_err"],
+               max_abs_err=max(f720["lookup_max_abs_err"],
+                               *p10["video"]["lookup_max_abs_err"].values()),
+               max_abs_err_phase10=p10["video"]["lookup_max_abs_err"],
                max_abs_err_cases_f32=wstats["max_abs_err_cases_f32"],
                tolerance=wstats["tolerance"], ms=lk["tf32_ms"], device_ms=lk["tf32_device_ms"],
                plain_ms=lk["plain_ms"], bound_ms=lk["tf32_bound_ms"], bound_by=lk["tf32_bound_by"],
                bytes_bound_ms=lk["bytes_bound_ms"], library_ms=None,
                materialized_ms=lk["materialized_ms"],
                materialized_device_ms=lk["materialized_device_ms"], extent=lk["extent"],
-               decode_one_ms=f720["decode_turns"]["tf32"]),
+               decode_one_ms=f720["decode_turns"]["tf32"],
+               launches_phase10=p10_launches["tf32"]),
         # the "before" kernel, on no path: its times on the same captured
         # lookup in the same run; the bf16_* times are the bf16 tensor-core
         # kernel's "before" at the 2K DS 1.0 lookups
@@ -965,6 +1305,13 @@ def main():
     print(f"[9] F path: {f720['fps']:.4f} fps at 720p; bench lines "
           f"{json.dumps(benches)}; GPU vs CPU F {f_db['materialized'][0]:.2f} dB materialized, "
           f"{f_db['windowed'][0]:.2f} dB windowed", flush=True)
+    video, gimm = p10["video"], p10["gimm"]
+    print(f"[10] GIMM {gimm['forward']['ms']:.3f} ms a forward, {gimm['ms_per_t']:.3f} ms a "
+          f"forward_multi timestep; video CLI 720p float32 8x: "
+          f"{', '.join(f'{ms:.2f}' for ms in video['pair_ms'])} ms a pair, peak "
+          f"{video['peak_bytes'] / 2**20:.1f} MiB; harnesses "
+          f"{json.dumps({k: v['result'] for k, v in p10['harnesses'].items()})}; {smi}",
+          flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

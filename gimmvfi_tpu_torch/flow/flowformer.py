@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import GemmConv2d, conv
+from ..nn.layers import conv
 from ..ops import corr as corr_ops
 from ..ops.coords import coords_grid
 from .raft import BasicMotionEncoder, FlowHead, SepConvGRU, convex_upsample_8x
@@ -347,11 +347,8 @@ class GMAUpdateBlock(nn.Module):
 
     def __init__(self, hidden_dim=128):
         super().__init__()
+        # float32: its two 3x3 convs over 256 channels are GEMMs (`GemmConv2d`)
         self.encoder = BasicMotionEncoder(corr_planes=81 + 64)
-        # the two 3x3 convs over 256 channels as GEMMs: in float32 at 720p
-        # cuDNN takes its FFT path for them, ~400 ms a call (`GemmConv2d`)
-        self.encoder.convc2 = GemmConv2d(256, 192, 3, 1, 1)
-        self.encoder.conv = GemmConv2d(64 + 192, 128 - 2, 3, 1, 1)
         self.gru = SepConvGRU(hidden_dim, 3 * 128)
         self.flow_head = FlowHead(hidden_dim, 256)
         self.mask = nn.Sequential(conv(128, 256, 3, 1, 1), nn.ReLU(), conv(256, 64 * 9, 1, 1, 0))

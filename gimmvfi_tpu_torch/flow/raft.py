@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import FrozenBatchNorm2d, InstanceNorm, conv
+from ..nn.layers import Conv2d, FrozenBatchNorm2d, GemmConv2d, InstanceNorm, conv
 from ..ops import corr as corr_ops
 from ..ops.coords import coords_grid
 
@@ -74,14 +74,19 @@ class BasicEncoder(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
+    """In float32 (`dtype` None) the two 3x3 convs over 256 channels,
+    `convc2` and `conv`, are GEMMs (`GemmConv2d`, same keys): at 720p cuDNN
+    sends them to its FFT path, as it does FlowFormer's. bf16 keeps cuDNN."""
+
     def __init__(self, corr_planes=4 * 81, dtype=None):
         super().__init__()
         self.dtype = dtype
+        wide = GemmConv2d if dtype is None else Conv2d
         self.convc1 = conv(corr_planes, 256, 1, 1, 0, dtype)
-        self.convc2 = conv(256, 192, 3, 1, 1, dtype)
+        self.convc2 = wide(256, 192, 3, 1, 1, compute_dtype=dtype)
         self.convf1 = conv(2, 128, 7, 1, 3, dtype)
         self.convf2 = conv(128, 64, 3, 1, 1, dtype)
-        self.conv = conv(64 + 192, 128 - 2, 3, 1, 1, dtype)
+        self.conv = wide(64 + 192, 128 - 2, 3, 1, 1, compute_dtype=dtype)
 
     def forward(self, flow, corr):
         cor = F.relu(self.convc2(F.relu(self.convc1(corr))))

@@ -1,7 +1,9 @@
-"""JAX parameter tree -> reference PyTorch state dict.
+"""JAX parameter tree -> reference PyTorch state dict, and reference
+checkpoints -> the port's modules.
 
 The inverse of `gimmvfi_tpu.utils.convert.convert_gimmvfi_r` /
-`convert_raft` / `convert_gimmvfi_f` / `convert_flowformer`, written
+`convert_raft` / `convert_gimmvfi_f` / `convert_flowformer` /
+`convert_gimm` / `convert_lpips`, written
 without importing the JAX package: it reads the flax `params` /
 `batch_stats` nested dicts (numpy arrays or anything `np.asarray` takes)
 and emits the reference key layout, which the port's modules use as their
@@ -10,10 +12,15 @@ transposed, LayerNorm scales become weights; the HypoNet `linear_wb<i>`
 matrices go over as they are; the fixed gaussian `g_filter`, FlowFormer's
 dead Twins stage norm and GMA's unused position embedding are not
 parameters.
+
+`load_reference_state_dict` loads a reference `.pt`/`.pth` into a port
+module with `strict=True`, after dropping exactly the keys the JAX
+converters consume without converting (`UNCONVERTED_KEYS`).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -163,18 +170,8 @@ def jax_params_to_torch(params: Mapping[str, Any], batch_stats: Mapping[str, Any
     return t.sd
 
 
-def _amt_and_gimm(t: _Tree, params: Mapping[str, Any]):
-    """The AMT decoders and the GIMM motion modules, shared by R and F."""
-    _upsample_head(t, "amt_init_decoder.upsample", "amt_init_decoder/upsample", 1)
-    _decoder_convblock(t, "amt_init_decoder.convblock", "amt_init_decoder")
-    _upsample_head(t, "amt_final_decoder.upsample", "amt_final_decoder/upsample", 2)
-    _decoder_convblock(t, "amt_final_decoder.convblock", "amt_final_decoder")
-    _update_block(t, "amt_update4_low", "amt_update4_low")
-    _update_block(t, "amt_update4_high", "amt_update4_high")
-    t.conv("amt_comb_block.0", "amt_comb_block/conv_0")
-    t.prelu("amt_comb_block.1", "amt_comb_block/prelu")
-    t.conv("amt_comb_block.2", "amt_comb_block/conv_2")
-
+def _gimm(t: _Tree, params: Mapping[str, Any]):
+    """The GIMM motion modules, shared by stage-1 GIMM, R and F."""
     t.conv("cnn_encoder.0", "cnn_encoder/conv0")
     t.conv("cnn_encoder.1", "cnn_encoder/conv1")
     for i in (3, 4, 5):
@@ -188,6 +185,29 @@ def _amt_and_gimm(t: _Tree, params: Mapping[str, Any]):
         t.param(f"hyponet.params_dict.linear_wb{i}", f"hyponet/linear_wb{i}")
     t.param("alpha_v", "alpha_v")
     t.param("alpha_fe", "alpha_fe")
+
+
+def jax_gimm_params_to_torch(params: Mapping[str, Any]):
+    """flax stage-1 GIMM params -> the reference GIMM state dict layout (the
+    inverse of `convert_gimm`, without the fixed `g_filter`)."""
+    t = _Tree(params, {})
+    _gimm(t, params)
+    return t.sd
+
+
+def _amt_and_gimm(t: _Tree, params: Mapping[str, Any]):
+    """The AMT decoders and the GIMM motion modules, shared by R and F."""
+    _upsample_head(t, "amt_init_decoder.upsample", "amt_init_decoder/upsample", 1)
+    _decoder_convblock(t, "amt_init_decoder.convblock", "amt_init_decoder")
+    _upsample_head(t, "amt_final_decoder.upsample", "amt_final_decoder/upsample", 2)
+    _decoder_convblock(t, "amt_final_decoder.convblock", "amt_final_decoder")
+    _update_block(t, "amt_update4_low", "amt_update4_low")
+    _update_block(t, "amt_update4_high", "amt_update4_high")
+    t.conv("amt_comb_block.0", "amt_comb_block/conv_0")
+    t.prelu("amt_comb_block.1", "amt_comb_block/prelu")
+    t.conv("amt_comb_block.2", "amt_comb_block/conv_2")
+
+    _gimm(t, params)
 
 
 # -------------------------------------------------------------- FlowFormer
@@ -303,6 +323,58 @@ def jax_gimmvfi_f_params_to_torch(params: Mapping[str, Any], batch_stats: Mappin
     _flowformer(t, "flow_estimator.", "flow_estimator/")
     _amt_and_gimm(t, params)
     return t.sd
+
+
+# ------------------------------------------------------------------- LPIPS
+LPIPS_SLICES = ((1, 0), (2, 3), (3, 6), (4, 8), (5, 10))  # (slice, AlexNet conv index)
+
+
+def jax_lpips_params_to_torch(params: Mapping[str, Any]):
+    """flax LPIPS params -> the reference LPIPS state dict layout (the
+    inverse of `convert_lpips`: AlexNet convs `net.slice<s>.<i>`, the
+    bias-free 1x1 heads `lin<k>.model.1`)."""
+    t = _Tree(params, {})
+    for slice_idx, conv_idx in LPIPS_SLICES:
+        t.conv(f"net.slice{slice_idx}.{conv_idx}", f"net/conv{conv_idx}")
+    for k in range(5):
+        t.raw_conv(f"lin{k}.model.1", f"lin{k}", bias=False)
+    return t.sd
+
+
+# ------------------------------------------------- reference checkpoints
+# Keys of the reference checkpoints that the JAX converters
+# (`gimmvfi_tpu/utils/convert.py`) consume without converting, and that the
+# port holds no parameter or buffer for: the fixed gaussian `g_filter`,
+# BatchNorm's `num_batches_tracked`, FlowFormer's dead Twins stage norm,
+# GMA's unused relative position embedding, LPIPS's constant ScalingLayer.
+UNCONVERTED_KEYS = (
+    r"g_filter",
+    r".*\.num_batches_tracked",
+    r"(.*\.)?(context_encoder|feat_encoder)\.svt\.norm\.(weight|bias)",
+    r"(.*\.)?att\.pos_emb\.rel_(height|width)\.weight",
+    r"scaling_layer\.(shift|scale)",
+)
+
+
+def load_reference_state_dict(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference `.pt`/`.pth` checkpoint into `model`.
+
+    As the JAX loader (`load_torch_state_dict`) does, a `{"state_dict":
+    ...}` wrapper is unwrapped, DDP `module.` prefixes are stripped and
+    entries that are not tensors are left out; then the `UNCONVERTED_KEYS`
+    are dropped and the rest loads with `strict=True`, so any other
+    missing or unexpected key raises and is named. The file is read with
+    `weights_only=True`: no pickled code runs."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    sd = {}
+    for k, v in obj.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if isinstance(v, torch.Tensor) and not any(re.fullmatch(p, k) for p in UNCONVERTED_KEYS):
+            sd[k] = v
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def load_jax_params(model: torch.nn.Module, params, batch_stats) -> torch.nn.Module:

@@ -65,3 +65,30 @@ def test_raft_weight_round_trip_is_exact(raft_pair):
         assert ta == tb
         for x, y in zip(fa, fb):
             assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_motion_encoder_wide_convs_by_dtype(dtype):
+    """In float32 the motion encoder's two 3x3 convs over 256 channels are
+    GEMMs (cuDNN's FFT path takes them at 720p); bf16 keeps cuDNN. The
+    profile's swap back to `Conv2d` keeps the weights and the output
+    (<= 1e-5 * max|out| in float32)."""
+    from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R
+    from gimmvfi_tpu_torch.nn.layers import Conv2d, GemmConv2d, init_normal_
+    from gimmvfi_tpu_torch.tools.raft_f32_profile import WIDE_CONVS, swap_wide_convs
+
+    model = init_normal_(GIMMVFI_R(raft_iters=2, dtype=dtype, device="cpu"), 3)
+    enc = model.flow_estimator.update_block.encoder
+    want = GemmConv2d if dtype is None else Conv2d
+    assert [type(getattr(enc, n)) for n in WIDE_CONVS] == [want, want]
+    assert type(enc.convc1) is Conv2d and type(enc.convf2) is Conv2d
+    if dtype is not None:
+        return
+    gen = torch.Generator().manual_seed(4)
+    flow, corr = torch.randn(2, 2, 9, 11, generator=gen), torch.randn(2, 324, 9, 11, generator=gen)
+    with torch.inference_mode():
+        gemm_out = enc(flow, corr)
+        swap_wide_convs(model, Conv2d)
+        assert [type(getattr(enc, n)) for n in WIDE_CONVS] == [Conv2d, Conv2d]
+        cudnn_out = enc(flow, corr)
+    assert float((gemm_out - cudnn_out).abs().max()) <= 1e-5 * float(cudnn_out.abs().max())
