@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GIMM-VFI-R 8x paths (720p, and 2K/4K through
 DS_SCALE and the windowed correlation), its GIMM-VFI-F 8x path at 720p,
-its bench entry, its two probe entry points and its serving entry points
-(stage-1 GIMM, the video CLI, the four benchmark harnesses) once on one
-CUDA card.
+its bench entry, its two probe entry points, its serving entry points
+(stage-1 GIMM, the video CLI, the four benchmark harnesses) and stage-1
+GIMM training (the recipe's step and the train CLI) once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
-     windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
+     softsplat_bwd.cu, windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
      conv3x3.cu, gather_probe.cu) all at once, one nvcc each; counts the
      HMMA (tensor-core) instructions in the SASS of windowed_corr_mma and
      windowed_corr_tf32 (`cuobjdump -sass`) and fails on none; prints the
@@ -115,7 +115,29 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      scene of 33 4096x2160 frames, links to three: 7 items at DS 0.5), both
      with a seeded LPIPS checkpoint; VTF and VSF on seeded 256x448 `.flo`
      files with a seeded GIMM checkpoint; each JSON result finite, exact
-     launch counts, each harness's seconds.
+     launch counts, each harness's seconds;
+ 11. stage-1 GIMM training, float32 (TF32 off), in build/chip_smoke_phase11/:
+     (a) the splat's backward kernel (`csrc/softsplat_bwd.cu`) against
+     `splat_sum_backward_plain` at the recipe step's (32, 256, 256, 17) on
+     a random, a smooth and a non-finite/far field and in the small
+     `CHECK_CASES` (d_vals and d_flow <= 1e-5 x max(1, max|plain|); d_vals
+     without d_flow equal), timed by events and device rows against its
+     bound, beside the plain version and the forward kernel at that shape;
+     (b) the recipe's step (`configs/gimm/gimm.yaml`: GIMM, Adam lr 1e-4,
+     batch 32, 256^2) on seeded smooth flows: one step counted from 0
+     (exactly 2 forward and 2 backward splat launches, no windowed one), 10
+     timed after 3 warm-ups (median ms, peak, finite loss, parameters
+     moved), and the device time of one step and its splats in a trace;
+     (c) one step at 64x64, batch 2, GPU vs CPU from the same seeded
+     weights and batch, 3 seeds and 2 runs on the card each: loss <= 1e-5
+     relative, each gradient <= 1e-4 x max|g_cpu|; the scalar `alpha_v`
+     and `alpha_fe`, whose gradients are near-cancelling sums over pixels,
+     <= 1e-4 x the sum of their terms' magnitudes, with the fields they
+     contract held to 1e-4 x max (every reading printed); (d) `cli.train.main` with the recipe's config and
+     `--smoke-test` on a fabricated tree of 256x448 `.flo` triplets: one
+     epoch of 2 steps with validation and a checkpoint, then `--resume` for
+     a second, exact launches, steps, seconds an epoch, the PyYAML version
+     and whether tensorboardX was found.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -124,9 +146,10 @@ from a `torch.profiler` trace (`device_ms`; for the probes' library calls
 profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
 counts are set to 0 just before each path (5, the probes of 6, each path
-of 8, 9 (a), each GPU-vs-CPU run and each path of 10) and read just after
-it; the splat's and the 3xTF32 kernel's records carry their phase 10
-counts (`launches_phase10`). The line before the last is the kernels' JSON record; the
+of 8, 9 (a), each GPU-vs-CPU run, each path of 10 and the counted step
+and each CLI call of 11) and read just after it; the splat's and the
+3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`),
+the splat backward's `launches` are those of the counted recipe step. The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -146,11 +169,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 from gimmvfi_tpu_torch import bench
 from gimmvfi_tpu_torch.cli import benchmarks as bench_cli
 from gimmvfi_tpu_torch.cli import video_nx
 from gimmvfi_tpu_torch.data.frame_io import read_image, read_ppm, write_flo, write_ppm
+from gimmvfi_tpu_torch.models import gimm as gimm_model
 from gimmvfi_tpu_torch.models.gimm import GIMM
 from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
@@ -165,7 +190,12 @@ from gimmvfi_tpu_torch.ops.corr import (
 )
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
 from gimmvfi_tpu_torch.ops.pad import InputPadder
-from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, splat_sum_plain
+from gimmvfi_tpu_torch.ops.softsplat import (
+    SPLAT_BACKWARD_KERNEL,
+    SPLAT_KERNEL,
+    splat_sum_backward_plain,
+    splat_sum_plain,
+)
 from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
@@ -193,7 +223,11 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
     splat_bound,
     splat_inputs,
 )
+from gimmvfi_tpu_torch.cli import train as train_cli
 from gimmvfi_tpu_torch.train.lpips import LPIPS
+from gimmvfi_tpu_torch.train.optim import create_optimizer
+from gimmvfi_tpu_torch.train.train_state import create_train_state, make_gimm_train_step
+from gimmvfi_tpu_torch.utils.config import load_config
 from gimmvfi_tpu_torch.utils.kernel_build import CSRC, build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
     H100_BYTES_PER_S,
@@ -210,8 +244,8 @@ H, W = 736, 1280
 N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
-KERNELS = [SPLAT_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL,
-           WINDOWED_CORR_KERNEL] + PROBE_KERNELS
+KERNELS = [SPLAT_KERNEL, SPLAT_BACKWARD_KERNEL, WINDOWED_CORR_MMA_KERNEL,
+           WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
 # 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
@@ -653,6 +687,20 @@ def check_windowed() -> dict:
           f"max_abs_err {err:.3e}, max|materialized| {scale:.3e}", flush=True)
     if not err <= 1e-4 * scale:
         raise AssertionError("windowed and materialized lookups disagree at 720p")
+    # with grad on, the routed kernel refuses coordinates that need grad
+    # (it has no backward) instead of returning an output cut from the graph
+    coords.requires_grad_()
+    before = WINDOWED_CORR_TF32_KERNEL.launches
+    try:
+        with torch.enable_grad():
+            corr_ops.windowed_corr_lookup(wc, coords)
+    except NotImplementedError as e:
+        print(f"[7] with grad on: windowed_corr_lookup raised NotImplementedError ({e})",
+              flush=True)
+    else:
+        raise AssertionError("the windowed lookup returned a tensor cut from the graph")
+    if WINDOWED_CORR_TF32_KERNEL.launches != before:
+        raise AssertionError("the windowed kernel launched on an input that needs grad")
     del wc, coords, f1, f2, got, ref
     torch.cuda.empty_cache()
 
@@ -910,16 +958,19 @@ X4K_HW = (2160, 4096)
 
 
 def counts() -> dict:
-    return {"splat": SPLAT_KERNEL.launches, "tf32": WINDOWED_CORR_TF32_KERNEL.launches,
+    return {"splat": SPLAT_KERNEL.launches, "splat_bwd": SPLAT_BACKWARD_KERNEL.launches,
+            "tf32": WINDOWED_CORR_TF32_KERNEL.launches,
             "mma": WINDOWED_CORR_MMA_KERNEL.launches, "cuda_core": WINDOWED_CORR_KERNEL.launches}
 
 
-def expect_counts(label: str, got: dict, splat: int, tf32: int = 0):
-    """Exact launch counts of a phase 10 path: `splat` splats, `tf32`
-    float32 windowed lookups, no bf16 or CUDA-core lookup."""
-    want = {"splat": splat, "tf32": tf32, "mma": 0, "cuda_core": 0}
+def expect_counts(label: str, got: dict, splat: int, tf32: int = 0, splat_bwd: int = 0,
+                  phase: int = 10):
+    """Exact launch counts of a phase 10 or 11 path: `splat` splats,
+    `splat_bwd` splat backwards, `tf32` float32 windowed lookups, no bf16
+    or CUDA-core lookup."""
+    want = {"splat": splat, "splat_bwd": splat_bwd, "tf32": tf32, "mma": 0, "cuda_core": 0}
     if got != want:
-        raise AssertionError(f"[10] {label}: launches {got}, expected {want}")
+        raise AssertionError(f"[{phase}] {label}: launches {got}, expected {want}")
 
 
 # float32 windowed lookups a GIMMVFI_R(raft_iters=20) pair makes at 720p
@@ -1187,6 +1238,358 @@ def run_phase10(smi: str) -> dict:
     return {"gimm": gimm, "video": video, "harnesses": harnesses}
 
 
+# ------------------------------------------------------------------ phase 11
+WORK11 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase11"
+RECIPE = "configs/gimm/gimm.yaml"  # stage-1 GIMM: Adam, lr 1e-4, batch 32, 256^2 crop
+CROP = 256  # the flow dataset's crop (`data/flow_dataset.py`)
+TRAIN_SPLAT = (32, CROP, CROP, 17)  # the recipe step's splats: 16 latent channels + the weight
+TIMED_STEPS = 10
+
+
+def splat_bwd_bound(vals: torch.Tensor) -> tuple[float, str]:
+    """Least time of one backward: vals, flow and g read once, d_vals and
+    d_flow written once."""
+    n, h, w, c = vals.shape
+    return bound_ms(4 * n * h * w * (c + 2 + c + c + 2))
+
+
+def bwd_inputs(shape, field: str, std: float, seed: int):
+    """`splat_inputs` and a seeded N(0, 1) output gradient g, on the card."""
+    vals, flow = splat_inputs(shape, field, std, seed=seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1000)
+    return vals, flow, torch.randn(shape, generator=gen).cuda()
+
+
+def check_backward() -> dict:
+    """Phase 11 (a): the backward kernel against `splat_sum_backward_plain`
+    at the recipe step's (32, 256, 256, 17) on a random, a smooth and a
+    non-finite/far field and in the small `CHECK_CASES`: d_vals and d_flow
+    <= 1e-5 x max(1, max|plain|), and d_vals alone (no d_flow) equal to the
+    full call's. Then its times at that shape (events and device rows,
+    against the bound) beside the plain version's and the forward
+    kernel's."""
+    cases = [(TRAIN_SPLAT, field, 8.0) for field in ("random", "smooth", "non_finite")] + [
+        c for c in CHECK_CASES if c[0] != MAIN_SHAPE]
+    worst, worst_share = 0.0, 0.0
+    for i, (shape, field, std) in enumerate(cases):
+        vals, flow, g = bwd_inputs(shape, field, std, SEED + i)
+        d_vals, d_flow = SPLAT_BACKWARD_KERNEL(vals, flow, g)
+        d_vals_only, none = SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=False)
+        ref_vals, ref_flow = splat_sum_backward_plain(vals, flow, g)
+        torch.cuda.synchronize()
+        errs = []
+        for what, got, ref in (("d_vals", d_vals, ref_vals), ("d_flow", d_flow, ref_flow)):
+            err = float((got - ref).abs().max())
+            bound = 1e-5 * max(1.0, float(ref.abs().max()))
+            errs.append(f"{what} {err:.3e} (bound {bound:.3e})")
+            if not err <= bound:
+                raise AssertionError(f"[11] (a) splat backward {what} disagrees with the plain "
+                                     f"version at {shape} {field}: {err:.3e} > {bound:.3e}")
+            worst, worst_share = max(worst, err), max(worst_share, err / bound)
+        if none is not None or not torch.equal(d_vals_only, d_vals):
+            raise AssertionError(f"[11] (a) d_vals without d_flow differs at {shape} {field}")
+        print(f"[11] (a) splat backward {shape} {field} flow std {std}: {'; '.join(errs)}",
+              flush=True)
+        del vals, flow, g, d_vals, d_flow, d_vals_only, ref_vals, ref_flow
+    torch.cuda.empty_cache()
+
+    stats = {"max_abs_err": worst, "max_err_over_bound": worst_share,
+             "tolerance": "1e-5 max(1, max|plain|), d_vals and d_flow"}
+    for field in ("random", "smooth"):
+        vals, flow, g = bwd_inputs(TRAIN_SPLAT, field, 8.0, SEED)
+        bound, bound_by = splat_bwd_bound(vals)
+        ms = cuda_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g), warmup=3)
+        _, rows = device_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g))
+        dev = kernel_row(rows, "splat_sum_bwd_kernel")
+        vals_ms = cuda_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=False), warmup=3)
+        plain_ms = cuda_ms(lambda: splat_sum_backward_plain(vals, flow, g), iters=5)
+        fwd_ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
+        _, fwd_rows = device_ms(lambda: SPLAT_KERNEL(vals, flow))
+        fwd_dev = kernel_row(fwd_rows, "splat_sum_kernel")
+        fwd_bound = splat_bound(vals)[0]
+        print(f"[11] (a) splat backward {TRAIN_SPLAT} {field} flow std 8: kernel {ms:.4f} ms by "
+              f"events ({fmt_share(bound, ms)}), device {fmt_ms(dev)} ({fmt_share(bound, dev)}); "
+              f"bound {bound:.4f} ms ({bound_by}); d_vals alone {vals_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; the forward kernel there {fwd_ms:.4f} ms by events, device "
+              f"{fmt_ms(fwd_dev)} ({fmt_share(fwd_bound, fwd_dev)} of {fwd_bound:.4f} ms)",
+              flush=True)
+        reading = {"ms": ms, "device_ms": dev, "d_vals_only_ms": vals_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": bound_by, "forward_ms": fwd_ms,
+                   "forward_device_ms": fwd_dev, "forward_bound_ms": fwd_bound}
+        if field == "random":
+            stats.update(reading, library_ms=None)
+        else:
+            stats.update({f"smooth_{k}": v for k, v in reading.items() if k != "bound_by"})
+        del vals, flow, g
+    torch.cuda.empty_cache()
+    return stats
+
+
+def flow_batch(n: int, hw, seed: int, device="cuda") -> dict:
+    """A stage-1 batch as `data/flow_dataset.py` makes it, from seeded
+    smooth flows of a few pixels: xs (N, 3, H, W, 2) normalized by the
+    endpoint flows' largest magnitude, ori_flows (N, 2, H, W, 2)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    coarse = torch.randn((n * 3, 2, hw[0] // 16, hw[1] // 16), generator=gen) * 4.0
+    flows = torch.nn.functional.interpolate(coarse, size=hw, mode="bilinear",
+                                            align_corners=False)
+    flows = flows.view(n, 3, 2, *hw).permute(0, 1, 3, 4, 2).contiguous()
+    scaler = flows[:, [0, 2]].abs().amax(dim=(1, 2, 3, 4)).view(n, 1, 1, 1, 1)
+    return {"xs": ((flows / scaler + 1.0) / 2.0).to(device),
+            "ori_flows": torch.stack([flows[:, 0], -flows[:, 2]], dim=1).to(device)}
+
+
+def recipe_state(cfg, device=None, seed=SEED):
+    """GIMM from a seed (its own initialization) and the recipe's optimizer."""
+    torch.manual_seed(seed)
+    model = GIMM(device=device)
+    o = cfg.optimizer
+    opt, sched = create_optimizer(model, o.type, init_lr=o.init_lr, weight_decay=o.weight_decay,
+                                  betas=tuple(o.betas), ft=o.ft, max_grad_norm=o.max_gn)
+    return create_train_state(model, opt, sched, use_ema=bool(cfg.arch.ema))
+
+
+def run_recipe_step(smi: str) -> dict:
+    """Phase 11 (b): the recipe's step on the card, float32, TF32 off:
+    GIMM, Adam lr 1e-4, batch 32 at 256^2 on seeded smooth flows, one t_id
+    a step. One step counted from 0 (exactly 2 forward and 2 backward
+    splat launches, no windowed lookup), 2 more warm-ups, then 10 timed by
+    CUDA events: median ms a step, peak allocated, loss finite, parameters
+    moved; then the device time of one step and of its splats in a trace."""
+    cfg = load_config(RECIPE)
+    n = cfg.experiment.batch_size
+    state = recipe_state(cfg)
+    step = make_gimm_train_step(use_ema=bool(cfg.arch.ema))
+    batch = flow_batch(n, (CROP, CROP), SEED + 11)
+    rng = np.random.default_rng(SEED)
+
+    def one():
+        batch["t_id"] = np.full((n,), rng.integers(0, 3), np.int32)
+        return step(state, batch)
+
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    one()
+    torch.cuda.synchronize()
+    got = counts()
+    expect_counts("(b) the recipe step", got, 2, splat_bwd=2, phase=11)
+    one()
+    one()
+    times, losses = [], []
+    for _ in range(TIMED_STEPS):
+        metrics, ms = bench.timed(one, torch.device("cuda"))
+        times.append(ms)
+        losses.append(float(metrics["loss_total"]))
+    peak = torch.cuda.max_memory_allocated()
+    moved = max(float((v - before[k]).abs().max()) for k, v in state.model.state_dict().items())
+    if not (all(math.isfinite(x) for x in losses) and moved > 0):
+        raise AssertionError(f"[11] (b) losses {losses}, largest parameter move {moved}")
+    step_dev, rows = device_ms(one, iters=1, warmup=0)
+    fwd = kernel_row(rows, "splat_sum_kernel")
+    bwd = kernel_row(rows, "splat_sum_bwd_kernel")
+    med = statistics.median(times)
+    splat_dev = None if fwd is None or bwd is None else fwd + bwd
+    print(f"[11] (b) the recipe step ({RECIPE}: {cfg.optimizer.type} lr {cfg.optimizer.init_lr}, "
+          f"batch {n}, {CROP}x{CROP}, float32): {med:.2f} ms a step (median of {TIMED_STEPS} by "
+          f"events; {min(times):.2f}-{max(times):.2f}); peak allocated {peak / 2**20:.1f} MiB; "
+          f"launches a step {got}; losses {losses[0]:.5f} -> {losses[-1]:.5f}; largest parameter "
+          f"move {moved:.3e}; device time of one traced step {fmt_ms(step_dev)} (the "
+          f"trace's rows, summed); its splats: forward {fmt_ms(fwd)} (2 launches), backward "
+          f"{fmt_ms(bwd)} (2 launches), "
+          f"{'not measured' if splat_dev is None else f'{100 * splat_dev / med:.2f}%'} of the "
+          f"step; {smi}", flush=True)
+    top = sorted(rows.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[11] (b) the step's largest device rows: "
+          f"{'; '.join(f'{v:.3f} ms {k[:70]}' for k, v in top)}", flush=True)
+    res = {"step_ms": med, "step_ms_all": times, "peak_bytes": peak, "launches": got,
+           "losses": losses, "step_device_ms": step_dev, "splat_fwd_device_ms": fwd,
+           "splat_bwd_device_ms": bwd}
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+GRAD_SEEDS = (SEED, SEED + 1, SEED + 2)  # phase 11 (c): weights and batch of each reading
+GPU_RERUNS = 2  # the card's step from the same weights, for its own atomic order
+ALPHAS = ("alpha_v", "alpha_fe")  # GIMM's scalar splat-weight parameters
+
+
+def step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
+    """One recipe step from `weights` on `batch`: the loss, each parameter's
+    gradient, and the fields that the gradients of `ALPHAS` contract:
+    u = dL/d(w1, w2), the gradient reaching the splat weights, and for each
+    alpha c = d(w1, w2)/d alpha, pixel by pixel (forward mode). Gradients
+    on the CPU, fields flattened to float64."""
+    weights_fn, fields = gimm_model.splatting_weights, {}
+
+    def spy(flow01, flow10, alpha_v, alpha_fe):
+        w1, w2 = weights_fn(flow01, flow10, alpha_v, alpha_fe)
+        w1.retain_grad()
+        w2.retain_grad()
+        f01, f10, a_v, a_fe = (x.detach() for x in (flow01, flow10, alpha_v, alpha_fe))
+        one = torch.ones_like(a_v)
+        fields["alpha_v"] = torch.func.jvp(lambda a: weights_fn(f01, f10, a, a_fe), (a_v,), (one,))[1]
+        fields["alpha_fe"] = torch.func.jvp(lambda a: weights_fn(f01, f10, a_v, a), (a_fe,), (one,))[1]
+        fields["w"] = (w1, w2)
+        return w1, w2
+
+    state = recipe_state(cfg, device=device)
+    state.model.load_state_dict(weights)
+    gimm_model.splatting_weights = spy
+    try:
+        loss = float(make_gimm_train_step()(state, batch)["loss_total"])
+    finally:
+        gimm_model.splatting_weights = weights_fn
+    w1, w2 = fields.pop("w")
+    flat = lambda pair: torch.cat([t.detach().reshape(-1) for t in pair]).cpu().double()
+    return {"loss": loss, "u": flat((w1.grad, w2.grad)),
+            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+            **{k: flat(v) for k, v in fields.items()}}
+
+
+def check_step_gpu_vs_cpu() -> dict:
+    """Phase 11 (c): one recipe step of GIMM at 64x64, batch 2 (t_id 1 and
+    2), on the card and on the CPU from the same seeded weights and batch,
+    for each of `GRAD_SEEDS`, `GPU_RERUNS` times on the card. The loss
+    agrees to 1e-5 relative, and each gradient tensor to 1e-4 x max|g_cpu|,
+    but those of `ALPHAS`. Each of these is one sum over every pixel,
+    sum_p u_p c_p (`step_fields`), that nearly cancels (the normalised
+    splat hardly changes when its weights scale together): float32 holds
+    such a sum only relative to the size of its terms, S = sum_p |u_p c_p|,
+    not to its own. So the fields u and c are held to 1e-4 x max|cpu| as
+    the gradients are; on each device the alpha's gradient is the float64
+    contraction of its own fields, within a float32 dot product's rounding
+    ((log2 n + 4) x 2^-24 x S, n terms); and GPU vs CPU it agrees to 1e-4 x
+    S. Its gap relative to itself is printed beside, with S / |g|."""
+    cfg = load_config(RECIPE)
+    loss_rel, worst, worst_name, readings = 0.0, 0.0, None, []
+    for seed in GRAD_SEEDS:
+        torch.manual_seed(seed)
+        weights = GIMM(device="cpu").state_dict()
+        batch = flow_batch(2, (64, 64), seed + 12, device="cpu")
+        batch["t_id"] = np.asarray([1, 2], np.int32)
+        cpu = step_fields(cfg, "cpu", weights, batch)
+        for run in range(GPU_RERUNS):
+            gpu = step_fields(cfg, "cuda", weights, batch)
+            where = f"[11] (c) seed {seed} run {run}"
+            rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+            if not rel <= 1e-5:
+                raise AssertionError(f"{where}: loss {gpu['loss']} vs {cpu['loss']} ({rel:.2e})")
+            loss_rel = max(loss_rel, rel)
+            for name, gc in cpu["grads"].items():
+                gap = float((gpu["grads"][name] - gc).abs().max()) / float(gc.abs().max())
+                if name not in ALPHAS and not gap <= 1e-4:
+                    raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} x max|g_cpu| off")
+                if name not in ALPHAS and gap > worst:
+                    worst, worst_name = gap, name
+            for field in ("u", *ALPHAS):
+                gap = float((gpu[field] - cpu[field]).abs().max() / cpu[field].abs().max())
+                if not gap <= 1e-4:
+                    raise AssertionError(f"{where}: the field {field} is {gap:.3e} x max|cpu| off")
+            for name in ALPHAS:
+                terms = {"cpu": cpu["u"] * cpu[name], "gpu": gpu["u"] * gpu[name]}
+                sums = {d: float(t.abs().sum()) for d, t in terms.items()}
+                for d, r in (("cpu", cpu), ("gpu", gpu)):
+                    off = abs(float(r["grads"][name]) - float(terms[d].sum()))
+                    if not off <= (math.log2(terms[d].numel()) + 4) * 2**-24 * sums[d]:
+                        raise AssertionError(f"{where}: {d} gradient of {name} is {off:.3e} off "
+                                             f"its fields' contraction (S {sums[d]:.3e})")
+                g_cpu = float(cpu["grads"][name])
+                gap = abs(float(gpu["grads"][name]) - g_cpu)
+                if not gap <= 1e-4 * sums["cpu"]:
+                    raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off "
+                                         f"(1e-4 x S = {1e-4 * sums['cpu']:.3e})")
+                readings.append({"seed": seed, "run": run, "tensor": name,
+                                 "gap_over_S": gap / sums["cpu"], "gap_over_itself": gap / abs(g_cpu),
+                                 "S_over_itself": sums["cpu"] / abs(g_cpu)})
+    print(f"[11] (c) one step at 64x64, batch 2, GPU vs CPU, seeds {list(GRAD_SEEDS)} x "
+          f"{GPU_RERUNS} runs on the card: loss within {loss_rel:.2e} relative; largest gradient "
+          f"gap {worst:.2e} x max|g_cpu| ({worst_name}); {', '.join(ALPHAS)}: "
+          f"{json.dumps(readings)}", flush=True)
+    return {"loss_rel": loss_rel, "grad_rel": worst, "alpha_readings": readings}
+
+
+def flow_tree(root: Path, n_seq: int, hw, seed: int):
+    """A Vimeo-like flow tree: `n_seq` sequences of 4 `.flo` fields at
+    `hw`, linked to 8 seeded smooth fields a name, listed for both splits."""
+    rng = np.random.default_rng(seed)
+    names = ("im1_im3", "im2_im3", "im2_im1", "im3_im1")
+    distinct = root / "distinct"
+    distinct.mkdir(parents=True)
+    for name in names:
+        for k in range(8):
+            _, flow = seeded_flows(hw, int(rng.integers(1 << 30)))
+            write_flo(str(distinct / f"{name}_{k}.flo"), flow[0, 0].numpy())
+    seqs = [f"00001/{i:04d}" for i in range(n_seq)]
+    for i, seq in enumerate(seqs):
+        d = root / "flow_sequences" / seq
+        d.mkdir(parents=True)
+        for name in names:
+            os.symlink(distinct / f"{name}_{i % 8}.flo", d / f"{name}.flo")
+    for listing in ("tri_trainlist.txt", "tri_testlist.txt"):
+        (root / listing).write_text("\n".join(seqs) + "\n")
+
+
+def run_train_cli(smi: str) -> dict:
+    """Phase 11 (d): `cli/train.py` on the card with the recipe's config and
+    `--smoke-test` on a fabricated tree of 256x448 `.flo` triplets (Vimeo's
+    frame size): one epoch (2 steps of 32 at the 256^2 crop, validation at
+    256x448, a checkpoint), then `--resume` for a second; exact splat
+    launches; steps run, seconds an epoch, and which writer it found."""
+    cfg = load_config(RECIPE)
+    n = cfg.experiment.batch_size
+    root = WORK11 / "vimeo_triplet"
+    flow_tree(root, 2 * n, GIMM_HW, SEED + 13)
+    runs = WORK11 / "runs"
+    argv = ["--config", RECIPE, "--result-path", str(runs), "--overrides",
+            f"dataset.path={root}", "experiment.epochs=1", "--smoke-test"]
+    out = []
+    for label, args in (("first epoch", argv),
+                        ("--resume", None)):
+        if args is None:
+            args = ["--config", RECIPE, "--result-path", out[0]["run_dir"], "--resume",
+                    "--overrides", "experiment.epochs=2", "--smoke-test"]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main(args)
+        seconds = time.perf_counter() - t0
+        got = counts()
+        # an epoch: 2 steps (2 forward and 2 backward splats each) and 2
+        # validation batches (2 forward splats each)
+        expect_counts(f"(d) train CLI, {label}", got, 8, splat_bwd=4, phase=11)
+        epoch = res["epochs"][-1]
+        numbers = [*epoch["train"].values(), *epoch["valid"].values()]
+        if not all(math.isfinite(v) for v in numbers):
+            raise AssertionError(f"[11] (d) {label}: {epoch}")
+        print(f"[11] (d) train CLI {label}: {res['steps']} steps run in all, epoch "
+              f"{epoch['epoch']} {epoch['seconds']:.2f} s, the call {seconds:.2f} s; train "
+              f"{json.dumps(epoch['train'])}; valid {json.dumps(epoch['valid'])}; launches {got}; "
+              f"writer {res['writer']}; {smi}", flush=True)
+        out.append({**res, "seconds": seconds, "launches": got})
+    log = (Path(out[0]["run_dir"]) / "train.log").read_text()
+    ckpts = sorted(os.listdir(Path(out[0]["run_dir"]) / "ckpt"))
+    if not (out[0]["steps"] == 2 and out[1]["steps"] == 4 and "resumed from step 2" in log
+            and ckpts == ["step_2.pt", "step_4.pt"]):
+        raise AssertionError(f"[11] (d) steps {out[0]['steps']}, {out[1]['steps']}; "
+                             f"checkpoints {ckpts}")
+    return {"steps": out[1]["steps"], "epoch_seconds": [o["epochs"][-1]["seconds"] for o in out],
+            "call_seconds": [o["seconds"] for o in out],
+            "writer": out[0]["writer"], "launches": out[0]["launches"]}
+
+
+def run_phase11(smi: str) -> dict:
+    """Phase 11: stage-1 GIMM training on the card, float32, TF32 off."""
+    shutil.rmtree(WORK11, ignore_errors=True)
+    WORK11.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = {"backward": check_backward(), "step": run_recipe_step(smi),
+           "gpu_vs_cpu": check_step_gpu_vs_cpu(), "cli": run_train_cli(smi)}
+    print(f"[11] phase 11 took {time.perf_counter() - t0:.2f} s", flush=True)
+    return res
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1225,6 +1628,8 @@ def main():
             for label, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES), ("windowed", 0))}
     torch.cuda.empty_cache()
     p10 = run_phase10(smi)
+    torch.cuda.empty_cache()
+    p11 = run_phase11(smi)
     # each kernel's launches on the phase 10 paths, each counted from 0
     p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
         "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
@@ -1252,7 +1657,17 @@ def main():
     lk = f720["lookup"]
     records = [
         record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat,
-               launches_phase10=p10_launches["splat"]),
+               launches_phase10=p10_launches["splat"],
+               launches_phase11_step=p11["step"]["launches"]["splat"],
+               train_shape_ms=p11["backward"]["forward_ms"],
+               train_shape_device_ms=p11["backward"]["forward_device_ms"],
+               train_shape_bound_ms=p11["backward"]["forward_bound_ms"]),
+        # the training path's kernel: its launches in one recipe step
+        # (phase 11 (b), counted from 0), its times at that step's shape
+        record(SPLAT_BACKWARD_KERNEL, p11["step"]["launches"]["splat_bwd"],
+               **{k: v for k, v in p11["backward"].items() if not k.startswith("forward_")},
+               step_device_ms=p11["step"]["splat_bwd_device_ms"],
+               launches_phase11_cli=p11["cli"]["launches"]["splat_bwd"]),
         record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
                max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
                                ds["lookups"]["last"]["max_abs_err"]),
@@ -1311,6 +1726,16 @@ def main():
           f"{', '.join(f'{ms:.2f}' for ms in video['pair_ms'])} ms a pair, peak "
           f"{video['peak_bytes'] / 2**20:.1f} MiB; harnesses "
           f"{json.dumps({k: v['result'] for k, v in p10['harnesses'].items()})}; {smi}",
+          flush=True)
+    step, cli = p11["step"], p11["cli"]
+    print(f"[11] stage-1 training: {step['step_ms']:.2f} ms a recipe step (batch 32, 256x256), "
+          f"peak {step['peak_bytes'] / 2**20:.1f} MiB; the splat backward "
+          f"{fmt_ms(p11['backward']['device_ms'])} device against its "
+          f"{p11['backward']['bound_ms']:.4f} ms bound; GPU vs CPU loss "
+          f"{p11['gpu_vs_cpu']['loss_rel']:.2e}, gradients {p11['gpu_vs_cpu']['grad_rel']:.2e}; "
+          f"the CLI {cli['steps']} steps, {', '.join(f'{x:.2f}' for x in cli['epoch_seconds'])} s "
+          f"an epoch, PyYAML {yaml.__version__}, "
+          f"tensorboardX {'found' if cli['writer'] == 'tensorboardX' else 'not found'}; {smi}",
           flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

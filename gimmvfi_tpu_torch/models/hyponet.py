@@ -1,5 +1,5 @@
 """HypoNet: the coordinate SIREN MLP that decodes flow at (t, y, x)
-(`gimmvfi_tpu/models/hyponet.py`), inference form without modulations.
+(`gimmvfi_tpu/models/hyponet.py`), without modulations.
 
 Each layer's parameter is one (fan_in + 1, fan_out) matrix whose last row
 is the bias (`params_dict.linear_wb<i>`), with weight columns L2-normalized
@@ -31,6 +31,20 @@ class HypoNet(nn.Module):
         self.params_dict = nn.ParameterDict(
             {f"linear_wb{i}": nn.Parameter(torch.zeros(s)) for i, s in enumerate(shapes)}
         )
+        self.siren_init_()
+
+    @torch.no_grad()
+    def siren_init_(self):
+        """The reference's SIREN initialization (`modules/utils.py:37-62`,
+        as `gimmvfi_tpu/models/hyponet.py: _make_param`): weights uniform in
+        +-1/fan_in on the first layer and +-sqrt(6/fan_in) after it, the
+        bias row with a fan_in of 1; from torch's global generator."""
+        for i, wb in enumerate(self.params_dict.values()):
+            fan_in = wb.shape[0] - 1
+            bound_w = 1.0 / fan_in if i == 0 else (6.0 / fan_in) ** 0.5
+            bound_b = 1.0 if i == 0 else 6.0 ** 0.5
+            wb[:-1].uniform_(-bound_w, bound_w)
+            wb[-1:].uniform_(-bound_b, bound_b)
 
     def forward(self, coord: torch.Tensor, pixel_latent: torch.Tensor) -> torch.Tensor:
         """coord (B, T, H, W, D) float32; pixel_latent (B, L, h, w).

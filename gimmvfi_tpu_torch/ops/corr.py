@@ -245,6 +245,10 @@ class WindowedCorrKernel(CudaKernel):
         """Raise on what the kernel does not take; returns an empty output,
         the level pointers and sizes (padded to MAX_LEVELS) and (N, C)."""
         f1, levels = wc.f1, wc.f2_levels
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (f1, coords, *levels)):
+            raise NotImplementedError(
+                f"{self.name}: the windowed lookup kernels have no backward, and their output "
+                "would leave the graph; run them under torch.no_grad or inference_mode")
         if f1.dim() != 3 or coords.dim() != 4 or coords.shape[1] != 2:
             raise ValueError(f"{self.name}: takes f1 (N, P, C) and coords (N, 2, H, W), got "
                              f"{tuple(f1.shape)} and {tuple(coords.shape)}")

@@ -5,14 +5,17 @@ pixels around (j + u, i + v) with bilinear weights. The `avg`, `linear` and
 `softmax` modes append a weight channel and divide by it under one of three
 epsilon policies (`-addeps`, `-zeroeps`, `-clipeps`).
 
-The sum core `splat_sum` is the hand-written CUDA kernel
-`csrc/softsplat.cu` for CUDA tensors, and `splat_sum_plain`, four masked
-`index_add_` calls, for CPU tensors. There is no fallback between them: a
-CUDA tensor launches the kernel or raises. The mode prologue and epilogue
-are plain torch around the core.
+The sum core `splat_sum` is, for CUDA tensors, the autograd Function
+`SplatSum` over two hand-written CUDA kernels: `csrc/softsplat.cu` forward
+and `csrc/softsplat_bwd.cu` backward (the JAX package's gather-form VJP,
+`_splat_pallas_bwd`). For CPU tensors it is `splat_sum_plain`, four masked
+`index_add_` calls that autograd differentiates. There is no fallback
+between them: a CUDA tensor launches the kernels or raises. The mode
+prologue and epilogue are plain torch around the core.
+`splat_sum_backward_plain` is the backward kernel's plain version.
 
 Layout: channels last, as in the reference. `ten_in` (N, H, W, C), `flow`
-(N, H, W, 2), `metric` (N, H, W, 1). Inference only: there is no backward.
+(N, H, W, 2), `metric` (N, H, W, 1).
 """
 
 from __future__ import annotations
@@ -41,25 +44,77 @@ class SplatKernel(CudaKernel):
     def __call__(self, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         if vals.dim() != 4:
             raise ValueError(f"splat kernel takes vals (N, H, W, C), got {tuple(vals.shape)}")
+        if torch.is_grad_enabled() and (vals.requires_grad or flow.requires_grad):
+            raise NotImplementedError(
+                "the splat kernel's output has no graph: call splat_sum, whose SplatSum "
+                "carries the backward kernel")
         n, h, w, c = vals.shape
         self.check(("vals", vals, torch.float32),
                    ("flow", flow, torch.float32, (n, h, w, 2), vals.device))
         if n * h * w >= 2**31 or not 1 <= c <= 2**22:
             raise ValueError(f"splat kernel takes N*H*W < 2**31 and 1 <= C <= 2**22, "
                              f"got {tuple(vals.shape)}")
-        if torch.is_grad_enabled() and (vals.requires_grad or flow.requires_grad):
-            raise NotImplementedError("the splat kernel has no backward yet")
         out = torch.zeros_like(vals)
         self.launch(vals.device, vals.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c)
         return out
 
 
+class SplatBackwardKernel(CudaKernel):
+    """The CUDA backward of the sum-mode splat: built at first use, with a
+    launch counter. Returns (d_vals, d_flow), d_flow None unless asked for."""
+
+    def __init__(self):
+        super().__init__(
+            name="softsplat_sum_bwd",
+            source="gimmvfi_tpu_torch/csrc/softsplat_bwd.cu",
+            symbol="softsplat_sum_bwd_f32",
+            argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
+            replaces="gimmvfi_tpu/ops/softsplat.py:108",
+        )
+
+    def __call__(self, vals: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                 need_flow: bool = True):
+        if vals.dim() != 4:
+            raise ValueError(f"splat backward takes vals (N, H, W, C), got {tuple(vals.shape)}")
+        n, h, w, c = vals.shape
+        self.check(("vals", vals, torch.float32),
+                   ("flow", flow, torch.float32, (n, h, w, 2), vals.device),
+                   ("g", g, torch.float32, (n, h, w, c), vals.device))
+        if n * h * w >= 2**31 or not 1 <= c <= 2**22:
+            raise ValueError(f"splat backward takes N*H*W < 2**31 and 1 <= C <= 2**22, "
+                             f"got {tuple(vals.shape)}")
+        d_vals = torch.empty_like(vals)
+        d_flow = torch.empty_like(flow) if need_flow else None
+        self.launch(vals.device, vals.data_ptr(), flow.data_ptr(), g.data_ptr(),
+                    d_vals.data_ptr(), 0 if d_flow is None else d_flow.data_ptr(), n, h, w, c)
+        return d_vals, d_flow
+
+
 SPLAT_KERNEL = SplatKernel()
+SPLAT_BACKWARD_KERNEL = SplatBackwardKernel()
 
 
-def splat_geometry(flow: torch.Tensor):
-    """Integer base corners, bilinear weight factors and per-corner in-bounds
-    masks of the splat positions (`splat_pallas.py:150-175`, float32).
+class SplatSum(torch.autograd.Function):
+    """The sum core on the card: forward `SPLAT_KERNEL`, backward
+    `SPLAT_BACKWARD_KERNEL` (d_flow only when flow needs it)."""
+
+    @staticmethod
+    def forward(ctx, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(vals, flow)
+        return SPLAT_KERNEL(vals, flow)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        vals, flow = ctx.saved_tensors
+        d_vals, d_flow = SPLAT_BACKWARD_KERNEL(vals, flow, g.float().contiguous(),
+                                               need_flow=ctx.needs_input_grad[1])
+        return (d_vals if ctx.needs_input_grad[0] else None), d_flow
+
+
+def splat_positions(flow: torch.Tensor):
+    """Integer base corners (ix0, iy0) and the bilinear factors (wx1, wy1)
+    of the splat positions (`splat_pallas.py:150-175`, float32), each
+    (N, H, W).
 
     Positions are clamped to [-2, size] before the integer conversion, which
     keeps every in-bounds decision and avoids overflow far off the frame.
@@ -75,10 +130,14 @@ def splat_geometry(flow: torch.Tensor):
     y = torch.where(finite, y, -10.0)
     x0f = torch.floor(x)
     y0f = torch.floor(y)
-    wx1 = x - x0f
-    wy1 = y - y0f
-    ix0 = x0f.clamp(-2, w).to(torch.int64)
-    iy0 = y0f.clamp(-2, h).to(torch.int64)
+    return x0f.clamp(-2, w).to(torch.int64), y0f.clamp(-2, h).to(torch.int64), x - x0f, y - y0f
+
+
+def splat_geometry(flow: torch.Tensor):
+    """The 4 corners of each splat position as (ix, iy, weight, in-bounds
+    mask), in the kernel's order: (0, 0), (1, 0), (0, 1), (1, 1)."""
+    _, h, w, _ = flow.shape
+    ix0, iy0, wx1, wy1 = splat_positions(flow)
     corners = []
     for dx, dy, wgt in (
         (0, 0, (1.0 - wx1) * (1.0 - wy1)),
@@ -109,11 +168,45 @@ def splat_sum_plain(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out[:p].reshape(n, h, w, c)
 
 
+def splat_sum_backward_plain(vals: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                             need_flow: bool = True):
+    """Plain torch backward of the sum core (`gimmvfi_tpu/ops/softsplat.py:
+    _splat_pallas_bwd`): one gather of g at the 4 corners, then d_vals is
+    their weighted sum and d_flow the value-weighted corner differences.
+
+    vals, g (N, H, W, C), flow (N, H, W, 2), float32 -> (d_vals, d_flow),
+    d_flow None unless `need_flow`.
+    """
+    n, h, w, c = vals.shape
+    p = n * h * w
+    img = torch.arange(n, device=vals.device).view(n, 1, 1) * (h * w)
+    g_flat = g.reshape(p, c).float()
+    gq, weights, masks = [], [], []
+    for ix, iy, wgt, ok in splat_geometry(flow):
+        ok = ok.reshape(p)
+        idx = torch.where(ok, (img + iy * w + ix).reshape(p), 0)
+        gq.append(torch.where(ok[:, None], g_flat[idx], 0.0))
+        weights.append(wgt.reshape(p) * ok)
+        masks.append(ok.float())
+    gq = torch.stack(gq, dim=1)  # (P, 4, C)
+    d_vals = torch.einsum("pk,pkc->pc", torch.stack(weights, dim=-1), gq).reshape(n, h, w, c)
+    if not need_flow:
+        return d_vals, None
+    _, _, wx1, wy1 = (a.reshape(p) for a in splat_positions(flow))
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    m00, m01, m10, m11 = masks
+    s00, s01, s10, s11 = torch.einsum("pc,pkc->pk", vals.reshape(p, c).float(), gq).unbind(-1)
+    du = -wy0 * m00 * s00 + wy0 * m01 * s01 - wy1 * m10 * s10 + wy1 * m11 * s11
+    dv = -wx0 * m00 * s00 - wx1 * m01 * s01 + wx0 * m10 * s10 + wx1 * m11 * s11
+    return d_vals, torch.stack([du, dv], dim=-1).reshape(n, h, w, 2)
+
+
 def splat_sum(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Sum-mode splat core: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors, an error for anything else."""
+    """Sum-mode splat core: `SplatSum` (the forward and backward kernels)
+    for CUDA tensors, the plain version (differentiated by autograd) for
+    CPU tensors, an error for anything else."""
     if vals.is_cuda:
-        return SPLAT_KERNEL(vals, flow)
+        return SplatSum.apply(vals, flow)
     if vals.device.type == "cpu":
         return splat_sum_plain(vals, flow)
     raise NotImplementedError(f"no splat core for device {vals.device}")

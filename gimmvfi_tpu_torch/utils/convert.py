@@ -356,15 +356,14 @@ UNCONVERTED_KEYS = (
 )
 
 
-def load_reference_state_dict(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a reference `.pt`/`.pth` checkpoint into `model`.
+def read_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The tensors of a reference `.pt`/`.pth` checkpoint, on the CPU.
 
     As the JAX loader (`load_torch_state_dict`) does, a `{"state_dict":
     ...}` wrapper is unwrapped, DDP `module.` prefixes are stripped and
-    entries that are not tensors are left out; then the `UNCONVERTED_KEYS`
-    are dropped and the rest loads with `strict=True`, so any other
-    missing or unexpected key raises and is named. The file is read with
-    `weights_only=True`: no pickled code runs."""
+    entries that are not tensors are left out; the `UNCONVERTED_KEYS` are
+    dropped too. The file is read with `weights_only=True`: no pickled code
+    runs."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
@@ -373,7 +372,14 @@ def load_reference_state_dict(path: str, model: torch.nn.Module) -> torch.nn.Mod
         k = k[len("module."):] if k.startswith("module.") else k
         if isinstance(v, torch.Tensor) and not any(re.fullmatch(p, k) for p in UNCONVERTED_KEYS):
             sd[k] = v
-    model.load_state_dict(sd, strict=True)
+    return sd
+
+
+def load_reference_state_dict(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference `.pt`/`.pth` checkpoint into `model` with
+    `strict=True` (`read_reference_state_dict`), so any missing or
+    unexpected key raises and is named."""
+    model.load_state_dict(read_reference_state_dict(path), strict=True)
     return model
 
 

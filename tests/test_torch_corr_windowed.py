@@ -229,6 +229,37 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper
     assert kernel.launches == before
 
 
+@pytest.mark.parametrize("wrapper", [w for w, _, _ in WRAPPERS])
+@pytest.mark.parametrize("needs_grad", ["f1", "level", "coords", "none"])
+def test_kernel_wrapper_refuses_grad(rng, wrapper, needs_grad):
+    """With grad enabled, an input that requires grad makes each wrapper
+    raise before anything is built: the kernels have no backward, and their
+    output would leave the graph. Without one, the wrapper goes on to its
+    other checks (here: the CPU tensor)."""
+    kernel = {"cuda_core": tcorr.WINDOWED_CORR_KERNEL, "mma": tcorr.WINDOWED_CORR_MMA_KERNEL,
+              "tf32": tcorr.WINDOWED_CORR_TF32_KERNEL}[wrapper]
+    dtype = dict((w, d) for w, d, _ in WRAPPERS)[wrapper]
+    f1, f2 = _maps(rng, 1, 8, 8, 16)
+    wc = tcorr.windowed_corr_pyramid(nchw(f1).to(dtype), nchw(f2).to(dtype), 3)
+    coords = torch.zeros(1, 2, 8, 8)
+    if needs_grad == "f1":
+        wc = wc._replace(f1=wc.f1.requires_grad_())
+    elif needs_grad == "level":
+        wc = wc._replace(f2_levels=(wc.f2_levels[0], wc.f2_levels[1].requires_grad_(),
+                                    wc.f2_levels[2]))
+    elif needs_grad == "coords":
+        coords.requires_grad_()
+    before = kernel.launches
+    error, match = ((ValueError, "must be a CUDA tensor") if needs_grad == "none"
+                    else (NotImplementedError, "no backward"))
+    with pytest.raises(error, match=match):
+        kernel(wc, coords)
+    if needs_grad != "none":
+        with torch.no_grad(), pytest.raises(ValueError, match="must be a CUDA tensor"):
+            kernel(wc, coords)
+    assert kernel.launches == before
+
+
 def test_mma_wrapper_refuses_float32():
     """A float32 state never reaches the tensor-core kernel."""
     wc = tcorr.windowed_corr_pyramid(torch.zeros(1, 16, 8, 8), torch.zeros(1, 16, 8, 8), 2)

@@ -45,5 +45,7 @@ def test_port_imports_no_jax():
     assert proc.stdout.startswith("OK"), proc.stdout
     imported = proc.stdout.split()[2:]
     for name in ("cli.video_nx", "cli.benchmarks", "models.gimm", "ops.pad", "data.frame_io",
-                 "utils.metrics", "utils.flow_viz", "train.lpips", "tools.raft_f32_profile"):
+                 "utils.metrics", "utils.flow_viz", "train.lpips", "tools.raft_f32_profile",
+                 "cli.train", "train.optim", "train.ema", "train.train_state", "train.checkpoint",
+                 "utils.config", "utils.writer", "data.loader", "data.flow_dataset"):
         assert f"gimmvfi_tpu_torch.{name}" in imported
