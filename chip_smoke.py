@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      in every case of `tools/splat_ablate.py: CHECK_CASES` (the main path's
      (1,736,1280,17) on a random, a smooth and a non-finite/far flow field;
      C in {1, 3, 5, 17, 33, 64}; N = 2; value counts off a multiple of 4);
-     times it at 720p on the random and the smooth field;
+     times it at 720p on the random and the smooth field, beside its
+     PyTorch yardstick (`aten.grid_sampler_2d_backward`'s input gradient
+     on NCHW views, `tools/splat_ablate.py: library_calls`), held to the
+     plain version first (1e-4 x max(1, max|plain|));
   4. GIMMVFI_R(raft_iters=2) float32 at 128x192 on the card (kernel) against
      the CPU (plain core), same seeded weights, TF32 off: PSNR >= 50 dB;
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
@@ -33,7 +36,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   6. the probes: the conv kernel against its plain version at the probe
      shape (1,736,1280,256) and six ragged shapes, each gather kernel
      against its plain version at its probe shape and with out-of-range
-     indices; then the two probe entry points, `conv_proto.main` (kernel,
+     indices, subgather also on three ragged tables; then the two probe entry points, `conv_proto.main` (kernel,
      cuDNN NCHW, cuDNN channels-last, plain, bound) and
      `gather_cost_probe.main` (torch.gather / torch.sort table, kernels),
      each of whose kernels must launch; then the launch floor, the device
@@ -118,11 +121,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      launch counts, each harness's seconds;
  11. stage-1 GIMM training, float32 (TF32 off), in build/chip_smoke_phase11/:
      (a) the splat's backward kernel (`csrc/softsplat_bwd.cu`) against
-     `splat_sum_backward_plain` at the recipe step's (32, 256, 256, 17) on
-     a random, a smooth and a non-finite/far field and in the small
-     `CHECK_CASES` (d_vals and d_flow <= 1e-5 x max(1, max|plain|); d_vals
-     without d_flow equal), timed by events and device rows against its
-     bound, beside the plain version and the forward kernel at that shape;
+     `splat_sum_backward_plain` in `tools/splat_ablate.py: BWD_CASES` (the
+     recipe step's (32, 256, 256, 17) on a random, a smooth and a
+     non-finite/far field, the small `CHECK_CASES`, C = 130, 34 and 16,
+     widths off its 32-column tile; d_vals and d_flow <= 1e-5 x max(1,
+     max|plain|); d_vals without d_flow equal); two calls bitwise equal in
+     both modes on the random and the non-finite field; both modes timed
+     by events and device rows against each mode's bound, beside the plain
+     version, the forward kernel at that shape and the PyTorch yardsticks
+     (`F.grid_sample` for d_vals, `aten.grid_sampler_2d_backward`'s grid
+     gradient for d_flow, the forward's too), each held to the plain
+     version first;
      (b) the recipe's step (`configs/gimm/gimm.yaml`: GIMM, Adam lr 1e-4,
      batch 32, 256^2) on seeded smooth flows: one step counted from 0
      (exactly 2 forward and 2 backward splat launches, no windowed one), 10
@@ -196,9 +205,9 @@ from gimmvfi_tpu_torch.ops.softsplat import (
     splat_sum_backward_plain,
     splat_sum_plain,
 )
-from gimmvfi_tpu_torch.tools import conv_proto, gather_cost_probe
+from gimmvfi_tpu_torch.tools import conv_proto, gather_ablate, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
-from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS
+from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS, SUBGATHER_KERNEL, subgather_plain
 from gimmvfi_tpu_torch.tools.windowed_ablate import (
     AMT_2K,
     F_AMT_720P,
@@ -217,10 +226,17 @@ from gimmvfi_tpu_torch.tools.windowed_ablate import (
     windowed_inputs,
 )
 from gimmvfi_tpu_torch.tools.splat_ablate import (
+    BWD_CASES,
     CHECK_CASES,
     MAIN_SHAPE,
+    TRAIN_SPLAT,
+    TRAIN_STD,
+    bwd_inputs,
     kernel_bound_ok,
+    library_agreement,
+    library_calls,
     splat_bound,
+    splat_bwd_bound,
     splat_inputs,
 )
 from gimmvfi_tpu_torch.cli import train as train_cli
@@ -313,6 +329,29 @@ def splat_reading(vals, flow, label: str) -> dict:
             "bound_ms": bound, "bound_by": bound_by}
 
 
+def yardstick_readings(vals, flow, g=None, label: str = "") -> dict:
+    """The PyTorch calls that compute the splat's functions (`splat_ablate:
+    library_calls`), first held to the plain version on these inputs
+    (1e-4 x max(1, max|plain|): the normalized-coordinate round trip), then
+    each timed by events and by its device rows (all of them: the call's
+    kernels and fills). Returns {name: {"ms", "device_ms", "max_abs_err",
+    "tolerance", "layout"}}; the port never calls them."""
+    agree = library_agreement(vals, flow, g)
+    res = {}
+    for name, call in library_calls(vals, flow, g).items():
+        err, tol, layout = agree[name]
+        ms = cuda_ms(call, warmup=3)
+        dev, rows = device_ms(call)
+        res[name] = {"ms": ms, "device_ms": dev, "max_abs_err": err, "tolerance": tol,
+                     "layout": f"inputs NCHW views of the channels-last tensors (no copy), "
+                               f"{layout}"}
+        print(f"{label} yardstick {name}: {ms:.4f} ms by events, device {fmt_ms(dev)} "
+              f"[{'; '.join(f'{k[:50]} {v:.4f}' for k, v in rows.items())}]; max_abs_err "
+              f"{err:.3e} against the plain version (tolerance {tol:.3e}); {res[name]['layout']}",
+              flush=True)
+    return res
+
+
 def check_kernel() -> dict:
     worst = 0.0
     for i, (shape, field, std) in enumerate(CHECK_CASES):
@@ -331,12 +370,17 @@ def check_kernel() -> dict:
     stats = {"max_abs_err": worst}
     for field in ("random", "smooth"):
         vals, flow = splat_inputs(MAIN_SHAPE, field, 20.0, seed=SEED)
-        reading = splat_reading(vals, flow, f"[3] splat {MAIN_SHAPE} {field} flow std 20")
+        label = f"[3] splat {MAIN_SHAPE} {field} flow std 20"
+        reading = splat_reading(vals, flow, label)
+        lib = yardstick_readings(vals, flow, label=label)["forward"]
+        reading.update(library_ms=lib["ms"], library_device_ms=lib["device_ms"])
         if field == "random":
-            stats.update(reading, library_ms=None)
+            stats.update(reading, library_call="aten.grid_sampler_2d_backward, input gradient",
+                         library_layout=lib["layout"], library_max_abs_err=lib["max_abs_err"],
+                         library_tolerance=lib["tolerance"])
         else:
-            stats.update({f"smooth_{k}": reading[k]
-                          for k in ("ms", "kernel_device_ms", "plain_ms")})
+            stats.update({f"smooth_{k}": reading[k] for k in (
+                "ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms")})
     return stats
 
 
@@ -529,9 +573,20 @@ def check_conv() -> float:
 def check_gathers() -> dict:
     """Each gather kernel against its plain version at its probe shape, and
     with out-of-range and negative indices: exactly equal, NaN at the same
-    places (none for subgather_grid, whose `% 512` keeps every index in range)."""
+    places (none for subgather_grid, whose `% 512` keeps every index in
+    range); subgather first on the ragged tables of `gather_ablate.RAGGED`."""
     rng = np.random.default_rng(SEED)
     worst = {}
+    for xn, idxn in gather_ablate.check_tables(SEED)[2:]:
+        x, idx = torch.from_numpy(xn).cuda(), torch.from_numpy(idxn).cuda()
+        got, ref = SUBGATHER_KERNEL(x, idx), subgather_plain(x, idx)
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        if not (torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], ref[~nan])):
+            raise AssertionError(f"subgather kernel differs from its plain version at "
+                                 f"{tuple(x.shape)}")
+        print(f"[6] subgather {tuple(x.shape)} (ragged) indices in [-rows - 3, rows + 3): equal "
+              f"True, NaN {int(nan.sum())}", flush=True)
     for name, (xn, idxn) in gather_cost_probe.gather_tables(SEED).items():
         kernel, plain, _ = GATHERS[name]
         n = xn.shape[1] if name == "lanegather" else xn.shape[0]
@@ -1241,37 +1296,24 @@ def run_phase10(smi: str) -> dict:
 # ------------------------------------------------------------------ phase 11
 WORK11 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase11"
 RECIPE = "configs/gimm/gimm.yaml"  # stage-1 GIMM: Adam, lr 1e-4, batch 32, 256^2 crop
-CROP = 256  # the flow dataset's crop (`data/flow_dataset.py`)
-TRAIN_SPLAT = (32, CROP, CROP, 17)  # the recipe step's splats: 16 latent channels + the weight
+CROP = 256  # the flow dataset's crop (`data/flow_dataset.py`); TRAIN_SPLAT's H and W
 TIMED_STEPS = 10
-
-
-def splat_bwd_bound(vals: torch.Tensor) -> tuple[float, str]:
-    """Least time of one backward: vals, flow and g read once, d_vals and
-    d_flow written once."""
-    n, h, w, c = vals.shape
-    return bound_ms(4 * n * h * w * (c + 2 + c + c + 2))
-
-
-def bwd_inputs(shape, field: str, std: float, seed: int):
-    """`splat_inputs` and a seeded N(0, 1) output gradient g, on the card."""
-    vals, flow = splat_inputs(shape, field, std, seed=seed)
-    gen = torch.Generator(device="cpu").manual_seed(seed + 1000)
-    return vals, flow, torch.randn(shape, generator=gen).cuda()
 
 
 def check_backward() -> dict:
     """Phase 11 (a): the backward kernel against `splat_sum_backward_plain`
-    at the recipe step's (32, 256, 256, 17) on a random, a smooth and a
-    non-finite/far field and in the small `CHECK_CASES`: d_vals and d_flow
-    <= 1e-5 x max(1, max|plain|), and d_vals alone (no d_flow) equal to the
-    full call's. Then its times at that shape (events and device rows,
-    against the bound) beside the plain version's and the forward
-    kernel's."""
-    cases = [(TRAIN_SPLAT, field, 8.0) for field in ("random", "smooth", "non_finite")] + [
-        c for c in CHECK_CASES if c[0] != MAIN_SHAPE]
+    in `BWD_CASES` (the recipe step's (32, 256, 256, 17) on a random, a
+    smooth and a non-finite/far field, the small `CHECK_CASES`, C above one
+    d_flow chunk, W off the 32-column tile): d_vals and d_flow <= 1e-5 x
+    max(1, max|plain|), and d_vals alone (no d_flow) equal to the full
+    call's. Then, at the recipe shape on the random and the non-finite
+    field, two calls in each mode must give the same bits. Then its times
+    there in both modes (events and device rows, against each mode's
+    bound) beside the plain version's, the forward kernel's and the PyTorch
+    yardsticks' (`F.grid_sample` for d_vals, `aten.grid_sampler_2d_backward`
+    for d_flow; each held to the plain version first)."""
     worst, worst_share = 0.0, 0.0
-    for i, (shape, field, std) in enumerate(cases):
+    for i, (shape, field, std) in enumerate(BWD_CASES):
         vals, flow, g = bwd_inputs(shape, field, std, SEED + i)
         d_vals, d_flow = SPLAT_BACKWARD_KERNEL(vals, flow, g)
         d_vals_only, none = SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=False)
@@ -1293,31 +1335,67 @@ def check_backward() -> dict:
         del vals, flow, g, d_vals, d_flow, d_vals_only, ref_vals, ref_flow
     torch.cuda.empty_cache()
 
+    for field in ("random", "non_finite"):
+        vals, flow, g = bwd_inputs(TRAIN_SPLAT, field, TRAIN_STD, SEED)
+        for need_flow in (True, False):
+            first = SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=need_flow)
+            second = SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=need_flow)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(first, second) if a is not None]
+            if not all(same):
+                raise AssertionError(f"[11] (a) two calls of the backward differ at {TRAIN_SPLAT} "
+                                     f"{field}, need_flow={need_flow}: equal {same}")
+        print(f"[11] (a) splat backward {TRAIN_SPLAT} {field}: two calls give the same bits, "
+              f"d_vals and d_flow, in both modes", flush=True)
+        del vals, flow, g, first, second
+    torch.cuda.empty_cache()
+
     stats = {"max_abs_err": worst, "max_err_over_bound": worst_share,
-             "tolerance": "1e-5 max(1, max|plain|), d_vals and d_flow"}
+             "tolerance": "1e-5 max(1, max|plain|), d_vals and d_flow", "deterministic": True}
     for field in ("random", "smooth"):
-        vals, flow, g = bwd_inputs(TRAIN_SPLAT, field, 8.0, SEED)
+        vals, flow, g = bwd_inputs(TRAIN_SPLAT, field, TRAIN_STD, SEED)
         bound, bound_by = splat_bwd_bound(vals)
+        vals_bound = splat_bwd_bound(vals, need_flow=False)[0]
         ms = cuda_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g), warmup=3)
         _, rows = device_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g))
         dev = kernel_row(rows, "splat_sum_bwd_kernel")
         vals_ms = cuda_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=False), warmup=3)
+        _, rows = device_ms(lambda: SPLAT_BACKWARD_KERNEL(vals, flow, g, need_flow=False))
+        vals_dev = kernel_row(rows, "splat_sum_bwd_kernel")
         plain_ms = cuda_ms(lambda: splat_sum_backward_plain(vals, flow, g), iters=5)
         fwd_ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
         _, fwd_rows = device_ms(lambda: SPLAT_KERNEL(vals, flow))
         fwd_dev = kernel_row(fwd_rows, "splat_sum_kernel")
         fwd_bound = splat_bound(vals)[0]
-        print(f"[11] (a) splat backward {TRAIN_SPLAT} {field} flow std 8: kernel {ms:.4f} ms by "
-              f"events ({fmt_share(bound, ms)}), device {fmt_ms(dev)} ({fmt_share(bound, dev)}); "
-              f"bound {bound:.4f} ms ({bound_by}); d_vals alone {vals_ms:.4f} ms; plain "
-              f"{plain_ms:.4f} ms; the forward kernel there {fwd_ms:.4f} ms by events, device "
-              f"{fmt_ms(fwd_dev)} ({fmt_share(fwd_bound, fwd_dev)} of {fwd_bound:.4f} ms)",
-              flush=True)
-        reading = {"ms": ms, "device_ms": dev, "d_vals_only_ms": vals_ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": bound_by, "forward_ms": fwd_ms,
-                   "forward_device_ms": fwd_dev, "forward_bound_ms": fwd_bound}
+        label = f"[11] (a) splat backward {TRAIN_SPLAT} {field} flow std {TRAIN_STD:g}"
+        lib = yardstick_readings(vals, flow, g, label=label)
+        lib_ms = lib["d_vals"]["ms"] + lib["d_flow"]["ms"]
+        lib_dev = (None if lib["d_vals"]["device_ms"] is None or lib["d_flow"]["device_ms"] is None
+                   else lib["d_vals"]["device_ms"] + lib["d_flow"]["device_ms"])
+        print(f"{label}: full (d_vals and d_flow) {ms:.4f} ms by events ({fmt_share(bound, ms)}), "
+              f"device {fmt_ms(dev)} ({fmt_share(bound, dev)}), bound {bound:.4f} ms "
+              f"({bound_by}); d_vals alone {vals_ms:.4f} ms by events, device {fmt_ms(vals_dev)} "
+              f"({fmt_share(vals_bound, vals_dev)} of {vals_bound:.4f} ms); yardsticks: "
+              f"F.grid_sample {fmt_ms(lib['d_vals']['device_ms'])} device, with the d_flow call "
+              f"{fmt_ms(lib_dev)}; plain {plain_ms:.4f} ms; the forward kernel there "
+              f"{fwd_ms:.4f} ms by events, device {fmt_ms(fwd_dev)} "
+              f"({fmt_share(fwd_bound, fwd_dev)} of {fwd_bound:.4f} ms)", flush=True)
+        reading = {"ms": ms, "device_ms": dev, "d_vals_only_ms": vals_ms,
+                   "d_vals_only_device_ms": vals_dev, "d_vals_only_bound_ms": vals_bound,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": lib_ms, "library_device_ms": lib_dev,
+                   "library_d_vals_ms": lib["d_vals"]["ms"],
+                   "library_d_vals_device_ms": lib["d_vals"]["device_ms"],
+                   "library_d_flow_ms": lib["d_flow"]["ms"],
+                   "library_d_flow_device_ms": lib["d_flow"]["device_ms"],
+                   "forward_ms": fwd_ms, "forward_device_ms": fwd_dev,
+                   "forward_bound_ms": fwd_bound, "forward_library_ms": lib["forward"]["ms"],
+                   "forward_library_device_ms": lib["forward"]["device_ms"]}
         if field == "random":
-            stats.update(reading, library_ms=None)
+            stats.update(reading, library_call="F.grid_sample (d_vals) + "
+                         "aten.grid_sampler_2d_backward grid gradient (d_flow)",
+                         library_layout={k: v["layout"] for k, v in lib.items()},
+                         library_max_abs_err={k: v["max_abs_err"] for k, v in lib.items()})
         else:
             stats.update({f"smooth_{k}": v for k, v in reading.items() if k != "bound_by"})
         del vals, flow, g
@@ -1661,7 +1739,9 @@ def main():
                launches_phase11_step=p11["step"]["launches"]["splat"],
                train_shape_ms=p11["backward"]["forward_ms"],
                train_shape_device_ms=p11["backward"]["forward_device_ms"],
-               train_shape_bound_ms=p11["backward"]["forward_bound_ms"]),
+               train_shape_bound_ms=p11["backward"]["forward_bound_ms"],
+               train_shape_library_ms=p11["backward"]["forward_library_ms"],
+               train_shape_library_device_ms=p11["backward"]["forward_library_device_ms"]),
         # the training path's kernel: its launches in one recipe step
         # (phase 11 (b), counted from 0), its times at that step's shape
         record(SPLAT_BACKWARD_KERNEL, p11["step"]["launches"]["splat_bwd"],

@@ -8,73 +8,149 @@
 //   s_k[p]       = sum_c vals[p, c] g[corner_k(p), c]
 //   d_flow[p]    = (-wy0 m00 s00 + wy0 m01 s01 - wy1 m10 s10 + wy1 m11 s11,
 //                   -wx0 m00 s00 - wx1 m01 s01 + wx0 m10 s10 + wx1 m11 s11)
-// over the 4 bilinear corners k of the splat position (j + u, i + v), with
-// m_k 1 where the corner lies in the frame. The geometry is the forward
-// kernel's (softsplat.cu), in the same float32 order: a non-finite position
-// goes to (-10, -10), and positions are clamped to [-2, size] before the
-// integer conversion. Each source pixel owns its outputs: no atomic touches
-// global memory.
+// over the 4 bilinear corners k of the splat position (j + u, i + v), in the
+// order (0,0), (1,0), (0,1), (1,1), with m_k 1 where the corner lies in the
+// frame. The geometry is the forward kernel's (softsplat.cu), in the same
+// float32 order: a non-finite position goes to (-10, -10), and positions
+// are clamped to [-2, size] before the integer conversion. Each source pixel
+// owns its outputs: no atomic is used anywhere.
 //
 // What bounds it on the H100: at (32, 256, 256, 17), stage-1 GIMM's training
 // splat, one call must read vals, flow and g and write d_vals and d_flow,
-// 461 MB, 0.138 ms at 3.35 TB/s. Without d_flow it reads flow and g and
-// writes d_vals, 302 MB. The gathers of g touch each destination's channels
-// up to 4 times; L1 and L2 catch most of that for smooth flows.
+// 461 MB, 0.138 ms at 3.35 TB/s. Without d_flow (every path's mode: the
+// flows carry no gradient) it reads flow and g and writes d_vals, 302 MB,
+// 0.090 ms. The gathers of g read each destination's channels up to 4
+// times; L1 and L2 catch most of that, but for a random field of std 8 px
+// each source pixel still pulls its two corner pairs (2 x 136 B) into L1
+// from L2, so the L2-to-SM traffic, not the device memory, is what the
+// gathers cost (tools/splat_ablate.py --backward: one gather instead of
+// four takes a fifth off the d_vals mode).
 //
-// The design follows the forward kernel's: a block owns kPixels consecutive
-// source pixels (raster order).
-//   1. One thread a pixel reads its flow (float2, coalesced), computes the 4
-//      corner indices and weights once and leaves them in shared memory; it
-//      keeps its own bilinear factors in registers for step 3.
-//   2. The block walks its kPixels x C values as one flat range in rounds of
-//      kPixels: consecutive lanes take consecutive elements, so vals is read
-//      and d_vals written coalesced, and the gathers of g read contiguous
-//      channels of a few destination pixels a warp. Each element writes its
-//      d_vals value and, when d_flow is asked for, its 4 products
-//      vals * g_k. A segmented sum over the warp's lanes (shuffles, keyed by
-//      pixel) leaves each pixel's share of the round in its first lane,
-//      which adds it into the pixel's 4 sums in shared memory: a pixel's C
-//      channels meet in ceil(C / 32) + 1 such adds at most.
-//   3. One thread a pixel reads its 4 sums and writes d_flow (float2).
+// Design: a block owns a tile of kPixels source pixels of one image: a run
+// of one row without d_flow, kTileRowsFlow rows with it (the 2D tile was
+// slower on a random field without d_flow, and faster with it).
+//   1. One thread a pixel reads its flow (float2, coalesced along a tile
+//      row), computes the 4 corner indices and weights once and leaves them,
+//      with the pixel's own index, in shared memory.
+//   2. The block walks the tile's (pixel, channel) values as one flat range:
+//      consecutive lanes take consecutive channels, so each gather of g reads
+//      contiguous channels of a few destination pixels a warp, and d_vals is
+//      written in runs of a pixel's channels. A thread loads kUnrollVals
+//      (kUnrollFlow with d_flow) values before it uses them: without d_flow
+//      a full SM of 31-38-register threads hides the latency better than
+//      more loads a thread.
+//   3. With d_flow, the walk goes over chunks of at most kPitch channels and
+//      also reads vals (coalesced) and leaves the 4 products vals * g_k of
+//      each value in shared memory as one float4, at a pixel pitch of kPitch
+//      float4s (odd, so step 4 is free of bank conflicts). After each chunk,
+//      the thread of each pixel adds its products into its 4 sums s_k in
+//      registers, in channel order. Chunks of 9 and a cap of 64 registers
+//      let 8 blocks share an SM.
+//   4. That thread writes d_flow (float2).
+// Without d_flow the kernel reads no vals, keeps no products and walks all
+// channels at once.
 //
-// Determinism: d_vals is bit-deterministic (each element sums its 4 corners
-// in a fixed order). d_flow is not: the shared-memory adds of step 2 from
-// different warps land in the order the warps run. Both agree with the plain
-// version (ops/softsplat.py: splat_sum_backward_plain) to float32 rounding.
+// Determinism: both outputs are bit-deterministic. Every d_vals value sums
+// its 4 corners in a fixed order, and every s_k is summed by one thread in
+// channel order. Both agree with the plain version
+// (ops/softsplat.py: splat_sum_backward_plain) to float32 rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kPixels = 128;  // source pixels a block owns = threads a block
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kPixels = 128;       // source pixels of a block's tile = threads a block
+constexpr int kTileRowsVals = 1;   // d_vals alone: the tile is a run of one image row
+constexpr int kTileRowsFlow = 4;   // with d_flow: 4 rows of 32 pixels
+constexpr int kUnrollVals = 1;     // values a thread loads before it uses them, d_vals alone
+constexpr int kUnrollFlow = 4;     // the same with d_flow
+constexpr int kPitch = 9;          // channels of a d_flow chunk, and its pitch in float4 (odd)
+constexpr int kMinBlocksFlow = 8;  // blocks an SM the d_flow kernel's registers must allow
 
 __device__ __forceinline__ float gather(const float* __restrict__ g, int dst, int c, int ch) {
   return dst >= 0 ? __ldg(g + (int64_t)dst * c + ch) : 0.0f;
 }
 
-__global__ void __launch_bounds__(kPixels)
+// Step 2 (and 3 with kFlow) over channels [c0, c0 + ck) of the tile's np
+// pixels: value e = q * ck + r is channel c0 + r of the tile's pixel q.
+template <bool kFlow, int kUnroll = kFlow ? kUnrollFlow : kUnrollVals>
+__device__ __forceinline__ void walk(const float* __restrict__ vals, const float* __restrict__ g,
+                                     float* __restrict__ d_vals, const int* s_src,
+                                     const int4* s_dst, const float4* s_wgt, float4* s_prod,
+                                     int np, int c, int c0, int ck) {
+  const int t = threadIdx.x;
+  const int m = np * ck;
+  const int dq = kPixels / ck, dr = kPixels % ck;
+  int q = t / ck, r = t % ck;
+  for (int e0 = t; e0 < m; e0 += kUnroll * kPixels) {
+    float gk[kUnroll][4], v[kUnroll];
+    int qs[kUnroll], rs[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      int4 d = make_int4(-1, -1, -1, -1);
+      v[u] = 0.0f;
+      qs[u] = -1;  // no value
+      rs[u] = r;
+      if (e0 + u * kPixels < m) {
+        qs[u] = q;
+        d = s_dst[q];
+        if constexpr (kFlow) v[u] = __ldg(vals + (int64_t)s_src[q] * c + c0 + r);
+      }
+      gk[u][0] = gather(g, d.x, c, c0 + r);
+      gk[u][1] = gather(g, d.y, c, c0 + r);
+      gk[u][2] = gather(g, d.z, c, c0 + r);
+      gk[u][3] = gather(g, d.w, c, c0 + r);
+      q += dq;
+      r += dr;
+      if (r >= ck) {
+        r -= ck;
+        ++q;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (qs[u] < 0) continue;
+      const float4 wt = s_wgt[qs[u]];
+      d_vals[(int64_t)s_src[qs[u]] * c + c0 + rs[u]] =
+          wt.x * gk[u][0] + wt.y * gk[u][1] + wt.z * gk[u][2] + wt.w * gk[u][3];
+      if constexpr (kFlow) {
+        s_prod[qs[u] * kPitch + rs[u]] =
+            make_float4(v[u] * gk[u][0], v[u] * gk[u][1], v[u] * gk[u][2], v[u] * gk[u][3]);
+      }
+    }
+  }
+}
+
+template <bool kFlow>
+__global__ void __launch_bounds__(kPixels, kFlow ? kMinBlocksFlow : 1)
 splat_sum_bwd_kernel(const float* __restrict__ vals, const float2* __restrict__ flow,
                      const float* __restrict__ g, float* __restrict__ d_vals,
-                     float2* __restrict__ d_flow, int npix, int h, int w, int c) {
-  __shared__ int4 s_dst[kPixels];     // destination pixel of each corner, -1 if masked
-  __shared__ float4 s_wgt[kPixels];   // bilinear weight of each corner
-  __shared__ float s_sum[4][kPixels];  // s_k of each pixel
+                     float2* __restrict__ d_flow, int h, int w, int c, int tiles_x,
+                     int tiles_y) {
+  constexpr int kRows = kFlow ? kTileRowsFlow : kTileRowsVals, kCols = kPixels / kRows;
+  __shared__ int s_src[kPixels];     // the global index of the tile's pixel q
+  __shared__ int4 s_dst[kPixels];    // destination pixel of each corner, -1 if masked
+  __shared__ float4 s_wgt[kPixels];  // bilinear weight of each corner
+  __shared__ float4 s_prod[kFlow ? kPixels * kPitch : 1];  // vals * g_k for k = 0..3, [q][r]
 
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int p0 = blockIdx.x * kPixels;
-  const int np = min(kPixels, npix - p0);
-  const bool want_flow = d_flow != nullptr;
+  // the tile: image b, rows [i0, i0 + rows), columns [j0, j0 + cols); its
+  // pixels are numbered row by row, q = (i - i0) * cols + (j - j0)
+  const int tx = blockIdx.x % tiles_x;
+  const int ty = (blockIdx.x / tiles_x) % tiles_y;
+  const int b = blockIdx.x / tiles_x / tiles_y;
+  const int i0 = ty * kRows, j0 = tx * kCols;
+  const int rows = min(kRows, h - i0), cols = min(kCols, w - j0);
+  const int np = rows * cols;
 
   float wx0 = 0.0f, wx1 = 0.0f, wy0 = 0.0f, wy1 = 0.0f;
   int4 dst = make_int4(-1, -1, -1, -1);
+  int p = 0;
   if (t < np) {
-    const int p = p0 + t;  // (b * h + i) * w + j
-    const int j = p % w;
-    const int i = (p / w) % h;
-    const int img0 = p - (i * w + j);  // the image's first pixel
+    const int i = i0 + t / cols, j = j0 + t % cols;
+    const int img0 = b * h * w;  // the image's first pixel
+    p = img0 + i * w + j;
     const float2 f = flow[p];
     float x = (float)j + f.x;
     float y = (float)i + f.y;
@@ -95,79 +171,51 @@ splat_sum_bwd_kernel(const float* __restrict__ vals, const float2* __restrict__ 
     const int base = img0 + y0 * w + x0;
     dst = make_int4(xin0 && yin0 ? base : -1, xin1 && yin0 ? base + 1 : -1,
                     xin0 && yin1 ? base + w : -1, xin1 && yin1 ? base + w + 1 : -1);
+    s_src[t] = p;
     s_dst[t] = dst;
     s_wgt[t] = make_float4(wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1);
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s_sum[k][t] = 0.0f;
   __syncthreads();
 
-  const float* __restrict__ src = vals + (int64_t)p0 * c;
-  float* __restrict__ dv = d_vals + (int64_t)p0 * c;
-  const int m = np * c;  // values this block owns
-  const int rounds = (m + kPixels - 1) / kPixels;  // the same for every lane
-  const int dq = kPixels / c, dr = kPixels % c;
-  int q = t / c, r = t % c;  // pixel and channel of the lane's value
-  for (int it = 0; it < rounds; ++it) {
-    const int e = it * kPixels + t;
-    const bool live = e < m;
-    float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, g3 = 0.0f;
-    if (live) {
-      const int4 d = s_dst[q];
-      const float4 wt = s_wgt[q];
-      g0 = gather(g, d.x, c, r);
-      g1 = gather(g, d.y, c, r);
-      g2 = gather(g, d.z, c, r);
-      g3 = gather(g, d.w, c, r);
-      dv[e] = wt.x * g0 + wt.y * g1 + wt.z * g2 + wt.w * g3;
-    }
-    if (want_flow) {  // uniform over the block: every lane shuffles
-      const float v = live ? src[e] : 0.0f;
-      float a0 = v * g0, a1 = v * g1, a2 = v * g2, a3 = v * g3;
-      const int key = live ? q : -1 - lane;  // a dead lane is a segment of its own
-      // after the step of offset o, a lane holds the sum of its segment's
-      // lanes in [lane, lane + 2o): at the end the segment's first lane
-      // holds the whole segment
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int ko = __shfl_down_sync(kFullMask, key, o);
-        const float b0 = __shfl_down_sync(kFullMask, a0, o);
-        const float b1 = __shfl_down_sync(kFullMask, a1, o);
-        const float b2 = __shfl_down_sync(kFullMask, a2, o);
-        const float b3 = __shfl_down_sync(kFullMask, a3, o);
-        if (lane + o < 32 && ko == key) {
-          a0 += b0;
-          a1 += b1;
-          a2 += b2;
-          a3 += b3;
+  if constexpr (!kFlow) {
+    walk<false>(vals, g, d_vals, s_src, s_dst, s_wgt, s_prod, np, c, 0, c);
+  } else {
+    float s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
+    for (int c0 = 0; c0 < c; c0 += kPitch) {
+      const int ck = min(kPitch, c - c0);
+      walk<true>(vals, g, d_vals, s_src, s_dst, s_wgt, s_prod, np, c, c0, ck);
+      __syncthreads();
+      if (t < np) {
+        const float4* sp = s_prod + t * kPitch;
+        for (int r = 0; r < ck; ++r) {
+          const float4 a = sp[r];
+          s00 += a.x;
+          s01 += a.y;
+          s10 += a.z;
+          s11 += a.w;
         }
       }
-      const int kprev = __shfl_up_sync(kFullMask, key, 1);
-      if (live && (lane == 0 || kprev != key)) {
-        atomicAdd(&s_sum[0][q], a0);
-        atomicAdd(&s_sum[1][q], a1);
-        atomicAdd(&s_sum[2][q], a2);
-        atomicAdd(&s_sum[3][q], a3);
-      }
+      __syncthreads();
     }
-    q += dq;
-    r += dr;
-    if (r >= c) {
-      r -= c;
-      ++q;
+    if (t < np) {
+      const float m00 = dst.x >= 0 ? 1.0f : 0.0f, m01 = dst.y >= 0 ? 1.0f : 0.0f;
+      const float m10 = dst.z >= 0 ? 1.0f : 0.0f, m11 = dst.w >= 0 ? 1.0f : 0.0f;
+      const float du = -wy0 * m00 * s00 + wy0 * m01 * s01 - wy1 * m10 * s10 + wy1 * m11 * s11;
+      const float dv = -wx0 * m00 * s00 - wx1 * m01 * s01 + wx0 * m10 * s10 + wx1 * m11 * s11;
+      d_flow[p] = make_float2(du, dv);
     }
   }
+}
 
-  if (!want_flow) return;
-  __syncthreads();
-  if (t < np) {
-    const float m00 = dst.x >= 0 ? 1.0f : 0.0f, m01 = dst.y >= 0 ? 1.0f : 0.0f;
-    const float m10 = dst.z >= 0 ? 1.0f : 0.0f, m11 = dst.w >= 0 ? 1.0f : 0.0f;
-    const float s00 = s_sum[0][t], s01 = s_sum[1][t], s10 = s_sum[2][t], s11 = s_sum[3][t];
-    const float du = -wy0 * m00 * s00 + wy0 * m01 * s01 - wy1 * m10 * s10 + wy1 * m11 * s11;
-    const float dvv = -wx0 * m00 * s00 - wx1 * m01 * s01 + wx0 * m10 * s10 + wx1 * m11 * s11;
-    d_flow[p0 + t] = make_float2(du, dvv);
-  }
+template <bool kFlow>
+void launch_bwd(const float* vals, const float2* flow, const float* g, float* d_vals,
+                float2* d_flow, int n, int h, int w, int c, cudaStream_t stream) {
+  constexpr int kRows = kFlow ? kTileRowsFlow : kTileRowsVals, kCols = kPixels / kRows;
+  const int tiles_x = (w + kCols - 1) / kCols;
+  const int tiles_y = (h + kRows - 1) / kRows;
+  const int blocks = (int)((int64_t)n * tiles_x * tiles_y);
+  splat_sum_bwd_kernel<kFlow><<<blocks, kPixels, 0, stream>>>(vals, flow, g, d_vals, d_flow, h,
+                                                               w, c, tiles_x, tiles_y);
 }
 
 }  // namespace
@@ -183,10 +231,13 @@ extern "C" int softsplat_sum_bwd_f32(const float* vals, const float* flow, const
   const int64_t npix = (int64_t)n * h * w;
   if (npix >= ((int64_t)1 << 31) || c < 1 || c > (1 << 22)) return (int)cudaErrorInvalidValue;
   if (npix > 0) {
-    const int blocks = (int)((npix + kPixels - 1) / kPixels);
-    splat_sum_bwd_kernel<<<blocks, kPixels, 0, (cudaStream_t)stream>>>(
-        vals, reinterpret_cast<const float2*>(flow), g, d_vals,
-        reinterpret_cast<float2*>(d_flow), (int)npix, h, w, c);
+    const float2* f = reinterpret_cast<const float2*>(flow);
+    if (d_flow != nullptr) {
+      launch_bwd<true>(vals, f, g, d_vals, reinterpret_cast<float2*>(d_flow), n, h, w, c,
+                       (cudaStream_t)stream);
+    } else {
+      launch_bwd<false>(vals, f, g, d_vals, nullptr, n, h, w, c, (cudaStream_t)stream);
+    }
   }
   return (int)cudaGetLastError();
 }

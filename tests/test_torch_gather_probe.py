@@ -8,7 +8,9 @@ the probe's source still holds those bodies). Inputs are the probe's
 shapes and index recipes, drawn with numpy from a seed, plus a case with
 negative and out-of-range indices. The plain versions, what a CPU tensor
 runs, must equal the interpreted kernels exactly, NaN fills included. The
-CUDA kernels themselves run only on the card (`cuda` marker).
+subgather ablation's variants (`tools/gather_ablate.py`) must each apply to
+the kernel source. The CUDA kernels themselves run only on the card
+(`cuda` marker).
 """
 
 import importlib.util
@@ -22,6 +24,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from gimmvfi_tpu_torch.tools import gather_ablate
 from gimmvfi_tpu_torch.tools.gather_cost_probe import (
     GATHERS,
     TILE,
@@ -29,7 +32,9 @@ from gimmvfi_tpu_torch.tools.gather_cost_probe import (
     lanegather,
     subgather,
     subgather_grid,
+    subgather_plain,
 )
+from gimmvfi_tpu_torch.utils.kernel_build import CSRC
 
 torch.set_num_threads(1)
 PROBE_PATH = Path(__file__).resolve().parents[1] / "tools" / "gather_cost_probe.py"
@@ -129,3 +134,46 @@ def test_kernel_matches_plain_on_card(rng, name):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), plain(x, idx).cpu().numpy())
+
+
+@pytest.mark.parametrize("name", sorted(gather_ablate.VARIANTS))
+def test_subgather_variants_apply_to_the_kernel_source(name):
+    """Each variant replaces the subgather kernel (and its launcher) once
+    and leaves the other two gathers as they are."""
+    src = (CSRC / "gather_probe.cu").read_text()
+    out = gather_ablate.variant_source(name, src)
+    assert (out == src) == (name == "kernel")
+    for other in ("subgather_grid_kernel", "lanegather_kernel", 'extern "C" int lanegather_f32'):
+        assert out.count(other) == src.count(other)
+    assert out.count('extern "C" int subgather_f32(') == 1
+
+
+def test_subgather_check_tables_hold_bad_and_ragged_indices():
+    tables = gather_ablate.check_tables()
+    x, bad = tables[1]
+    assert ((bad < -x.shape[0]) | (bad >= x.shape[0])).any() and (bad < 0).any()
+    assert {t[0].shape for t in tables[2:]} == set(gather_ablate.RAGGED)
+    for xt, it in tables:
+        got = subgather_plain(torch.from_numpy(xt), torch.from_numpy(it))
+        assert got.shape == xt.shape
+
+
+def test_gather_ablation_refuses_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        gather_ablate.main([])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", range(5))
+def test_subgather_on_card_with_bad_and_ragged_indices(table):
+    """The subgather kernel on the probe's table with negative and
+    out-of-range indices and on ragged tables: equal to the plain version,
+    NaN at the same places."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; run on the card")
+    xn, idxn = gather_ablate.check_tables()[table]
+    x, idx = torch.from_numpy(xn).cuda(), torch.from_numpy(idxn).cuda()
+    got = subgather(x, idx)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), subgather_plain(x, idx).cpu().numpy())
