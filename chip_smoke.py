@@ -2,8 +2,9 @@
 """Drive the PyTorch port's GIMM-VFI-R 8x paths (720p, and 2K/4K through
 DS_SCALE and the windowed correlation), its GIMM-VFI-F 8x path at 720p,
 its bench entry, its two probe entry points, its serving entry points
-(stage-1 GIMM, the video CLI, the four benchmark harnesses) and stage-1
-GIMM training (the recipe's step and the train CLI) once on one CUDA card.
+(stage-1 GIMM, the video CLI, the four benchmark harnesses), stage-1 GIMM
+training and stage-2 GIMM-VFI training (each recipe's step and the train
+CLI) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -146,7 +147,30 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      `--smoke-test` on a fabricated tree of 256x448 `.flo` triplets: one
      epoch of 2 steps with validation and a checkpoint, then `--resume` for
      a second, exact launches, steps, seconds an epoch, the PyYAML version
-     and whether tensorboardX was found.
+     and whether tensorboardX was found;
+ 12. stage-2 GIMM-VFI training, float32 (TF32 off), in build/chip_smoke_phase12/:
+     (a) the recipe's step (`configs/gimmvfi/gimmvfi_r_arb.yaml`:
+     GIMMVFI_R(raft_iters=20) from a seed, AdamW lr 8e-5 with the ft
+     groups, EMA, the perceptual loss from a seeded LPIPS, batch 4 at
+     224^2, t = k/6) on a seeded smooth batch: one step counted from 0
+     (exactly 6 forward and 6 backward splat launches, no windowed one), 10
+     timed after 2 warm-ups (median ms, peak, finite loss and LPIPS term;
+     both groups' parameters, the BatchNorm running statistics and the EMA
+     moved), the device time of one step and its splats in a trace;
+     (b) one step of GIMMVFI_R(raft_iters=2) at 128x128, batch 2, GPU vs
+     CPU from the same seeded weights and batch, 2 seeds: loss <= 1e-5
+     relative, running statistics <= 1e-5 x max(1, max|cpu|), gradients as
+     ROADMAP C3 holds stage 2's (each tensor within 1e-2 relative L2; the
+     biases that feed a normalization within 1e-2 x max|g| of their
+     weights; the alphas within 1e-4 x S); (c) `cli.train.main` with that
+     config and `--smoke-test` on a fabricated tree of 8 septuplets of
+     256x448 PNGs written with cv2, `--load-path` phase 11's stage-1
+     checkpoint, `--lpips-path` a seeded LPIPS `.pt`: one epoch of 2 steps
+     with validation, the grid and a checkpoint, then `--resume` for a
+     second; exact launches, seconds an epoch and whether Pillow was found;
+     (d) one recipe step of GIMMVFI_F() (`gimmvfi_f_arb.yaml`, the same
+     LPIPS): exact launches counted from 0, 3 timed after 2 warm-ups (median
+     ms, peak), no trace.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -155,10 +179,12 @@ from a `torch.profiler` trace (`device_ms`; for the probes' library calls
 profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
 counts are set to 0 just before each path (5, the probes of 6, each path
-of 8, 9 (a), each GPU-vs-CPU run, each path of 10 and the counted step
-and each CLI call of 11) and read just after it; the splat's and the
+of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
+and each CLI call of 11 and of 12) and read just after it; the splat's and the
 3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`),
-the splat backward's `launches` are those of the counted recipe step. The line before the last is the kernels' JSON record; the
+the splat backward's `launches` are those of the counted recipe step; both
+splat records carry their phase 12 step's counts (`launches_phase12_step`).
+The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -170,6 +196,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -185,6 +212,7 @@ from gimmvfi_tpu_torch.cli import benchmarks as bench_cli
 from gimmvfi_tpu_torch.cli import video_nx
 from gimmvfi_tpu_torch.data.frame_io import read_image, read_ppm, write_flo, write_ppm
 from gimmvfi_tpu_torch.models import gimm as gimm_model
+from gimmvfi_tpu_torch.models import gimmvfi_r as gimmvfi_r_model
 from gimmvfi_tpu_torch.models.gimm import GIMM
 from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
@@ -242,7 +270,11 @@ from gimmvfi_tpu_torch.tools.splat_ablate import (
 from gimmvfi_tpu_torch.cli import train as train_cli
 from gimmvfi_tpu_torch.train.lpips import LPIPS
 from gimmvfi_tpu_torch.train.optim import create_optimizer
-from gimmvfi_tpu_torch.train.train_state import create_train_state, make_gimm_train_step
+from gimmvfi_tpu_torch.train.train_state import (
+    create_train_state,
+    make_gimm_train_step,
+    make_gimmvfi_train_step,
+)
 from gimmvfi_tpu_torch.utils.config import load_config
 from gimmvfi_tpu_torch.utils.kernel_build import CSRC, build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
@@ -1494,13 +1526,14 @@ GPU_RERUNS = 2  # the card's step from the same weights, for its own atomic orde
 ALPHAS = ("alpha_v", "alpha_fe")  # GIMM's scalar splat-weight parameters
 
 
-def step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
-    """One recipe step from `weights` on `batch`: the loss, each parameter's
-    gradient, and the fields that the gradients of `ALPHAS` contract:
-    u = dL/d(w1, w2), the gradient reaching the splat weights, and for each
-    alpha c = d(w1, w2)/d alpha, pixel by pixel (forward mode). Gradients
-    on the CPU, fields flattened to float64."""
-    weights_fn, fields = gimm_model.splatting_weights, {}
+@contextlib.contextmanager
+def alpha_fields(module):
+    """For the one step run inside, the fields that the gradients of
+    `ALPHAS` contract, read through `module.splatting_weights`: u =
+    dL/d(w1, w2), the gradient reaching the splat weights, and for each
+    alpha c = d(w1, w2)/d alpha, pixel by pixel (forward mode); flattened
+    to float64 on the CPU into the dict yielded."""
+    weights_fn, fields, out = module.splatting_weights, {}, {}
 
     def spy(flow01, flow10, alpha_v, alpha_fe):
         w1, w2 = weights_fn(flow01, flow10, alpha_v, alpha_fe)
@@ -1513,18 +1546,26 @@ def step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
         fields["w"] = (w1, w2)
         return w1, w2
 
-    state = recipe_state(cfg, device=device)
-    state.model.load_state_dict(weights)
-    gimm_model.splatting_weights = spy
+    module.splatting_weights = spy
     try:
-        loss = float(make_gimm_train_step()(state, batch)["loss_total"])
+        yield out
     finally:
-        gimm_model.splatting_weights = weights_fn
+        module.splatting_weights = weights_fn
     w1, w2 = fields.pop("w")
     flat = lambda pair: torch.cat([t.detach().reshape(-1) for t in pair]).cpu().double()
-    return {"loss": loss, "u": flat((w1.grad, w2.grad)),
-            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
-            **{k: flat(v) for k, v in fields.items()}}
+    out.update({"u": flat((w1.grad, w2.grad)), **{k: flat(v) for k, v in fields.items()}})
+
+
+def step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
+    """One recipe step from `weights` on `batch`: the loss, each parameter's
+    gradient (on the CPU) and the fields of the alphas' gradients
+    (`alpha_fields`)."""
+    state = recipe_state(cfg, device=device)
+    state.model.load_state_dict(weights)
+    with alpha_fields(gimm_model) as fields:
+        loss = float(make_gimm_train_step()(state, batch)["loss_total"])
+    return {"loss": loss, **fields,
+            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}}
 
 
 def check_step_gpu_vs_cpu() -> dict:
@@ -1653,7 +1694,7 @@ def run_train_cli(smi: str) -> dict:
         raise AssertionError(f"[11] (d) steps {out[0]['steps']}, {out[1]['steps']}; "
                              f"checkpoints {ckpts}")
     return {"steps": out[1]["steps"], "epoch_seconds": [o["epochs"][-1]["seconds"] for o in out],
-            "call_seconds": [o["seconds"] for o in out],
+            "call_seconds": [o["seconds"] for o in out], "run_dir": out[0]["run_dir"],
             "writer": out[0]["writer"], "launches": out[0]["launches"]}
 
 
@@ -1665,6 +1706,321 @@ def run_phase11(smi: str) -> dict:
     res = {"backward": check_backward(), "step": run_recipe_step(smi),
            "gpu_vs_cpu": check_step_gpu_vs_cpu(), "cli": run_train_cli(smi)}
     print(f"[11] phase 11 took {time.perf_counter() - t0:.2f} s", flush=True)
+    return res
+
+
+# ------------------------------------------------------------------ phase 12
+WORK12 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase12"
+RECIPE2 = "configs/gimmvfi/gimmvfi_r_arb.yaml"  # stage 2: AdamW lr 8e-5, ft groups, batch 4
+RECIPE2_F = "configs/gimmvfi/gimmvfi_f_arb.yaml"
+CROP2 = 224  # VimeoArbitrary's crop
+STEP_SPLATS = 6  # 3 decodes a step (t = 0, t = 1, t) x 2 latent splats
+# the biases of the convs that feed a normalization (RAFT's encoders, the
+# decoder heads' 1x1 projection): zero in exact arithmetic (ROADMAP C3)
+PRE_NORM_BIAS = re.compile(r"flow_estimator\.(fnet|cnet)\.(conv1|layer\d\.\d\.(conv1|conv2|downsample\.0))"
+                           r"\.bias|amt_init_decoder\.upsample\.6\.bias|amt_final_decoder\.upsample\.7\.bias")
+
+
+def vfi_batch(n: int, hw, seed: int, device="cuda") -> dict:
+    """A stage-2 batch from one seeded smooth image: img0, gt and img1 are
+    crops of it shifted by (2, 3) pixels a frame, t = k/6 for sample k
+    (1..n), the loss's subsample of int(H*W*0.1) pixels a sample."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    h, w = hw
+    coarse = torch.rand((n, 3, h // 8 + 2, w // 8 + 2), generator=gen)
+    base = torch.nn.functional.interpolate(coarse, size=(h + 8, w + 8), mode="bilinear",
+                                           align_corners=False).permute(0, 2, 3, 1)
+    rng = np.random.default_rng(seed)
+    k = int(h * w * 0.1)
+    sub = [torch.from_numpy(np.stack([rng.permutation(h * w)[:k] for _ in range(n)]))
+           for _ in range(2)]
+    batch = {"img0": base[:, 0:h, 0:w], "gt": base[:, 2:h + 2, 3:w + 3],
+             "img1": base[:, 4:h + 4, 6:w + 6],
+             "t": torch.arange(1, n + 1, dtype=torch.float32) / 6.0,
+             "sub_idx0": sub[0], "sub_idx1": sub[1]}
+    return {key: v.contiguous().to(device) for key, v in batch.items()}
+
+
+def vfi_state(cfg, family=GIMMVFI_R, device=None, seed=SEED, **model_kw):
+    """A stage-2 model from a seed (its own initialization) and the
+    recipe's optimizer (AdamW with the ft groups) and EMA."""
+    torch.manual_seed(seed)
+    model = family(device=device, **model_kw)
+    o = cfg.optimizer
+    opt, sched = create_optimizer(model, o.type, init_lr=o.init_lr, weight_decay=o.weight_decay,
+                                  betas=tuple(o.betas), ft=o.ft, max_grad_norm=o.max_gn)
+    return create_train_state(model, opt, sched, use_ema=bool(cfg.arch.ema))
+
+
+def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
+                    lpips_path: Path, trace: bool, **model_kw) -> dict:
+    """One recipe step of stage 2 on the card, float32, TF32 off, batch 4 at
+    224^2, with the perceptual loss the recipe sets (`lpips_path`, loaded as
+    the train CLI loads it): counted from 0 (exactly 6 forward and 6
+    backward splat launches, no windowed lookup), 1 more warm-up, then
+    `timed_steps` timed by CUDA events (median ms, peak allocated); the loss
+    and its LPIPS term finite and nonzero, the parameters of both optimizer
+    groups, the BatchNorm running statistics and the EMA moved; then, with
+    `trace`, the device time of one step and of its splats in a trace."""
+    cfg = load_config(config)
+    n = cfg.experiment.batch_size
+    state = vfi_state(cfg, family, **model_kw)
+    if not cfg.loss.perceptual_loss:
+        raise AssertionError(f"[12] ({label}) {config} sets no perceptual loss")
+    lpips_fn = train_cli.lpips_loss_fn(str(lpips_path), torch.device("cuda"))
+    step = make_gimmvfi_train_step(cfg.arch.rec_weight, lpips_fn, use_ema=bool(cfg.arch.ema))
+    batch = vfi_batch(n, (CROP2, CROP2), SEED + 21)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    ema_before = {k: v.clone() for k, v in state.ema.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    got = counts()
+    expect_counts(f"({label}) the recipe step", got, STEP_SPLATS, splat_bwd=STEP_SPLATS, phase=12)
+    step(state, batch)
+    times, losses, perceptual = [], [], []
+    for _ in range(timed_steps):
+        metrics, ms = bench.timed(lambda: step(state, batch), torch.device("cuda"))
+        times.append(ms)
+        losses.append(float(metrics["loss_total"]))
+        perceptual.append(float(metrics["lpips"]))
+    peak = torch.cuda.max_memory_allocated()
+    after = state.model.state_dict()
+    moved = {"amt": 0.0, "rest": 0.0, "running_stats": 0.0}
+    for k, v in after.items():
+        d = float((v.float() - before[k].float()).abs().max())
+        group = ("running_stats" if "running_" in k
+                 else "amt" if any(p.startswith("amt_") for p in k.split(".")) else "rest")
+        moved[group] = max(moved[group], d)
+    moved["ema"] = max(float((v - ema_before[k]).abs().max()) for k, v in state.ema.items())
+    if not (all(math.isfinite(x) for x in losses + perceptual) and all(perceptual)
+            and min(moved.values()) > 0):
+        raise AssertionError(f"[12] ({label}) losses {losses}, LPIPS terms {perceptual}, "
+                             f"largest moves {moved}")
+    step_dev, rows = (device_ms(lambda: step(state, batch), iters=1, warmup=0) if trace
+                      else (None, {}))
+    fwd = kernel_row(rows, "splat_sum_kernel")
+    bwd = kernel_row(rows, "splat_sum_bwd_kernel")
+    med = statistics.median(times)
+    splat_dev = None if fwd is None or bwd is None else fwd + bwd
+    print(f"[12] ({label}) the recipe step ({config}: {family.__name__}, {cfg.optimizer.type} lr "
+          f"{cfg.optimizer.init_lr}, ft groups, EMA, the perceptual loss, batch {n}, "
+          f"{CROP2}x{CROP2}, float32): "
+          f"{med:.2f} ms a step (median of {timed_steps} by events; {min(times):.2f}-"
+          f"{max(times):.2f}); peak allocated {peak / 2**20:.1f} MiB; launches a step {got}; "
+          f"losses {losses[0]:.5f} -> {losses[-1]:.5f} (LPIPS terms {perceptual[0]:.5f} -> "
+          f"{perceptual[-1]:.5f}); largest moves {json.dumps(moved)}; device "
+          f"time of one traced step {fmt_ms(step_dev)}; its splats: forward {fmt_ms(fwd)}, "
+          f"backward {fmt_ms(bwd)} ({STEP_SPLATS} launches each), "
+          f"{'not measured' if splat_dev is None else f'{100 * splat_dev / med:.2f}%'} of the "
+          f"step; {smi}", flush=True)
+    if trace:
+        top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[12] ({label}) the step's largest device rows: "
+              f"{'; '.join(f'{v:.3f} ms {k[:70]}' for k, v in top)}", flush=True)
+    res = {"step_ms": med, "step_ms_all": times, "peak_bytes": peak, "launches": got,
+           "losses": losses, "moved": moved, "step_device_ms": step_dev,
+           "splat_fwd_device_ms": fwd, "splat_bwd_device_ms": bwd}
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def vfi_step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
+    """One stage-2 step of GIMMVFI_R(raft_iters=2) from `weights`: the loss,
+    each parameter's gradient (on the CPU), the BatchNorm running statistics
+    after it, and the fields u and c of the alphas' gradients
+    (`alpha_fields`)."""
+    state = vfi_state(cfg, device=device, raft_iters=2)
+    state.model.load_state_dict(weights)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    with alpha_fields(gimmvfi_r_model) as fields:
+        loss = float(make_gimmvfi_train_step(cfg.arch.rec_weight, None, use_ema=False)(
+            state, batch)["loss_total"])
+    return {"loss": loss, **fields,
+            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+            "stats": {k: v.detach().cpu() for k, v in state.model.state_dict().items()
+                      if "running_" in k}}
+
+
+def check_vfi_step_gpu_vs_cpu() -> dict:
+    """Phase 12 (b): one stage-2 step of GIMMVFI_R(raft_iters=2) at 128x128,
+    batch 2, on the card and on the CPU from the same seeded weights and
+    batch, for 2 seeds: the loss <= 1e-5 relative; the BatchNorm running
+    statistics after it <= 1e-5 x max(1, max|cpu|); the gradients as
+    ROADMAP C3 holds stage 2's (each tensor within 1e-2 of the CPU's in
+    relative L2, 4x the largest gap read, 2.55e-3; the biases that feed a
+    normalization, zero in exact arithmetic, within 1e-2 x max|g| of their
+    weights; `alpha_v` and `alpha_fe` within 1e-4 x the sum of their terms'
+    magnitudes S, their fields u and c within 5e-2 relative L2, the largest
+    gap printed). The share of tensors within stage 1's 1e-4 x max|g_cpu|
+    is printed beside."""
+    cfg = load_config(RECIPE2)
+    readings = {"loss_rel": 0.0, "stats_rel": 0.0, "grad_rel_l2": 0.0, "grad_rel_l2_name": None,
+                "field_rel_l2": 0.0, "within_1e-4_max": [], "alphas": []}
+    for seed in (SEED, SEED + 1):
+        torch.manual_seed(seed)
+        weights = GIMMVFI_R(raft_iters=2, device="cpu").state_dict()
+        batch = vfi_batch(2, (128, 128), seed + 22, device="cpu")
+        cpu = vfi_step_fields(cfg, "cpu", weights, batch)
+        gpu = vfi_step_fields(cfg, "cuda", weights, batch)
+        where = f"[12] (b) seed {seed}"
+        rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        if not rel <= 1e-5:
+            raise AssertionError(f"{where}: loss {gpu['loss']} vs {cpu['loss']} ({rel:.2e})")
+        readings["loss_rel"] = max(readings["loss_rel"], rel)
+        for k, v in cpu["stats"].items():
+            gap = float((gpu["stats"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+            if not gap <= 1e-5:
+                raise AssertionError(f"{where}: running statistic {k} is {gap:.3e} off")
+            readings["stats_rel"] = max(readings["stats_rel"], gap)
+        within = 0
+        for name, gc in cpu["grads"].items():
+            gg = gpu["grads"][name]
+            within += float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+            if name in ALPHAS:
+                continue
+            if PRE_NORM_BIAS.fullmatch(name):
+                w_scale = float(cpu["grads"][name[:-len("bias")] + "weight"].abs().max())
+                if not all(float(g.abs().max()) <= 1e-2 * w_scale for g in (gg, gc)):
+                    raise AssertionError(f"{where}: {name}, zero in exact arithmetic, is over "
+                                         f"1e-2 x {w_scale:.3e}")
+                continue
+            gap = float((gg - gc).double().norm() / gc.double().norm())
+            if not gap <= 1e-2:
+                raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off in "
+                                     f"relative L2")
+            if gap > readings["grad_rel_l2"]:
+                readings["grad_rel_l2"], readings["grad_rel_l2_name"] = gap, name
+        readings["within_1e-4_max"].append(f"{within}/{len(cpu['grads'])}")
+        for field in ("u", *ALPHAS):
+            gap = float((gpu[field] - cpu[field]).norm() / cpu[field].norm())
+            if not gap <= 5e-2:
+                raise AssertionError(f"{where}: the field {field} is {gap:.3e} off in relative L2")
+            readings["field_rel_l2"] = max(readings["field_rel_l2"], gap)
+        for name in ALPHAS:
+            s_abs = float((cpu["u"] * cpu[name]).abs().sum())
+            g_cpu = float(cpu["grads"][name])
+            gap = abs(float(gpu["grads"][name]) - g_cpu)
+            if not gap <= 1e-4 * s_abs:
+                raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off "
+                                     f"(1e-4 x S = {1e-4 * s_abs:.3e})")
+            readings["alphas"].append({"seed": seed, "tensor": name, "gap_over_S": gap / s_abs,
+                                       "gap_over_itself": gap / abs(g_cpu),
+                                       "S_over_itself": s_abs / abs(g_cpu)})
+    print(f"[12] (b) one stage-2 step at 128x128, batch 2, GPU vs CPU, seeds {SEED}, {SEED + 1}: "
+          f"loss within {readings['loss_rel']:.2e} relative; running statistics within "
+          f"{readings['stats_rel']:.2e}; largest gradient gap {readings['grad_rel_l2']:.2e} "
+          f"relative L2 ({readings['grad_rel_l2_name']}); the alphas' fields u, c within "
+          f"{readings['field_rel_l2']:.2e} relative L2; tensors within 1e-4 x max|g_cpu| "
+          f"{readings['within_1e-4_max']}; alphas {json.dumps(readings['alphas'])}", flush=True)
+    return readings
+
+
+def vimeo_tree(root: Path, n_seq: int, hw, seed: int) -> str:
+    """A Vimeo tree in the recipe's layout, PNGs written with cv2:
+    `vimeo_septuplet` (7 frames a sequence, `all_sep.txt`) and
+    `vimeo_triplet` (3 frames, `tri_testlist.txt`, whose last line the test
+    split drops); the frames are shifted crops of seeded smooth images.
+    Returns the septuplet root."""
+    import cv2
+
+    seqs = [f"00001/{i:04d}" for i in range(n_seq)]
+    for split, frames, listing, extra in (("vimeo_septuplet", 7, "all_sep.txt", []),
+                                          ("vimeo_triplet", 3, "tri_testlist.txt", ["dummy_last"])):
+        for i, s in enumerate(seqs):
+            d = root / split / "sequences" / s
+            d.mkdir(parents=True)
+            img = vfi_batch(1, (hw[0] + 16, hw[1] + 16), seed + i, device="cpu")["img0"][0]
+            img = (img.numpy() * 255).astype(np.uint8)
+            for k in range(frames):
+                cv2.imwrite(str(d / f"im{k + 1}.png"), img[2 * k:2 * k + hw[0], k:k + hw[1], ::-1])
+        (root / split / listing).write_text("\n".join(seqs + extra) + "\n")
+    return str(root / "vimeo_septuplet")
+
+
+def run_stage2_cli(smi: str, stage1_ckpt: str, lpips_path: Path) -> dict:
+    """Phase 12 (c): `cli/train.py` on the card with the stage-2 recipe and
+    `--smoke-test` on a fabricated tree of 8 septuplets of 256x448 PNGs
+    (written with cv2), `--load-path` phase 11's stage-1 checkpoint and
+    `--lpips-path` a seeded LPIPS `.pt`: one epoch (2 steps of 4 at the
+    224^2 crop, validation and EMA validation at 256x448, the
+    reconstruction grid, a checkpoint), then `--resume` for a second; exact
+    launches, steps, seconds an epoch, and whether Pillow was found."""
+    cfg = load_config(RECIPE2)
+    n = cfg.experiment.batch_size
+    sep = vimeo_tree(WORK12 / "data", 2 * n, GIMM_HW, SEED + 23)
+    runs = WORK12 / "runs"
+    common = ["--lpips-path", str(lpips_path), "--smoke-test", "--overrides",
+              "experiment.test_imlog_freq=1"]
+    out = []
+    for label in ("first epoch", "--resume"):
+        if label == "first epoch":
+            args = ["--config", RECIPE2, "--result-path", str(runs), "--load-path", stage1_ckpt,
+                    *common, f"dataset.path={sep}", "experiment.epochs=1"]
+        else:
+            args = ["--config", RECIPE2, "--result-path", out[0]["run_dir"], "--resume",
+                    *common, "experiment.epochs=2"]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main(args)
+        seconds = time.perf_counter() - t0
+        got = counts()
+        # an epoch: 2 steps (6 forward and 6 backward splats each), 2
+        # validation batches for each of the model and its EMA and the
+        # reconstruction grid's batch (6 forward splats each)
+        expect_counts(f"(c) train CLI, {label}", got, (2 + 2 * 2 + 1) * STEP_SPLATS,
+                      splat_bwd=2 * STEP_SPLATS, phase=12)
+        epoch = res["epochs"][-1]
+        numbers = [*epoch["train"].values(), *epoch["valid"].values(), *epoch["valid_ema"].values()]
+        if not (all(math.isfinite(v) for v in numbers) and epoch["train"]["lpips"] != 0):
+            raise AssertionError(f"[12] (c) {label}: {epoch}")
+        print(f"[12] (c) train CLI {label}: {res['steps']} steps run in all, epoch "
+              f"{epoch['epoch']} {epoch['seconds']:.2f} s, the call {seconds:.2f} s; train "
+              f"{json.dumps(epoch['train'])}; valid {json.dumps(epoch['valid'])}; launches {got}; "
+              f"{smi}", flush=True)
+        out.append({**res, "seconds": seconds, "launches": got})
+    log = (Path(out[0]["run_dir"]) / "train.log").read_text()
+    ckpts = sorted(os.listdir(Path(out[0]["run_dir"]) / "ckpt"))
+    n_gimm = len(GIMM(device="cpu").state_dict())
+    if not (out[0]["steps"] == 2 and out[1]["steps"] == 4 and "resumed from step 2" in log
+            and ckpts == ["step_2.pt", "step_4.pt"]
+            and f"partially loaded weights from {stage1_ckpt} ({n_gimm} tensors)" in log):
+        raise AssertionError(f"[12] (c) steps {out[0]['steps']}, {out[1]['steps']}; "
+                             f"checkpoints {ckpts}; the load line missing from {log[:2000]}")
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    print(f"[12] (c) Pillow {pillow or 'not found'} (PNGs read with "
+          f"{'Pillow' if pillow else 'cv2'}); writer {out[0]['writer']}", flush=True)
+    return {"steps": out[1]["steps"], "epoch_seconds": [o["epochs"][-1]["seconds"] for o in out],
+            "call_seconds": [o["seconds"] for o in out], "pillow": pillow,
+            "launches": out[0]["launches"]}
+
+
+def run_phase12(smi: str, stage1_ckpt: str) -> dict:
+    """Phase 12: stage-2 GIMM-VFI training on the card, float32, TF32 off."""
+    shutil.rmtree(WORK12, ignore_errors=True)
+    WORK12.mkdir(parents=True)
+    lpips_path = WORK12 / "lpips_seeded.pt"  # the perceptual loss of (a), (c), (d)
+    torch.manual_seed(SEED)
+    torch.save(LPIPS(device="cpu").state_dict(), lpips_path)
+    parts = {"step": lambda: run_stage2_step(smi, RECIPE2, GIMMVFI_R, "a", TIMED_STEPS, lpips_path,
+                                             True, raft_iters=load_config(RECIPE2).arch.raft_iter),
+             "gpu_vs_cpu": check_vfi_step_gpu_vs_cpu,
+             "cli": lambda: run_stage2_cli(smi, stage1_ckpt, lpips_path),
+             "f_step": lambda: run_stage2_step(smi, RECIPE2_F, GIMMVFI_F, "d", 3, lpips_path, False)}
+    res, seconds = {}, {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        res[name] = part()
+        seconds[name] = time.perf_counter() - t0
+    print(f"[12] phase 12 took {sum(seconds.values()):.2f} s "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in seconds.items())})", flush=True)
     return res
 
 
@@ -1708,6 +2064,8 @@ def main():
     p10 = run_phase10(smi)
     torch.cuda.empty_cache()
     p11 = run_phase11(smi)
+    torch.cuda.empty_cache()
+    p12 = run_phase12(smi, str(Path(p11["cli"]["run_dir"]) / "ckpt" / "step_4.pt"))
     # each kernel's launches on the phase 10 paths, each counted from 0
     p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
         "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
@@ -1737,6 +2095,8 @@ def main():
         record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat,
                launches_phase10=p10_launches["splat"],
                launches_phase11_step=p11["step"]["launches"]["splat"],
+               launches_phase12_step=p12["step"]["launches"]["splat"],
+               phase12_step_device_ms=p12["step"]["splat_fwd_device_ms"],
                train_shape_ms=p11["backward"]["forward_ms"],
                train_shape_device_ms=p11["backward"]["forward_device_ms"],
                train_shape_bound_ms=p11["backward"]["forward_bound_ms"],
@@ -1747,7 +2107,9 @@ def main():
         record(SPLAT_BACKWARD_KERNEL, p11["step"]["launches"]["splat_bwd"],
                **{k: v for k, v in p11["backward"].items() if not k.startswith("forward_")},
                step_device_ms=p11["step"]["splat_bwd_device_ms"],
-               launches_phase11_cli=p11["cli"]["launches"]["splat_bwd"]),
+               launches_phase11_cli=p11["cli"]["launches"]["splat_bwd"],
+               launches_phase12_step=p12["step"]["launches"]["splat_bwd"],
+               phase12_step_device_ms=p12["step"]["splat_bwd_device_ms"]),
         record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
                max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
                                ds["lookups"]["last"]["max_abs_err"]),
@@ -1817,6 +2179,15 @@ def main():
           f"an epoch, PyYAML {yaml.__version__}, "
           f"tensorboardX {'found' if cli['writer'] == 'tensorboardX' else 'not found'}; {smi}",
           flush=True)
+    s2, c2, f2 = p12["step"], p12["cli"], p12["f_step"]
+    print(f"[12] stage-2 training: {s2['step_ms']:.2f} ms a recipe step (GIMMVFI_R, batch 4, "
+          f"224x224, the perceptual loss), peak {s2['peak_bytes'] / 2**20:.1f} MiB, splats "
+          f"{fmt_ms(None if s2['splat_fwd_device_ms'] is None else s2['splat_fwd_device_ms'] + s2['splat_bwd_device_ms'])}"
+          f" device a step; GPU vs CPU loss {p12['gpu_vs_cpu']['loss_rel']:.2e}, gradients "
+          f"{p12['gpu_vs_cpu']['grad_rel_l2']:.2e} relative L2; the CLI {c2['steps']} steps, "
+          f"{', '.join(f'{x:.2f}' for x in c2['epoch_seconds'])} s an epoch, Pillow "
+          f"{c2['pillow'] or 'not found'}; GIMMVFI_F step {f2['step_ms']:.2f} ms, peak "
+          f"{f2['peak_bytes'] / 2**20:.1f} MiB; {smi}", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,31 @@
-"""Stage-1 GIMM training (`gimmvfi_tpu/cli/train.py`, the reference's
-`src/main.py` + `trainers/trainer_gimm.py`).
+"""GIMM-VFI training, both stages (`gimmvfi_tpu/cli/train.py`, the
+reference's `src/main.py` + `trainers/trainer_gimm.py` /
+`trainer_gimmvfi.py`).
 
-    python -m gimmvfi_tpu_torch.cli.train --config configs/gimm/gimm.yaml \
-        [--result-path runs] [--overrides a.b=value ...] [--smoke-test] \
-        [--load-path gimm.pt] [--resume] [--eval] [--device cuda|cpu]
+    stage 1 (GIMM):     python -m gimmvfi_tpu_torch.cli.train --config configs/gimm/gimm.yaml
+    stage 2 (GIMM-VFI): python -m gimmvfi_tpu_torch.cli.train \
+        --config configs/gimmvfi/gimmvfi_r_arb.yaml --load-path <stage-1 ckpt> \
+        [--lpips-path lpips.pt]
+    either: [--result-path runs] [--overrides a.b=value ...] [--smoke-test]
+        [--load-path ref.pt] [--resume] [--eval] [--device cuda|cpu]
 
 One process on one device, the CUDA card by default (`--device cpu` is for
-the CPU tests); TF32 is off, so float32 means float32. The run follows the
-JAX CLI step for step: the same loader batches (seeded by item), one t_id
-an iteration from `np.random.default_rng(seed)`, the schedule's steps
-scaled by the grad-accumulation derivation, validation every `test_freq`
-epochs and at the last, checkpoints every `save_ckpt_freq` epochs and at
-the last (`ckpt/step_<n>.pt`, the last 3 kept), log lines in the JAX CLI's
-format. `--resume` takes an existing run directory as `--result-path` and
-re-reads its `config.yaml`; `--load-path` takes a reference-layout `.pt`
-and loads the keys the model has (`merge_partial`). Stage-2 configs
-(`gimmvfi_*`) are later work (ROADMAP A13b); data parallelism is A13c.
+the CPU tests); float32 with TF32 off. The run follows the JAX CLI step for
+step: the same loader batches (seeded by item), the same draws from
+`np.random.default_rng(seed)` (stage 1: one t_id an iteration; stage 2:
+the loss's pixel subsample for every train, validation and image-log
+batch), the schedule's steps scaled by the grad-accumulation derivation
+(`total_batch_size` only scales the schedule), validation (and EMA
+validation) every `test_freq` epochs and at the last, stage 2's
+reconstruction grid every `test_imlog_freq` epochs, checkpoints every
+`save_ckpt_freq` epochs and at the last (`ckpt/step_<n>.pt`, the last 3
+kept), log lines in the JAX CLI's format. `--resume` takes an existing run
+directory as `--result-path` and re-reads its `config.yaml`; `--load-path`
+takes a reference-layout `.pt` or a `ckpt/step_<n>.pt` of either stage and
+loads the keys the model has (`merge_partial`: a stage-1 checkpoint gives
+stage 2 GIMM's encoder, refiner, HypoNet and alphas). `--lpips-path`, a
+reference-layout LPIPS `.pt`, adds the perceptual loss where the config
+asks for it. Data parallelism is later work (ROADMAP A13c).
 """
 
 from __future__ import annotations
@@ -32,16 +42,26 @@ import torch
 
 from ..data import DataLoader, create_dataset
 from ..models.gimm import GIMM
+from ..models.gimmvfi_f import GIMMVFI_F
+from ..models.gimmvfi_r import GIMMVFI_R
 from ..train.checkpoint import merge_partial, restore_checkpoint, save_checkpoint
 from ..train.optim import create_optimizer, warmup_cosine_schedule
-from ..train.train_state import create_train_state, make_gimm_eval_step, make_gimm_train_step
+from ..train.train_state import (
+    create_train_state,
+    make_gimm_eval_step,
+    make_gimm_train_step,
+    make_gimmvfi_eval_step,
+    make_gimmvfi_train_step,
+)
 from ..utils.config import load_config, save_config
-from ..utils.convert import read_reference_state_dict
+from ..utils.convert import load_reference_state_dict, read_reference_state_dict
 from ..utils.metrics import MetricAccumulator
-from ..utils.writer import NullWriter, Writer
+from ..utils.writer import NullWriter, Writer, reconstruction_grid
 
 logger = logging.getLogger("gimmvfi_tpu_torch.train")
-METRICS = ("loss_total", "mse", "psnr")
+STAGE1_METRICS = ("loss_total", "mse", "psnr")
+STAGE2_METRICS = ("loss_total", "lap", "census", "l1", "rec", "lpips", "psnr")
+STAGE2_VALID_METRICS = ("loss_total", "rec", "psnr")
 
 
 def setup_run_dir(result_path: str, cfg, resume: bool = False, stamp: str | None = None) -> str:
@@ -72,6 +92,38 @@ def param_count(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def add_subsample(batch: dict, rng: np.random.Generator, ratio: float) -> dict:
+    """Stage 2's loss subsample, drawn as the JAX CLI draws it: for each of
+    t = 0 and t = 1, a permutation of the H*W pixels a sample, cut to
+    int(H*W*ratio), int32 (N, K)."""
+    n, h, w = batch["img0"].shape[:3]
+    k = int(h * w * ratio)
+    for key in ("sub_idx0", "sub_idx1"):
+        batch[key] = np.stack([rng.permutation(h * w)[:k] for _ in range(n)]).astype(np.int32)
+    return batch
+
+
+def build_model(cfg, arch: str, device: torch.device) -> torch.nn.Module:
+    """The config's model, float32, from torch's global generator."""
+    if arch == "gimm":
+        return GIMM(coord_range=tuple(cfg.arch.coord_range), device=device)
+    if arch == "gimmvfi_r":
+        return GIMMVFI_R(raft_iters=cfg.arch.raft_iter, device=device)
+    if arch == "gimmvfi_f":
+        return GIMMVFI_F(device=device)
+    raise ValueError(f"unknown arch: {arch}")
+
+
+def lpips_loss_fn(path: str, device: torch.device):
+    """The perceptual loss of channels-last images in [0, 1]: LPIPS from a
+    reference-layout `.pt`, frozen, per-sample distances (N, 1, 1, 1)."""
+    from ..train.lpips import LPIPS
+
+    model = load_reference_state_dict(path, LPIPS(device=device)).requires_grad_(False)
+    return lambda pred, gt: model(pred.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2),
+                                  normalize=True)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m gimmvfi_tpu_torch.cli.train",
                                 description=__doc__,
@@ -87,6 +139,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="cut both splits to two batches")
     p.add_argument("--eval", action="store_true",
                    help="validate the loaded weights (--load-path or --resume) and exit")
+    p.add_argument("--lpips-path", default=None,
+                   help="LPIPS weights (reference-layout .pt): the perceptual loss of the "
+                        "-P recipes (stage 2, where loss.perceptual_loss is set)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) or cpu, the latter for the CPU tests")
     return p.parse_args(argv)
@@ -109,10 +164,7 @@ def main(argv=None) -> dict:
             config_path = saved
     cfg = load_config(config_path, args.overrides)
     arch = cfg.arch.type.lower()
-    if arch.startswith("gimmvfi"):
-        raise NotImplementedError(f"{arch}: stage-2 training is not ported yet (ROADMAP A13b)")
-    if arch != "gimm":
-        raise ValueError(f"unknown arch: {arch}")
+    is_stage2 = arch.startswith("gimmvfi")
     run_dir = setup_run_dir(args.result_path, cfg, resume=args.resume)
     seed = cfg.experiment.seed
     np_rng = np.random.default_rng(seed)
@@ -125,7 +177,8 @@ def main(argv=None) -> dict:
     batch = cfg.experiment.batch_size
     logger.info("device %s, batch %d", device, batch)
     trn, val = create_dataset(cfg.dataset.type, cfg.dataset.path,
-                              crop_size=getattr(cfg.dataset, "crop_size", None))
+                              crop_size=getattr(cfg.dataset, "crop_size", None),
+                              aug=getattr(cfg.dataset, "aug", True))
     if args.smoke_test:
         trn.meta_data = trn.meta_data[: 2 * batch]
         val.meta_data = val.meta_data[: 2 * batch]
@@ -133,7 +186,7 @@ def main(argv=None) -> dict:
     val_loader = DataLoader(val, batch, seed=seed, shuffle=False)
 
     torch.manual_seed(seed)
-    model = GIMM(coord_range=tuple(cfg.arch.coord_range), device=device)
+    model = build_model(cfg, arch, device)
     if args.load_path:
         taken = merge_partial(model, read_reference_state_dict(args.load_path))
         logger.info("partially loaded weights from %s (%d tensors)", args.load_path, len(taken))
@@ -164,8 +217,19 @@ def main(argv=None) -> dict:
     use_ema = bool(cfg.arch.ema)
     state = create_train_state(model, optimizer, scheduler, use_ema=use_ema)
     logger.info("#params: %.2fM (%s)", param_count(model) / 1e6, arch)
-    step_fn = make_gimm_train_step(use_ema=use_ema)
-    eval_fn = make_gimm_eval_step()
+    if is_stage2:
+        lpips_fn = None
+        if cfg.loss.perceptual_loss and args.lpips_path:
+            lpips_fn = lpips_loss_fn(args.lpips_path, device)
+            logger.info("perceptual (LPIPS) loss enabled from %s", args.lpips_path)
+        step_fn = make_gimmvfi_train_step(cfg.arch.rec_weight, lpips_fn, use_ema=use_ema)
+        eval_fn = make_gimmvfi_eval_step(cfg.arch.rec_weight)
+        metric_names, valid_names = STAGE2_METRICS, STAGE2_VALID_METRICS
+        ratio = cfg.loss.subsample.ratio
+    else:
+        step_fn = make_gimm_train_step(use_ema=use_ema)
+        eval_fn = make_gimm_eval_step()
+        metric_names = valid_names = STAGE1_METRICS
 
     epoch_st = 0
     if args.resume:
@@ -182,13 +246,29 @@ def main(argv=None) -> dict:
             eval_sets.append(("valid_ema", ema_model))
         out = {}
         for tag, ev_model in eval_sets:
-            vaccm = MetricAccumulator(METRICS)
+            vaccm = MetricAccumulator(valid_names)
             for vb in val_loader:
+                if is_stage2:
+                    add_subsample(vb, np_rng, ratio)
                 vaccm.update({k: float(v) for k, v in eval_fn(ev_model, vb).items()})
             logger.info("epoch %d [%s]: %s", epoch, tag, vaccm.print_line())
             writer.add_scalars(vaccm.summary(), tag, epoch)
             out[tag] = vaccm.summary()
         return out
+
+    @torch.no_grad()
+    def log_reconstruction(epoch: int):
+        """The first validation batch's reconstruction grid
+        (`trainer_gimmvfi.py:384-421`), running statistics."""
+        vb = add_subsample(next(iter(val_loader)), np_rng, ratio)
+        out = model.train_forward(
+            torch.stack([torch.as_tensor(vb["img0"]), torch.as_tensor(vb["img1"])], dim=1),
+            torch.as_tensor(vb["t"]), torch.as_tensor(vb["sub_idx0"]),
+            torch.as_tensor(vb["sub_idx1"]), train=False)
+        flowt = out["flowt"].cpu().numpy()
+        grid = reconstruction_grid(vb["img0"], out["imgt_pred"].cpu().numpy(), vb["gt"],
+                                   vb["img1"], flowt * -0.5, flowt * 0.5)
+        writer.add_image("reconstruction", grid, "valid", epoch)
 
     result = {"run_dir": run_dir, "writer": writer_kind, "epochs": []}
     if args.eval:
@@ -199,11 +279,14 @@ def main(argv=None) -> dict:
 
     for epoch in range(epoch_st, cfg.experiment.epochs):
         loader.set_epoch(epoch)
-        accm = MetricAccumulator(METRICS)
+        accm = MetricAccumulator(metric_names)
         t0 = time.time()
         for b in loader:
-            # one shared t_id an iteration (`trainer_gimm.py:125-132`)
-            b["t_id"] = np.full((b["xs"].shape[0],), np_rng.integers(0, 3), np.int32)
+            if is_stage2:
+                add_subsample(b, np_rng, ratio)
+            else:
+                # one shared t_id an iteration (`trainer_gimm.py:125-132`)
+                b["t_id"] = np.full((b["xs"].shape[0],), np_rng.integers(0, 3), np.int32)
             metrics = step_fn(state, b)
             accm.update({k: float(v) for k, v in metrics.items()})
         seconds = time.time() - t0
@@ -214,6 +297,8 @@ def main(argv=None) -> dict:
         last_epoch = epoch == cfg.experiment.epochs - 1
         if (epoch + 1) % cfg.experiment.test_freq == 0 or last_epoch:
             record.update(run_validation(epoch))
+        if is_stage2 and (epoch + 1) % cfg.experiment.test_imlog_freq == 0:
+            log_reconstruction(epoch)
         if (epoch + 1) % cfg.experiment.save_ckpt_freq == 0 or last_epoch:
             save_checkpoint(os.path.join(run_dir, "ckpt"), state.step, state)
         result["epochs"].append(record)

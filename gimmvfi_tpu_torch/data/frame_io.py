@@ -3,7 +3,7 @@
 Middlebury .flo read/write, PFM read, KITTI 16-bit png flow, binary PPM
 read/write and a generic reader; everything returns channels-last numpy
 float32. PPM (P6, 8-bit) is read and written with numpy alone, so frames in
-that format need no image library; PNG/JPEG import Pillow and the KITTI
+that format need no image library; PNG/JPEG import Pillow (else cv2) and the KITTI
 pngs cv2, each only when called.
 """
 
@@ -130,11 +130,19 @@ def write_ppm(path: str, rgb: np.ndarray):
 
 def read_image(path: str) -> np.ndarray:
     """PPM/PNG/JPEG -> (H, W, 3) float32 in [0, 1]. PPM is read with numpy;
-    the other formats import Pillow."""
+    the other formats with Pillow where it is installed, else with cv2
+    (8-bit RGB either way); with neither the read raises."""
     if os.path.splitext(path)[-1].lower() == ".ppm":
         return read_ppm(path).astype(np.float32) / 255.0
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        import cv2
 
+        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise OSError(f"cv2 cannot read {path}")
+        return np.ascontiguousarray(bgr[:, :, ::-1], np.float32) / 255.0
     return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 

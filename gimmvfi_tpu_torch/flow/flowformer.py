@@ -414,6 +414,9 @@ class MemoryDecoder(nn.Module):
         coords0 = coords_grid(b, h1, w1, context.device)
         coords1 = coords0
         for _ in range(self.depth):
+            # as the reference, no gradient flows through the coordinates
+            # from one iteration into the next
+            coords1 = coords1.detach()
             cost_forward = corr_ops.corr_lookup(pyramid, coords1, radius=4)  # (B, 81, H1, W1)
             query = self.flow_token_encoder(cost_forward).permute(0, 2, 3, 1)
             query = query.reshape(b * h1 * w1, 1, self.query_dim)

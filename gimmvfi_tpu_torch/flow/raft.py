@@ -1,8 +1,10 @@
-"""RAFT optical flow, inference (`gimmvfi_tpu/flow/raft.py`), NCHW.
+"""RAFT optical flow (`gimmvfi_tpu/flow/raft.py`), NCHW.
 
 Module and parameter names follow the reference RAFT state dict
 (`fnet.*`, `cnet.*`, `update_block.*`). The refinement scan is a Python
-loop; the upsample-mask head runs once on the final hidden state.
+loop; the upsample-mask head runs once on the final hidden state. `train`
+switches `cnet`'s BatchNorm to batch statistics (stage-2 training); every
+other path keeps the running ones.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Conv2d, FrozenBatchNorm2d, GemmConv2d, InstanceNorm, conv
+from ..nn.layers import BatchNorm2d, Conv2d, GemmConv2d, InstanceNorm, conv
 from ..ops import corr as corr_ops
 from ..ops.coords import coords_grid
 
@@ -20,7 +22,7 @@ def _norm(norm_fn: str, planes: int, dtype) -> nn.Module:
     if norm_fn == "instance":
         return InstanceNorm()
     if norm_fn == "batch":
-        return FrozenBatchNorm2d(planes, compute_dtype=dtype)
+        return BatchNorm2d(planes, compute_dtype=dtype)
     raise ValueError(f"unknown norm {norm_fn}")
 
 
@@ -39,11 +41,11 @@ class ResidualBlock(nn.Module):
                 conv(in_planes, planes, 1, stride, 0, dtype), _norm(norm_fn, planes, dtype)
             )
 
-    def forward(self, x):
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+    def forward(self, x, train=False):
+        y = F.relu(self.norm1(self.conv1(x), train))
+        y = F.relu(self.norm2(self.conv2(y), train))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample[1](self.downsample[0](x), train)
         return F.relu(x + y)
 
 
@@ -64,13 +66,15 @@ class BasicEncoder(nn.Module):
             planes = out
         self.conv2 = conv(128, output_dim, 1, 1, 0, dtype)
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         """Returns (head output, [layer2 output, layer3 output])."""
-        h = F.relu(self.norm1(self.conv1(x)))
-        h = self.layer1(h)
-        f2 = self.layer2(h)
-        f3 = self.layer3(f2)
-        return self.conv2(f3), [f2, f3]
+        h = F.relu(self.norm1(self.conv1(x), train))
+        feats = []
+        for layer in (self.layer1, self.layer2, self.layer3):
+            for block in layer:
+                h = block(h, train)
+            feats.append(h)
+        return self.conv2(h), feats[1:]
 
 
 class BasicMotionEncoder(nn.Module):
@@ -167,6 +171,12 @@ class RAFT(nn.Module):
     (the reference's `bidir=True`): forward in rows :N, backward in rows
     N:. The reverse volume is the transpose of the forward one. Returns
     (flow_up, [feat_1/4, feat_1/8] from cnet, fnet output), each 2N rows.
+    That is exact only under running BatchNorm statistics. With
+    `bidir=False` it estimates image1 -> image2 alone: fnet over both
+    images, one volume, cnet over image1 only, so that `train=True` takes
+    BatchNorm statistics over that direction's batch (stage-2 training
+    makes one such call a direction); the results have N rows, the fnet
+    output being image1's.
 
     Above `corr_max_volume_bytes` (both directions' pyramids together) no
     volume is formed: the loop looks up the windowed state
@@ -188,7 +198,7 @@ class RAFT(nn.Module):
         self.update_block = BasicUpdateBlock(128, dtype)
         self.to(torch.device("cuda") if device is None else device)
 
-    def forward(self, image1, image2):
+    def forward(self, image1, image2, train=False, bidir=True):
         image1 = 2 * (image1 / 255.0) - 1.0
         image2 = 2 * (image2 / 255.0) - 1.0
         n = image1.shape[0]
@@ -197,21 +207,30 @@ class RAFT(nn.Module):
         fmaps = fmaps.to(fdt)
         fmap1, fmap2 = fmaps[:n], fmaps[n:]
 
-        if 2 * corr_ops.volume_bytes(fmap1, fmap2) > self.corr_max_volume_bytes:
+        if not bidir:
+            corr_state = corr_ops.corr_pyramid_auto(
+                fmap1, fmap2, max_volume_bytes=self.corr_max_volume_bytes)
+            cnet_in, fmaps = image1, fmap1
+        elif 2 * corr_ops.volume_bytes(fmap1, fmap2) > self.corr_max_volume_bytes:
             # both directions batched: queries [fmap1; fmap2] against [fmap2; fmap1]
             corr_state = corr_ops.windowed_corr_pyramid(fmaps, torch.cat([fmap2, fmap1], dim=0))
+            cnet_in = torch.cat([image1, image2], dim=0)
         else:
             fwd, bwd = corr_ops.bidir_corr_pyramid(fmap1, fmap2)
             corr_state = tuple(torch.cat([f, b], dim=0) for f, b in zip(fwd, bwd))
+            cnet_in = torch.cat([image1, image2], dim=0)
 
-        cnet, feats = self.cnet(torch.cat([image1, image2], dim=0))
+        cnet, feats = self.cnet(cnet_in, train)
         net = torch.tanh(cnet[:, :128])
         inp = F.relu(cnet[:, 128:])
 
         h8, w8 = image1.shape[2] // 8, image1.shape[3] // 8
-        coords0 = coords_grid(2 * n, h8, w8, image1.device)
+        coords0 = coords_grid(cnet_in.shape[0], h8, w8, image1.device)
         coords1 = coords0
         for _ in range(self.iters):
+            # as the reference, no gradient flows through the coordinates
+            # from one iteration into the next
+            coords1 = coords1.detach()
             corr = corr_ops.corr_lookup_any(corr_state, coords1)
             net, delta_flow = self.update_block(net, inp, corr, coords1 - coords0)
             coords1 = coords1 + delta_flow

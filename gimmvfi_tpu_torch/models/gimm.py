@@ -18,7 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.coords import sample_coords_3d
+from ..ops.coords import sample_coords_3d, sample_coords_3d_per_sample
 from .gimm_core import latent_refiner, motion_encoder, splat_fuse_latents, splatting_weights
 from .hyponet import HypoNet
 
@@ -65,8 +65,7 @@ class GIMM(nn.Module):
         pixel_latent = splat_fuse_latents(self.res_conv, latent0, latent1, flow01, flow10,
                                           w1, w2, t)
         if coord is None:
-            base = sample_coords_3d(n, (h, w), 1.0, t.device, self.coord_range)
-            coord = torch.cat([base[..., :1] * t.view(n, 1, 1, 1, 1), base[..., 1:]], dim=-1)
+            coord = sample_coords_3d_per_sample(t, (h, w), self.coord_range)
         return self.hyponet(coord.to(t.device), pixel_latent)
 
     @torch.inference_mode()

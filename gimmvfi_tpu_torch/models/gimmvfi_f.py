@@ -1,4 +1,4 @@
-"""GIMM-VFI-F inference: FlowFormer flow + GIMM motion INR + AMT synthesis
+"""GIMM-VFI-F: FlowFormer flow + GIMM motion INR + AMT synthesis
 (`gimmvfi_tpu/models/gimmvfi_f.py`).
 
 A GIMMVFI_R whose flow stack differs: FlowFormer (`ff_iters` decoder
@@ -8,7 +8,7 @@ bidirectional correlation pyramid is built over FlowFormer's float32
 feature map itself; above `corr_max_volume_bytes` (the 720p pair's 2.3 GB
 is) that is the float32 windowed state. FlowFormer computes in float32
 under any `dtype`. Every entry point (`prepare`, `decode_one`,
-`interpolate`, `interpolate_sequential`) is inherited.
+`interpolate`, `interpolate_sequential`, `train_forward`) is inherited.
 """
 
 from __future__ import annotations
@@ -29,15 +29,17 @@ class GIMMVFI_F(GIMMVFI_R):
     def _setup_flow_estimator(self, iters, device):
         self.flow_estimator = FlowFormer(iters, device=device)
 
-    def bidir_flow(self, img0, img1):
+    def bidir_flow(self, img0, img1, train=False):
+        """FlowFormer has no batch statistics: one batched pass in either
+        mode (`train` changes nothing)."""
         return self.flow_estimator(img0, img1, bidir=True)
 
-    def cal_bidirection_flow(self, img0, img1):
+    def cal_bidirection_flow(self, img0, img1, train=False):
         """Bidirectional FlowFormer in one batched pass, the unprojected
         features and the bidirectional pyramid over the raw feature map.
         img0/img1 (N, 3, H, W) in [0, 255]."""
         n = img0.shape[0]
-        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1)
+        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1, train)
         f01, f10 = flow_2n[:n], flow_2n[n:]
         corr_pyrs = corr_ops.bidir_corr_pyramid_auto(
             fnet_2n[:n], fnet_2n[n:], max_volume_bytes=self.corr_max_volume_bytes)

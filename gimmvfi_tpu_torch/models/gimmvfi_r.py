@@ -1,4 +1,4 @@
-"""GIMM-VFI-R inference: RAFT flow + GIMM motion INR + AMT synthesis
+"""GIMM-VFI-R: RAFT flow + GIMM motion INR + AMT synthesis
 (`gimmvfi_tpu/models/gimmvfi_r.py`).
 
 `prepare` runs once per frame pair (flow, features, correlation pyramid,
@@ -6,6 +6,13 @@ motion latents, splat weights, t-invariant decoder heads); `decode_one`
 runs once per timestep (latent splat, HypoNet flow, synthesis).
 `interpolate_sequential` is the 8x entry point: one `prepare`, then a
 Python loop of `decode_one`.
+
+`train_forward` is stage-2 training's forward: with `train=True` RAFT runs
+once a direction and the decoder heads once a direction, so that
+BatchNorm takes each direction's batch statistics, as the reference's
+separate calls do; the HypoNet decodes the flow at t = 0 and t = 1 on
+subsampled points (the reconstruction loss) and at each sample's t on
+every pixel (the synthesis). Inference always uses the running statistics.
 
 DS_SCALE (`ds_factor`, the reference's 2K/4K operating points): `prepare`
 downsizes the pair by `ds_factor` and keeps the full-resolution frames;
@@ -28,7 +35,13 @@ from torch import nn
 from ..flow.raft import RAFT
 from ..nn.layers import conv
 from ..ops import corr as corr_ops
-from ..ops.coords import coords_grid, normalize_flow, sample_coords_3d, unnormalize_flow
+from ..ops.coords import (
+    coords_grid,
+    normalize_flow,
+    sample_coords_3d,
+    sample_coords_3d_per_sample,
+    unnormalize_flow,
+)
 from ..ops.interp import resize, warp
 from .gimm_core import latent_refiner, motion_encoder, splat_fuse_latents, splatting_weights
 from .hyponet import HypoNet
@@ -80,17 +93,24 @@ class GIMMVFI_R(nn.Module):
         self.amt_second_last_cproj = conv(96, 128, 1, 1, 0, dt)
         self.amt_fproj = conv(256, 256, 1, 1, 0, dt)
 
-    def bidir_flow(self, img0, img1):
-        """The flow estimator alone, both directions in one batched pass:
-        (flow_up, [feature 1/4, feature 1/8], feature map), forward in rows
-        :N, backward in rows N:. img0/img1 (N, 3, H, W) in [0, 255]."""
-        return self.flow_estimator(img0, img1)
+    def bidir_flow(self, img0, img1, train=False):
+        """The flow estimator alone, both directions: (flow_up, [feature
+        1/4, feature 1/8], feature map), forward in rows :N, backward in
+        rows N:. img0/img1 (N, 3, H, W) in [0, 255]. One batched pass, or
+        with `train` one call a direction (per-direction BatchNorm batch
+        statistics, forward first)."""
+        if not train:
+            return self.flow_estimator(img0, img1)
+        f01, feats0, fnet0 = self.flow_estimator(img0, img1, train=True, bidir=False)
+        f10, feats1, fnet1 = self.flow_estimator(img1, img0, train=True, bidir=False)
+        return (torch.cat([f01, f10], dim=0), [torch.cat(f, dim=0) for f in zip(feats0, feats1)],
+                torch.cat([fnet0, fnet1], dim=0))
 
-    def cal_bidirection_flow(self, img0, img1):
-        """Batched bidirectional RAFT, AMT features and the bidirectional
-        correlation pyramid. img0/img1 (N, 3, H, W) in [0, 255]."""
+    def cal_bidirection_flow(self, img0, img1, train=False):
+        """Bidirectional RAFT, AMT features (both directions' rows) and the
+        bidirectional correlation pyramid. img0/img1 (N, 3, H, W) in [0, 255]."""
         n = img0.shape[0]
-        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1)
+        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1, train)
         f01, f10 = flow_2n[:n], flow_2n[n:]
         corr_pyrs = corr_ops.bidir_corr_pyramid_auto(
             self.amt_fproj(fnet_2n[:n]), self.amt_fproj(fnet_2n[n:]),
@@ -99,6 +119,49 @@ class GIMMVFI_R(nn.Module):
         features = [self.amt_second_last_cproj(feats_2n[0]), self.amt_last_cproj(feats_2n[1])]
         nflows, scalers = normalize_flow(torch.stack([f01, -f10], dim=1))
         return nflows, f01, f10, scalers, features, corr_pyrs
+
+    # ------------------------------------------------------------------ INR
+    def motion_latents(self, nflows, flow01, flow10) -> dict:
+        """The t-invariant half of the GIMM decode: the splatting weights of
+        the detached flows (N, 2, H, W) and both motion latents of the
+        normalized flows (one encoder pass over the two)."""
+        n = flow01.shape[0]
+        flow01, flow10 = flow01.detach(), flow10.detach()
+        w1, w2 = splatting_weights(flow01, flow10, self.alpha_v, self.alpha_fe)
+        latents = self.cnn_encoder(torch.cat([nflows[:, 0], nflows[:, 1]], dim=0))
+        return {"flow01": flow01, "flow10": flow10, "w1": w1, "w2": w2,
+                "latent0": latents[:n], "latent1": latents[n:]}
+
+    def decode_flow(self, lat: dict, t, coord, sub_idx=None):
+        """Splat both latents to t (N,), fuse them and decode the
+        normalized flow at `coord` (N, T, h, w, 3) with the HypoNet:
+        (N, T, h, w, 2), or (N, K, 2) at the (N, K) `sub_idx` points."""
+        pixel_latent = splat_fuse_latents(
+            self.res_conv, lat["latent0"], lat["latent1"], lat["flow01"], lat["flow10"],
+            lat["w1"], lat["w2"], t,
+        )
+        return self.hyponet(coord, pixel_latent, sub_idx)
+
+    def predict_flow(self, nflows, flows, t, coord, sub_idx=None):
+        """The GIMM motion decode at timesteps t (N,): nflows (N, 2, 2, H,
+        W) normalized, flows (N, 2, 2, H, W) raw (detached here), coord
+        (N, 1, h, w, 3). Returns (N, 1, h, w, 2), or (N, K, 2) with sub_idx."""
+        return self.decode_flow(self.motion_latents(nflows, flows[:, 0], flows[:, 1]),
+                                t, coord, sub_idx)
+
+    def upsample_synth_features(self, features, train=False):
+        """The decoders' t-invariant upsample heads on both directions'
+        features (forward rows :N, backward N:): (f8_up pair, f4_up pair).
+        One batched call each, or with `train` one a direction (per-direction
+        BatchNorm batch statistics)."""
+        up8 = self.amt_init_decoder.upsample_features
+        up4 = self.amt_final_decoder.upsample_features
+        n = features[0].shape[0] // 2
+        if train:
+            return ((up8(features[1][:n], True), up8(features[1][n:], True)),
+                    (up4(features[0][:n], True), up4(features[0][n:], True)))
+        u8, u4 = up8(features[1]), up4(features[0])
+        return (u8[:n], u8[n:]), (u4[:n], u4[n:])
 
     # ------------------------------------------------------------ synthesis
     def _corr_scale_lookup(self, corr_pyrs, coord, flow0, flow1, embt):
@@ -196,17 +259,11 @@ class GIMMVFI_R(nn.Module):
         nflows, f01, f10, scalers, features, corr_pyrs = self.cal_bidirection_flow(
             255.0 * img0, 255.0 * img1
         )
-        n = img0.shape[0]
-        w1, w2 = splatting_weights(f01, f10, self.alpha_v, self.alpha_fe)
-        latents = self.cnn_encoder(torch.cat([nflows[:, 0], nflows[:, 1]], dim=0))
-        u8 = self.amt_init_decoder.upsample_features(features[1])
-        u4 = self.amt_final_decoder.upsample_features(features[0])
+        f8_up, f4_up = self.upsample_synth_features(features)
         return {
             "img0": img0, "img1": img1, "nflows": nflows, "scalers": scalers,
-            "flow01": f01, "flow10": f10, "w1": w1, "w2": w2,
-            "latent0": latents[:n], "latent1": latents[n:],
-            "f8_up": (u8[:n], u8[n:]), "f4_up": (u4[:n], u4[n:]),
-            "corr_pyrs": corr_pyrs, "full_img": full_img,
+            **self.motion_latents(nflows, f01, f10),
+            "f8_up": f8_up, "f4_up": f4_up, "corr_pyrs": corr_pyrs, "full_img": full_img,
         }
 
     def decode_one(self, prep: dict, tv: float) -> dict:
@@ -218,12 +275,7 @@ class GIMMVFI_R(nn.Module):
         n, _, h, w = img0.shape
         dev = img0.device
         t = torch.full((n,), float(tv), dtype=torch.float32, device=dev)
-        coord = sample_coords_3d(n, (h, w), tv, dev)
-        pixel_latent = splat_fuse_latents(
-            self.res_conv, prep["latent0"], prep["latent1"], prep["flow01"],
-            prep["flow10"], prep["w1"], prep["w2"], t,
-        )
-        ninr = self.hyponet(coord, pixel_latent)
+        ninr = self.decode_flow(prep, t, sample_coords_3d(n, (h, w), tv, dev))
         flow_t = unnormalize_flow(ninr, prep["scalers"])[:, 0]  # (N, H, W, 2)
         out = self.frame_synthesize(
             2.0 * img0 - 1.0, 2.0 * img1 - 1.0, flow_t.permute(0, 3, 1, 2),
@@ -247,6 +299,51 @@ class GIMMVFI_R(nn.Module):
             "ninrflow": [o["ninrflow"] for o in outs],
             "nflow": prep["nflows"],
             "raft_flow": torch.stack([prep["flow01"], prep["flow10"]], dim=1),
+        }
+
+    def train_forward(self, img_xs: torch.Tensor, t: torch.Tensor, sub_idx0: torch.Tensor,
+                      sub_idx1: torch.Tensor, train: bool = True) -> dict:
+        """Stage-2 training's forward (`trainer_gimmvfi.py:216-258`).
+
+        img_xs (N, 2, H, W, 3) in [0, 1]; t (N,) per-sample timesteps,
+        strictly inside (0, 1) (the synthesis divides by t and 1 - t);
+        sub_idx0/1 (N, K) indices into the H*W pixels for the t = 0 / t = 1
+        flow reconstruction. `train=True` takes BatchNorm batch statistics
+        (and moves the running ones); `train=False`, the validation's, runs
+        the batched inference flow on the running statistics.
+
+        Returns channels-last tensors as the JAX package's: imgt_pred and
+        img_warp_4 (N, H, W, 3), ninrflow [inr0, inr1] (N, K, 2) each,
+        nflow and raft_flow (N, 2, H, W, 2), flowt (N, H, W, 2)."""
+        dev = self.alpha_v.device
+        img_xs = img_xs.to(dev)
+        img0 = img_xs[:, 0].permute(0, 3, 1, 2).float()
+        img1 = img_xs[:, 1].permute(0, 3, 1, 2).float()
+        n, _, h, w = img0.shape
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(n)
+        nflows, f01, f10, scalers, features, corr_pyrs = self.cal_bidirection_flow(
+            255.0 * img0, 255.0 * img1, train
+        )
+        lat = self.motion_latents(nflows, f01, f10)
+        ones = torch.ones(n, dtype=torch.float32, device=dev)
+        inr0 = self.decode_flow(lat, 0.0 * ones, sample_coords_3d(n, (h, w), 0.0, dev),
+                                sub_idx0.to(dev))
+        inr1 = self.decode_flow(lat, ones, sample_coords_3d(n, (h, w), 1.0, dev),
+                                sub_idx1.to(dev))
+        inr_t = self.decode_flow(lat, t, sample_coords_3d_per_sample(t, (h, w)))
+        flow_t = unnormalize_flow(inr_t, scalers)[:, 0]  # (N, H, W, 2)
+        f8_up, f4_up = self.upsample_synth_features(features, train)
+        out = self.frame_synthesize(
+            2.0 * img0 - 1.0, 2.0 * img1 - 1.0, flow_t.permute(0, 3, 1, 2), f8_up, f4_up,
+            corr_pyrs, t.view(n, 1, 1, 1),
+        )
+        return {
+            "imgt_pred": out["imgt_pred"].permute(0, 2, 3, 1),
+            "img_warp_4": out["img_warp_4"].permute(0, 2, 3, 1),
+            "ninrflow": [inr0, inr1],
+            "nflow": nflows.permute(0, 1, 3, 4, 2),
+            "flowt": flow_t,
+            "raft_flow": torch.stack([f01, f10], dim=1).permute(0, 1, 3, 4, 2),
         }
 
 

@@ -46,10 +46,13 @@ class HypoNet(nn.Module):
             wb[:-1].uniform_(-bound_w, bound_w)
             wb[-1:].uniform_(-bound_b, bound_b)
 
-    def forward(self, coord: torch.Tensor, pixel_latent: torch.Tensor) -> torch.Tensor:
+    def forward(self, coord: torch.Tensor, pixel_latent: torch.Tensor,
+                sub_idx: torch.Tensor | None = None) -> torch.Tensor:
         """coord (B, T, H, W, D) float32; pixel_latent (B, L, h, w).
 
-        Returns (B, T, H, W, output_dim).
+        Returns (B, T, H, W, output_dim), or with `sub_idx`, (B, K) indices
+        into the flattened (T*H*W) points, (B, K, output_dim): the points are
+        gathered before the MLP (the training loss's subsample).
         """
         b, t_dim, h, w, _ = coord.shape
         lat = resize_bilinear(pixel_latent.float(), (h, w)).permute(0, 2, 3, 1)
@@ -58,6 +61,9 @@ class HypoNet(nn.Module):
             [lat.reshape(b, -1, lat.shape[-1]), coord.float().reshape(b, -1, coord.shape[-1])],
             dim=-1,
         )
+        if sub_idx is not None:
+            idx = sub_idx.to(device=hidden.device, dtype=torch.long)
+            hidden = torch.gather(hidden, 1, idx[..., None].expand(*idx.shape, hidden.shape[-1]))
         n_layer = len(self.params_dict)
         for idx in range(n_layer):
             wb = self.params_dict[f"linear_wb{idx}"]
@@ -68,4 +74,7 @@ class HypoNet(nn.Module):
             hidden = torch.matmul(hidden, param_w) + param_b
             if idx < n_layer - 1:
                 hidden = sine(hidden)
-        return (hidden + self.output_bias).reshape(b, t_dim, h, w, self.output_dim)
+        out = hidden + self.output_bias
+        if sub_idx is not None:
+            return out
+        return out.reshape(b, t_dim, h, w, self.output_dim)

@@ -3,7 +3,9 @@
 Parameter names follow the reference state dict: `upsample.<i>` and
 `convblock.<i>` Sequentials in the decoders, `conv1..5`/`prelu` in ResBlock,
 `layers.0/2` in LateralBlock. Flow corrections and decoder outputs leave in
-float32 in both compute modes.
+float32 in both compute modes. The upsample heads' BatchNorm takes batch
+statistics only when `upsample_features` is given `train=True` (stage-2
+training); every other path keeps the running ones.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import FrozenBatchNorm2d, PReLU, conv, conv_prelu, leaky_relu
+from ..nn.layers import BatchNorm2d, PReLU, conv, conv_prelu, leaky_relu
 from ..ops.interp import resize, warp
 
 NUM_FLOWS = 3  # flow pairs the MultiFlowDecoder predicts and the combine blends
@@ -55,22 +57,30 @@ class ResBlock(nn.Module):
         return self.prelu(x + out)
 
 
-def upsample_head(in_ch: int, num_shuffles: int, dtype=None) -> nn.Sequential:
-    """PixelShuffle(2) x num_shuffles, five convrelu, 1x1 conv, BN, ReLU."""
-    c_in = in_ch // 4**num_shuffles
-    c4 = in_ch // 4
-    layers = [nn.PixelShuffle(2) for _ in range(num_shuffles)]
-    layers += [
-        conv_prelu(c_in, c4, 5, 1, 2, dtype),
-        conv_prelu(c4, c4, dtype=dtype),
-        conv_prelu(c4, c4, dtype=dtype),
-        conv_prelu(c4, c4, dtype=dtype),
-        conv_prelu(c4, in_ch // 2, dtype=dtype),
-        conv(in_ch // 2, in_ch // 2, 1, 1, 0, dtype),
-        FrozenBatchNorm2d(in_ch // 2, compute_dtype=dtype),
-        nn.ReLU(),
-    ]
-    return nn.Sequential(*layers)
+class UpsampleHead(nn.Sequential):
+    """PixelShuffle(2) x num_shuffles, five convrelu, 1x1 conv, BN, ReLU;
+    `train` goes to the BN."""
+
+    def __init__(self, in_ch: int, num_shuffles: int, dtype=None):
+        c_in = in_ch // 4**num_shuffles
+        c4 = in_ch // 4
+        layers = [nn.PixelShuffle(2) for _ in range(num_shuffles)]
+        layers += [
+            conv_prelu(c_in, c4, 5, 1, 2, dtype),
+            conv_prelu(c4, c4, dtype=dtype),
+            conv_prelu(c4, c4, dtype=dtype),
+            conv_prelu(c4, c4, dtype=dtype),
+            conv_prelu(c4, in_ch // 2, dtype=dtype),
+            conv(in_ch // 2, in_ch // 2, 1, 1, 0, dtype),
+            BatchNorm2d(in_ch // 2, compute_dtype=dtype),
+            nn.ReLU(),
+        ]
+        super().__init__(*layers)
+
+    def forward(self, x, train=False):
+        for layer in self:
+            x = layer(x, train) if isinstance(layer, BatchNorm2d) else layer(x)
+        return x
 
 
 def _conv_block(cin, c, skip, cout, first_k, dtype) -> nn.Sequential:
@@ -97,12 +107,12 @@ class InitDecoder(nn.Module):
 
     def __init__(self, in_ch=256, skip_ch=64, dtype=None):
         super().__init__()
-        self.upsample = upsample_head(in_ch, 1, dtype)
+        self.upsample = UpsampleHead(in_ch, 1, dtype)
         c = in_ch // 2
         self.convblock = _conv_block(2 * c + 2 * 2 + 4 * 3, c, skip_ch, c + 5, 1, dtype)
 
-    def upsample_features(self, f):
-        return self.upsample(f)
+    def upsample_features(self, f, train=False):
+        return self.upsample(f, train)
 
     def forward(self, f0, f1, flow0_in, flow1_in, img0, img1):
         scale = f0.shape[2] / img0.shape[2]
@@ -169,13 +179,13 @@ class MultiFlowDecoder(nn.Module):
     def __init__(self, in_ch=128, skip_ch=64, dtype=None):
         super().__init__()
         self.num_flows = num_flows = NUM_FLOWS
-        self.upsample = upsample_head(in_ch, 2, dtype)
+        self.upsample = UpsampleHead(in_ch, 2, dtype)
         c_feat = in_ch // 2
         cin = in_ch + 2 * c_feat + 2 * 2 + 1 + 4 * 3
         self.convblock = _conv_block(cin, 2 * in_ch, skip_ch, 8 * num_flows, 3, dtype)
 
-    def upsample_features(self, f):
-        return self.upsample(f)
+    def upsample_features(self, f, train=False):
+        return self.upsample(f, train)
 
     def forward(self, ft_, f0, f1, flow0, flow1, mask, img0, img1):
         n = self.num_flows

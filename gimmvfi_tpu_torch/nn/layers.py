@@ -64,11 +64,23 @@ class PReLU(nn.Module):
         return torch.clamp_min(x, 0) + alpha * torch.clamp_max(x, 0)
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm2d: running statistics, affine, float32 arithmetic.
+BN_MOMENTUM = 0.9  # flax's default, as every BatchNorm of the JAX package uses
 
-    Computes `(x - mean) * (rsqrt(var + eps) * weight) + bias` in float32,
-    as flax's BatchNorm does, and returns `compute_dtype` (float32 if None).
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm2d with float32 statistics and arithmetic that returns
+    `compute_dtype` (float32 if None), as flax's BatchNorm does.
+
+    The statistics mode is the explicit `train` argument of `forward`, as
+    JAX's `train` flag, never `nn.Module.training` (True on every freshly
+    built module, and the inference paths never call `.eval()`):
+      * `train=False` normalizes with the running statistics,
+        `(x - mean) * (rsqrt(var + eps) * weight) + bias`;
+      * `train=True` normalizes with the batch's mean and *biased* variance
+        (`E[x^2] - E[x]^2`, clipped at 0, flax's fast variance) and then
+        moves the running statistics, `running = 0.9 running + 0.1 batch`,
+        with that same biased variance (torch's BatchNorm2d would use the
+        unbiased one).
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -81,17 +93,28 @@ class FrozenBatchNorm2d(nn.Module):
         self.eps = eps
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
         y = y + self.bias.view(1, -1, 1, 1)
         return y.to(self.compute_dtype or torch.float32)
 
 
 class InstanceNorm(nn.Module):
-    """Parameter-free InstanceNorm2d (biased variance, float32 statistics)."""
+    """Parameter-free InstanceNorm2d (biased variance, float32 statistics);
+    `train` is accepted beside BatchNorm2d's and changes nothing."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return instance_norm(x)
 
 
@@ -139,7 +162,7 @@ def init_normal_(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
     for p in module.parameters():
         p.copy_(torch.randn(p.shape, generator=gen) * std)
     for m in module.modules():
-        if isinstance(m, FrozenBatchNorm2d):
+        if isinstance(m, BatchNorm2d):
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
     return module

@@ -55,3 +55,16 @@ def sample_coords_3d(
     tt = tv[:, None, None].expand(tv.shape[0], h, w)
     coords = torch.stack([tt, yy.expand_as(tt), xx.expand_as(tt)], dim=-1)
     return coords[None].expand(batch_size, *coords.shape)
+
+
+def sample_coords_3d_per_sample(
+    t_values: torch.Tensor,
+    spatial_shape: tuple[int, int],
+    coord_range: tuple[float, float] = (-1.0, 1.0),
+) -> torch.Tensor:
+    """Per-sample timesteps: t_values (B,) -> coords (B, 1, H, W, 3), the
+    t channel of the t = 1 grid scaled by each sample's t."""
+    b = t_values.shape[0]
+    base = sample_coords_3d(b, spatial_shape, 1.0, t_values.device, coord_range)
+    t = t_values.reshape(b, 1, 1, 1, 1).float()
+    return torch.cat([base[..., :1] * t, base[..., 1:]], dim=-1)

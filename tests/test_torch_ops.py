@@ -99,6 +99,35 @@ def test_instance_norm(rng):
     close(nhwc(tl.instance_norm(nchw(x))), jl.instance_norm(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("train", [False, True], ids=["running", "batch"])
+def test_batch_norm_matches_flax(rng, train):
+    """BatchNorm2d against flax's nn.BatchNorm (momentum 0.9, eps 1e-5) with
+    the same non-trivial statistics: the output and, with batch statistics,
+    the moved running statistics (flax's biased variance; torch's
+    nn.BatchNorm2d would move running_var by the unbiased one)."""
+    import flax.linen as fnn
+
+    x = (rng.standard_normal((3, 7, 9, 5)) * 2 + 1).astype(np.float32)
+    scale, bias = rng.random(5, np.float32) + 0.5, rng.standard_normal(5).astype(np.float32)
+    mean, var = rng.standard_normal(5).astype(np.float32), rng.random(5, np.float32) + 0.5
+    bn = fnn.BatchNorm(use_running_average=not train, momentum=0.9, epsilon=1e-5)
+    ref, mut = bn.apply({"params": {"scale": scale, "bias": bias},
+                         "batch_stats": {"mean": mean, "var": var}}, jnp.asarray(x),
+                        mutable=["batch_stats"])
+    m = tl.BatchNorm2d(5)
+    with torch.no_grad():
+        for t, v in ((m.weight, scale), (m.bias, bias), (m.running_mean, mean),
+                     (m.running_var, var)):
+            t.copy_(torch.from_numpy(v))
+    got = m(nchw(x), train=train)
+    close(nhwc(got.detach()), ref)
+    close(m.running_mean.numpy(), mut["batch_stats"]["mean"], 1e-6)
+    close(m.running_var.numpy(), mut["batch_stats"]["var"], 1e-6)
+    if train:
+        unbiased = 0.9 * var + 0.1 * x.reshape(-1, 5).var(axis=0, ddof=1)
+        assert np.abs(m.running_var.numpy() - unbiased).max() > 1e-3
+
+
 def test_all_pairs_corr_and_bidir_pyramid(rng):
     f1 = rng.standard_normal((1, 16, 16, 8)).astype(np.float32)
     f2 = rng.standard_normal((1, 16, 16, 8)).astype(np.float32)

@@ -39,7 +39,7 @@ from gimmvfi_tpu.train import make_gimm_train_step as jax_make_gimm_train_step
 from gimmvfi_tpu.train.ema import ema_update as jax_ema_update
 from gimmvfi_tpu.train.optim import warmup_cosine_schedule as jax_warmup_cosine_schedule
 from gimmvfi_tpu.utils.config import load_config as jax_load_config
-from gimmvfi_tpu_torch.data import DataLoader, VimeoFlowTriplets, create_dataset
+from gimmvfi_tpu_torch.data import DataLoader, VimeoArbitrary, VimeoFlowTriplets, create_dataset
 from gimmvfi_tpu_torch.data.frame_io import write_flo
 from gimmvfi_tpu_torch.models.gimm import GIMM
 from gimmvfi_tpu_torch.train.checkpoint import (
@@ -299,8 +299,12 @@ def test_flow_triplets_and_loader_equal_jax(tmp_path):
             theirs.set_epoch(epoch)
             _same_batches(ours, theirs)
     assert next(iter(DataLoader(trn, 2)))["xs"].shape == (2, 3, 32, 32, 2)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        create_dataset("vimeo_arb", str(tmp_path))
+    # stage 2's dataset: the two splits (the test split drops its listing's
+    # last line, as the reference's does)
+    (tmp_path / "all_sep.txt").write_text("\n".join(seqs) + "\n")
+    trn2, val2 = create_dataset("vimeo_arb", str(tmp_path))
+    assert isinstance(trn2, VimeoArbitrary) and isinstance(val2, VimeoArbitrary)
+    assert (trn2.split, len(trn2), val2.split, len(val2)) == ("train", 6, "test", 5)
 
 
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in REPO.glob("configs/*/*.yaml"))
@@ -349,3 +353,29 @@ def test_checkpoint_round_trip_and_merge_partial(tmp_path):
     assert float(fresh.alpha_v.detach()) == 3.0
     with pytest.raises(ValueError, match="shape"):
         merge_partial(fresh, {"alpha_fe": torch.zeros(2)})
+
+
+def test_image_grids_equal_jax_and_add_image(tmp_path):
+    """`reconstruction_grid` and `flow_grid` equal the JAX package's on
+    seeded inputs; `Writer.add_image` also writes the grid as a PPM that
+    reads back as its 8-bit image, and `NullWriter.add_image` does nothing."""
+    from gimmvfi_tpu.utils import writer as jax_writer
+    from gimmvfi_tpu_torch.data.frame_io import read_ppm
+    from gimmvfi_tpu_torch.utils import writer
+
+    rng = np.random.default_rng(4)
+    imgs = [rng.random((5, 12, 16, 3), dtype=np.float32) for _ in range(4)]
+    flows = [(rng.standard_normal((5, 12, 16, 2)) * 3).astype(np.float32) for _ in range(2)]
+    for kw in ({}, {"flow_t0": flows[0], "flow_t1": flows[1]}, {"flow_t0": flows[0]}):
+        got = writer.reconstruction_grid(*imgs, **kw)
+        assert np.array_equal(got, jax_writer.reconstruction_grid(*imgs, **kw))
+    assert got.shape == (4 * 12, 5 * 16, 3)
+    nflows = [rng.random((3, 12, 16, 2), dtype=np.float32) for _ in range(2)]
+    assert np.array_equal(writer.flow_grid(*nflows), jax_writer.flow_grid(*nflows))
+
+    w = writer.Writer(str(tmp_path))
+    w.add_image("reconstruction", got, "valid", 3)
+    w.close()
+    back = read_ppm(str(tmp_path / "grids" / "valid_reconstruction_3.ppm"))
+    assert np.array_equal(back, (np.clip(got, 0.0, 1.0) * 255).astype(np.uint8))
+    writer.NullWriter().add_image("reconstruction", got, "valid", 3)
