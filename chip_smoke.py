@@ -4,7 +4,8 @@ DS_SCALE and the windowed correlation), its GIMM-VFI-F 8x path at 720p,
 its bench entry, its two probe entry points, its serving entry points
 (stage-1 GIMM, the video CLI, the four benchmark harnesses), stage-1 GIMM
 training and stage-2 GIMM-VFI training (each recipe's step and the train
-CLI) once on one CUDA card.
+CLI), and data-parallel training (the step under a process group, two
+ranks against one process, the CLI under torchrun) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -170,7 +171,24 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      second; exact launches, seconds an epoch and whether Pillow was found;
      (d) one recipe step of GIMMVFI_F() (`gimmvfi_f_arb.yaml`, the same
      LPIPS): exact launches counted from 0, 3 timed after 2 warm-ups (median
-     ms, peak), no trace.
+     ms, peak), no trace;
+ 13. data-parallel training (`parallel/dist.py`), float32, in
+     build/chip_smoke_phase13/: (a) phase 12 (a)'s recipe step through the
+     data-parallel step under a process group of one NCCL rank on the card
+     (the gradient's flat all-reduce and the metrics' mean run): exact
+     launches (6 + 6), the events median of 10 after 2 warm-ups beside
+     phase 12 (a)'s, the peak, the device time of one traced step with its
+     NCCL rows named; (b) two gloo ranks on the card (`spawn_ranks`; NCCL
+     refuses two ranks on one device) at batch 1 each against one process
+     at batch 2 on the card, from the same seeded weights and batch: phase
+     11 (c)'s stage-1 step (GIMM at 64x64) and phase 12 (b)'s stage-2 step
+     (GIMMVFI_R(raft_iters=2) at 128x128, BatchNorm's statistics across
+     the ranks), held to those phases' bounds, the ranks' parameters and
+     buffers after the step bitwise equal; (c) phase 12 (c)'s first epoch
+     as `torchrun --standalone --nproc_per_node 1 -m
+     gimmvfi_tpu_torch.cli.train` on the same tree, run beside (b): exit 0,
+     its epoch-0 metrics (`metrics.jsonl`) within 1e-4 relative of phase
+     12 (c)'s.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -180,10 +198,12 @@ profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
 counts are set to 0 just before each path (5, the probes of 6, each path
 of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
-and each CLI call of 11 and of 12) and read just after it; the splat's and the
+and each CLI call of 11 and of 12, the counted step of 13 (a)) and read
+just after it; the splat's and the
 3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`),
 the splat backward's `launches` are those of the counted recipe step; both
-splat records carry their phase 12 step's counts (`launches_phase12_step`).
+splat records carry their phase 12 and phase 13 (a) steps' counts
+(`launches_phase12_step`, `launches_phase13_step`).
 The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -192,14 +212,17 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -227,6 +250,7 @@ from gimmvfi_tpu_torch.ops.corr import (
 )
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
 from gimmvfi_tpu_torch.ops.pad import InputPadder
+from gimmvfi_tpu_torch.parallel import dist as dist_ops
 from gimmvfi_tpu_torch.ops.softsplat import (
     SPLAT_BACKWARD_KERNEL,
     SPLAT_KERNEL,
@@ -1558,14 +1582,56 @@ def alpha_fields(module):
 
 def step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
     """One recipe step from `weights` on `batch`: the loss, each parameter's
-    gradient (on the CPU) and the fields of the alphas' gradients
-    (`alpha_fields`)."""
+    gradient (on the CPU), the fields of the alphas' gradients
+    (`alpha_fields`) and the state dict after the step (on the CPU)."""
     state = recipe_state(cfg, device=device)
     state.model.load_state_dict(weights)
     with alpha_fields(gimm_model) as fields:
         loss = float(make_gimm_train_step()(state, batch)["loss_total"])
     return {"loss": loss, **fields,
-            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}}
+            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+            "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+
+
+def hold_stage1_step(ref: dict, got: dict, where: str) -> tuple[float, float, str, list]:
+    """Phase 11 (c)'s bounds on one stage-1 step `got` against `ref`
+    (`step_fields` readings): the loss to 1e-5 relative; each gradient to
+    1e-4 x max|g_ref| but those of `ALPHAS`; the fields u and c to 1e-4 x
+    max|ref|; each alpha's gradient within a float32 dot product's rounding
+    of its own fields' contraction on both sides, and to 1e-4 x S (S =
+    sum_p |u_p c_p| of `ref`). Returns (loss gap, largest gradient gap, its
+    tensor, the alphas' readings); raises on a miss."""
+    rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not rel <= 1e-5:
+        raise AssertionError(f"{where}: loss {got['loss']} vs {ref['loss']} ({rel:.2e})")
+    worst, worst_name, readings = 0.0, None, []
+    for name, g_ref in ref["grads"].items():
+        gap = float((got["grads"][name] - g_ref).abs().max()) / float(g_ref.abs().max())
+        if name not in ALPHAS and not gap <= 1e-4:
+            raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} x max|g_ref| off")
+        if name not in ALPHAS and gap > worst:
+            worst, worst_name = gap, name
+    for field in ("u", *ALPHAS):
+        gap = float((got[field] - ref[field]).abs().max() / ref[field].abs().max())
+        if not gap <= 1e-4:
+            raise AssertionError(f"{where}: the field {field} is {gap:.3e} x max|ref| off")
+    for name in ALPHAS:
+        terms = {"ref": ref["u"] * ref[name], "got": got["u"] * got[name]}
+        sums = {d: float(t.abs().sum()) for d, t in terms.items()}
+        for d, r in (("ref", ref), ("got", got)):
+            off = abs(float(r["grads"][name]) - float(terms[d].sum()))
+            if not off <= (math.log2(terms[d].numel()) + 4) * 2**-24 * sums[d]:
+                raise AssertionError(f"{where}: {d} gradient of {name} is {off:.3e} off "
+                                     f"its fields' contraction (S {sums[d]:.3e})")
+        g_ref = float(ref["grads"][name])
+        gap = abs(float(got["grads"][name]) - g_ref)
+        if not gap <= 1e-4 * sums["ref"]:
+            raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off "
+                                 f"(1e-4 x S = {1e-4 * sums['ref']:.3e})")
+        readings.append({"tensor": name, "gap_over_S": gap / sums["ref"],
+                         "gap_over_itself": gap / abs(g_ref),
+                         "S_over_itself": sums["ref"] / abs(g_ref)})
+    return rel, worst, worst_name, readings
 
 
 def check_step_gpu_vs_cpu() -> dict:
@@ -1581,53 +1647,34 @@ def check_step_gpu_vs_cpu() -> dict:
     the gradients are; on each device the alpha's gradient is the float64
     contraction of its own fields, within a float32 dot product's rounding
     ((log2 n + 4) x 2^-24 x S, n terms); and GPU vs CPU it agrees to 1e-4 x
-    S. Its gap relative to itself is printed beside, with S / |g|."""
+    S. Its gap relative to itself is printed beside, with S / |g|
+    (`hold_stage1_step`)."""
     cfg = load_config(RECIPE)
     loss_rel, worst, worst_name, readings = 0.0, 0.0, None, []
     for seed in GRAD_SEEDS:
-        torch.manual_seed(seed)
-        weights = GIMM(device="cpu").state_dict()
-        batch = flow_batch(2, (64, 64), seed + 12, device="cpu")
-        batch["t_id"] = np.asarray([1, 2], np.int32)
+        weights, batch = stage1_inputs(seed)
         cpu = step_fields(cfg, "cpu", weights, batch)
         for run in range(GPU_RERUNS):
             gpu = step_fields(cfg, "cuda", weights, batch)
-            where = f"[11] (c) seed {seed} run {run}"
-            rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
-            if not rel <= 1e-5:
-                raise AssertionError(f"{where}: loss {gpu['loss']} vs {cpu['loss']} ({rel:.2e})")
+            rel, gap, name, alphas = hold_stage1_step(cpu, gpu, f"[11] (c) seed {seed} run {run}")
             loss_rel = max(loss_rel, rel)
-            for name, gc in cpu["grads"].items():
-                gap = float((gpu["grads"][name] - gc).abs().max()) / float(gc.abs().max())
-                if name not in ALPHAS and not gap <= 1e-4:
-                    raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} x max|g_cpu| off")
-                if name not in ALPHAS and gap > worst:
-                    worst, worst_name = gap, name
-            for field in ("u", *ALPHAS):
-                gap = float((gpu[field] - cpu[field]).abs().max() / cpu[field].abs().max())
-                if not gap <= 1e-4:
-                    raise AssertionError(f"{where}: the field {field} is {gap:.3e} x max|cpu| off")
-            for name in ALPHAS:
-                terms = {"cpu": cpu["u"] * cpu[name], "gpu": gpu["u"] * gpu[name]}
-                sums = {d: float(t.abs().sum()) for d, t in terms.items()}
-                for d, r in (("cpu", cpu), ("gpu", gpu)):
-                    off = abs(float(r["grads"][name]) - float(terms[d].sum()))
-                    if not off <= (math.log2(terms[d].numel()) + 4) * 2**-24 * sums[d]:
-                        raise AssertionError(f"{where}: {d} gradient of {name} is {off:.3e} off "
-                                             f"its fields' contraction (S {sums[d]:.3e})")
-                g_cpu = float(cpu["grads"][name])
-                gap = abs(float(gpu["grads"][name]) - g_cpu)
-                if not gap <= 1e-4 * sums["cpu"]:
-                    raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off "
-                                         f"(1e-4 x S = {1e-4 * sums['cpu']:.3e})")
-                readings.append({"seed": seed, "run": run, "tensor": name,
-                                 "gap_over_S": gap / sums["cpu"], "gap_over_itself": gap / abs(g_cpu),
-                                 "S_over_itself": sums["cpu"] / abs(g_cpu)})
+            if gap > worst:
+                worst, worst_name = gap, name
+            readings += [{"seed": seed, "run": run, **a} for a in alphas]
     print(f"[11] (c) one step at 64x64, batch 2, GPU vs CPU, seeds {list(GRAD_SEEDS)} x "
           f"{GPU_RERUNS} runs on the card: loss within {loss_rel:.2e} relative; largest gradient "
           f"gap {worst:.2e} x max|g_cpu| ({worst_name}); {', '.join(ALPHAS)}: "
           f"{json.dumps(readings)}", flush=True)
     return {"loss_rel": loss_rel, "grad_rel": worst, "alpha_readings": readings}
+
+
+def stage1_inputs(seed: int) -> tuple[dict, dict]:
+    """Phase 11 (c)'s seeded GIMM weights and batch of 2 at 64x64 (t_id 1, 2)."""
+    torch.manual_seed(seed)
+    weights = GIMM(device="cpu").state_dict()
+    batch = flow_batch(2, (64, 64), seed + 12, device="cpu")
+    batch["t_id"] = np.asarray([1, 2], np.int32)
+    return weights, batch
 
 
 def flow_tree(root: Path, n_seq: int, hw, seed: int):
@@ -1753,7 +1800,7 @@ def vfi_state(cfg, family=GIMMVFI_R, device=None, seed=SEED, **model_kw):
 
 
 def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
-                    lpips_path: Path, trace: bool, **model_kw) -> dict:
+                    lpips_path: Path, trace: bool, phase: int = 12, **model_kw) -> dict:
     """One recipe step of stage 2 on the card, float32, TF32 off, batch 4 at
     224^2, with the perceptual loss the recipe sets (`lpips_path`, loaded as
     the train CLI loads it): counted from 0 (exactly 6 forward and 6
@@ -1761,12 +1808,13 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
     `timed_steps` timed by CUDA events (median ms, peak allocated); the loss
     and its LPIPS term finite and nonzero, the parameters of both optimizer
     groups, the BatchNorm running statistics and the EMA moved; then, with
-    `trace`, the device time of one step and of its splats in a trace."""
+    `trace`, the device time of one step and of its splats and NCCL rows in
+    a trace. Phase 13 (a) runs it under a process group."""
     cfg = load_config(config)
     n = cfg.experiment.batch_size
     state = vfi_state(cfg, family, **model_kw)
     if not cfg.loss.perceptual_loss:
-        raise AssertionError(f"[12] ({label}) {config} sets no perceptual loss")
+        raise AssertionError(f"[{phase}] ({label}) {config} sets no perceptual loss")
     lpips_fn = train_cli.lpips_loss_fn(str(lpips_path), torch.device("cuda"))
     step = make_gimmvfi_train_step(cfg.arch.rec_weight, lpips_fn, use_ema=bool(cfg.arch.ema))
     batch = vfi_batch(n, (CROP2, CROP2), SEED + 21)
@@ -1778,7 +1826,7 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
     step(state, batch)
     torch.cuda.synchronize()
     got = counts()
-    expect_counts(f"({label}) the recipe step", got, STEP_SPLATS, splat_bwd=STEP_SPLATS, phase=12)
+    expect_counts(f"({label}) the recipe step", got, STEP_SPLATS, splat_bwd=STEP_SPLATS, phase=phase)
     step(state, batch)
     times, losses, perceptual = [], [], []
     for _ in range(timed_steps):
@@ -1797,15 +1845,16 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
     moved["ema"] = max(float((v - ema_before[k]).abs().max()) for k, v in state.ema.items())
     if not (all(math.isfinite(x) for x in losses + perceptual) and all(perceptual)
             and min(moved.values()) > 0):
-        raise AssertionError(f"[12] ({label}) losses {losses}, LPIPS terms {perceptual}, "
+        raise AssertionError(f"[{phase}] ({label}) losses {losses}, LPIPS terms {perceptual}, "
                              f"largest moves {moved}")
     step_dev, rows = (device_ms(lambda: step(state, batch), iters=1, warmup=0) if trace
                       else (None, {}))
     fwd = kernel_row(rows, "splat_sum_kernel")
     bwd = kernel_row(rows, "splat_sum_bwd_kernel")
     med = statistics.median(times)
+    nccl = {k: v for k, v in rows.items() if "nccl" in k.lower()}
     splat_dev = None if fwd is None or bwd is None else fwd + bwd
-    print(f"[12] ({label}) the recipe step ({config}: {family.__name__}, {cfg.optimizer.type} lr "
+    print(f"[{phase}] ({label}) the recipe step ({config}: {family.__name__}, {cfg.optimizer.type} lr "
           f"{cfg.optimizer.init_lr}, ft groups, EMA, the perceptual loss, batch {n}, "
           f"{CROP2}x{CROP2}, float32): "
           f"{med:.2f} ms a step (median of {timed_steps} by events; {min(times):.2f}-"
@@ -1818,12 +1867,13 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
           f"step; {smi}", flush=True)
     if trace:
         top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[12] ({label}) the step's largest device rows: "
+        print(f"[{phase}] ({label}) the step's largest device rows: "
               f"{'; '.join(f'{v:.3f} ms {k[:70]}' for k, v in top)}", flush=True)
     res = {"step_ms": med, "step_ms_all": times, "peak_bytes": peak, "launches": got,
            "losses": losses, "moved": moved, "step_device_ms": step_dev,
-           "splat_fwd_device_ms": fwd, "splat_bwd_device_ms": bwd}
+           "splat_fwd_device_ms": fwd, "splat_bwd_device_ms": bwd, "nccl_device_ms": nccl}
     del state, batch
+    gc.collect()  # the optimizer and its schedule's hook hold each other
     torch.cuda.empty_cache()
     return res
 
@@ -1831,18 +1881,83 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
 def vfi_step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
     """One stage-2 step of GIMMVFI_R(raft_iters=2) from `weights`: the loss,
     each parameter's gradient (on the CPU), the BatchNorm running statistics
-    after it, and the fields u and c of the alphas' gradients
-    (`alpha_fields`)."""
+    after it, the fields u and c of the alphas' gradients (`alpha_fields`)
+    and the state dict after the step (on the CPU)."""
     state = vfi_state(cfg, device=device, raft_iters=2)
     state.model.load_state_dict(weights)
     batch = {k: v.to(device) for k, v in batch.items()}
     with alpha_fields(gimmvfi_r_model) as fields:
         loss = float(make_gimmvfi_train_step(cfg.arch.rec_weight, None, use_ema=False)(
             state, batch)["loss_total"])
+    after = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     return {"loss": loss, **fields,
             "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
-            "stats": {k: v.detach().cpu() for k, v in state.model.state_dict().items()
-                      if "running_" in k}}
+            "stats": {k: v for k, v in after.items() if "running_" in k}, "state": after}
+
+
+def stage2_readings() -> dict:
+    return {"loss_rel": 0.0, "stats_rel": 0.0, "grad_rel_l2": 0.0, "grad_rel_l2_name": None,
+            "field_rel_l2": 0.0, "within_1e-4_max": [], "alphas": []}
+
+
+def hold_stage2_step(ref: dict, got: dict, where: str, readings: dict, seed: int):
+    """Phase 12 (b)'s bounds on one stage-2 step `got` against `ref`
+    (`vfi_step_fields` readings): the loss to 1e-5 relative; the running
+    statistics to 1e-5 x max(1, max|ref|); each gradient within 1e-2
+    relative L2, but the biases that feed a normalization (within 1e-2 x
+    max|g| of their weights on both sides) and `ALPHAS` (within 1e-4 x S of
+    `ref`), their fields u and c within 5e-2 relative L2. Updates
+    `readings` (`stage2_readings`); raises on a miss."""
+    rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not rel <= 1e-5:
+        raise AssertionError(f"{where}: loss {got['loss']} vs {ref['loss']} ({rel:.2e})")
+    readings["loss_rel"] = max(readings["loss_rel"], rel)
+    for k, v in ref["stats"].items():
+        gap = float((got["stats"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+        if not gap <= 1e-5:
+            raise AssertionError(f"{where}: running statistic {k} is {gap:.3e} off")
+        readings["stats_rel"] = max(readings["stats_rel"], gap)
+    within = 0
+    for name, gr in ref["grads"].items():
+        gg = got["grads"][name]
+        within += float((gg - gr).abs().max()) <= 1e-4 * float(gr.abs().max())
+        if name in ALPHAS:
+            continue
+        if PRE_NORM_BIAS.fullmatch(name):
+            w_scale = float(ref["grads"][name[:-len("bias")] + "weight"].abs().max())
+            if not all(float(g.abs().max()) <= 1e-2 * w_scale for g in (gg, gr)):
+                raise AssertionError(f"{where}: {name}, zero in exact arithmetic, is over "
+                                     f"1e-2 x {w_scale:.3e}")
+            continue
+        gap = float((gg - gr).double().norm() / gr.double().norm())
+        if not gap <= 1e-2:
+            raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off in "
+                                 f"relative L2")
+        if gap > readings["grad_rel_l2"]:
+            readings["grad_rel_l2"], readings["grad_rel_l2_name"] = gap, name
+    readings["within_1e-4_max"].append(f"{within}/{len(ref['grads'])}")
+    for field in ("u", *ALPHAS):
+        gap = float((got[field] - ref[field]).norm() / ref[field].norm())
+        if not gap <= 5e-2:
+            raise AssertionError(f"{where}: the field {field} is {gap:.3e} off in relative L2")
+        readings["field_rel_l2"] = max(readings["field_rel_l2"], gap)
+    for name in ALPHAS:
+        s_abs = float((ref["u"] * ref[name]).abs().sum())
+        g_ref = float(ref["grads"][name])
+        gap = abs(float(got["grads"][name]) - g_ref)
+        if not gap <= 1e-4 * s_abs:
+            raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off "
+                                 f"(1e-4 x S = {1e-4 * s_abs:.3e})")
+        readings["alphas"].append({"seed": seed, "tensor": name, "gap_over_S": gap / s_abs,
+                                   "gap_over_itself": gap / abs(g_ref),
+                                   "S_over_itself": s_abs / abs(g_ref)})
+
+
+def stage2_inputs(seed: int) -> tuple[dict, dict]:
+    """Phase 12 (b)'s seeded GIMMVFI_R(raft_iters=2) weights and batch of 2 at 128x128."""
+    torch.manual_seed(seed)
+    weights = GIMMVFI_R(raft_iters=2, device="cpu").state_dict()
+    return weights, vfi_batch(2, (128, 128), seed + 22, device="cpu")
 
 
 def check_vfi_step_gpu_vs_cpu() -> dict:
@@ -1855,68 +1970,26 @@ def check_vfi_step_gpu_vs_cpu() -> dict:
     normalization, zero in exact arithmetic, within 1e-2 x max|g| of their
     weights; `alpha_v` and `alpha_fe` within 1e-4 x the sum of their terms'
     magnitudes S, their fields u and c within 5e-2 relative L2, the largest
-    gap printed). The share of tensors within stage 1's 1e-4 x max|g_cpu|
-    is printed beside."""
+    gap printed; `hold_stage2_step`). The share of tensors within stage 1's
+    1e-4 x max|g_cpu| is printed beside."""
     cfg = load_config(RECIPE2)
-    readings = {"loss_rel": 0.0, "stats_rel": 0.0, "grad_rel_l2": 0.0, "grad_rel_l2_name": None,
-                "field_rel_l2": 0.0, "within_1e-4_max": [], "alphas": []}
+    readings = stage2_readings()
     for seed in (SEED, SEED + 1):
-        torch.manual_seed(seed)
-        weights = GIMMVFI_R(raft_iters=2, device="cpu").state_dict()
-        batch = vfi_batch(2, (128, 128), seed + 22, device="cpu")
+        weights, batch = stage2_inputs(seed)
         cpu = vfi_step_fields(cfg, "cpu", weights, batch)
         gpu = vfi_step_fields(cfg, "cuda", weights, batch)
-        where = f"[12] (b) seed {seed}"
-        rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
-        if not rel <= 1e-5:
-            raise AssertionError(f"{where}: loss {gpu['loss']} vs {cpu['loss']} ({rel:.2e})")
-        readings["loss_rel"] = max(readings["loss_rel"], rel)
-        for k, v in cpu["stats"].items():
-            gap = float((gpu["stats"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
-            if not gap <= 1e-5:
-                raise AssertionError(f"{where}: running statistic {k} is {gap:.3e} off")
-            readings["stats_rel"] = max(readings["stats_rel"], gap)
-        within = 0
-        for name, gc in cpu["grads"].items():
-            gg = gpu["grads"][name]
-            within += float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
-            if name in ALPHAS:
-                continue
-            if PRE_NORM_BIAS.fullmatch(name):
-                w_scale = float(cpu["grads"][name[:-len("bias")] + "weight"].abs().max())
-                if not all(float(g.abs().max()) <= 1e-2 * w_scale for g in (gg, gc)):
-                    raise AssertionError(f"{where}: {name}, zero in exact arithmetic, is over "
-                                         f"1e-2 x {w_scale:.3e}")
-                continue
-            gap = float((gg - gc).double().norm() / gc.double().norm())
-            if not gap <= 1e-2:
-                raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off in "
-                                     f"relative L2")
-            if gap > readings["grad_rel_l2"]:
-                readings["grad_rel_l2"], readings["grad_rel_l2_name"] = gap, name
-        readings["within_1e-4_max"].append(f"{within}/{len(cpu['grads'])}")
-        for field in ("u", *ALPHAS):
-            gap = float((gpu[field] - cpu[field]).norm() / cpu[field].norm())
-            if not gap <= 5e-2:
-                raise AssertionError(f"{where}: the field {field} is {gap:.3e} off in relative L2")
-            readings["field_rel_l2"] = max(readings["field_rel_l2"], gap)
-        for name in ALPHAS:
-            s_abs = float((cpu["u"] * cpu[name]).abs().sum())
-            g_cpu = float(cpu["grads"][name])
-            gap = abs(float(gpu["grads"][name]) - g_cpu)
-            if not gap <= 1e-4 * s_abs:
-                raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} off "
-                                     f"(1e-4 x S = {1e-4 * s_abs:.3e})")
-            readings["alphas"].append({"seed": seed, "tensor": name, "gap_over_S": gap / s_abs,
-                                       "gap_over_itself": gap / abs(g_cpu),
-                                       "S_over_itself": s_abs / abs(g_cpu)})
+        hold_stage2_step(cpu, gpu, f"[12] (b) seed {seed}", readings, seed)
     print(f"[12] (b) one stage-2 step at 128x128, batch 2, GPU vs CPU, seeds {SEED}, {SEED + 1}: "
-          f"loss within {readings['loss_rel']:.2e} relative; running statistics within "
-          f"{readings['stats_rel']:.2e}; largest gradient gap {readings['grad_rel_l2']:.2e} "
-          f"relative L2 ({readings['grad_rel_l2_name']}); the alphas' fields u, c within "
-          f"{readings['field_rel_l2']:.2e} relative L2; tensors within 1e-4 x max|g_cpu| "
-          f"{readings['within_1e-4_max']}; alphas {json.dumps(readings['alphas'])}", flush=True)
+          f"{fmt_stage2(readings)}", flush=True)
     return readings
+
+
+def fmt_stage2(readings: dict) -> str:
+    return (f"loss within {readings['loss_rel']:.2e} relative; running statistics within "
+            f"{readings['stats_rel']:.2e}; largest gradient gap {readings['grad_rel_l2']:.2e} "
+            f"relative L2 ({readings['grad_rel_l2_name']}); the alphas' fields u, c within "
+            f"{readings['field_rel_l2']:.2e} relative L2; tensors within 1e-4 x max|g_ref| "
+            f"{readings['within_1e-4_max']}; alphas {json.dumps(readings['alphas'])}")
 
 
 def vimeo_tree(root: Path, n_seq: int, hw, seed: int) -> str:
@@ -1999,7 +2072,7 @@ def run_stage2_cli(smi: str, stage1_ckpt: str, lpips_path: Path) -> dict:
           f"{'Pillow' if pillow else 'cv2'}); writer {out[0]['writer']}", flush=True)
     return {"steps": out[1]["steps"], "epoch_seconds": [o["epochs"][-1]["seconds"] for o in out],
             "call_seconds": [o["seconds"] for o in out], "pillow": pillow,
-            "launches": out[0]["launches"]}
+            "launches": out[0]["launches"], "epoch0": out[0]["epochs"][0], "data": sep}
 
 
 def run_phase12(smi: str, stage1_ckpt: str) -> dict:
@@ -2021,6 +2094,205 @@ def run_phase12(smi: str, stage1_ckpt: str) -> dict:
         seconds[name] = time.perf_counter() - t0
     print(f"[12] phase 12 took {sum(seconds.values()):.2f} s "
           f"({', '.join(f'{k} {v:.2f}' for k, v in seconds.items())})", flush=True)
+    return res
+
+
+# ------------------------------------------------------------------ phase 13
+WORK13 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase13"
+DP_WORLD = 2  # gloo ranks on the one card in (b)
+
+
+def run_dp_step(smi: str, lpips_path: Path, p12_step: dict) -> dict:
+    """Phase 13 (a): phase 12 (a)'s recipe step through the data-parallel
+    step, under a process group of one NCCL rank on the card: the gradient's
+    flat all-reduce and the metrics' mean run, BatchNorm keeps its own
+    statistics (one rank). Exact splat launches, the events median beside
+    phase 12 (a)'s, the peak, and the device time of one traced step with
+    its NCCL rows."""
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    dist_ops.init(torch.device("cuda", 0), "nccl", rank=0, world=1, local_rank=0, local_world=1,
+                  init_method=f"file://{WORK13 / 'rendezvous_a'}")
+    group_bytes = torch.cuda.memory_allocated() - before
+    try:
+        res = run_stage2_step(smi, RECIPE2, GIMMVFI_R, "a", TIMED_STEPS, lpips_path, True,
+                              phase=13, raft_iters=load_config(RECIPE2).arch.raft_iter)
+    finally:
+        dist_ops.shutdown()
+    nccl = res["nccl_device_ms"]
+    res["group_bytes"] = group_bytes
+    print(f"[13] (a) the data-parallel recipe step, one NCCL rank: {res['step_ms']:.2f} ms "
+          f"(median of {TIMED_STEPS} by events) against phase 12 (a)'s {p12_step['step_ms']:.2f} "
+          f"ms in this run ({min(p12_step['step_ms_all']):.2f}-{max(p12_step['step_ms_all']):.2f}); "
+          f"device {fmt_ms(res['step_device_ms'])} against {fmt_ms(p12_step['step_device_ms'])}; "
+          f"peak {res['peak_bytes'] / 2**20:.1f} MiB against {p12_step['peak_bytes'] / 2**20:.1f} "
+          f"(the group's start allocated {group_bytes / 2**20:.1f} MiB); "
+          f"NCCL rows of the traced step: "
+          f"{'; '.join(f'{v:.4f} ms {k[:80]}' for k, v in nccl.items()) or 'none in the trace'}; "
+          f"{smi}", flush=True)
+    return res
+
+
+def dp_rank_steps(stage1: tuple, stage2: tuple, out_dir: str):
+    """One gloo rank of phase 13 (b): its row of each batch through a stage-1
+    and a stage-2 step (`step_fields`, `vfi_step_fields`) on the card."""
+    torch.backends.cudnn.allow_tf32 = False  # a spawned rank starts from torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = dist_ops.rank()
+    row = lambda batch: {k: v[r:r + 1] for k, v in batch.items()}
+    (w1, b1), (w2, b2) = stage1, stage2
+    res = {"stage1": step_fields(load_config(RECIPE), "cuda", w1, row(b1)),
+           "stage2": vfi_step_fields(load_config(RECIPE2), "cuda", w2, row(b2))}
+    torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def dp_readings(ranks: list[dict]) -> dict:
+    """The data-parallel step as one process would read it: rank 0's loss,
+    gradients and state (checked bitwise equal on every rank), and the
+    alphas' fields of all ranks in the batch's order. A rank's u is the
+    gradient of the ranks' summed losses, world x the global mean's, so it
+    is divided by the world."""
+    world, first = len(ranks), ranks[0]
+    for r, other in enumerate(ranks[1:], 1):
+        for key in ("grads", "state"):
+            for name, v in other[key].items():
+                if not torch.equal(v, first[key][name]):
+                    raise AssertionError(f"[13] (b) rank {r}'s {key} {name} differs from rank 0's")
+        if other["loss"] != first["loss"]:
+            raise AssertionError(f"[13] (b) rank {r}'s loss {other['loss']} != {first['loss']}")
+
+    def batch_order(field, scale=1.0):
+        # each rank's flat field is (w1, w2) of its sample: regroup as the
+        # one-process field, (w1, w2) of the whole batch
+        halves = [r[field].chunk(2) for r in ranks]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves]) * scale
+
+    out = {k: v for k, v in first.items() if k not in ("u", *ALPHAS)}
+    out["u"] = batch_order("u", 1.0 / world)
+    out.update({a: batch_order(a) for a in ALPHAS})
+    return out
+
+
+def run_dp_ranks() -> dict:
+    """Phase 13 (b): phase 11 (c)'s stage-1 step (GIMM at 64x64) and phase
+    12 (b)'s stage-2 step (GIMMVFI_R(raft_iters=2) at 128x128), each on
+    `DP_WORLD` gloo ranks on the card at batch 1 a rank (`spawn_ranks`)
+    against one process at batch 2 on the card, from the same seeded
+    weights and batch: held to phase 11 (c)'s and 12 (b)'s bounds
+    (`hold_stage1_step`, `hold_stage2_step`), the ranks' parameters and
+    buffers after the step bitwise equal."""
+    stage1, stage2 = stage1_inputs(SEED), stage2_inputs(SEED)
+    ref1 = step_fields(load_config(RECIPE), "cuda", *stage1)
+    ref2 = vfi_step_fields(load_config(RECIPE2), "cuda", *stage2)
+    out = WORK13 / "ranks"
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist_ops.spawn_ranks(dp_rank_steps, DP_WORLD, (stage1, stage2, str(out)), device="cuda:0",
+                         backend="gloo", rendezvous=str(WORK13 / "rendezvous_b"))
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(DP_WORLD)]
+    got1 = dp_readings([r["stage1"] for r in ranks])
+    got2 = dp_readings([r["stage2"] for r in ranks])
+    loss1, worst1, name1, alphas1 = hold_stage1_step(ref1, got1, "[13] (b) stage 1")
+    readings2 = stage2_readings()
+    hold_stage2_step(ref2, got2, "[13] (b) stage 2", readings2, SEED)
+    print(f"[13] (b) {DP_WORLD} gloo ranks at batch 1 on the card against one process at batch "
+          f"2, ranks bitwise equal after the step; stage 1 (GIMM 64x64): loss within "
+          f"{loss1:.2e} relative, largest gradient gap {worst1:.2e} x max|g_ref| ({name1}), "
+          f"alphas {json.dumps(alphas1)}; stage 2 (GIMMVFI_R(raft_iters=2) 128x128): "
+          f"{fmt_stage2(readings2)}; the spawned ranks took {seconds:.2f} s", flush=True)
+    return {"stage1_loss_rel": loss1, "stage1_grad_rel": worst1, "stage2": readings2,
+            "seconds": seconds}
+
+
+def start_dp_cli(stage1_ckpt: str, lpips_path: Path, data: str) -> tuple[subprocess.Popen, Path]:
+    """Phase 13 (c), started: phase 12 (c)'s first epoch as `torchrun
+    --standalone --nproc_per_node 1 -m gimmvfi_tpu_torch.cli.train` on the
+    same tree, checkpoint and LPIPS, in the background; its output in
+    `cli.log`."""
+    root = Path(__file__).resolve().parent
+    log = WORK13 / "cli.log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "gimmvfi_tpu_torch.cli.train", "--config", RECIPE2, "--result-path",
+           str(WORK13 / "runs"), "--load-path", stage1_ckpt, "--lpips-path", str(lpips_path),
+           "--smoke-test", "--overrides", "experiment.test_imlog_freq=1", f"dataset.path={data}",
+           "experiment.epochs=1"]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return proc, log
+
+
+def stop_group(proc: subprocess.Popen):
+    """End torchrun and its ranks: SIGTERM to torchrun, which stops its
+    workers, then SIGKILL to its process group for what is left."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish_dp_cli(proc: subprocess.Popen, log: Path, t0: float, p12_cli: dict) -> dict:
+    """Phase 13 (c), ended: exit 0, one run directory, and its epoch-0
+    metrics (`metrics.jsonl`) within 1e-4 relative of phase 12 (c)'s
+    one-process run's."""
+    try:
+        code = proc.wait(timeout=600)
+    finally:
+        stop_group(proc)
+    seconds = time.perf_counter() - t0
+    text = log.read_text()
+    if code != 0:
+        raise AssertionError(f"[13] (c) torchrun exited {code}:\n{text[-4000:]}")
+    (run_dir,) = (WORK13 / "runs").iterdir()
+    (epoch0,) = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    ref, worst = p12_cli["epoch0"], 0.0
+    for split in ("train", "valid", "valid_ema"):
+        for k, want in ref[split].items():
+            gap = abs(epoch0[split][k] - want) / max(abs(want), 1e-12)
+            if not gap <= 1e-4:
+                raise AssertionError(f"[13] (c) {split} {k}: {epoch0[split][k]} against phase 12 "
+                                     f"(c)'s {want} ({gap:.2e} relative)")
+            worst = max(worst, gap)
+    mesh = [line for line in text.splitlines() if "mesh:" in line]
+    print(f"[13] (c) torchrun --standalone --nproc_per_node 1 of the stage-2 CLI: exit 0 in "
+          f"{seconds:.2f} s; {mesh[0].split('INFO ')[-1] if mesh else 'no mesh line'}; epoch 0 "
+          f"within {worst:.2e} relative of phase 12 (c)'s metrics; train "
+          f"{json.dumps(epoch0['train'])}", flush=True)
+    return {"seconds": seconds, "metrics_rel": worst}
+
+
+def run_phase13(smi: str, stage1_ckpt: str, p12: dict) -> dict:
+    """Phase 13: data-parallel training on the one card."""
+    shutil.rmtree(WORK13, ignore_errors=True)
+    WORK13.mkdir(parents=True)
+    lpips_path = WORK12 / "lpips_seeded.pt"
+    seconds = {}
+    t0 = time.perf_counter()
+    res = {"step": run_dp_step(smi, lpips_path, p12["step"])}
+    seconds["step"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc, log = start_dp_cli(stage1_ckpt, lpips_path, p12["cli"]["data"])
+    try:
+        res["ranks"] = run_dp_ranks()
+    except BaseException:
+        stop_group(proc)
+        raise
+    seconds["ranks"] = time.perf_counter() - t0
+    res["cli"] = finish_dp_cli(proc, log, t0, p12["cli"])
+    seconds["ranks_and_cli"] = time.perf_counter() - t0
+    print(f"[13] phase 13 took {seconds['step'] + seconds['ranks_and_cli']:.2f} s "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in seconds.items())}; (c) ran beside (b))",
+          flush=True)
     return res
 
 
@@ -2065,7 +2337,10 @@ def main():
     torch.cuda.empty_cache()
     p11 = run_phase11(smi)
     torch.cuda.empty_cache()
-    p12 = run_phase12(smi, str(Path(p11["cli"]["run_dir"]) / "ckpt" / "step_4.pt"))
+    stage1_ckpt = str(Path(p11["cli"]["run_dir"]) / "ckpt" / "step_4.pt")
+    p12 = run_phase12(smi, stage1_ckpt)
+    torch.cuda.empty_cache()
+    p13 = run_phase13(smi, stage1_ckpt, p12)
     # each kernel's launches on the phase 10 paths, each counted from 0
     p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
         "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
@@ -2096,6 +2371,7 @@ def main():
                launches_phase10=p10_launches["splat"],
                launches_phase11_step=p11["step"]["launches"]["splat"],
                launches_phase12_step=p12["step"]["launches"]["splat"],
+               launches_phase13_step=p13["step"]["launches"]["splat"],
                phase12_step_device_ms=p12["step"]["splat_fwd_device_ms"],
                train_shape_ms=p11["backward"]["forward_ms"],
                train_shape_device_ms=p11["backward"]["forward_device_ms"],
@@ -2109,6 +2385,7 @@ def main():
                step_device_ms=p11["step"]["splat_bwd_device_ms"],
                launches_phase11_cli=p11["cli"]["launches"]["splat_bwd"],
                launches_phase12_step=p12["step"]["launches"]["splat_bwd"],
+               launches_phase13_step=p13["step"]["launches"]["splat_bwd"],
                phase12_step_device_ms=p12["step"]["splat_bwd_device_ms"]),
         record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
                max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
@@ -2188,6 +2465,16 @@ def main():
           f"{', '.join(f'{x:.2f}' for x in c2['epoch_seconds'])} s an epoch, Pillow "
           f"{c2['pillow'] or 'not found'}; GIMMVFI_F step {f2['step_ms']:.2f} ms, peak "
           f"{f2['peak_bytes'] / 2**20:.1f} MiB; {smi}", flush=True)
+    d13 = p13["step"]
+    print(f"[13] data-parallel training: the recipe step through one NCCL rank "
+          f"{d13['step_ms']:.2f} ms against phase 12 (a)'s {s2['step_ms']:.2f}, peak "
+          f"{d13['peak_bytes'] / 2**20:.1f} MiB, NCCL device "
+          f"{fmt_ms(sum(d13['nccl_device_ms'].values()) if d13['nccl_device_ms'] else None)} a "
+          f"step; {DP_WORLD} gloo ranks against one process: stage 1 loss "
+          f"{p13['ranks']['stage1_loss_rel']:.2e}, gradients "
+          f"{p13['ranks']['stage1_grad_rel']:.2e} x max|g|, stage 2 gradients "
+          f"{p13['ranks']['stage2']['grad_rel_l2']:.2e} relative L2; the CLI under torchrun "
+          f"within {p13['cli']['metrics_rel']:.2e} of phase 12 (c); {smi}", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,29 +9,52 @@ reference's `src/main.py` + `trainers/trainer_gimm.py` /
     either: [--result-path runs] [--overrides a.b=value ...] [--smoke-test]
         [--load-path ref.pt] [--resume] [--eval] [--device cuda|cpu]
 
-One process on one device, the CUDA card by default (`--device cpu` is for
-the CPU tests); float32 with TF32 off. The run follows the JAX CLI step for
-step: the same loader batches (seeded by item), the same draws from
-`np.random.default_rng(seed)` (stage 1: one t_id an iteration; stage 2:
-the loss's pixel subsample for every train, validation and image-log
-batch), the schedule's steps scaled by the grad-accumulation derivation
-(`total_batch_size` only scales the schedule), validation (and EMA
-validation) every `test_freq` epochs and at the last, stage 2's
-reconstruction grid every `test_imlog_freq` epochs, checkpoints every
-`save_ckpt_freq` epochs and at the last (`ckpt/step_<n>.pt`, the last 3
-kept), log lines in the JAX CLI's format. `--resume` takes an existing run
-directory as `--result-path` and re-reads its `config.yaml`; `--load-path`
-takes a reference-layout `.pt` or a `ckpt/step_<n>.pt` of either stage and
-loads the keys the model has (`merge_partial`: a stage-1 checkpoint gives
-stage 2 GIMM's encoder, refiner, HypoNet and alphas). `--lpips-path`, a
-reference-layout LPIPS `.pt`, adds the perceptual loss where the config
-asks for it. Data parallelism is later work (ROADMAP A13c).
+One process a card, the CUDA card by default (`--device cpu` is for the CPU
+tests); float32 with TF32 off. Under `torchrun` the run is data-parallel,
+one process a card, as the JAX CLI runs one process a host over a mesh of
+its devices:
+
+    torchrun --standalone --nproc_per_node 8 -m gimmvfi_tpu_torch.cli.train \
+        --config configs/gimmvfi/gimmvfi_r_arb.yaml --load-path <stage-1 ckpt> ...
+
+`experiment.batch_size` is the batch a card, so the global batch is
+`batch_size x world` and a node loads `global batch // nodes` a step (the
+JAX CLI's batch a device and host batch); `total_batch_size` and the
+warmup multiplier's `world_size` go by the global batch and the world, as
+there. A rank loads only its rows of its node's batch
+(`data/loader.py`); BatchNorm's statistics, the gradients and the metrics
+are the global batch's (`parallel/dist.py`); rank 0 alone writes the run
+directory (`config.yaml`, the source snapshot, `train.log`, the event
+files, `metrics.jsonl`, `ckpt/`), the others log warnings to stderr.
+Without torchrun's environment there is no process group and the run is
+one process, as before. A failed group start raises, and a rank that fails
+ends the run with a non-zero exit.
+
+The run follows the JAX CLI step for step at the same topology: the same
+loader batches (seeded by item), the same draws from
+`np.random.default_rng(seed)` on every rank in the same order, each the
+node batch's size and sliced to this rank's rows (stage 1: one t_id an
+iteration; stage 2: the loss's pixel subsample for every train, validation
+and image-log batch), the schedule's steps scaled by the grad-accumulation
+derivation (`total_batch_size` only scales the schedule), validation (and
+EMA validation) every `test_freq` epochs and at the last, stage 2's
+reconstruction grid (rank 0's rows) every `test_imlog_freq` epochs,
+checkpoints every `save_ckpt_freq` epochs and at the last
+(`ckpt/step_<n>.pt`, the last 3 kept), log lines in the JAX CLI's format;
+`metrics.jsonl` holds each epoch's summaries unrounded. `--resume` takes an
+existing run directory as `--result-path` and re-reads its `config.yaml`;
+`--load-path` takes a reference-layout `.pt` or a `ckpt/step_<n>.pt` of
+either stage and loads the keys the model has (`merge_partial`: a stage-1
+checkpoint gives stage 2 GIMM's encoder, refiner, HypoNet and alphas).
+`--lpips-path`, a reference-layout LPIPS `.pt`, adds the perceptual loss
+where the config asks for it.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import json
 import logging
 import os
 import shutil
@@ -44,6 +67,7 @@ from ..data import DataLoader, create_dataset
 from ..models.gimm import GIMM
 from ..models.gimmvfi_f import GIMMVFI_F
 from ..models.gimmvfi_r import GIMMVFI_R
+from ..parallel import dist as dist_ops
 from ..train.checkpoint import merge_partial, restore_checkpoint, save_checkpoint
 from ..train.optim import create_optimizer, warmup_cosine_schedule
 from ..train.train_state import (
@@ -64,24 +88,31 @@ STAGE2_METRICS = ("loss_total", "lap", "census", "l1", "rec", "lpips", "psnr")
 STAGE2_VALID_METRICS = ("loss_total", "rec", "psnr")
 
 
-def setup_run_dir(result_path: str, cfg, resume: bool = False, stamp: str | None = None) -> str:
+def setup_run_dir(result_path: str, cfg, resume: bool = False, stamp: str | None = None,
+                  is_main: bool = True) -> str:
     """A timestamped run directory under `result_path` with the config and a
-    snapshot of the package, or `result_path` itself when resuming; logs go
-    to its `train.log` and to stderr."""
+    snapshot of the package, or `result_path` itself when resuming. The
+    main process writes it and logs to its `train.log` and to stderr;
+    another rank writes nothing and logs warnings to stderr. Every rank
+    must pass the same `stamp`."""
     if resume:
         run_dir = result_path
         if not os.path.isdir(os.path.join(run_dir, "ckpt")):
             raise FileNotFoundError(f"--resume expects an existing run dir with a ckpt/: {run_dir}")
     else:
         run_dir = os.path.join(result_path, stamp or time.strftime("%d%m%Y_%H%M%S"))
-        os.makedirs(run_dir, exist_ok=True)
-        save_config(cfg, os.path.join(run_dir, "config.yaml"))
-        src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        shutil.copytree(src, os.path.join(run_dir, "src_snapshot", "gimmvfi_tpu_torch"),
-                        ignore=shutil.ignore_patterns("__pycache__"), dirs_exist_ok=True)
+        if is_main:
+            os.makedirs(run_dir, exist_ok=True)
+            save_config(cfg, os.path.join(run_dir, "config.yaml"))
+            src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            shutil.copytree(src, os.path.join(run_dir, "src_snapshot", "gimmvfi_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"), dirs_exist_ok=True)
+    handlers = [logging.StreamHandler()]
+    if is_main:
+        handlers.insert(0, logging.FileHandler(os.path.join(run_dir, "train.log")))
     logging.basicConfig(
-        level=logging.INFO,
-        handlers=[logging.FileHandler(os.path.join(run_dir, "train.log")), logging.StreamHandler()],
+        level=logging.INFO if is_main else logging.WARNING,
+        handlers=handlers,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         force=True,
     )
@@ -92,14 +123,17 @@ def param_count(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def add_subsample(batch: dict, rng: np.random.Generator, ratio: float) -> dict:
-    """Stage 2's loss subsample, drawn as the JAX CLI draws it: for each of
-    t = 0 and t = 1, a permutation of the H*W pixels a sample, cut to
-    int(H*W*ratio), int32 (N, K)."""
+def add_subsample(batch: dict, rng: np.random.Generator, ratio: float,
+                  local_rank: int = 0, local_world: int = 1) -> dict:
+    """Stage 2's loss subsample, drawn as the JAX CLI draws it for its host
+    batch: for each of t = 0 and t = 1, a permutation of the H*W pixels a
+    sample of the node batch (`local_world` times this rank's rows), cut to
+    int(H*W*ratio), int32; this rank keeps its rows (N, K)."""
     n, h, w = batch["img0"].shape[:3]
     k = int(h * w * ratio)
     for key in ("sub_idx0", "sub_idx1"):
-        batch[key] = np.stack([rng.permutation(h * w)[:k] for _ in range(n)]).astype(np.int32)
+        drawn = np.stack([rng.permutation(h * w)[:k] for _ in range(n * local_world)])
+        batch[key] = drawn[local_rank * n:(local_rank + 1) * n].astype(np.int32)
     return batch
 
 
@@ -149,14 +183,25 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Train (or with `--eval` validate) and return {"run_dir", "steps",
-    "epochs": [{"epoch", "train", "seconds", "valid"?}], "writer"}."""
+    "epochs": [{"epoch", "train", "seconds", "valid"?}], "writer"}. Under
+    torchrun's environment this process is one rank of a data-parallel run
+    (`parallel/dist.py: init`), and the group ends with the call."""
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the train CLI runs on a CUDA card (--device cpu is for the CPU tests)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device(args.device)
+    if not dist_ops.launched():
+        return _run(args, dist_ops.Topology(device=torch.device(args.device)))
+    topo = dist_ops.init(args.device)
+    try:
+        return _run(args, topo)
+    finally:
+        dist_ops.shutdown()
 
+
+def _run(args: argparse.Namespace, topo: dist_ops.Topology) -> dict:
+    device = topo.device
     config_path = args.config
     if args.resume:
         saved = os.path.join(args.result_path, "config.yaml")
@@ -165,25 +210,37 @@ def main(argv=None) -> dict:
     cfg = load_config(config_path, args.overrides)
     arch = cfg.arch.type.lower()
     is_stage2 = arch.startswith("gimmvfi")
-    run_dir = setup_run_dir(args.result_path, cfg, resume=args.resume)
+    # every rank names the run directory by rank 0's clock
+    stamp = dist_ops.broadcast_object(time.strftime("%d%m%Y_%H%M%S"))
+    run_dir = setup_run_dir(args.result_path, cfg, resume=args.resume, stamp=stamp,
+                            is_main=topo.is_main)
+    dist_ops.barrier()
     seed = cfg.experiment.seed
     np_rng = np.random.default_rng(seed)
-    try:
-        writer, writer_kind = Writer(run_dir), "tensorboardX"
-    except ImportError:
-        writer, writer_kind = NullWriter(), "none"
-        logger.info("tensorboardX is not installed: no event files; train.log has the numbers")
+    writer, writer_kind = NullWriter(), "none"
+    if topo.is_main:
+        try:
+            writer, writer_kind = Writer(run_dir), "tensorboardX"
+        except ImportError:
+            logger.info("tensorboardX is not installed: no event files; train.log has the numbers")
 
-    batch = cfg.experiment.batch_size
-    logger.info("device %s, batch %d", device, batch)
+    batch = cfg.experiment.batch_size  # a card's
+    global_batch = batch * topo.world
+    host_batch = global_batch // topo.hosts
+    logger.info("mesh: %d devices / %d hosts, global batch %d", topo.world, topo.hosts,
+                global_batch)
+    logger.info("device %s, batch %d a device", device, batch)
     trn, val = create_dataset(cfg.dataset.type, cfg.dataset.path,
                               crop_size=getattr(cfg.dataset, "crop_size", None),
                               aug=getattr(cfg.dataset, "aug", True))
     if args.smoke_test:
-        trn.meta_data = trn.meta_data[: 2 * batch]
-        val.meta_data = val.meta_data[: 2 * batch]
-    loader = DataLoader(trn, batch, seed=seed)
-    val_loader = DataLoader(val, batch, seed=seed, shuffle=False)
+        trn.meta_data = trn.meta_data[: 2 * global_batch]
+        val.meta_data = val.meta_data[: 2 * global_batch]
+    shard = dict(seed=seed, shard_id=topo.host, num_shards=topo.hosts,
+                 local_rank=topo.local_rank, local_world=topo.local_world)
+    loader = DataLoader(trn, host_batch, **shard)
+    val_loader = DataLoader(val, host_batch, shuffle=False, **shard)
+    rows = dict(local_rank=topo.local_rank, local_world=topo.local_world)
 
     torch.manual_seed(seed)
     model = build_model(cfg, arch, device)
@@ -193,10 +250,11 @@ def main(argv=None) -> dict:
 
     # total_batch_size -> grad-accum derivation (`src/utils/config.py:92-105`):
     # as in the reference, it only scales the scheduler's steps
-    total_bs = cfg.experiment.total_batch_size or batch
-    if total_bs % batch != 0:
-        raise ValueError(f"total_batch_size {total_bs} not divisible by batch_size {batch}")
-    grad_accm_steps = max(1, total_bs // batch)
+    total_bs = cfg.experiment.total_batch_size or global_batch
+    if total_bs % global_batch != 0:
+        raise ValueError(f"total_batch_size {total_bs} not divisible by batch_size x "
+                         f"devices = {global_batch}")
+    grad_accm_steps = max(1, total_bs // global_batch)
     if grad_accm_steps > 1:
         logger.info("grad_accm_steps=%d (scheduler steps scaled)", grad_accm_steps)
     steps_per_epoch = len(loader)
@@ -206,7 +264,7 @@ def main(argv=None) -> dict:
         steps_per_epoch * cfg.experiment.epochs // grad_accm_steps,
         warmup_steps=w.epoch * steps_per_epoch // grad_accm_steps,
         buffer_steps=w.buffer_epoch * steps_per_epoch // grad_accm_steps,
-        multiplier=w.multiplier, mode=w.mode, world_size=1,
+        multiplier=w.multiplier, mode=w.mode, world_size=topo.world,
         start_from_zero=w.start_from_zero,
     )
     optimizer, scheduler = create_optimizer(
@@ -249,7 +307,7 @@ def main(argv=None) -> dict:
             vaccm = MetricAccumulator(valid_names)
             for vb in val_loader:
                 if is_stage2:
-                    add_subsample(vb, np_rng, ratio)
+                    add_subsample(vb, np_rng, ratio, **rows)
                 vaccm.update({k: float(v) for k, v in eval_fn(ev_model, vb).items()})
             logger.info("epoch %d [%s]: %s", epoch, tag, vaccm.print_line())
             writer.add_scalars(vaccm.summary(), tag, epoch)
@@ -259,8 +317,11 @@ def main(argv=None) -> dict:
     @torch.no_grad()
     def log_reconstruction(epoch: int):
         """The first validation batch's reconstruction grid
-        (`trainer_gimmvfi.py:384-421`), running statistics."""
-        vb = add_subsample(next(iter(val_loader)), np_rng, ratio)
+        (`trainer_gimmvfi.py:384-421`), running statistics, of rank 0's
+        rows; every rank draws its subsample."""
+        vb = add_subsample(next(iter(val_loader)), np_rng, ratio, **rows)
+        if not topo.is_main:
+            return
         out = model.train_forward(
             torch.stack([torch.as_tensor(vb["img0"]), torch.as_tensor(vb["img1"])], dim=1),
             torch.as_tensor(vb["t"]), torch.as_tensor(vb["sub_idx0"]),
@@ -270,9 +331,16 @@ def main(argv=None) -> dict:
                                    vb["img1"], flowt * -0.5, flowt * 0.5)
         writer.add_image("reconstruction", grid, "valid", epoch)
 
+    def keep(record: dict):
+        """An epoch's summaries, unrounded, as a line of `metrics.jsonl`."""
+        result["epochs"].append(record)
+        if topo.is_main:
+            with open(os.path.join(run_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps(record) + "\n")
+
     result = {"run_dir": run_dir, "writer": writer_kind, "epochs": []}
     if args.eval:
-        result["epochs"].append({"epoch": epoch_st, **run_validation(epoch_st)})
+        keep({"epoch": epoch_st, **run_validation(epoch_st)})
         result["steps"] = state.step
         writer.close()
         return result
@@ -283,7 +351,7 @@ def main(argv=None) -> dict:
         t0 = time.time()
         for b in loader:
             if is_stage2:
-                add_subsample(b, np_rng, ratio)
+                add_subsample(b, np_rng, ratio, **rows)
             else:
                 # one shared t_id an iteration (`trainer_gimm.py:125-132`)
                 b["t_id"] = np.full((b["xs"].shape[0],), np_rng.integers(0, 3), np.int32)
@@ -301,7 +369,7 @@ def main(argv=None) -> dict:
             log_reconstruction(epoch)
         if (epoch + 1) % cfg.experiment.save_ckpt_freq == 0 or last_epoch:
             save_checkpoint(os.path.join(run_dir, "ckpt"), state.step, state)
-        result["epochs"].append(record)
+        keep(record)
     writer.close()
     logger.info("training done: %s", run_dir)
     result["steps"] = state.step

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist as dist_ops
+
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d whose input, weight and bias are cast to `compute_dtype`.
@@ -81,6 +83,11 @@ class BatchNorm2d(nn.Module):
         moves the running statistics, `running = 0.9 running + 0.1 batch`,
         with that same biased variance (torch's BatchNorm2d would use the
         unbiased one).
+
+    Under a process group of more than one rank (`parallel/dist.py`), the
+    batch is the global one, as under JAX's sharded batch: the per-channel
+    sums of x and x^2 are all-reduced (differentiably) and divided by the
+    global count, every rank holding a batch of the same shape.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -96,8 +103,16 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            world = dist_ops.world_size()
+            if world > 1:
+                c = xf.shape[1]
+                sums = dist_ops.all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                          (xf * xf).sum(dim=(0, 2, 3))]))
+                count = xf.numel() // c * world
+                mean, mean2 = sums[:c] / count, sums[c:] / count
+            else:
+                mean, mean2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

@@ -6,7 +6,9 @@ last 3 kept. The model sits under `"state_dict"` in the reference's key
 layout, so the port's `load_reference_state_dict` and the JAX package's
 `load_torch_state_dict` both read it. Files are read back with
 `weights_only=True`. `merge_partial` is the strict=False load of the
-stage-1 -> stage-2 transfer (`main.py:106-117`).
+stage-1 -> stage-2 transfer (`main.py:106-117`). Under data parallelism
+every rank holds the same state: rank 0 writes and the others wait for it
+at a barrier; every rank reads.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import re
 from typing import Optional
 
 import torch
+
+from ..parallel import dist as dist_ops
 
 _NAME = re.compile(r"step_(\d+)\.pt")
 
@@ -29,9 +33,17 @@ def checkpoint_steps(ckpt_dir: str) -> list[int]:
 
 def save_checkpoint(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
     """Write `state` (a `TrainState`) as `step_<step>.pt` and keep the last
-    `keep` checkpoints; returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    `keep` checkpoints; returns the path. Under a process group rank 0
+    writes and every rank returns once it has."""
     path = os.path.join(ckpt_dir, f"step_{step}.pt")
+    if dist_ops.rank() == 0:
+        _write(ckpt_dir, path, step, state, keep)
+    dist_ops.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, path: str, step: int, state, keep: int):
+    os.makedirs(ckpt_dir, exist_ok=True)
     ckpt = {
         "step": int(step),
         "state_dict": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
@@ -45,7 +57,6 @@ def save_checkpoint(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
     os.replace(tmp, path)
     for old in checkpoint_steps(ckpt_dir)[:-keep]:
         os.remove(os.path.join(ckpt_dir, f"step_{old}.pt"))
-    return path
 
 
 def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None) -> int:

@@ -14,6 +14,14 @@ BatchNorm running statistics too, as JAX's `{"params", "batch_stats"}`.
     them on the 1/4-scale warp, and `rec_weight` x the MSE of the t = 0 /
     t = 1 flow decodes against the detached normalized RAFT flows at the
     subsampled points; its validation takes the running statistics.
+
+Under a process group (`parallel/dist.py`) every step is a data-parallel
+step over the global batch, each rank holding its rows: BatchNorm takes
+the global batch's statistics, the gradients are averaged over the ranks
+by hand (`average_gradients_`, one flat all-reduce) after `backward` and
+before the clip and the update, and the train and validation steps return
+the global means of their metrics. Every rank then holds the same
+parameters, buffers, optimizer state and EMA after each step.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from ..parallel import dist as dist_ops
 from . import losses
 from .ema import ema_init, ema_update
 from .optim import StepSchedule
@@ -76,11 +85,12 @@ def make_gimm_train_step(use_ema: bool = False):
         loss, metrics = _flow_metrics(pred, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dist_ops.average_gradients_(model.parameters())
         state.optimizer.step()
         if use_ema and state.ema is not None:
             ema_update(state.ema, model, state.step)
         state.step += 1
-        return metrics
+        return dist_ops.global_mean(metrics)
 
     return train_step
 
@@ -96,7 +106,7 @@ def make_gimm_eval_step():
         xs, ori = _device_batch(batch, device)
         t = torch.full((xs.shape[0],), 0.5, dtype=torch.float32, device=device)
         pred = model(xs[:, [0, 2]], ori, t)
-        return _flow_metrics(pred, xs[:, 1:2])[1]
+        return dist_ops.global_mean(_flow_metrics(pred, xs[:, 1:2])[1])
 
     return eval_step
 
@@ -152,13 +162,14 @@ def make_gimmvfi_train_step(rec_weight: float = 0.1, lpips_fn=None, use_ema: boo
         total = loss_census + loss_l1 + rec_weight * loss_rec + loss_lap + loss_lpips
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        dist_ops.average_gradients_(model.parameters())
         state.optimizer.step()
         if use_ema and state.ema is not None:
             ema_update(state.ema, model, state.step)
         state.step += 1
         metrics = {"loss_total": total, "lap": loss_lap, "census": loss_census, "l1": loss_l1,
                    "rec": loss_rec, "lpips": loss_lpips, "psnr": losses.psnr(pred, gt)}
-        return {k: v.detach() for k, v in metrics.items()}
+        return dist_ops.global_mean({k: v.detach() for k, v in metrics.items()})
 
     return train_step
 
@@ -178,6 +189,7 @@ def make_gimmvfi_eval_step(rec_weight: float = 0.1):
         loss_rec = _flow_rec_loss(out, b["sub_idx0"], b["sub_idx1"])
         total = (losses.charbonnier_l1(pred, gt) + losses.census_loss(pred, gt)
                  + losses.lap_loss(pred, gt) + rec_weight * loss_rec)
-        return {"loss_total": total, "rec": loss_rec, "psnr": losses.psnr(pred, gt)}
+        return dist_ops.global_mean({"loss_total": total, "rec": loss_rec,
+                                     "psnr": losses.psnr(pred, gt)})
 
     return eval_step

@@ -21,11 +21,18 @@ through `load_jax_params`, on one seeded batch:
     magnitudes (`alpha_fields`), and the biases of convs that feed a
     normalization, zero in exact arithmetic, within 1e-2 x max|g| of their
     weights on both sides.
+The `world2` case runs the port's step data-parallel on two gloo ranks at
+batch 1 each (`parallel/dist.py: spawn_ranks`; BatchNorm's statistics
+all-reduced across them, the gradients averaged) against the same JAX step
+at batch 2, under the same bounds (the running statistics' is what catches
+statistics taken per rank); the alphas' terms are the ranks' fields, and
+the two ranks' parameters, buffers and EMA must be bitwise equal.
 The eval step and `interpolate` after a step are in
 `test_torch_gimmvfi_eval.py`. One JAX init for the file, in a module fixture.
 """
 
 import contextlib
+import os
 import re
 
 import jax
@@ -43,6 +50,7 @@ from gimmvfi_tpu.train.train_state import make_gimmvfi_train_step as jax_make_tr
 from gimmvfi_tpu.utils.convert import convert_lpips
 from gimmvfi_tpu_torch.models import gimmvfi_r as gimmvfi_r_module
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R
+from gimmvfi_tpu_torch.parallel import dist as dist_ops
 from gimmvfi_tpu_torch.train.lpips import LPIPS
 from gimmvfi_tpu_torch.train.optim import create_optimizer
 from gimmvfi_tpu_torch.train.train_state import create_train_state, make_gimmvfi_train_step
@@ -211,19 +219,71 @@ def jax_step(setup):
     return batch, jax.tree_util.tree_map(np.asarray, (new_state, metrics, swapped_state.opt_state[0]))
 
 
-def test_train_step_matches_jax(setup, jax_step):
-    _, params, stats, lpips, _ = setup
-    batch, (new_state, ref, swapped_grads) = jax_step
-    m = _port(setup)
-    opt, sched = create_optimizer(m, "sgd", init_lr=SGD_LR, weight_decay=0.0, ft=False)
-    state = create_train_state(m, opt, sched, use_ema=True)
-
+def _lpips_fn(lpips):
     def lpips_fn(pred, gt):
         return lpips(pred.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2), normalize=True)
 
+    return lpips_fn
+
+
+def _step_readings(m, lpips, batch):
+    """One port step of `m` on `batch` (SGD, EMA, the LPIPS): its metrics,
+    gradients, state dict and EMA after it, and the alphas' terms u x c."""
+    opt, sched = create_optimizer(m, "sgd", init_lr=SGD_LR, weight_decay=0.0, ft=False)
+    state = create_train_state(m, opt, sched, use_ema=True)
     with alpha_fields() as fields:
-        got = make_gimmvfi_train_step(REC_WEIGHT, lpips_fn, use_ema=True)(state, batch)
+        got = make_gimmvfi_train_step(REC_WEIGHT, _lpips_fn(lpips), use_ema=True)(state, batch)
     assert state.step == 1 and sched.count == 1
+    return {"metrics": {k: float(v) for k, v in got.items()},
+            "grads": {n: p.grad for n, p in m.named_parameters()},
+            "state": {k: v.detach().clone() for k, v in m.state_dict().items()},
+            "ema": state.ema, "terms": {a: fields["u"] * fields[a] for a in ALPHAS}}
+
+
+def _dp_step_rank(weights, lpips_weights, batch, out_dir):
+    """One rank of the data-parallel stage-2 step: its row of `batch`."""
+    torch.set_num_threads(1)
+    r = dist_ops.rank()
+    m = GIMMVFI_R(raft_iters=2, device="cpu")
+    m.load_state_dict(weights, strict=True)
+    lpips = LPIPS(device="cpu").requires_grad_(False)
+    lpips.load_state_dict(lpips_weights, strict=True)
+    res = _step_readings(m, lpips, {k: v[r:r + 1] for k, v in batch.items()})
+    torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def _dp_step(m, lpips, batch, out_dir, world):
+    """The step on `world` gloo ranks: rank 0's readings, with the alphas'
+    terms of every rank (the averaged gradient is their sum / world)."""
+    dist_ops.spawn_ranks(_dp_step_rank, world, (m.state_dict(), lpips.state_dict(), batch,
+                                                str(out_dir)),
+                         rendezvous=str(out_dir / "rendezvous"))
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=True) for r in range(world)]
+    for other in ranks[1:]:
+        for key in ("state", "ema"):
+            for name, v in other[key].items():
+                assert torch.equal(v, ranks[0][key][name]), (key, name)
+    res = ranks[0]
+    res["terms"] = {a: torch.cat([r["terms"][a] for r in ranks]) / world for a in ALPHAS}
+    return res
+
+
+def test_train_step_matches_jax(setup, jax_step, tmp_path):
+    _check_step(setup, jax_step, 1, tmp_path)
+
+
+def test_train_step_matches_jax_world2(setup, jax_step, tmp_path):
+    _check_step(setup, jax_step, 2, tmp_path)
+
+
+def _check_step(setup, jax_step, world, tmp_path):
+    """The port's step, on one process or `world` gloo ranks, against JAX's."""
+    _, params, stats, lpips, _ = setup
+    batch, (new_state, ref, swapped_grads) = jax_step
+    m = _port(setup)
+    res = (_step_readings(m, lpips, batch) if world == 1
+           else _dp_step(m, lpips, batch, tmp_path, world))
+    got, grads = res["metrics"], res["grads"]
     for k in TERMS:
         assert abs(float(got[k]) - float(ref[k])) <= 1e-5 * abs(float(ref[k])), (k, got[k], ref[k])
     assert float(ref["lpips"]) != 0
@@ -232,38 +292,37 @@ def test_train_step_matches_jax(setup, jax_step):
     noise_grads = jax_params_to_torch(swapped_grads, new_state.batch_stats)
     ref_sd = jax_params_to_torch(new_state.params, new_state.batch_stats)
     ref_ema = jax_params_to_torch(new_state.ema["params"], new_state.ema["batch_stats"])
-    named = dict(m.named_parameters())
     within, worst = 0, (0.0, None, 0.0)
-    for name, p in named.items():
+    for name, g in grads.items():
         g_ref = ref_grads[name]
-        within += float((p.grad - g_ref).abs().max()) <= 1e-4 * float(g_ref.abs().max())
+        within += float((g - g_ref).abs().max()) <= 1e-4 * float(g_ref.abs().max())
         if name in ALPHAS:
             # a near-cancelling sum over pixels: held relative to its terms
-            terms = fields["u"] * fields[name]
+            terms = res["terms"][name]
             s_abs = float(terms.abs().sum())
-            own = abs(float(p.grad) - float(terms.sum()))
+            own = abs(float(g) - float(terms.sum()))
             assert own <= (np.log2(terms.numel()) + 4) * 2**-24 * s_abs, (name, own, s_abs)
-            assert float((p.grad - g_ref).abs().max()) <= 1e-4 * s_abs, (name, s_abs)
+            assert float((g - g_ref).abs().max()) <= 1e-4 * s_abs, (name, s_abs)
         elif PRE_NORM_BIAS.fullmatch(name):
             # zero in exact arithmetic: the normalization after the conv
             # removes any per-channel constant
             w_scale = float(ref_grads[name[:-len("bias")] + "weight"].abs().max())
-            for g in (p.grad, g_ref):
-                assert float(g.abs().max()) <= 1e-2 * w_scale, (name, w_scale)
+            for gg in (g, g_ref):
+                assert float(gg.abs().max()) <= 1e-2 * w_scale, (name, w_scale)
         else:
-            gap, noise = _rel_l2(p.grad, g_ref), _rel_l2(noise_grads[name], g_ref)
+            gap, noise = _rel_l2(g, g_ref), _rel_l2(noise_grads[name], g_ref)
             assert gap <= NOISE_FACTOR * noise, (name, gap, noise)
             worst = max(worst, (gap / noise, name, gap))
-        assert float((p.detach() - ref_sd[name]).abs().max()) <= 1e-6, name
+        assert float((res["state"][name] - ref_sd[name]).abs().max()) <= 1e-6, name
     # the readings ROADMAP C3 quotes (pytest -s shows them)
-    print(f"stage-2 step vs JAX: {within} of {len(named)} gradient tensors within "
+    print(f"stage-2 step vs JAX ({world} rank(s)): {within} of {len(grads)} gradient tensors within "
           f"1e-4 x max|g|; largest relative L2 gap / JAX's noise {worst[0]:.3f} ({worst[1]}, "
           f"gap {worst[2]:.3e}); loss terms "
           f"{max(abs(float(got[k]) - float(ref[k])) / abs(float(ref[k])) for k in TERMS):.2e}")
-    assert any(float(p.grad.abs().max()) > 0 for n, p in named.items() if n.startswith("amt_"))
-    assert any(float(p.grad.abs().max()) > 0 for n, p in named.items()
+    assert any(float(g.abs().max()) > 0 for n, g in grads.items() if n.startswith("amt_"))
+    assert any(float(g.abs().max()) > 0 for n, g in grads.items()
                if n.startswith("flow_estimator.cnet"))
-    for k, v in _running_stats(m.state_dict()).items():
+    for k, v in _running_stats(res["state"]).items():
         _close_rel(v.numpy(), ref_sd[k].numpy(), 1e-5, k)
-    for k, v in state.ema.items():
+    for k, v in res["ema"].items():
         assert float((v - ref_ema[k]).abs().max()) <= 1e-5 * max(1.0, float(ref_ema[k].abs().max())), k

@@ -7,7 +7,10 @@
     state), the parameters after one SGD update (<= 1e-6 max-abs) and the
     EMA after it. Adam's first update is about lr x sign(g), which turns
     rounding noise in a near-zero gradient into 2 lr, so updates are
-    compared under SGD only (ROADMAP C3);
+    compared under SGD only (ROADMAP C3). The `world2` case runs the port's
+    step data-parallel on two gloo ranks at batch 1 each (`parallel/dist.py:
+    spawn_ranks`) against the same JAX step at batch 2, under the same
+    bounds, and the two ranks' parameters and EMA must be bitwise equal;
   * `create_optimizer` (adam, adamw, sgd; with and without the `ft` groups
     and clipping) against optax over 3 updates on fixed gradients;
   * `warmup_cosine_schedule` at every step of the JAX tests' schedule and
@@ -42,6 +45,7 @@ from gimmvfi_tpu.utils.config import load_config as jax_load_config
 from gimmvfi_tpu_torch.data import DataLoader, VimeoArbitrary, VimeoFlowTriplets, create_dataset
 from gimmvfi_tpu_torch.data.frame_io import write_flo
 from gimmvfi_tpu_torch.models.gimm import GIMM
+from gimmvfi_tpu_torch.parallel import dist as dist_ops
 from gimmvfi_tpu_torch.train.checkpoint import (
     checkpoint_steps,
     merge_partial,
@@ -102,31 +106,68 @@ def jax_step(jax_init):
     return run
 
 
-@pytest.mark.parametrize("t_id", [[0, 2], [1, 1]])
-def test_train_step_matches_jax(jax_init, jax_step, t_id):
-    batch = _batch(sum(t_id), t_id)
-    new_state, ref = jax_step(batch)
+def _dp_step_rank(weights, batch, out_dir):
+    """One rank of the data-parallel stage-1 step: its row of `batch`."""
+    torch.set_num_threads(1)
+    r = dist_ops.rank()
     model = GIMM(device="cpu")
-    model.load_state_dict(jax_gimm_params_to_torch(jax_init), strict=True)
+    model.load_state_dict(weights, strict=True)
     opt, sched = create_optimizer(model, "sgd", init_lr=SGD_LR, weight_decay=0.0, ft=False)
     state = create_train_state(model, opt, sched, use_ema=True)
-    got = make_gimm_train_step(use_ema=True)(state, batch)
-    assert state.step == 1 and sched.count == 1
+    got = make_gimm_train_step(use_ema=True)(state, {k: v[r:r + 1] for k, v in batch.items()})
+    torch.save({"metrics": {k: float(v) for k, v in got.items()}, "step": state.step,
+                "count": sched.count, "grads": {n: p.grad for n, p in model.named_parameters()},
+                "params": {n: p.detach() for n, p in model.named_parameters()},
+                "ema": state.ema}, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def _dp_step(weights, batch, out_dir, world):
+    dist_ops.spawn_ranks(_dp_step_rank, world, (weights, batch, str(out_dir)),
+                         rendezvous=str(out_dir / "rendezvous"))
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=True) for r in range(world)]
+    for other in ranks[1:]:
+        for key in ("params", "ema"):
+            for name, v in other[key].items():
+                assert torch.equal(v, ranks[0][key][name]), (key, name)
+    return ranks[0]
+
+
+@pytest.mark.parametrize("t_id,world", [pytest.param([0, 2], 1, id="t_id0"),
+                                        pytest.param([1, 1], 1, id="t_id1"),
+                                        pytest.param([0, 2], 2, id="world2")])
+def test_train_step_matches_jax(jax_init, jax_step, t_id, world, tmp_path):
+    batch = _batch(sum(t_id), t_id)
+    new_state, ref = jax_step(batch)
+    weights = jax_gimm_params_to_torch(jax_init)
+    if world == 1:
+        model = GIMM(device="cpu")
+        model.load_state_dict(weights, strict=True)
+        opt, sched = create_optimizer(model, "sgd", init_lr=SGD_LR, weight_decay=0.0, ft=False)
+        state = create_train_state(model, opt, sched, use_ema=True)
+        got = make_gimm_train_step(use_ema=True)(state, batch)
+        assert state.step == 1 and sched.count == 1
+        params = dict(model.named_parameters())
+        grads = {n: p.grad for n, p in params.items()}
+        params = {n: p.detach() for n, p in params.items()}
+        ema = state.ema
+    else:
+        res = _dp_step(weights, batch, tmp_path, world)
+        assert res["step"] == 1 and res["count"] == 1
+        got, grads, params, ema = res["metrics"], res["grads"], res["params"], res["ema"]
 
     for k in ("loss_total", "mse", "psnr"):
         assert abs(float(got[k]) - float(ref[k])) <= 1e-6 * abs(float(ref[k])), k
     ref_grads = jax_gimm_params_to_torch(new_state.opt_state[0])
     ref_params = jax_gimm_params_to_torch(new_state.params)
     ref_ema = jax_gimm_params_to_torch(new_state.ema["params"])
-    params = dict(model.named_parameters())
     assert sorted(ref_grads) == sorted(params)
     for name, p in params.items():
         g_ref = ref_grads[name]
         scale = float(g_ref.abs().max())
-        assert float((p.grad - g_ref).abs().max()) <= 1e-4 * scale, name
-        assert float((p.detach() - ref_params[name]).abs().max()) <= 1e-6, name
-        assert float((state.ema[name] - ref_ema[name]).abs().max()) <= 1e-6, name
-    assert any(float(p.grad.abs().max()) > 0 for p in params.values())
+        assert float((grads[name] - g_ref).abs().max()) <= 1e-4 * scale, name
+        assert float((p - ref_params[name]).abs().max()) <= 1e-6, name
+        assert float((ema[name] - ref_ema[name]).abs().max()) <= 1e-6, name
+    assert any(float(g.abs().max()) > 0 for g in grads.values())
 
 
 def test_eval_step_on_the_mid_flow():
