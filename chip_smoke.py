@@ -4,8 +4,9 @@ DS_SCALE and the windowed correlation), its GIMM-VFI-F 8x path at 720p,
 its bench entry, its two probe entry points, its serving entry points
 (stage-1 GIMM, the video CLI, the four benchmark harnesses), stage-1 GIMM
 training and stage-2 GIMM-VFI training (each recipe's step and the train
-CLI), and data-parallel training (the step under a process group, two
-ranks against one process, the CLI under torchrun) once on one CUDA card.
+CLI), data-parallel training (the step under a process group, two ranks
+against one process, the CLI under torchrun) and spatial sharding (one
+pair's decode split by width over two ranks) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -188,7 +189,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      as `torchrun --standalone --nproc_per_node 1 -m
      gimmvfi_tpu_torch.cli.train` on the same tree, run beside (b): exit 0,
      its epoch-0 metrics (`metrics.jsonl`) within 1e-4 relative of phase
-     12 (c)'s.
+     12 (c)'s;
+ 14. spatial sharding (`parallel/spatial.py: interpolate_spatial_sharded`)
+     in build/chip_smoke_phase14/: two gloo ranks on the card
+     (`spawn_ranks`, `spatial.interpolate_on_rank`; rank 1 builds its model
+     from another seed and takes rank 0's weights through the entry's
+     broadcast), each case against `interpolate_sequential` in this
+     process on the same seeded weights and pair, 7 timesteps: (a)
+     GIMMVFI_R(raft_iters=20, dtype=bfloat16) at 2048x1088 DS 1.0, >= 50
+     dB, exactly 14 splat and 34 `windowed_corr_mma` launches a rank; (b)
+     the same at 4096x2176 DS 0.25, >= 50 dB, 14 and 0; (c)
+     GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs, 14 and
+     0; the ranks' results bitwise equal, the peak a rank beside the
+     single process's, each call's seconds (two ranks share the card: no
+     speed figure).
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -198,12 +212,15 @@ profiler records no device activity, those readings are null and print as
 "not measured"; the events' times, the checks and the counts stand. The launch
 counts are set to 0 just before each path (5, the probes of 6, each path
 of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
-and each CLI call of 11 and of 12, the counted step of 13 (a)) and read
-just after it; the splat's and the
+and each CLI call of 11 and of 12, the counted step of 13 (a), each
+case of 14 in this process and on each rank) and read just after it;
+the splat's and the
 3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`),
 the splat backward's `launches` are those of the counted recipe step; both
 splat records carry their phase 12 and phase 13 (a) steps' counts
-(`launches_phase12_step`, `launches_phase13_step`).
+(`launches_phase12_step`, `launches_phase13_step`); the splat's and the
+bf16 tensor-core lookup's records carry each rank's phase 14 counts
+(`launches_phase14`).
 The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -251,6 +268,7 @@ from gimmvfi_tpu_torch.ops.corr import (
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
 from gimmvfi_tpu_torch.ops.pad import InputPadder
 from gimmvfi_tpu_torch.parallel import dist as dist_ops
+from gimmvfi_tpu_torch.parallel import spatial
 from gimmvfi_tpu_torch.ops.softsplat import (
     SPLAT_BACKWARD_KERNEL,
     SPLAT_KERNEL,
@@ -2296,6 +2314,124 @@ def run_phase13(smi: str, stage1_ckpt: str, p12: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 14
+WORK14 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase14"
+SPATIAL_WORLD = 2  # gloo ranks on the one card
+# (label, GIMMVFI_R keywords, (H, W), ds_factor, the least PSNR against one
+# process or None, the most max-abs or None, launches a rank: splat,
+# windowed_corr_mma, windowed_corr_tf32)
+SPATIAL_CASES = [
+    ("a", {"raft_iters": 20, "dtype": torch.bfloat16}, (1088, 2048), 1.0, 50.0, None, (14, 34, 0)),
+    ("b", {"raft_iters": 20, "dtype": torch.bfloat16}, (2176, 4096), 0.25, 50.0, None, (14, 0, 0)),
+    ("c", {"raft_iters": 2}, (256, 512), None, None, 1e-5, (14, 0, 0)),
+]
+SPATIAL_KERNELS = (SPLAT_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL)
+
+
+def spatial_references(device="cuda") -> tuple[list[dict], list[dict]]:
+    """Phase 14's cases for the ranks and each case's one-process result on
+    the card: `interpolate_sequential` on the same seeded weights and pair,
+    with its launches counted from 0, its peak and seconds; where a case is
+    held by max-abs, also the gap of a second one-process run to the first
+    (the splat's atomic order alone)."""
+    ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
+    cases, refs = [], []
+    for label, kw, hw, ds, _, max_err, want in SPATIAL_CASES:
+        model = init_normal_(GIMMVFI_R(**kw, device=device), SEED)
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+        img = torch.rand((1, 2, *hw, 3), generator=gen)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = interpolate_sequential(model, img, ts, ds)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = tuple(k.launches for k in SPATIAL_KERNELS)
+        if got != want:
+            raise AssertionError(f"[14] ({label}) one process: launches {got}, expected {want}")
+        refs.append({"imgt_pred": out["imgt_pred"].cpu(), "flowt": out["flowt"].cpu(),
+                     "peak_bytes": torch.cuda.max_memory_allocated(), "seconds": seconds})
+        if max_err is not None:
+            again = interpolate_sequential(model, img, ts, ds)["imgt_pred"].cpu()
+            refs[-1]["rerun_max_abs_err"] = float((again - refs[-1]["imgt_pred"]).abs().max())
+        cases.append({"family": GIMMVFI_R, "model_kw": {**kw, "device": device},
+                      "state": {k: v.cpu() for k, v in model.state_dict().items()},
+                      "img_xs": img, "t_values": ts, "ds_factor": ds})
+        del model, out
+        torch.cuda.empty_cache()
+    return cases, refs
+
+
+def run_phase14(smi: str, device="cuda:0") -> dict:
+    """Phase 14: spatial sharding (`parallel/spatial.py`) on `SPATIAL_WORLD`
+    gloo ranks on the one card (`spawn_ranks`; NCCL refuses two ranks on
+    one device), each case against one process on the same weights and
+    pair: (a) 2048x1088 DS 1.0 bf16, (b) 4096x2176 DS 0.25 bf16, both >= 50
+    dB, (c) GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs;
+    the ranks' results bitwise equal, exact launches a rank, the peaks."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(WORK14, ignore_errors=True)
+    WORK14.mkdir(parents=True)
+    cases, refs = spatial_references(device)
+    torch.save(cases, WORK14 / "cases.pt")
+    del cases
+    gc.collect()
+    t0 = time.perf_counter()
+    dist_ops.spawn_ranks(spatial.interpolate_on_rank, SPATIAL_WORLD,
+                         (str(WORK14 / "cases.pt"), str(WORK14)), device=device, backend="gloo",
+                         rendezvous=str(WORK14 / "rendezvous"))
+    spawn_seconds = time.perf_counter() - t0
+    ranks = [torch.load(WORK14 / f"rank{r}.pt", weights_only=True) for r in range(SPATIAL_WORLD)]
+    res = {}
+    for i, (label, kw, (h, w), ds, min_db, max_err, want) in enumerate(SPATIAL_CASES):
+        got, ref = ranks[0][i], refs[i]
+        if not (bool(torch.isfinite(got["imgt_pred"]).all()) and bool(torch.isfinite(got["flowt"]).all())):
+            raise AssertionError(f"[14] ({label}) non-finite outputs")
+        for r, other in enumerate(ranks[1:], 1):
+            if not all(torch.equal(other[i][k], got[k]) for k in ("imgt_pred", "flowt")):
+                raise AssertionError(f"[14] ({label}) rank {r}'s result differs from rank 0's")
+        launches = [tuple(rk[i]["launches"][k.name] for k in SPATIAL_KERNELS) for rk in ranks]
+        if any(x != want for x in launches):
+            raise AssertionError(f"[14] ({label}) launches a rank {launches}, expected {want}")
+        if got["imgt_pred"].shape != ref["imgt_pred"].shape or got["flowt"].shape != ref["flowt"].shape:
+            raise AssertionError(f"[14] ({label}) shapes {tuple(got['imgt_pred'].shape)}, "
+                                 f"{tuple(got['flowt'].shape)}")
+        db = psnr(got["imgt_pred"], ref["imgt_pred"])
+        err = float((got["imgt_pred"] - ref["imgt_pred"]).abs().max())
+        flow_err = float((got["flowt"] - ref["flowt"]).abs().max())
+        if min_db is not None and not db >= min_db:
+            raise AssertionError(f"[14] ({label}) {db:.2f} dB against one process < {min_db}")
+        if max_err is not None and not max(err, flow_err) <= max_err:
+            raise AssertionError(f"[14] ({label}) max-abs {err:.3e} (flowt {flow_err:.3e}) "
+                                 f"against one process > {max_err}")
+        peaks = [rk[i]["peak_bytes"] for rk in ranks]
+        rerun = ref.get("rerun_max_abs_err")
+        res[label] = {"db": db, "max_abs_err": err, "flowt_max_abs_err": flow_err,
+                      "one_process_rerun_max_abs_err": rerun,
+                      "launches": [dict(zip((k.name for k in SPATIAL_KERNELS), x)) for x in launches],
+                      "peak_bytes": peaks, "one_process_peak_bytes": ref["peak_bytes"],
+                      "seconds": [rk[i]["seconds"] for rk in ranks],
+                      "one_process_seconds": ref["seconds"]}
+        print(f"[14] ({label}) {w}x{h} DS {ds} {'bf16' if kw.get('dtype') else 'float32'} "
+              f"raft_iters {kw['raft_iters']} 8x on {SPATIAL_WORLD} gloo ranks of one card against "
+              f"one process: imgt_pred {db:.2f} dB, max-abs {err:.3e}, flowt max-abs "
+              f"{flow_err:.3e}"
+              + ("" if rerun is None else f" (one process against itself: {rerun:.3e})")
+              + f"; ranks bitwise equal; launches a rank (splat, windowed_corr_mma, "
+              f"windowed_corr_tf32) {launches}; peak a rank "
+              f"{', '.join(f'{p / 2**20:.1f}' for p in peaks)} MiB against one process's "
+              f"{ref['peak_bytes'] / 2**20:.1f} MiB; the call {', '.join(f'{x:.2f}' for x in res[label]['seconds'])} "
+              f"s a rank against {ref['seconds']:.2f} s (two ranks share the card: no speed "
+              f"figure); {smi}", flush=True)
+    res["spawn_seconds"] = spawn_seconds
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[14] phase 14 took {res['seconds']:.2f} s (the spawned ranks {spawn_seconds:.2f})",
+          flush=True)
+    return res
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2341,6 +2477,11 @@ def main():
     p12 = run_phase12(smi, stage1_ckpt)
     torch.cuda.empty_cache()
     p13 = run_phase13(smi, stage1_ckpt, p12)
+    torch.cuda.empty_cache()
+    p14 = run_phase14(smi)
+    p14_launches = {key: {label: [x[key] for x in p14[label]["launches"]]
+                          for label, *_ in SPATIAL_CASES}
+                    for key in (SPLAT_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name)}
     # each kernel's launches on the phase 10 paths, each counted from 0
     p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
         "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
@@ -2372,6 +2513,7 @@ def main():
                launches_phase11_step=p11["step"]["launches"]["splat"],
                launches_phase12_step=p12["step"]["launches"]["splat"],
                launches_phase13_step=p13["step"]["launches"]["splat"],
+               launches_phase14=p14_launches[SPLAT_KERNEL.name],
                phase12_step_device_ms=p12["step"]["splat_fwd_device_ms"],
                train_shape_ms=p11["backward"]["forward_ms"],
                train_shape_device_ms=p11["backward"]["forward_device_ms"],
@@ -2394,7 +2536,8 @@ def main():
                tolerance=wstats["tolerance"], **windowed_numbers("mma"),
                extent_in_frame=fmt_extent(wstats["in_frame"]),
                extent_smooth=fmt_extent(wstats["smooth"]),
-               extent_path_first=fmt_extent(ds["lookups"]["first"])),
+               extent_path_first=fmt_extent(ds["lookups"]["first"]),
+               launches_phase14=p14_launches[WINDOWED_CORR_MMA_KERNEL.name]),
         # the float32 route, on the 720p F path: its launches there and its
         # times on that path's captured AMT lookup, beside the materialized
         # float32 lookup's (library_ms stays null: no PyTorch call computes
@@ -2475,6 +2618,13 @@ def main():
           f"{p13['ranks']['stage1_grad_rel']:.2e} x max|g|, stage 2 gradients "
           f"{p13['ranks']['stage2']['grad_rel_l2']:.2e} relative L2; the CLI under torchrun "
           f"within {p13['cli']['metrics_rel']:.2e} of phase 12 (c); {smi}", flush=True)
+    print(f"[14] spatial sharding on {SPATIAL_WORLD} gloo ranks of one card: "
+          + "; ".join(f"({label}) {p14[label]['db']:.2f} dB, max-abs {p14[label]['max_abs_err']:.3e}, "
+                      f"launches {p14[label]['launches'][0]}, peak a rank "
+                      f"{max(p14[label]['peak_bytes']) / 2**20:.1f} MiB against "
+                      f"{p14[label]['one_process_peak_bytes'] / 2**20:.1f}"
+                      for label, *_ in SPATIAL_CASES)
+          + f"; {p14['seconds']:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,12 +84,29 @@ def _splat_nchw(x, flow, metric, mode):
     return out.permute(0, 3, 1, 2)
 
 
-def splat_fuse_latents(refiner, latent0, latent1, flow01, flow10, w1, w2, t):
+def splat_latents(latent0, latent1, flow01, flow10, w1, w2, t):
     """Forward-splat both latents to time t (two linear-zeroeps splat calls,
-    one per direction) and fuse. t (N,). Returns the (N, 32, H, W) latent."""
+    one per direction). t (N,). Returns the splatted pair, (N, 32, H, W)."""
     t = t.view(-1, 1, 1, 1)
     mode = "linear-zeroeps"
     s0 = _splat_nchw(latent0, flow01 * t, w1, mode)
     s1 = _splat_nchw(latent1, flow10 * (1.0 - t), w2, mode)
-    fused = torch.cat([s0, s1], dim=1)
-    return fused + refiner(torch.cat([latent0, latent1, fused], dim=1))
+    return torch.cat([s0, s1], dim=1)
+
+
+def refine_latents(refiner, latent0, latent1, fused, lo=0, hi=None):
+    """The fused latent, `fused` plus the refiner's residual, on the columns
+    [lo, hi) of the (N, C, H, W) inputs (all of them by default). The
+    refiner reads zeros (its reflect conv, reflections) past the window's
+    edges, so a narrower window is exact only as far from its inner edges
+    as the refiner's receptive radius (`parallel/spatial.py`)."""
+    cols = slice(lo, hi)
+    x = torch.cat([latent0[..., cols], latent1[..., cols], fused[..., cols]], dim=1)
+    return fused[..., cols] + refiner(x)
+
+
+def splat_fuse_latents(refiner, latent0, latent1, flow01, flow10, w1, w2, t):
+    """Forward-splat both latents to time t (`splat_latents`) and fuse them
+    (`refine_latents`). t (N,). Returns the (N, 32, H, W) latent."""
+    fused = splat_latents(latent0, latent1, flow01, flow10, w1, w2, t)
+    return refine_latents(refiner, latent0, latent1, fused)

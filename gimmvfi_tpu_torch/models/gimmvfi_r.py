@@ -7,6 +7,13 @@ runs once per timestep (latent splat, HypoNet flow, synthesis).
 `interpolate_sequential` is the 8x entry point: one `prepare`, then a
 Python loop of `decode_one`.
 
+`decode_one` is `decode_strip` over the whole width: three stages,
+`flow_strip` (both latent splats on the whole frame, the latent refiner
+on a window, the HypoNet on a strip of it), `synthesize_quarter` (the AMT
+at 1/8 and 1/4 scale on the whole frame) and `synthesize_strip` (the
+MultiFlowDecoder, the DS upsample and the combine on a window, cropped to
+a strip). `parallel/spatial.py` runs `decode_strip` on a strip a rank.
+
 `train_forward` is stage-2 training's forward: with `train=True` RAFT runs
 once a direction and the decoder heads once a direction, so that
 BatchNorm takes each direction's batch statistics, as the reference's
@@ -43,7 +50,14 @@ from ..ops.coords import (
     unnormalize_flow,
 )
 from ..ops.interp import resize, warp
-from .gimm_core import latent_refiner, motion_encoder, splat_fuse_latents, splatting_weights
+from .gimm_core import (
+    latent_refiner,
+    motion_encoder,
+    refine_latents,
+    splat_fuse_latents,
+    splat_latents,
+    splatting_weights,
+)
 from .hyponet import HypoNet
 from .synthesis import InitDecoder, MultiFlowDecoder, UpdateBlock, comb_block, multi_flow_combine
 
@@ -142,6 +156,26 @@ class GIMMVFI_R(nn.Module):
         )
         return self.hyponet(coord, pixel_latent, sub_idx)
 
+    def flow_strip(self, prep: dict, tv: float, strip: tuple[int, int],
+                   window: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """A timestep's flow on the working columns `strip` (a, b): both
+        latent splats on the whole frame, the refiner on the columns
+        `window` (lo, hi), which holds the strip (exact on it when it
+        reaches the refiner's receptive radius past each inner edge), the
+        HypoNet at the strip's points of the whole frame's grid. Returns
+        the flow (N, h, b - a, 2), channels-last, and the normalized INR
+        flow (N, 1, h, b - a, 2)."""
+        n, _, h, w = prep["img0"].shape
+        dev = prep["img0"].device
+        t = torch.full((n,), float(tv), dtype=torch.float32, device=dev)
+        fused = splat_latents(prep["latent0"], prep["latent1"], prep["flow01"], prep["flow10"],
+                              prep["w1"], prep["w2"], t)
+        (a, b), (lo, hi) = strip, window
+        latent = refine_latents(self.res_conv, prep["latent0"], prep["latent1"], fused, lo, hi)
+        ninr = self.hyponet(sample_coords_3d(n, (h, w), tv, dev, cols=strip),
+                            latent[..., a - lo:b - lo])
+        return unnormalize_flow(ninr, prep["scalers"])[:, 0], ninr
+
     def predict_flow(self, nflows, flows, t, coord, sub_idx=None):
         """The GIMM motion decode at timesteps t (N,): nflows (N, 2, 2, H,
         W) normalized, flows (N, 2, 2, H, W) raw (detached here), coord
@@ -187,11 +221,26 @@ class GIMMVFI_R(nn.Module):
 
     def frame_synthesize(self, img0, img1, flow_t, f8_up, f4_up, corr_pyrs, cur_t,
                          full_img=None):
-        """AMT coarse-to-fine synthesis. img0/img1 (N, 3, H, W) in [-1, 1];
-        flow_t (N, 2, H, W); cur_t (N, 1, 1, 1). With `full_img`, the
-        full-resolution pair (N, 3, H', W') in [0, 1], the final flows
-        (scaled by H'/H), masks and residuals are resized by H'/H and the
-        blend runs on the full-resolution frames."""
+        """AMT coarse-to-fine synthesis of the whole frame, with the aux
+        1/4-scale prediction (`synthesize_quarter`, `warp_w_mask`,
+        `synthesize_strip`). img0/img1 (N, 3, H, W) in [-1, 1]; flow_t (N,
+        2, H, W); cur_t (N, 1, 1, 1); `full_img` as `synthesize_strip`.
+        Returns imgt_pred and img_warp_4, NCHW."""
+        q = self.synthesize_quarter(img0, img1, flow_t, f8_up, corr_pyrs, cur_t)
+        img_warp_4 = self.warp_w_mask(img0, img1, *q["init"], scale=4)
+        whole = (0, img0.shape[3])
+        return {
+            "imgt_pred": self.synthesize_strip(q, img0, img1, f4_up, whole, whole, full_img),
+            "img_warp_4": torch.clamp((img_warp_4 + 1.0) / 2.0, 0.0, 1.0),
+        }
+
+    def synthesize_quarter(self, img0, img1, flow_t, f8_up, corr_pyrs, cur_t) -> dict:
+        """The AMT's InitDecoder, correlation lookups and both UpdateBlocks
+        at 1/8 and 1/4 scale, on the whole frame. img0/img1 (N, 3, H, W) in
+        [-1, 1]; flow_t (N, 2, H, W); cur_t (N, 1, 1, 1). Returns the
+        1/4-scale state the MultiFlowDecoder reads (`ft_4`, `flowt0_4`,
+        `flowt1_4`, `mask_4`) and the InitDecoder's flows and mask
+        (`init`, for the aux prediction)."""
         n, _, h, w = img0.shape
         lookup_coord = coords_grid(n, h // 8, w // 8, img0.device)
         flow_t0_4 = 0.25 * resize(flow_t * (-cur_t), 0.25)
@@ -202,8 +251,7 @@ class GIMMVFI_R(nn.Module):
             f8_up[0], f8_up[1], flow_t0_4, flow_t1_4, img0, img1
         )
         mask_4_, ft_4_ = ft_4_[:, :1], ft_4_[:, 1:]
-        img_warp_4 = self.warp_w_mask(img0, img1, flowt0_4, flowt1_4, mask_4_, scale=4)
-        img_warp_4 = torch.clamp((img_warp_4 + 1.0) / 2.0, 0.0, 1.0)
+        init = (flowt0_4, flowt1_4, mask_4_)
 
         corr_4, flow_4_lr = self._corr_scale_lookup(
             corr_pyrs, lookup_coord, flowt0_4, flowt1_4, cur_t
@@ -220,28 +268,43 @@ class GIMMVFI_R(nn.Module):
         flowt0_4 = flowt0_4 + d_flow[:, :2]
         flowt1_4 = flowt1_4 + d_flow[:, 2:4]
         ft_4_ = ft_4_ + d_ft
+        return {"ft_4": ft_4_, "flowt0_4": flowt0_4, "flowt1_4": flowt1_4, "mask_4": mask_4_,
+                "init": init}
 
-        # ---- scale 1/1
+    def synthesize_strip(self, q: dict, img0, img1, f4_up, strip: tuple[int, int],
+                         window: tuple[int, int], full_img=None) -> torch.Tensor:
+        """The frame on the working columns `strip` (a, b): the
+        MultiFlowDecoder on the columns `window` (lo, hi) of the 1/4-scale
+        state `q` (`synthesize_quarter`), its warps reading the whole
+        `f4_up` and img0/img1 (N, 3, H, W) in [-1, 1]; under DS the
+        resize to full resolution; the combine, its warps reading the whole
+        frames; cropped to the strip. lo and hi lie on the 1/4-scale grid
+        (multiples of 4); the strip is exact when the window reaches the
+        stage's receptive radius past each inner edge (`parallel/
+        spatial.py`). With `full_img`, the full-resolution pair (N, 3, H',
+        W') in [0, 1], the final flows (scaled by s = H'/H), masks and
+        residuals are resized by s and the blend runs on the
+        full-resolution frames. Returns (N, 3, H', (b - a) s) in [0, 1]."""
+        (a, b), (lo, hi) = strip, window
+        cols = slice(lo // 4, hi // 4)
         flowt0_1, flowt1_1, mask, img_res = self.amt_final_decoder(
-            ft_4_, f4_up[0], f4_up[1], flowt0_4, flowt1_4, mask_4_, img0, img1
+            q["ft_4"][..., cols], f4_up[0], f4_up[1], q["flowt0_4"][..., cols],
+            q["flowt1_4"][..., cols], q["mask_4"][..., cols], img0, img1, x0=lo,
         )
+        scale = 1
         if full_img is not None:
             img0 = 2.0 * full_img[0] - 1.0
             img1 = 2.0 * full_img[1] - 1.0
-            inv = img1.shape[2] / flowt0_1.shape[2]
-            flowt0_1 = inv * resize(flowt0_1, inv)
-            flowt1_1 = inv * resize(flowt1_1, inv)
-            mask = resize(mask, inv)
-            img_res = resize(img_res, inv)
+            scale = img1.shape[2] / flowt0_1.shape[2]
+            flowt0_1 = scale * resize(flowt0_1, scale)
+            flowt1_1 = scale * resize(flowt1_1, scale)
+            mask = resize(mask, scale)
+            img_res = resize(img_res, scale)
+        x0 = round(lo * scale)
         imgt_pred = multi_flow_combine(
-            self.amt_comb_block, img0, img1, flowt0_1, flowt1_1, mask, img_res, self.dtype
+            self.amt_comb_block, img0, img1, flowt0_1, flowt1_1, mask, img_res, self.dtype, x0
         )
-        return {
-            "imgt_pred": torch.clamp(imgt_pred, 0.0, 1.0),
-            "flowt0_pred": [flowt0_1, flowt0_4],
-            "flowt1_pred": [flowt1_1, flowt1_4],
-            "img_warp_4": img_warp_4,
-        }
+        return torch.clamp(imgt_pred[..., round(a * scale) - x0:round(b * scale) - x0], 0.0, 1.0)
 
     # ----------------------------------------------------------- entry points
     def prepare(self, img_xs: torch.Tensor, ds_factor: float | None = None) -> dict:
@@ -266,26 +329,34 @@ class GIMMVFI_R(nn.Module):
             "f8_up": f8_up, "f4_up": f4_up, "corr_pyrs": corr_pyrs, "full_img": full_img,
         }
 
+    def decode_strip(self, prep: dict, tv: float, strip: tuple[int, int],
+                     windows: tuple[tuple[int, int], tuple[int, int]], gather=None) -> dict:
+        """One timestep on the working columns `strip`: `flow_strip` on
+        the window `windows[0]`, the strip's flow made whole by `gather`
+        (the ranks' all-reduce in `parallel/spatial.py`; None when the
+        strip is the frame), `synthesize_quarter` on the whole frame,
+        `synthesize_strip` on the window `windows[1]`. Outputs are
+        channels-last: imgt_pred (N, H, (b - a) s, 3) at full resolution,
+        flowt (N, h, w, 2), ninrflow (N, 1, h, b - a, 2)."""
+        img0, img1 = 2.0 * prep["img0"] - 1.0, 2.0 * prep["img1"] - 1.0
+        flow_t, ninr = self.flow_strip(prep, tv, strip, windows[0])
+        if gather is not None:
+            flow_t = gather(flow_t)
+        n = img0.shape[0]
+        cur_t = torch.full((n, 1, 1, 1), float(tv), dtype=torch.float32, device=img0.device)
+        q = self.synthesize_quarter(img0, img1, flow_t.permute(0, 3, 1, 2), prep["f8_up"],
+                                    prep["corr_pyrs"], cur_t)
+        imgt = self.synthesize_strip(q, img0, img1, prep["f4_up"], strip, windows[1],
+                                     prep["full_img"])
+        return {"imgt_pred": imgt.permute(0, 2, 3, 1), "flowt": flow_t, "ninrflow": ninr}
+
     def decode_one(self, prep: dict, tv: float) -> dict:
         """One timestep: splat the latents to t, decode the flow with the
-        HypoNet, synthesize. Outputs are channels-last: imgt_pred
-        (N, H, W, 3) at full resolution, flowt (N, h, w, 2) and ninrflow
-        (N, 1, h, w, 2) at the working size."""
-        img0, img1 = prep["img0"], prep["img1"]
-        n, _, h, w = img0.shape
-        dev = img0.device
-        t = torch.full((n,), float(tv), dtype=torch.float32, device=dev)
-        ninr = self.decode_flow(prep, t, sample_coords_3d(n, (h, w), tv, dev))
-        flow_t = unnormalize_flow(ninr, prep["scalers"])[:, 0]  # (N, H, W, 2)
-        out = self.frame_synthesize(
-            2.0 * img0 - 1.0, 2.0 * img1 - 1.0, flow_t.permute(0, 3, 1, 2),
-            prep["f8_up"], prep["f4_up"], prep["corr_pyrs"], t.view(n, 1, 1, 1),
-            full_img=prep["full_img"],
-        )
-        out["imgt_pred"] = out["imgt_pred"].permute(0, 2, 3, 1)
-        out["flowt"] = flow_t
-        out["ninrflow"] = ninr
-        return out
+        HypoNet, synthesize (`decode_strip` over the whole width). Outputs
+        are channels-last: imgt_pred (N, H, W, 3) at full resolution, flowt
+        (N, h, w, 2) and ninrflow (N, 1, h, w, 2) at the working size."""
+        whole = (0, prep["img0"].shape[3])
+        return self.decode_strip(prep, tv, whole, (whole, whole))
 
     @torch.inference_mode()
     def interpolate(self, img_xs: torch.Tensor, t_values: Sequence[float],

@@ -93,9 +93,10 @@ def _conv_block(cin, c, skip, cout, first_k, dtype) -> nn.Sequential:
     )
 
 
-def _warp_with_image(feat, img, flow):
-    """Warp features and image with one sample per flow."""
-    w = warp(torch.cat([feat, img.to(feat.dtype)], dim=1), flow)
+def _warp_with_image(feat, img, flow, x0=0):
+    """Warp features and image with one sample per flow; `flow` may be a
+    window of columns from `x0` of the whole `feat` and `img` (`warp`)."""
+    w = warp(torch.cat([feat, img.to(feat.dtype)], dim=1), flow, x0)
     c = feat.shape[1]
     return w[:, :c], w[:, c:]
 
@@ -174,7 +175,13 @@ class UpdateBlock(nn.Module):
 
 class MultiFlowDecoder(nn.Module):
     """1/4 -> 1/1 via two PixelShuffles; predicts num_flows flow pairs, masks
-    and image residuals. `upsample` is t-invariant (`upsample_features`)."""
+    and image residuals. `upsample` is t-invariant (`upsample_features`).
+
+    `forward` decodes a window of columns: ft_, flow0, flow1 and mask are
+    the window's 1/4-scale state, whose full-resolution columns start at
+    `x0`; f0, f1, img0 and img1 are whole frames, the warps' sources, read
+    at global positions (the concat takes the window's columns of the
+    images). With x0 = 0 and a whole-width state it decodes the frame."""
 
     def __init__(self, in_ch=128, skip_ch=64, dtype=None):
         super().__init__()
@@ -187,15 +194,17 @@ class MultiFlowDecoder(nn.Module):
     def upsample_features(self, f, train=False):
         return self.upsample(f, train)
 
-    def forward(self, ft_, f0, f1, flow0, flow1, mask, img0, img1):
+    def forward(self, ft_, f0, f1, flow0, flow1, mask, img0, img1, x0=0):
         n = self.num_flows
         flow0 = 4.0 * resize(flow0, 4.0)
         flow1 = 4.0 * resize(flow1, 4.0)
         ft_ = resize(ft_, 4.0)
         mask = resize(mask, 4.0)
-        f0w, w0 = _warp_with_image(f0, img0, flow0)
-        f1w, w1 = _warp_with_image(f1, img1, flow1)
-        f_in = torch.cat([ft_, f0w, f1w, flow0, flow1, mask, img0, img1, w0, w1], dim=1)
+        f0w, w0 = _warp_with_image(f0, img0, flow0, x0)
+        f1w, w1 = _warp_with_image(f1, img1, flow1, x0)
+        cols = slice(x0, x0 + flow0.shape[3])
+        f_in = torch.cat([ft_, f0w, f1w, flow0, flow1, mask, img0[..., cols], img1[..., cols],
+                          w0, w1], dim=1)
         out = self.convblock(f_in).float()
         d_flow0, d_flow1, d_mask, img_res = torch.split(out, [2 * n, 2 * n, n, 3 * n], dim=1)
         mask = torch.sigmoid(d_mask + mask.float().repeat(1, n, 1, 1))
@@ -212,12 +221,14 @@ def comb_block(dtype=None) -> nn.Sequential:
     )
 
 
-def multi_flow_combine(comb, img0, img1, flow0, flow1, mask, img_res, dtype=None):
+def multi_flow_combine(comb, img0, img1, flow0, flow1, mask, img_res, dtype=None, x0=0):
     """Blend num_flows backward warps of both frames.
 
-    img0/img1 (N, 3, H, W) in [-1, 1]; flow0/flow1 (N, 2K, H, W); mask
+    img0/img1 (N, 3, H, Ws) in [-1, 1]; flow0/flow1 (N, 2K, H, W); mask
     (N, K, H, W); img_res (N, 3K, H, W). Output (N, 3, H, W) in [0, 1]. With
     a compute dtype the image payload is warped in it; the blend is float32.
+    The flows may be a window of columns from `x0` of the whole frames
+    (`warp`); the output is then that window's.
     """
     n, ck, h, w = flow0.shape
     k = ck // 2
@@ -230,8 +241,8 @@ def multi_flow_combine(comb, img0, img1, flow0, flow1, mask, img_res, dtype=None
         return x.reshape(n * k, c, h, w)
 
     m = regroup(mask, 1)
-    w0 = warp(img0.repeat_interleave(k, dim=0), regroup(flow0, 2))
-    w1 = warp(img1.repeat_interleave(k, dim=0), regroup(flow1, 2))
+    w0 = warp(img0.repeat_interleave(k, dim=0), regroup(flow0, 2), x0)
+    w1 = warp(img1.repeat_interleave(k, dim=0), regroup(flow1, 2), x0)
     img_warps = (m * w0 + (1 - m) * w1 + regroup(img_res, 3)).view(n, k, 3, h, w)
     res_corr = comb(img_warps.reshape(n, k * 3, h, w)).float()
     pred = img_warps.mean(dim=1) + res_corr

@@ -40,19 +40,22 @@ def sample_coords_3d(
     t_values,
     device,
     coord_range: tuple[float, float] = (-1.0, 1.0),
+    cols: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Normalized (t, y, x) coordinates for the motion INR, (B, T, H, W, 3).
 
     Spatial coordinates are pixel-centred, `lo + (hi - lo) * (0.5 + i) / n`;
-    the t channel comes first and carries the raw timestep.
+    the t channel comes first and carries the raw timestep. `cols` (a, b)
+    keeps the columns [a, b) of the (H, W) grid: (B, T, H, b - a, 3).
     """
     h, w = spatial_shape
     lo, hi = coord_range
+    a, b = (0, w) if cols is None else cols
     ys = lo + (hi - lo) * (0.5 + torch.arange(h, dtype=torch.float32, device=device)) / h
-    xs = lo + (hi - lo) * (0.5 + torch.arange(w, dtype=torch.float32, device=device)) / w
+    xs = lo + (hi - lo) * (0.5 + torch.arange(a, b, dtype=torch.float32, device=device)) / w
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
     tv = torch.as_tensor(t_values, dtype=torch.float32, device=device).reshape(-1)
-    tt = tv[:, None, None].expand(tv.shape[0], h, w)
+    tt = tv[:, None, None].expand(tv.shape[0], h, b - a)
     coords = torch.stack([tt, yy.expand_as(tt), xx.expand_as(tt)], dim=-1)
     return coords[None].expand(batch_size, *coords.shape)
 

@@ -32,16 +32,21 @@ def _sample(img: torch.Tensor, grid: torch.Tensor, padding_mode: str) -> torch.T
     return out.to(img.dtype)
 
 
-def warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Backward-warp `img` (N, C, H, W) by `flow` (N, 2, H, W).
+def warp(img: torch.Tensor, flow: torch.Tensor, x0: int = 0) -> torch.Tensor:
+    """Backward-warp `img` (N, C, H, Ws) by `flow` (N, 2, H, W).
 
-    Output pixel (i, j) samples (j + u, i + v); taps clamp to the border.
+    Output pixel (i, j) samples `img` at (x0 + j + u, i + v); taps clamp to
+    `img`'s own border. With the defaults `img` and `flow` are one frame
+    (Ws = W); a window of columns [x0, x0 + W) of a wider frame passes the
+    whole frame as `img` and its column offset as `x0`, and the positions
+    are normalized by the whole frame's width.
     """
-    n, _, h, w = img.shape
-    jj = torch.arange(w, dtype=torch.float32, device=img.device).view(1, 1, w)
+    _, _, h, ws = img.shape
+    w = flow.shape[3]
+    jj = torch.arange(x0, x0 + w, dtype=torch.float32, device=img.device).view(1, 1, w)
     ii = torch.arange(h, dtype=torch.float32, device=img.device).view(1, h, 1)
     flow = flow.float()
-    grid = _pixel_grid(jj + flow[:, 0], ii + flow[:, 1], h, w)
+    grid = _pixel_grid(jj + flow[:, 0], ii + flow[:, 1], h, ws)
     return _sample(img, grid, "border")
 
 

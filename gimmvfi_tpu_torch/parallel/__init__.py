@@ -1,3 +1,7 @@
-"""Data-parallel training, one process a card under `torchrun`
-(`gimmvfi_tpu/parallel/`): `dist.py` starts the group and holds the
-collectives."""
+"""Parallelism across cards (`gimmvfi_tpu/parallel/`): `dist.py` starts the
+group and holds the collectives (data-parallel training under `torchrun`);
+`spatial.py` splits one pair's per-timestep decode by width over the ranks."""
+
+from .spatial import interpolate_spatial_sharded
+
+__all__ = ["interpolate_spatial_sharded"]

@@ -1,4 +1,5 @@
-"""Data parallelism: one process a card (`gimmvfi_tpu/parallel/mesh.py`).
+"""Data parallelism: one process a card (`gimmvfi_tpu/parallel/mesh.py`),
+and the collectives of spatial sharding (`spatial.py`).
 
 The JAX package trains over a 1-D `data` mesh: parameters replicated, the
 global batch sharded on its first axis, one process a host that loads the
@@ -17,7 +18,11 @@ The collectives are explicit here:
   * `average_gradients_`: every gradient's mean over the ranks, in one
     flat all-reduce, before the clip and the optimizer step;
   * `global_mean`: a dict of metrics averaged over the ranks (every loss
-    is a mean over equal per-rank batches, so this is the global batch's).
+    is a mean over equal per-rank batches, so this is the global batch's);
+  * `broadcast_module_`: rank 0's parameters and buffers on every rank
+    (the mesh's `replicate`);
+  * `gather_disjoint`: a whole tensor on every rank from each rank's
+    disjoint piece of one axis, by a summing all-reduce.
 
 With no process group every helper returns its input or does nothing, so
 one process computes exactly what it did before data parallelism.
@@ -198,6 +203,45 @@ def global_mean(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     dist.all_reduce(stacked)
     stacked /= dist.get_world_size()
     return dict(zip(metrics, stacked.unbind()))
+
+
+@torch.no_grad()
+def broadcast_module_(module: torch.nn.Module, group=None) -> None:
+    """Set every parameter and buffer of `module` to those of rank 0 of
+    `group` (the default group if None), one flat broadcast a dtype: the
+    JAX mesh's `replicate`, so ranks that built their model differently
+    compute with one set of weights. Does nothing without a group."""
+    if not group_up():
+        return
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for tensors in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.broadcast(flat, src, group=group)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def gather_disjoint(part: torch.Tensor, lo: int, hi: int, size: int, dim: int,
+                    group=None) -> torch.Tensor:
+    """The whole tensor, `size` long on `dim`, on every rank of `group`,
+    from each rank's piece `part`, its indices [lo, hi) on that axis: a
+    zero-filled whole buffer that each rank fills in its piece, then a
+    summing all-reduce. The pieces are disjoint, so every element is one
+    rank's value plus zeros and the sum is exact; the pieces may be
+    uneven, and gloo takes CUDA tensors this way. Without a group, the
+    buffer (`part` must then cover the axis)."""
+    shape = list(part.shape)
+    shape[dim] = size
+    out = part.new_zeros(shape)
+    out.narrow(dim, lo, hi - lo).copy_(part)
+    if group_up():
+        dist.all_reduce(out, group=group)
+    return out
 
 
 def _rank_main(local_rank, fn, args, world, device, backend, init_method):

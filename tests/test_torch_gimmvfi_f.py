@@ -8,7 +8,9 @@ t in {0.25, 0.5, 0.75}:
     720p pair takes; FlowFormer's own volume is always materialized):
     imgt_pred PSNR >= 60 dB, flowt max-abs <= 1e-4 * max(1, max|ref|);
   * bf16 against bf16 JAX: the stacks round at other places, so only
-    >= 45 dB is asserted; FlowFormer stays float32 in both.
+    >= 45 dB is asserted; FlowFormer stays float32 in both;
+  * float32 under DS_SCALE, `ds_factor=0.5` at 256x256 (working 128x128),
+    as the video CLI and the X4K harness run F at 2K: as the first.
 Each records its PSNR (`record_property`, in the JUnit XML).
 The converter round trip: a random-init port state dict goes through the
 JAX package's `convert_gimmvfi_f` with every key consumed and the JAX
@@ -56,15 +58,18 @@ def windowed_calls(monkeypatch):
     return calls
 
 
-def _run_both(setup, jax_dtype, torch_dtype, limit=tcorr.MAX_VOLUME_BYTES):
-    img, variables = setup
+def _run_both(setup, jax_dtype, torch_dtype, limit=tcorr.MAX_VOLUME_BYTES, img=None, ds=None):
+    """Both packages' `interpolate_sequential` on the fixture's pair, or on
+    `img` with `ds_factor` `ds`."""
+    fixture_img, variables = setup
+    img = fixture_img if img is None else img
     jm = JaxGIMMVFI_F(ff_iters=2, remat=False, dtype=jax_dtype, corr_max_volume_bytes=limit)
-    ref = jax.jit(lambda v, x: jax_interpolate_sequential(jm, v, x, jnp.asarray(T_VALUES)))(
-        variables, jnp.asarray(img))
+    ref = jax.jit(lambda v, x: jax_interpolate_sequential(jm, v, x, jnp.asarray(T_VALUES),
+                                                          ds_factor=ds))(variables, jnp.asarray(img))
     model = load_jax_params(
         GIMMVFI_F(ff_iters=2, dtype=torch_dtype, device="cpu", corr_max_volume_bytes=limit),
         variables["params"], variables["batch_stats"])
-    got = interpolate_sequential(model, torch.from_numpy(img), T_VALUES)
+    got = interpolate_sequential(model, torch.from_numpy(img), T_VALUES, ds_factor=ds)
     ref = {k: np.asarray(v).astype(np.float32) for k, v in ref.items()}
     got = {k: v.float().numpy() for k, v in got.items()}
     return got, ref
@@ -84,6 +89,19 @@ def test_interpolate_sequential_f32_matches_jax(setup, windowed_calls, limit, re
     assert got["flowt"].shape == ref["flowt"].shape == (3, 1, 128, 192, 2)
     # the AMT's two directions at each timestep, windowed only under limit 0
     assert windowed_calls == ([(1, 2, 16, 24)] * 2 * len(T_VALUES) if limit == 0 else [])
+    db = _psnr(got["imgt_pred"], ref["imgt_pred"])
+    flow_err = float(np.abs(got["flowt"] - ref["flowt"]).max())
+    record_property("imgt_pred_psnr_db", db)
+    record_property("flowt_max_abs_err", flow_err)
+    assert db >= 60.0
+    assert flow_err <= 1e-4 * max(1.0, float(np.abs(ref["flowt"]).max()))
+
+
+def test_interpolate_sequential_f32_ds_matches_jax(setup, record_property):
+    img = np.random.default_rng(4).random((1, 2, 256, 256, 3), dtype=np.float32)
+    got, ref = _run_both(setup, None, None, img=img, ds=0.5)
+    assert got["imgt_pred"].shape == ref["imgt_pred"].shape == (3, 1, 256, 256, 3)
+    assert got["flowt"].shape == ref["flowt"].shape == (3, 1, 128, 128, 2)
     db = _psnr(got["imgt_pred"], ref["imgt_pred"])
     flow_err = float(np.abs(got["flowt"] - ref["flowt"]).max())
     record_property("imgt_pred_psnr_db", db)

@@ -1,0 +1,256 @@
+"""The port's spatial sharding (`parallel/spatial.py`) against one process
+and against JAX's `interpolate_spatial_sharded`, on the CPU, float32.
+
+One JAX `model.init` of GIMMVFI_R(raft_iters=2) gives the weights
+(`utils/convert.py: load_jax_params`).
+  (i) In one process: the per-timestep stages over 2 and 3 uneven strips,
+      each on its window (`halos`), stitched, against `decode_one`, <= 1e-5
+      max-abs, with DS None at 128x256 and DS 0.5 at 256x256; the flow
+      scaler is raised so that the decoded flows reach 20 px and cross
+      the strip edges.
+ (ii) Halos of 0 miss the same check by more than 1e-3.
+(iii) Two gloo ranks (`spawn_ranks`) through `interpolate_spatial_sharded`
+      against the port's `interpolate_sequential`, <= 1e-5, and against
+      JAX's `interpolate_spatial_sharded` on a 2-device virtual mesh, within
+      the JAX test's atol 2e-5, rtol 1e-4 and >= 60 dB. Rank 1 builds its
+      model from another seed: the entry's broadcast gives it rank 0's.
+ (iv) Three ranks at W = 128: padded to 144 as JAX pads (lcm(3, 8) = 24),
+      cropped back to 128, against the port on the padded pair and against
+      JAX on a 3-device mesh.
+  (v) GIMMVFI_F(ff_iters=2) on two ranks against its own single process.
+ (vi) One rank with no group is `interpolate_sequential` on the padded
+      pair, bit for bit.
+The halos' derivation and the strips' grid are checked on their own.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gimmvfi_tpu.models.gimmvfi_r import GIMMVFI_R as JaxGIMMVFI_R
+from gimmvfi_tpu.parallel.mesh import create_mesh
+from gimmvfi_tpu.parallel.spatial import interpolate_spatial_sharded as jax_sharded
+from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
+from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
+from gimmvfi_tpu_torch.nn.layers import init_normal_
+from gimmvfi_tpu_torch.parallel import dist as dist_ops
+from gimmvfi_tpu_torch.parallel import spatial
+from gimmvfi_tpu_torch.utils.convert import load_jax_params
+
+torch.set_num_threads(1)
+T_VALUES = [0.25, 0.6]
+TWO = (128, 256)  # (iii), W split in two
+THREE = (128, 128)  # (iv), padded to 144
+F_HW = (128, 128)  # (v)
+
+
+def _frames(hw, seed):
+    return np.random.default_rng(seed).random((1, 2, *hw, 3), dtype=np.float32)
+
+
+def _psnr(a, b):
+    mse = float(((a - b) ** 2).mean())
+    return float("inf") if mse == 0 else float(10 * np.log10(1.0 / mse))
+
+
+@pytest.fixture(scope="module")
+def variables():
+    img = _frames((128, 192), 0)
+    model = JaxGIMMVFI_R(raft_iters=2, remat=False)
+    init = jax.jit(lambda r, x: model.init(r, x, (0.5,)))(jax.random.PRNGKey(0), jnp.asarray(img))
+    return {k: jax.tree_util.tree_map(np.asarray, v) for k, v in init.items()}
+
+
+@pytest.fixture(scope="module")
+def model(variables):
+    return load_jax_params(GIMMVFI_R(raft_iters=2, device="cpu"), variables["params"],
+                           variables["batch_stats"])
+
+
+@pytest.fixture(scope="module")
+def f_model():
+    return init_normal_(GIMMVFI_F(ff_iters=2, device="cpu"), 3)
+
+
+def _case(family, model_kw, model, img, ds=None):
+    return {"family": family, "model_kw": {**model_kw, "device": "cpu"}, "state": model.state_dict(),
+            "img_xs": torch.from_numpy(img), "t_values": T_VALUES, "ds_factor": ds}
+
+
+@pytest.fixture(scope="module")
+def ranks(model, f_model, tmp_path_factory):
+    """Each case's result on every rank: R at 128x256 and F at 128x128 on
+    two ranks, R at 128x128 on three."""
+    out = {}
+    for world, cases in ((2, {"r": _case(GIMMVFI_R, {"raft_iters": 2}, model, _frames(TWO, 1)),
+                              "f": _case(GIMMVFI_F, {"ff_iters": 2}, f_model, _frames(F_HW, 2))}),
+                         (3, {"r3": _case(GIMMVFI_R, {"raft_iters": 2}, model, _frames(THREE, 3))})):
+        tmp = tmp_path_factory.mktemp(f"world{world}")
+        torch.save(list(cases.values()), tmp / "cases.pt")
+        dist_ops.spawn_ranks(spatial.interpolate_on_rank, world, (str(tmp / "cases.pt"), str(tmp), 1),
+                             rendezvous=str(tmp / "rendezvous"))
+        per_rank = [torch.load(tmp / f"rank{r}.pt", weights_only=True) for r in range(world)]
+        for i, name in enumerate(cases):
+            out[name] = [res[i] for res in per_rank]
+    return out
+
+
+def _jax_sharded(variables, img, devices):
+    mesh = create_mesh(jax.devices()[:devices], data=1, space=devices)
+    out = jax_sharded(JaxGIMMVFI_R(raft_iters=2, remat=False), variables, img,
+                      np.asarray(T_VALUES, np.float32), mesh)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _sequential(model, img, pad=0):
+    img = torch.from_numpy(np.pad(img, [(0, 0)] * 3 + [(0, pad), (0, 0)], mode="edge"))
+    out = interpolate_sequential(model, img, T_VALUES)
+    return {k: v[..., :v.shape[-2] - pad, :] for k, v in out.items()}
+
+
+def _max_abs(a, b):
+    return float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+
+
+def _stitched(model, prep, tv, strips, ds, halos):
+    """The stages of `interpolate_spatial_sharded` over `strips` in one
+    process, each on its window, the flow strips joined before the
+    replicated 1/4-scale synthesis."""
+    n, _, _, wk = prep["img0"].shape
+    r1, r2 = halos
+    flow_t = torch.cat([model.flow_strip(prep, tv, s, spatial.window(s, r1, wk))[0]
+                        for s in strips], dim=2)
+    img0, img1 = 2.0 * prep["img0"] - 1.0, 2.0 * prep["img1"] - 1.0
+    q = model.synthesize_quarter(img0, img1, flow_t.permute(0, 3, 1, 2), prep["f8_up"],
+                                 prep["corr_pyrs"], torch.full((n, 1, 1, 1), tv))
+    imgs = [model.synthesize_strip(q, img0, img1, prep["f4_up"], s, spatial.window(s, r2, wk),
+                                   prep["full_img"]) for s in strips]
+    return torch.cat(imgs, dim=3).permute(0, 2, 3, 1), flow_t
+
+
+# (frame, ds_factor, strips of the working width, uneven and on the grid of 4)
+STITCH_CASES = [
+    ((128, 256), None, [(0, 96), (96, 256)]),
+    ((128, 256), None, [(0, 64), (64, 148), (148, 256)]),
+    ((256, 256), 0.5, [(0, 48), (48, 128)]),
+    ((256, 256), 0.5, [(0, 32), (32, 76), (76, 128)]),
+]
+
+
+@pytest.fixture(scope="module")
+def decoded():
+    """`decode_one` at t = 0.4 of the pair of each frame size and DS, with
+    the flow scaler set so that the decoded flows reach 20 px, and its
+    `prepare` output: {(hw, ds): (prep, ref)}, filled on first use."""
+    return {}
+
+
+def _stitch_gaps(model, decoded, hw, ds, strips, halos):
+    """Max-abs gaps of the stitched image and flow to `decode_one`, and the
+    decoded flow's largest magnitude."""
+    tv = 0.4
+    with torch.inference_mode():
+        if (hw, ds) not in decoded:
+            prep = model.prepare(torch.from_numpy(_frames(hw, 5)), ds)
+            whole = (0, prep["img0"].shape[3])
+            unit, _ = model.flow_strip({**prep, "scalers": torch.ones_like(prep["scalers"])}, tv,
+                                       whole, whole)
+            prep["scalers"] = prep["scalers"] * 0 + 20.0 / float(unit.abs().max())
+            decoded[hw, ds] = prep, model.decode_one(prep, tv)
+        prep, ref = decoded[hw, ds]
+        img, flow = _stitched(model, prep, tv, strips, ds, halos)
+    return (_max_abs(img, ref["imgt_pred"]), _max_abs(flow, ref["flowt"]),
+            float(ref["flowt"].abs().max()))
+
+
+@pytest.mark.parametrize("hw,ds,strips", STITCH_CASES)
+def test_stitched_strips_match_decode_one(model, decoded, hw, ds, strips, record_property):
+    img_gap, flow_gap, reach = _stitch_gaps(model, decoded, hw, ds, strips,
+                                            spatial.halos(model, ds))
+    record_property("imgt_pred_max_abs_err", img_gap)
+    assert 10.0 <= reach <= 30.0
+    assert img_gap <= 1e-5 and flow_gap <= 1e-5
+
+
+@pytest.mark.parametrize("hw,ds,strips", STITCH_CASES[1::2])
+def test_zero_halos_miss(model, decoded, hw, ds, strips):
+    img_gap, flow_gap, _ = _stitch_gaps(model, decoded, hw, ds, strips, (0, 0))
+    assert img_gap > 1e-3 and flow_gap > 1e-3
+
+
+@pytest.mark.parametrize("ds,want", [(None, (8, 28)), (1.0, (8, 28)), (0.5, (8, 28)),
+                                     (0.25, (8, 24))])
+def test_halos_from_the_modules(model, ds, want):
+    """R1 = the refiner's reach 5, R2 = 17 + 4 + [DS] 1 + ceil(6 ds), each
+    rounded up to the grid of 4."""
+    assert spatial.receptive_radius(model.res_conv) == 5
+    assert spatial.receptive_radius(model.amt_final_decoder.convblock) == 17
+    assert spatial.receptive_radius(model.amt_comb_block) == 6
+    assert spatial.halos(model, ds) == want
+
+
+@pytest.mark.parametrize("width,world", [(256, 2), (144, 3), (1024, 4), (136, 3), (16, 4)])
+def test_strips_cover_the_width_on_the_grid(width, world):
+    strips = spatial.strip_bounds(width, world)
+    assert len(strips) == world and strips[0][0] == 0 and strips[-1][1] == width
+    assert all(a % 4 == 0 and a < b for a, b in strips)
+    assert all(x[1] == y[0] for x, y in zip(strips, strips[1:]))
+    sizes = [b - a for a, b in strips]
+    assert max(sizes) - min(sizes) <= 4
+
+
+def test_strips_refuse_a_width_off_the_grid():
+    with pytest.raises(ValueError):
+        spatial.strip_bounds(130, 2)
+
+
+def test_two_ranks_match_one_process(model, ranks):
+    r0, r1 = ranks["r"]
+    for k in ("imgt_pred", "flowt"):
+        assert torch.equal(r0[k], r1[k])  # every rank has the whole result
+    ref = _sequential(model, _frames(TWO, 1))
+    assert r0["imgt_pred"].shape == ref["imgt_pred"].shape == (2, 1, *TWO, 3)
+    assert _max_abs(r0["imgt_pred"], ref["imgt_pred"]) <= 1e-5
+    assert _max_abs(r0["flowt"], ref["flowt"]) <= 1e-5
+
+
+def test_two_ranks_match_jax_sharded(variables, ranks, record_property):
+    got = ranks["r"][0]["imgt_pred"].numpy()
+    ref = _jax_sharded(variables, _frames(TWO, 1), 2)["imgt_pred"]
+    db = _psnr(got, ref)
+    record_property("imgt_pred_psnr_db", db)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-4)
+    assert db >= 60.0
+
+
+def test_three_ranks_pad_crop_and_match_jax(model, variables, ranks, record_property):
+    got = ranks["r3"][0]
+    assert got["imgt_pred"].shape == (2, 1, *THREE, 3)
+    assert got["flowt"].shape == (2, 1, *THREE, 2)
+    ref = _sequential(model, _frames(THREE, 3), pad=16)  # 128 -> 144
+    assert _max_abs(got["imgt_pred"], ref["imgt_pred"]) <= 1e-5
+    assert _max_abs(got["flowt"], ref["flowt"]) <= 1e-5
+    jref = _jax_sharded(variables, _frames(THREE, 3), 3)
+    assert jref["imgt_pred"].shape == tuple(got["imgt_pred"].shape)
+    db = _psnr(got["imgt_pred"].numpy(), jref["imgt_pred"])
+    record_property("imgt_pred_psnr_db", db)
+    np.testing.assert_allclose(got["imgt_pred"].numpy(), jref["imgt_pred"], atol=2e-5, rtol=1e-4)
+    assert db >= 60.0
+
+
+def test_f_on_two_ranks_matches_one_process(f_model, ranks):
+    got = ranks["f"][0]
+    ref = _sequential(f_model, _frames(F_HW, 2))
+    assert got["imgt_pred"].shape == ref["imgt_pred"].shape
+    assert _max_abs(got["imgt_pred"], ref["imgt_pred"]) <= 1e-5
+    assert _max_abs(got["flowt"], ref["flowt"]) <= 1e-5
+
+
+def test_one_rank_without_a_group_is_sequential_on_the_padded_pair(model):
+    img = _frames((128, 132), 4)  # W 132 -> 136, a multiple of lcm(1, 8)
+    got = spatial.interpolate_spatial_sharded(model, torch.from_numpy(img), T_VALUES)
+    ref = _sequential(model, img, pad=4)
+    assert got["imgt_pred"].shape == (2, 1, 128, 132, 3) and got["flowt"].shape == (2, 1, 128, 132, 2)
+    assert all(torch.equal(got[k], ref[k]) for k in ("imgt_pred", "flowt"))
