@@ -6,36 +6,47 @@ its bench entry, its two probe entry points, its serving entry points
 training and stage-2 GIMM-VFI training (each recipe's step and the train
 CLI), data-parallel training (the step under a process group, two ranks
 against one process, the CLI under torchrun) and spatial sharding (one
-pair's decode split by width over two ranks) once on one CUDA card.
+pair's RAFT and decode split by width over two ranks) once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
-  2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat.cu,
-     softsplat_bwd.cu, windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
+  2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat_sorted.cu,
+     softsplat.cu, softsplat_bwd.cu, windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
      conv3x3.cu, gather_probe.cu) all at once, one nvcc each; counts the
      HMMA (tensor-core) instructions in the SASS of windowed_corr_mma and
      windowed_corr_tf32 (`cuobjdump -sass`) and fails on none; prints the
      shared memory a block and the blocks an SM of windowed_corr_tf32 at
      C = 256, from its library;
-  3. the splat kernel against its plain PyTorch version on the card, float32,
+  3. the atomic splat kernel (`csrc/softsplat.cu`, on no route) against its
+     plain PyTorch version on the card, float32,
      in every case of `tools/splat_ablate.py: CHECK_CASES` (the main path's
      (1,736,1280,17) on a random, a smooth and a non-finite/far flow field;
      C in {1, 3, 5, 17, 33, 64}; N = 2; value counts off a multiple of 4);
      times it at 720p on the random and the smooth field, beside its
      PyTorch yardstick (`aten.grid_sampler_2d_backward`'s input gradient
      on NCHW views, `tools/splat_ablate.py: library_calls`), held to the
-     plain version first (1e-4 x max(1, max|plain|));
+     plain version first (1e-4 x max(1, max|plain|)); then the
+     deterministic splat (`csrc/softsplat_sorted.cu`, the route of every
+     path) in the same cases and at stage-1 training's (32,256,256,17):
+     the same bound, two calls bitwise equal, its distance to its order in
+     plain torch (`splat_sum_sorted_plain`); its whole call (keys, sort,
+     segments, gather) and its own kernels timed at 720p on both fields and
+     at (32,256,256,17) beside the atomic kernel and the yardstick; the
+     route's rule (at most 0.55 ms of device time over the atomic call at
+     720p) printed;
   4. GIMMVFI_R(raft_iters=2) float32 at 128x192 on the card (kernel) against
      the CPU (plain core), same seeded weights, TF32 off: PSNR >= 50 dB;
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
      736x1280 pair, 7 timesteps through interpolate_sequential; checks shape,
-     finiteness, range, exactly 14 splat launches and no windowed-correlation
+     finiteness, range, exactly 14 sorted-splat launches, none of the atomic
+     splat and no windowed-correlation
      launch (the 720p volumes fit under the 2 GiB limit); prints fps, stage ms
      and peak memory from CUDA events after one warm-up; then reads the
-     splat where it runs: its device time in a trace of one decode_one, and
-     the kernel timed alone on the two inputs that decode_one gave it;
+     splat where it runs: its own kernels' device time in a trace of one
+     decode_one, and its call timed alone on the two inputs that decode_one
+     gave it, beside the atomic kernel's;
   6. the probes: the conv kernel against its plain version at the probe
      shape (1,736,1280,256) and six ragged shapes, each gather kernel
      against its plain version at its probe shape and with out-of-range
@@ -197,12 +208,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      broadcast), each case against `interpolate_sequential` in this
      process on the same seeded weights and pair, 7 timesteps: (a)
      GIMMVFI_R(raft_iters=20, dtype=bfloat16) at 2048x1088 DS 1.0, >= 50
-     dB, exactly 14 splat and 34 `windowed_corr_mma` launches a rank; (b)
+     dB, exactly 14 splat and 34 `windowed_corr_mma` launches a rank (RAFT's
+     20 on each rank's query strip: `prepare_sharded` runs RAFT on a strip
+     a rank); (b)
      the same at 4096x2176 DS 0.25, >= 50 dB, 14 and 0; (c)
      GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs, 14 and
-     0; the ranks' results bitwise equal, the peak a rank beside the
-     single process's, each call's seconds (two ranks share the card: no
-     speed figure).
+     0, one process against itself printed; the ranks' results bitwise
+     equal, RAFT's route, the peak a rank beside the single process's,
+     each call's seconds and a `prepare_sharded`'s beside one process's
+     `prepare` (two ranks share the card: no speed figure).
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -214,12 +228,13 @@ counts are set to 0 just before each path (5, the probes of 6, each path
 of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
 and each CLI call of 11 and of 12, the counted step of 13 (a), each
 case of 14 in this process and on each rank) and read just after it;
-the splat's and the
+the sorted splat's and the
 3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`),
-the splat backward's `launches` are those of the counted recipe step; both
-splat records carry their phase 12 and phase 13 (a) steps' counts
-(`launches_phase12_step`, `launches_phase13_step`); the splat's and the
-bf16 tensor-core lookup's records carry each rank's phase 14 counts
+the splat backward's `launches` are those of the counted recipe step; the
+sorted splat's and the backward's records carry their phase 12 and phase
+13 (a) steps' counts (`launches_phase12_step`, `launches_phase13_step`);
+the atomic splat's `launches` are 0 (asserted on every path); the sorted
+splat's and the bf16 tensor-core lookup's records carry each rank's phase 14 counts
 (`launches_phase14`).
 The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
@@ -272,8 +287,10 @@ from gimmvfi_tpu_torch.parallel import spatial
 from gimmvfi_tpu_torch.ops.softsplat import (
     SPLAT_BACKWARD_KERNEL,
     SPLAT_KERNEL,
+    SPLAT_SORTED_KERNEL,
     splat_sum_backward_plain,
     splat_sum_plain,
+    splat_sum_sorted_plain,
 )
 from gimmvfi_tpu_torch.tools import conv_proto, gather_ablate, gather_cost_probe
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
@@ -334,7 +351,7 @@ H, W = 736, 1280
 N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
-KERNELS = [SPLAT_KERNEL, SPLAT_BACKWARD_KERNEL, WINDOWED_CORR_MMA_KERNEL,
+KERNELS = [SPLAT_SORTED_KERNEL, SPLAT_KERNEL, SPLAT_BACKWARD_KERNEL, WINDOWED_CORR_MMA_KERNEL,
            WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
@@ -458,16 +475,101 @@ def check_kernel() -> dict:
     return stats
 
 
+def sorted_rows(by_name: dict) -> float | None:
+    """The sorted splat's own kernels (keys, segments, gather) in a
+    `device_ms` reading, summed; None where the trace holds none."""
+    rows = [v for k, v in by_name.items() if "splat_sorted_" in k]
+    return sum(rows) if rows else None
+
+
+def sorted_reading(vals, flow, label: str) -> dict:
+    """The sorted splat on these inputs: its whole call (keys, sort,
+    segments, gather, allocations) by events and by device time, its own
+    three kernels' device time, beside the atomic kernel's call in the same
+    run; the plain version and the bound."""
+    ms = cuda_ms(lambda: SPLAT_SORTED_KERNEL(vals, flow), warmup=3)
+    dev_ms, by_name = device_ms(lambda: SPLAT_SORTED_KERNEL(vals, flow))
+    own = sorted_rows(by_name)
+    atomic_ms = cuda_ms(lambda: SPLAT_KERNEL(vals, flow), warmup=3)
+    atomic_dev, atomic_rows = device_ms(lambda: SPLAT_KERNEL(vals, flow))
+    atomic_own = kernel_row(atomic_rows, "splat_sum_kernel")
+    plain_ms = cuda_ms(lambda: splat_sum_plain(vals, flow), iters=5)
+    bound, bound_by = splat_bound(vals)
+    print(f"{label}: sorted kernel's call {ms:.4f} ms by events, device {fmt_ms(dev_ms)} "
+          f"({fmt_share(bound, dev_ms)}), its own kernels {fmt_ms(own)}; the atomic kernel's "
+          f"call {atomic_ms:.4f} ms by events, device {fmt_ms(atomic_dev)}, kernel "
+          f"{fmt_ms(atomic_own)}; plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}) "
+          f"[{'; '.join(f'{k[:60]} {v:.4f}' for k, v in by_name.items())}]", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "kernel_device_ms": own, "atomic_ms": atomic_ms,
+            "atomic_device_ms": atomic_dev, "atomic_kernel_device_ms": atomic_own,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+
+SORTED_ROUTE_MS = 0.55  # the most the sorted call may add to the atomic one, device ms
+
+
+def check_sorted_kernel() -> dict:
+    """Phase 3, the deterministic splat (`csrc/softsplat_sorted.cu`, the
+    route of every path): in every case of `CHECK_CASES` and at stage-1
+    training's `TRAIN_SPLAT`, against the plain version (1e-5 x max(1,
+    max|plain|)), two calls bitwise equal, and its distance to its order in
+    plain torch (`splat_sum_sorted_plain`) printed; then timed at the main
+    path's shape on the random and the smooth field and at `TRAIN_SPLAT`,
+    each beside the atomic kernel and the yardstick, and the route's rule
+    (its whole call at most `SORTED_ROUTE_MS` over the atomic one, device
+    time, at the main shape) printed."""
+    worst = order_gap = 0.0
+    for i, (shape, field, std) in enumerate(CHECK_CASES + [(TRAIN_SPLAT, "random", TRAIN_STD)]):
+        vals, flow = splat_inputs(shape, field, std, seed=SEED + i)
+        got = SPLAT_SORTED_KERNEL(vals, flow)
+        again = SPLAT_SORTED_KERNEL(vals, flow)
+        ref = splat_sum_plain(vals, flow)
+        order = splat_sum_sorted_plain(vals, flow)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        gap = float((got - order).abs().max())
+        ok, bound = kernel_bound_ok(err, ref)
+        same = torch.equal(got, again)
+        print(f"[3] sorted splat {shape} {field} flow std {std}: max_abs_err={err:.3e} (bound "
+              f"{bound:.3e}); two calls bitwise equal: {same}; against its order in plain torch "
+              f"{gap:.3e}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"the sorted splat at {shape} {field}: {err:.3e} off the plain "
+                                 f"version, two calls equal: {same}")
+        worst, order_gap = max(worst, err), max(order_gap, gap)
+    stats = {"max_abs_err": worst, "order_max_abs_err": order_gap, "deterministic": True,
+             "tolerance": "1e-5 max(1, max|plain|)"}
+    for shape, field, std in ((MAIN_SHAPE, "random", 20.0), (MAIN_SHAPE, "smooth", 20.0),
+                              (TRAIN_SPLAT, "random", TRAIN_STD)):
+        vals, flow = splat_inputs(shape, field, std, seed=SEED)
+        label = f"[3] sorted splat {shape} {field} flow std {std:g}"
+        reading = sorted_reading(vals, flow, label)
+        lib = yardstick_readings(vals, flow, label=label)["forward"]
+        reading.update(library_ms=lib["ms"], library_device_ms=lib["device_ms"])
+        key = ("" if shape == MAIN_SHAPE and field == "random"
+               else "smooth_" if shape == MAIN_SHAPE else "train_shape_")
+        stats.update({f"{key}{k}": v for k, v in reading.items()})
+        del vals, flow
+    dev, atomic = stats["device_ms"], stats["atomic_device_ms"]
+    stats["route_rule"] = (None if dev is None or atomic is None
+                           else dev - atomic <= SORTED_ROUTE_MS)
+    print(f"[3] the route's rule at {MAIN_SHAPE}, random flow: the sorted call {fmt_ms(dev)} "
+          f"against the atomic call {fmt_ms(atomic)} + {SORTED_ROUTE_MS} ms (device): "
+          + ("not measured" if stats["route_rule"] is None
+             else "met" if stats["route_rule"] else "missed"), flush=True)
+    return stats
+
+
 class SplatRecorder:
-    """Stands in for the splat kernel in `ops.softsplat` and keeps a copy of
-    each input it is given."""
+    """Stands in for the splat kernel of the route in `ops.softsplat` and
+    keeps a copy of each input it is given."""
 
     def __init__(self):
         self.inputs = []
 
     def __call__(self, vals, flow):
         self.inputs.append((vals.clone(), flow.clone()))
-        return SPLAT_KERNEL(vals, flow)
+        return SPLAT_SORTED_KERNEL(vals, flow)
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -531,8 +633,9 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     out = interpolate_sequential(model, img_xs, ts, ds_factor)
     end.record()
     end.synchronize()
-    splats, wins = SPLAT_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
+    splats, wins = SPLAT_SORTED_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
     tf32, cuda_core = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_KERNEL.launches
+    atomic = SPLAT_KERNEL.launches
     total_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated()
 
@@ -547,10 +650,11 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     if not (lo >= 0.0 and hi <= 1.0):
         raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
     if (splats != 2 * len(ts) or wins != windowed_expected or tf32 != tf32_expected
-            or cuda_core != 0):
+            or cuda_core != 0 or atomic != 0):
         raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma, {tf32} "
-                             f"windowed_corr_tf32 and {cuda_core} windowed_corr launches, expected "
-                             f"{2 * len(ts)}, {windowed_expected}, {tf32_expected} and 0")
+                             f"windowed_corr_tf32, {cuda_core} windowed_corr and {atomic} atomic "
+                             f"splat launches, expected {2 * len(ts)}, {windowed_expected}, "
+                             f"{tf32_expected}, 0 and 0")
     del out, imgs, flows
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
@@ -595,24 +699,26 @@ def run_main_path() -> tuple[int, dict]:
     with torch.inference_mode():
         _, by_name = device_ms(lambda: model.decode_one(prep, ts[N_T // 2]), iters=3)
         recorder = SplatRecorder()
-        softsplat_ops.SPLAT_KERNEL = recorder
+        softsplat_ops.SPLAT_SORTED_KERNEL = recorder
         try:
             model.decode_one(prep, ts[N_T // 2])
         finally:
-            softsplat_ops.SPLAT_KERNEL = SPLAT_KERNEL
-    row = kernel_row(by_name, "splat_sum_kernel")
+            softsplat_ops.SPLAT_SORTED_KERNEL = SPLAT_SORTED_KERNEL
+    row = sorted_rows(by_name)
     in_situ = None if row is None else row / 2
-    readings = [splat_reading(vals, flow, f"[5] splat on the main path's input {k} "
-                                          f"{tuple(vals.shape)} at t={ts[N_T // 2]}")
+    readings = [sorted_reading(vals, flow, f"[5] sorted splat on the main path's input {k} "
+                                           f"{tuple(vals.shape)} at t={ts[N_T // 2]}")
                 for k, (vals, flow) in enumerate(recorder.inputs)]
     if len(readings) != 2 or any(tuple(v.shape) != MAIN_SHAPE for v, _ in recorder.inputs):
         raise AssertionError(f"decode_one gave the splat {[tuple(v.shape) for v, _ in recorder.inputs]}")
     splat = {"main_path_in_situ_device_ms": in_situ}
-    for key in ("ms", "kernel_device_ms", "plain_ms"):
+    for key in ("ms", "device_ms", "kernel_device_ms", "plain_ms", "atomic_ms",
+                "atomic_kernel_device_ms"):
         values = [r[key] for r in readings]
         splat[f"main_path_{key}"] = None if None in values else statistics.mean(values)
-    print(f"[5] splat inside decode_one: device {fmt_ms(in_situ)} a launch "
-          f"({fmt_share(readings[0]['bound_ms'], in_situ)})", flush=True)
+    print(f"[5] the sorted splat's own kernels inside decode_one: device {fmt_ms(in_situ)} a "
+          f"launch ({fmt_share(readings[0]['bound_ms'], in_situ)}; its sort not counted)",
+          flush=True)
     print(f"[5] main path bf16 {H}x{W} 8x: {path_lines(5, res)}", flush=True)
     return res["splat_launches"], splat
 
@@ -1087,17 +1193,19 @@ X4K_HW = (2160, 4096)
 
 
 def counts() -> dict:
-    return {"splat": SPLAT_KERNEL.launches, "splat_bwd": SPLAT_BACKWARD_KERNEL.launches,
+    return {"splat": SPLAT_SORTED_KERNEL.launches, "splat_atomic": SPLAT_KERNEL.launches,
+            "splat_bwd": SPLAT_BACKWARD_KERNEL.launches,
             "tf32": WINDOWED_CORR_TF32_KERNEL.launches,
             "mma": WINDOWED_CORR_MMA_KERNEL.launches, "cuda_core": WINDOWED_CORR_KERNEL.launches}
 
 
 def expect_counts(label: str, got: dict, splat: int, tf32: int = 0, splat_bwd: int = 0,
                   phase: int = 10):
-    """Exact launch counts of a phase 10 or 11 path: `splat` splats,
-    `splat_bwd` splat backwards, `tf32` float32 windowed lookups, no bf16
-    or CUDA-core lookup."""
-    want = {"splat": splat, "splat_bwd": splat_bwd, "tf32": tf32, "mma": 0, "cuda_core": 0}
+    """Exact launch counts of a phase 10 or 11 path: `splat` sorted splats,
+    `splat_bwd` splat backwards, `tf32` float32 windowed lookups, no atomic
+    splat, no bf16 or CUDA-core lookup."""
+    want = {"splat": splat, "splat_atomic": 0, "splat_bwd": splat_bwd, "tf32": tf32, "mma": 0,
+            "cuda_core": 0}
     if got != want:
         raise AssertionError(f"[{phase}] {label}: launches {got}, expected {want}")
 
@@ -1181,11 +1289,12 @@ def run_video_cli(smi: str) -> dict:
     the card, counts from 0: 2 pairs, 1 + 2 x 8 frames, 28 splats and
     2 x 34 float32 windowed lookups. Then, on a model loaded from the same
     checkpoint, the first pair through `interpolate_pair` against
-    `interpolate_sequential` on inputs padded here (<= 1e-5 max-abs: two
-    runs differ by the order in which the splat's float atomics add), the
-    CLI's frames of that pair against the latter's quantized (<= 1 level),
-    and the inputs of the pair's first RAFT and first AMT lookup, captured,
-    against the plain version."""
+    `interpolate_sequential` on inputs padded here (<= 1e-5 max-abs, the
+    bound kept from the atomic splat's run-to-run order; one process
+    against itself printed beside it), the CLI's frames of that pair
+    against the latter's quantized (<= 1 level), and the inputs of the
+    pair's first RAFT and first AMT lookup, captured, against the plain
+    version."""
     src = WORK / "video_frames"
     src.mkdir(parents=True)
     for i, frame in enumerate(seeded_frames(VIDEO_HW, 3, SEED + 4)):
@@ -1239,16 +1348,20 @@ def run_video_cli(smi: str) -> dict:
         corr_ops.WINDOWED_CORR_TF32_KERNEL = WINDOWED_CORR_TF32_KERNEL
     padder = InputPadder(VIDEO_HW, 32)
     xs = padder.pad(torch.from_numpy(np.stack([i0, i1])).permute(0, 3, 1, 2))
-    ref = interpolate_sequential(model, xs.permute(0, 2, 3, 1)[None].cuda(),
-                                 [i / VIDEO_N for i in range(1, VIDEO_N)])["imgt_pred"][:, 0]
-    ref = padder.unpad(ref.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).cpu().numpy()
+    ref, again = (interpolate_sequential(model, xs.permute(0, 2, 3, 1)[None].cuda(),
+                                         [i / VIDEO_N for i in range(1, VIDEO_N)])["imgt_pred"]
+                  for _ in range(2))
+    rerun_err = float((again - ref).abs().max())
+    del again
+    ref = padder.unpad(ref[:, 0].permute(0, 3, 1, 2)).permute(0, 2, 3, 1).cpu().numpy()
     pair = np.stack(pair)
     pair_err, pair_db = float(np.abs(pair - ref).max()), psnr(torch.from_numpy(pair), torch.from_numpy(ref))
     cli_frames = np.stack([f[:, VIDEO_HW[1]:] for f in res["frames"][1:VIDEO_N]])
     levels = int(np.abs(cli_frames.astype(np.int16) - (np.clip(ref, 0, 1) * 255).astype(np.uint8)
                         ).max())
     print(f"[10] (b) the first pair: interpolate_pair vs interpolate_sequential on inputs padded "
-          f"here: max_abs_err {pair_err:.3e}, {pair_db:.2f} dB; "
+          f"here: max_abs_err {pair_err:.3e}, {pair_db:.2f} dB (one process against itself: "
+          f"{rerun_err:.3e}); "
           f"the CLI's frames vs the latter quantized: {levels} level(s) apart; "
           f"{recorder.calls} float32 windowed lookups", flush=True)
     if not (pair_err <= 1e-5 and levels <= 1 and recorder.calls == f32_windowed_720p(n_t)):
@@ -1268,7 +1381,8 @@ def run_video_cli(smi: str) -> dict:
     del recorder
     torch.cuda.empty_cache()
     return {"pair_ms": res["pair_ms"], "total_s": total_s, "peak_bytes": peak,
-            "launches": got, "pair_err": pair_err, "lookup_max_abs_err": lookup_err, "ckpt": ckpt}
+            "launches": got, "pair_err": pair_err, "rerun_err": rerun_err,
+            "lookup_max_abs_err": lookup_err, "ckpt": ckpt}
 
 
 def harness(argv: list[str]) -> tuple[dict, dict, float]:
@@ -1539,7 +1653,7 @@ def run_recipe_step(smi: str) -> dict:
     if not (all(math.isfinite(x) for x in losses) and moved > 0):
         raise AssertionError(f"[11] (b) losses {losses}, largest parameter move {moved}")
     step_dev, rows = device_ms(one, iters=1, warmup=0)
-    fwd = kernel_row(rows, "splat_sum_kernel")
+    fwd = sorted_rows(rows)
     bwd = kernel_row(rows, "splat_sum_bwd_kernel")
     med = statistics.median(times)
     splat_dev = None if fwd is None or bwd is None else fwd + bwd
@@ -1867,7 +1981,7 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
                              f"largest moves {moved}")
     step_dev, rows = (device_ms(lambda: step(state, batch), iters=1, warmup=0) if trace
                       else (None, {}))
-    fwd = kernel_row(rows, "splat_sum_kernel")
+    fwd = sorted_rows(rows)
     bwd = kernel_row(rows, "splat_sum_bwd_kernel")
     med = statistics.median(times)
     nccl = {k: v for k, v in rows.items() if "nccl" in k.lower()}
@@ -2318,14 +2432,26 @@ def run_phase13(smi: str, stage1_ckpt: str, p12: dict) -> dict:
 WORK14 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase14"
 SPATIAL_WORLD = 2  # gloo ranks on the one card
 # (label, GIMMVFI_R keywords, (H, W), ds_factor, the least PSNR against one
-# process or None, the most max-abs or None, launches a rank: splat,
-# windowed_corr_mma, windowed_corr_tf32)
+# process or None, the most max-abs or None, launches a rank: sorted splat,
+# windowed_corr_mma, windowed_corr_tf32). (a)'s 34 lookups: RAFT's 20 on the
+# rank's query strip, windowed because the whole pair's volume is over the
+# limit, and the AMT's 14 on the whole frame
 SPATIAL_CASES = [
     ("a", {"raft_iters": 20, "dtype": torch.bfloat16}, (1088, 2048), 1.0, 50.0, None, (14, 34, 0)),
     ("b", {"raft_iters": 20, "dtype": torch.bfloat16}, (2176, 4096), 0.25, 50.0, None, (14, 0, 0)),
     ("c", {"raft_iters": 2}, (256, 512), None, None, 1e-5, (14, 0, 0)),
 ]
-SPATIAL_KERNELS = (SPLAT_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL)
+SPATIAL_KERNELS = (SPLAT_SORTED_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL)
+
+
+def raft_route(model, hw, ds) -> str:
+    """RAFT's correlation route at this frame size, from the whole pair's
+    volume as `RAFT.forward` and `forward_sharded` decide it."""
+    h, w = (int(x * (ds or 1)) // 8 for x in hw)
+    fmap = torch.empty(1, 256, h, w, dtype=model.dtype or torch.float32, device="meta")
+    raft = model.flow_estimator
+    return ("windowed" if 2 * corr_ops.volume_bytes(fmap, fmap) > raft.corr_max_volume_bytes
+            else "materialized")
 
 
 def spatial_references(device="cuda") -> tuple[list[dict], list[dict]]:
@@ -2352,7 +2478,13 @@ def spatial_references(device="cuda") -> tuple[list[dict], list[dict]]:
         if got != want:
             raise AssertionError(f"[14] ({label}) one process: launches {got}, expected {want}")
         refs.append({"imgt_pred": out["imgt_pred"].cpu(), "flowt": out["flowt"].cpu(),
-                     "peak_bytes": torch.cuda.max_memory_allocated(), "seconds": seconds})
+                     "peak_bytes": torch.cuda.max_memory_allocated(), "seconds": seconds,
+                     "route": raft_route(model, hw, ds)})
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            model.prepare(img, ds)
+            torch.cuda.synchronize()
+            refs[-1]["prepare_seconds"] = time.perf_counter() - t0
         if max_err is not None:
             again = interpolate_sequential(model, img, ts, ds)["imgt_pred"].cpu()
             refs[-1]["rerun_max_abs_err"] = float((again - refs[-1]["imgt_pred"]).abs().max())
@@ -2367,10 +2499,14 @@ def spatial_references(device="cuda") -> tuple[list[dict], list[dict]]:
 def run_phase14(smi: str, device="cuda:0") -> dict:
     """Phase 14: spatial sharding (`parallel/spatial.py`) on `SPATIAL_WORLD`
     gloo ranks on the one card (`spawn_ranks`; NCCL refuses two ranks on
-    one device), each case against one process on the same weights and
-    pair: (a) 2048x1088 DS 1.0 bf16, (b) 4096x2176 DS 0.25 bf16, both >= 50
-    dB, (c) GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs;
-    the ranks' results bitwise equal, exact launches a rank, the peaks."""
+    one device), RAFT's part of `prepare` sharded too (`prepare_sharded`),
+    each case against one process on the same weights and pair: (a)
+    2048x1088 DS 1.0 bf16, (b) 4096x2176 DS 0.25 bf16, both >= 50 dB, (c)
+    GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs, one
+    process against itself printed beside it; the ranks' results bitwise
+    equal, exact launches a rank, RAFT's route, the peaks, and the seconds
+    of a `prepare_sharded` alone on each rank beside one process's
+    `prepare` (two ranks share the card: no speed figure)."""
     t_phase = time.perf_counter()
     shutil.rmtree(WORK14, ignore_errors=True)
     WORK14.mkdir(parents=True)
@@ -2408,8 +2544,11 @@ def run_phase14(smi: str, device="cuda:0") -> dict:
                                  f"against one process > {max_err}")
         peaks = [rk[i]["peak_bytes"] for rk in ranks]
         rerun = ref.get("rerun_max_abs_err")
+        prep_s = [rk[i]["prepare_seconds"] for rk in ranks]
         res[label] = {"db": db, "max_abs_err": err, "flowt_max_abs_err": flow_err,
-                      "one_process_rerun_max_abs_err": rerun,
+                      "one_process_rerun_max_abs_err": rerun, "raft_route": ref["route"],
+                      "prepare_sharded_seconds": prep_s,
+                      "one_process_prepare_seconds": ref["prepare_seconds"],
                       "launches": [dict(zip((k.name for k in SPATIAL_KERNELS), x)) for x in launches],
                       "peak_bytes": peaks, "one_process_peak_bytes": ref["peak_bytes"],
                       "seconds": [rk[i]["seconds"] for rk in ranks],
@@ -2419,8 +2558,10 @@ def run_phase14(smi: str, device="cuda:0") -> dict:
               f"one process: imgt_pred {db:.2f} dB, max-abs {err:.3e}, flowt max-abs "
               f"{flow_err:.3e}"
               + ("" if rerun is None else f" (one process against itself: {rerun:.3e})")
-              + f"; ranks bitwise equal; launches a rank (splat, windowed_corr_mma, "
-              f"windowed_corr_tf32) {launches}; peak a rank "
+              + f"; ranks bitwise equal; launches a rank (sorted splat, windowed_corr_mma, "
+              f"windowed_corr_tf32) {launches}, RAFT {ref['route']} on each rank's strip; "
+              f"prepare_sharded {', '.join(f'{1e3 * x:.2f}' for x in prep_s)} ms a rank against "
+              f"one process's prepare {1e3 * ref['prepare_seconds']:.2f} ms; peak a rank "
               f"{', '.join(f'{p / 2**20:.1f}' for p in peaks)} MiB against one process's "
               f"{ref['peak_bytes'] / 2**20:.1f} MiB; the call {', '.join(f'{x:.2f}' for x in res[label]['seconds'])} "
               f"s a rank against {ref['seconds']:.2f} s (two ranks share the card: no speed "
@@ -2438,6 +2579,7 @@ def main():
     smi = check_card()
     build_kernels()
     kstats = check_kernel()
+    sstats = check_sorted_kernel()
     check_small_e2e()
     splat_launches, main_splat = run_main_path()
     torch.cuda.empty_cache()
@@ -2481,7 +2623,7 @@ def main():
     p14 = run_phase14(smi)
     p14_launches = {key: {label: [x[key] for x in p14[label]["launches"]]
                           for label, *_ in SPATIAL_CASES}
-                    for key in (SPLAT_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name)}
+                    for key in (SPLAT_SORTED_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name)}
     # each kernel's launches on the phase 10 paths, each counted from 0
     p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
         "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
@@ -2508,13 +2650,18 @@ def main():
 
     lk = f720["lookup"]
     records = [
-        record(SPLAT_KERNEL, splat_launches, **kstats, **main_splat,
+        # the route of every path: the deterministic splat
+        record(SPLAT_SORTED_KERNEL, splat_launches, **sstats, **main_splat,
                launches_phase10=p10_launches["splat"],
                launches_phase11_step=p11["step"]["launches"]["splat"],
                launches_phase12_step=p12["step"]["launches"]["splat"],
                launches_phase13_step=p13["step"]["launches"]["splat"],
-               launches_phase14=p14_launches[SPLAT_KERNEL.name],
-               phase12_step_device_ms=p12["step"]["splat_fwd_device_ms"],
+               launches_phase14=p14_launches[SPLAT_SORTED_KERNEL.name],
+               phase11_step_device_ms=p11["step"]["splat_fwd_device_ms"],
+               phase12_step_device_ms=p12["step"]["splat_fwd_device_ms"]),
+        # the atomic splat, on no route (0 launches on every path, asserted):
+        # its times in phase 3 and at stage-1 training's shape (phase 11 (a))
+        record(SPLAT_KERNEL, 0, **kstats,
                train_shape_ms=p11["backward"]["forward_ms"],
                train_shape_device_ms=p11["backward"]["forward_device_ms"],
                train_shape_bound_ms=p11["backward"]["forward_bound_ms"],

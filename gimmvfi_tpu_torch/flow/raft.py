@@ -5,17 +5,36 @@ Module and parameter names follow the reference RAFT state dict
 loop; the upsample-mask head runs once on the final hidden state. `train`
 switches `cnet`'s BatchNorm to batch statistics (stage-2 training); every
 other path keeps the running ones.
+
+`RAFT.forward_sharded` is the bidirectional inference pass with the width
+split over the ranks of a process group (`parallel/spatial.py`): the
+encoders on a window of each rank's strip of 1/8-scale columns, the
+correlation state of the strip's queries against the whole second map,
+the update loop on the strip with a halo exchange an iteration, and the
+convex upsample on the strip; the results are gathered whole.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import BatchNorm2d, Conv2d, GemmConv2d, InstanceNorm, conv
+from ..nn.layers import (
+    BatchNorm2d,
+    ColumnShard,
+    Conv2d,
+    GemmConv2d,
+    InstanceNorm,
+    conv,
+    instance_norm_shard,
+    receptive_radius,
+    strided_reach,
+)
 from ..ops import corr as corr_ops
 from ..ops.coords import coords_grid
+from ..parallel import dist as dist_ops
 
 
 def _norm(norm_fn: str, planes: int, dtype) -> nn.Module:
@@ -237,3 +256,109 @@ class RAFT(nn.Module):
 
         flow_up = convex_upsample_8x(coords1 - coords0, self.update_block.upsample_mask(net))
         return flow_up, feats, fmaps
+
+    def halos(self) -> tuple[int, int, int]:
+        """The halos of `forward_sharded`, in 1/8-scale columns, from the
+        modules: (encoders, one loop iteration, the upsample).
+          * The encoders: the larger strided reach (`strided_reach`: k // 2
+            times the strides before each conv, 53 input columns) over
+            their stride of 8, rounded up: 7.
+          * An iteration reads the hidden state, the context and the
+            coordinates; its lookup is pointwise in the query, so its reach
+            is the sum of k // 2 over the motion encoder's, the GRU's and
+            the flow head's convs: 6 + 6 + 2 = 14.
+          * The upsample: the mask head's 3x3 conv over the hidden state and
+            the 3x3 unfold of the flow each read 1."""
+        enc = max(-(-reach // stride) for reach, stride in (strided_reach(self.fnet),
+                                                              strided_reach(self.cnet)))
+        ub = self.update_block
+        it = (receptive_radius(ub.encoder) + receptive_radius(ub.gru)
+              + receptive_radius(ub.flow_head))
+        return enc, it, max(1, receptive_radius(ub.mask))
+
+    def forward_sharded(self, image1, image2, strips: list[tuple[int, int]], group=None,
+                        halos: tuple[int, int, int] | None = None):
+        """`forward(image1, image2)` (both directions, running statistics)
+        with the width split over the ranks of `group` (the default group
+        if None): `strips` are every rank's columns [a, b) at 1/8 scale, in
+        rank order, tiling W / 8. Every rank passes the whole pair; each
+        returns `forward`'s results, whole, equal to one process's up to
+        float rounding. On this rank, with `halos` (`RAFT.halos()` if None)
+        (enc, it, up) in 1/8 columns:
+          1. fnet and cnet on the input columns 8 x [a - enc, b + enc),
+             clipped to the frame; fnet's instance norms take the whole
+             frame's statistics (`instance_norm_shard`); the feature map and
+             cnet's two feature maps are cropped to the strip and gathered
+             whole (`dist.gather_disjoint`);
+          2. the correlation state of the queries [a - it, b + it) against
+             the whole other map; whether it is materialized or windowed
+             depends on the whole pair's volume, as in `forward`;
+          3. each iteration: the hidden state and the coordinates of the
+             strip widened by `it` (`dist.exchange_halo`, one all-reduce),
+             the lookup and the update block on that window, cropped back;
+          4. the mask head and the convex upsample on the strip widened by
+             `up`, cropped and gathered whole.
+        Windows clipped at the frame's edge pad there as the frame does. H
+        and W must be multiples of 8. Without a group, `strips` is one
+        strip and this is `forward`."""
+        if not dist_ops.group_up():
+            return self(image1, image2)
+        rank = dist.get_rank(group)
+        n, _, h, w = image1.shape
+        w8 = w // 8
+        if h % 8 or w % 8 or strips[-1][1] != w8 or strips[0][0] != 0:
+            raise ValueError(f"the strips {strips} do not tile the 1/8-scale width of a "
+                             f"{h}x{w} frame (a multiple of 8 a side)")
+        a, b = strips[rank]
+        enc, it, up = self.halos() if halos is None else halos
+        dev = image1.device
+        images = torch.cat([2 * (image1 / 255.0) - 1.0, 2 * (image2 / 255.0) - 1.0], dim=0)
+        lo, hi = max(0, a - enc), min(w8, b + enc)
+        x = images[..., 8 * lo:8 * hi]
+        with instance_norm_shard(ColumnShard(8 * lo, 8 * hi, 8 * a, 8 * b, w, group)):
+            fmaps, _ = self.fnet(x)
+        own = slice(a - lo, b - lo)
+
+        def gather(part, scale):
+            return dist_ops.gather_disjoint(part, scale * a, scale * b, scale * w8, 3, group)
+
+        fmaps = gather(fmaps[..., own].to(self.dtype or torch.float32), 1)
+        fmap1, fmap2 = fmaps[:n], fmaps[n:]
+        wlo, whi = max(0, a - it), min(w8, b + it)
+        queries = fmaps[..., wlo:whi]
+        # the route of the whole pair's volume, as `forward` takes it
+        if 2 * corr_ops.volume_bytes(fmap1, fmap2) > self.corr_max_volume_bytes:
+            corr_state = corr_ops.windowed_corr_pyramid(queries, torch.cat([fmap2, fmap1], dim=0))
+        else:
+            corr_state = tuple(torch.cat(levels, dim=0) for levels in zip(
+                corr_ops.corr_pyramid(queries[:n], fmap2),
+                corr_ops.corr_pyramid(queries[n:], fmap1)))
+
+        cnet, feats = self.cnet(x)
+        feats = [gather(feats[0][..., 2 * (a - lo):2 * (b - lo)], 2), gather(feats[1][..., own], 1)]
+        cnet = cnet[..., own]
+        net = torch.tanh(cnet[:, :128])
+        inp = dist_ops.exchange_halo(F.relu(cnet[:, 128:]), strips, it, 3, group)
+
+        def widened(net, coords, halo):
+            """net and coords of the strip, widened by `halo` (one exchange)."""
+            both = dist_ops.exchange_halo(torch.cat([net.float(), coords], dim=1), strips, halo,
+                                          3, group)
+            return both[:, :net.shape[1]].to(net.dtype), both[:, net.shape[1]:]
+
+        h8 = h // 8
+        coords0 = coords_grid(2 * n, h8, whi - wlo, dev, x0=wlo)
+        mine = slice(a - wlo, b - wlo)
+        coords1 = coords0[..., mine]
+        for _ in range(self.iters):
+            net_w, coords_w = widened(net, coords1, it)
+            corr = corr_ops.corr_lookup_any(corr_state, coords_w)
+            net_w, delta_flow = self.update_block(net_w, inp, corr, coords_w - coords0)
+            net = net_w[..., mine]
+            coords1 = coords1 + delta_flow[..., mine]
+
+        net_u, coords_u = widened(net, coords1, up)
+        ulo = max(0, a - up)
+        flow = coords_u - coords_grid(2 * n, h8, coords_u.shape[3], dev, x0=ulo)
+        flow_up = convex_upsample_8x(flow, self.update_block.upsample_mask(net_u))
+        return gather(flow_up[..., 8 * (a - ulo):8 * (b - ulo)], 8), feats, fmaps

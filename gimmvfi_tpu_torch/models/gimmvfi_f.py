@@ -8,7 +8,8 @@ bidirectional correlation pyramid is built over FlowFormer's float32
 feature map itself; above `corr_max_volume_bytes` (the 720p pair's 2.3 GB
 is) that is the float32 windowed state. FlowFormer computes in float32
 under any `dtype`. Every entry point (`prepare`, `decode_one`,
-`interpolate`, `interpolate_sequential`, `train_forward`) is inherited.
+`interpolate`, `interpolate_sequential`, `train_forward`) is inherited;
+`prepare_sharded` is `prepare`, whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ class GIMMVFI_F(GIMMVFI_R):
         """FlowFormer has no batch statistics: one batched pass in either
         mode (`train` changes nothing)."""
         return self.flow_estimator(img0, img1, bidir=True)
+
+    def prepare_sharded(self, img_xs, ds_factor=None, group=None) -> dict:
+        """`prepare`, whole on every rank of any group: FlowFormer's Twins
+        global attention attends over the whole 1/8 map and its cost
+        perceiver reads each query's whole all-pairs row, so no stage of
+        it has a window that a width strip could own."""
+        return self.prepare(img_xs, ds_factor)
 
     def cal_bidirection_flow(self, img0, img1, train=False):
         """Bidirectional FlowFormer in one batched pass, the unprojected

@@ -7,6 +7,9 @@ runs once per timestep (latent splat, HypoNet flow, synthesis).
 `interpolate_sequential` is the 8x entry point: one `prepare`, then a
 Python loop of `decode_one`.
 
+`prepare_sharded` is `prepare` with RAFT split by width over the ranks of
+a process group (`RAFT.forward_sharded`); `parallel/spatial.py` calls it.
+
 `decode_one` is `decode_strip` over the whole width: three stages,
 `flow_strip` (both latent splats on the whole frame, the latent refiner
 on a window, the HypoNet on a strip of it), `synthesize_quarter` (the AMT
@@ -37,6 +40,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..flow.raft import RAFT
@@ -50,6 +54,8 @@ from ..ops.coords import (
     unnormalize_flow,
 )
 from ..ops.interp import resize, warp
+from ..parallel import dist as dist_ops
+from ..parallel.spatial import strip_bounds
 from .gimm_core import (
     latent_refiner,
     motion_encoder,
@@ -123,8 +129,13 @@ class GIMMVFI_R(nn.Module):
     def cal_bidirection_flow(self, img0, img1, train=False):
         """Bidirectional RAFT, AMT features (both directions' rows) and the
         bidirectional correlation pyramid. img0/img1 (N, 3, H, W) in [0, 255]."""
-        n = img0.shape[0]
-        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1, train)
+        return self.flow_state(*self.bidir_flow(img0, img1, train))
+
+    def flow_state(self, flow_2n, feats_2n, fnet_2n):
+        """The rest of `cal_bidirection_flow` from RAFT's results for both
+        directions (`bidir_flow`): the 1x1 projections, the AMT's
+        bidirectional correlation pyramid and the normalized flows."""
+        n = flow_2n.shape[0] // 2
         f01, f10 = flow_2n[:n], flow_2n[n:]
         corr_pyrs = corr_ops.bidir_corr_pyramid_auto(
             self.amt_fproj(fnet_2n[:n]), self.amt_fproj(fnet_2n[n:]),
@@ -312,6 +323,34 @@ class GIMMVFI_R(nn.Module):
         moved to the model's device (frames loaded on the host run there).
         With `ds_factor` (not None or 1) the pair is resized by it and the
         full-resolution frames are kept as `full_img`."""
+        img0, img1, full_img = self._working_pair(img_xs, ds_factor)
+        return self._prepared(img0, img1, full_img,
+                              self.cal_bidirection_flow(255.0 * img0, 255.0 * img1))
+
+    def prepare_sharded(self, img_xs: torch.Tensor, ds_factor: float | None = None,
+                        group=None) -> dict:
+        """`prepare` with RAFT split by width over the ranks of `group` (the
+        default group if None; `RAFT.forward_sharded` on even strips of
+        1/8-scale columns, its results gathered whole); the DS resize before
+        it and everything after it (`flow_state`, the motion latents, the
+        decoder heads) run whole on every rank. Every rank passes the whole
+        pair and gets `prepare`'s dict, equal to one process's up to float
+        rounding. The working width must be a multiple of 8 and at least 8
+        columns a rank. With no group up, `prepare`."""
+        if not dist_ops.group_up():
+            return self.prepare(img_xs, ds_factor)
+        img0, img1, full_img = self._working_pair(img_xs, ds_factor)
+        w8, world = img0.shape[3] // 8, dist.get_world_size(group)
+        if img0.shape[3] % 8 or w8 < world:
+            raise ValueError(f"a working width of {img0.shape[3]} does not split into {world} "
+                             f"strips of 8-column units")
+        flow = self.flow_estimator.forward_sharded(255.0 * img0, 255.0 * img1,
+                                                   strip_bounds(w8, world, 1), group)
+        return self._prepared(img0, img1, full_img, self.flow_state(*flow))
+
+    def _working_pair(self, img_xs: torch.Tensor, ds_factor: float | None):
+        """The pair NCHW on the model's device at the working size, and the
+        full-resolution pair under DS (else None)."""
         img_xs = img_xs.to(self.alpha_v.device)
         img0 = img_xs[:, 0].permute(0, 3, 1, 2).float()
         img1 = img_xs[:, 1].permute(0, 3, 1, 2).float()
@@ -319,9 +358,11 @@ class GIMMVFI_R(nn.Module):
         if ds_factor is not None and ds_factor != 1:
             full_img = (img0, img1)
             img0, img1 = resize(img0, ds_factor), resize(img1, ds_factor)
-        nflows, f01, f10, scalers, features, corr_pyrs = self.cal_bidirection_flow(
-            255.0 * img0, 255.0 * img1
-        )
+        return img0, img1, full_img
+
+    def _prepared(self, img0, img1, full_img, flow_state) -> dict:
+        """`prepare`'s dict from `cal_bidirection_flow`'s results."""
+        nflows, f01, f10, scalers, features, corr_pyrs = flow_state
         f8_up, f4_up = self.upsample_synth_features(features)
         return {
             "img0": img0, "img1": img1, "nflows": nflows, "scalers": scalers,

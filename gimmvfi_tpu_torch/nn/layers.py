@@ -3,11 +3,22 @@
 `compute_dtype=None` computes in float32; `torch.bfloat16` casts a conv's
 input, weight and bias to bf16. Parameters always stay float32, and
 normalization statistics are computed in float32 in both modes.
+
+A frame split by width over the ranks of a group (`parallel/spatial.py`)
+runs a conv stack on a window of columns; `receptive_radius` and
+`strided_reach` bound how far past a window's edge its convs read, and
+inside `instance_norm_shard` every `InstanceNorm` takes the whole frame's
+statistics (`instance_norm_sharded`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import NamedTuple
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -125,12 +136,49 @@ class BatchNorm2d(nn.Module):
         return y.to(self.compute_dtype or torch.float32)
 
 
+class ColumnShard(NamedTuple):
+    """A window of a frame split by width: its input columns [lo, hi), the
+    rank's own columns [a, b) inside it, the frame's input width, and the
+    process group (None: the default group)."""
+
+    lo: int
+    hi: int
+    a: int
+    b: int
+    width: int
+    group: object = None
+
+
+_SHARD: contextvars.ContextVar[ColumnShard | None] = contextvars.ContextVar("column_shard",
+                                                                           default=None)
+
+
+@contextlib.contextmanager
+def instance_norm_shard(shard: ColumnShard):
+    """Within: every `InstanceNorm` sees a window of `shard` (at any stride
+    that divides lo, a, b and the width) and normalizes it with the whole
+    frame's statistics (`instance_norm_sharded`)."""
+    token = _SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
 class InstanceNorm(nn.Module):
     """Parameter-free InstanceNorm2d (biased variance, float32 statistics);
-    `train` is accepted beside BatchNorm2d's and changes nothing."""
+    `train` is accepted beside BatchNorm2d's and changes nothing. Inside
+    `instance_norm_shard` its input is a window of the shard, at the stride
+    its width gives, and its statistics are the whole frame's."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return instance_norm(x)
+        shard = _SHARD.get()
+        if shard is None:
+            return instance_norm(x)
+        lo, hi, a, b, width, group = shard
+        stride = (hi - lo) // x.shape[3]
+        return instance_norm_sharded(x, (a - lo) // stride, (b - lo) // stride, width // stride,
+                                     group)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -139,6 +187,58 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = ((xf - mean) ** 2).mean(dim=(2, 3), keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def instance_norm_sharded(x: torch.Tensor, a: int, b: int, width: int, group=None,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """`instance_norm` of a frame `width` columns wide that is split by
+    width over the ranks of `group`: x (N, C, H, w) is this rank's window,
+    its columns [a, b) the rank's own (the ranks' own columns tile the
+    frame). The statistics are the whole frame's, in float32 and in two
+    passes as `instance_norm`'s: the sum over the own columns all-reduced
+    gives the mean, then the sum of squares about it the variance. The
+    whole window is normalized with them. Without a group, the window is
+    the frame."""
+    xf = x.float()
+    count = x.shape[2] * width
+    mine = xf[..., a:b]
+    up = dist_ops.group_up()
+    total = mine.sum(dim=(2, 3), keepdim=True)
+    if up:
+        dist.all_reduce(total, group=group)
+    mean = total / count
+    sq = ((mine - mean) ** 2).sum(dim=(2, 3), keepdim=True)
+    if up:
+        dist.all_reduce(sq, group=group)
+    return ((xf - mean) * torch.rsqrt(sq / count + eps)).to(x.dtype)
+
+
+def receptive_radius(module: nn.Module) -> int:
+    """A bound on how many columns on each side one output column of
+    `module` reads: the sum of k // 2 (times the dilation) over its convs."""
+    return sum(m.dilation[1] * (m.kernel_size[1] // 2) for m in module.modules()
+               if isinstance(m, nn.Conv2d))
+
+
+def strided_reach(module: nn.Module) -> tuple[int, int]:
+    """(reach, stride) of a strided conv stack run in registration order
+    (RAFT's `BasicEncoder`): one output column reads at most `reach` input
+    columns on each side of its first, stride x its index, where reach is
+    the sum over the convs of k // 2 (times the dilation) times the product
+    of the strides before it; `stride` is the product of all of them. A
+    `downsample` shortcut, in parallel with its block's convs, must be 1x1:
+    it reads inside their reach and adds no stride of its own."""
+    reach, stride = 0, 1
+    for name, m in module.named_modules():
+        if not isinstance(m, nn.Conv2d):
+            continue
+        if "downsample" in name.split("."):
+            if m.kernel_size[1] != 1:
+                raise ValueError(f"{name}: a shortcut conv must be 1x1, got {m.kernel_size}")
+            continue
+        reach += stride * m.dilation[1] * (m.kernel_size[1] // 2)
+        stride *= m.stride[1]
+    return reach, stride
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:

@@ -9,11 +9,12 @@ from __future__ import annotations
 import torch
 
 
-def coords_grid(batch: int, ht: int, wd: int, device) -> torch.Tensor:
-    """(N, 2, H, W) float32 grid of (x, y) pixel coordinates."""
+def coords_grid(batch: int, ht: int, wd: int, device, x0: int = 0) -> torch.Tensor:
+    """(N, 2, H, W) float32 grid of (x, y) pixel coordinates; `x0` is the
+    first column's x (a window of a wider frame)."""
     y, x = torch.meshgrid(
         torch.arange(ht, dtype=torch.float32, device=device),
-        torch.arange(wd, dtype=torch.float32, device=device),
+        torch.arange(x0, x0 + wd, dtype=torch.float32, device=device),
         indexing="ij",
     )
     return torch.stack([x, y], dim=0)[None].expand(batch, 2, ht, wd)

@@ -6,13 +6,18 @@ pixels around (j + u, i + v) with bilinear weights. The `avg`, `linear` and
 epsilon policies (`-addeps`, `-zeroeps`, `-clipeps`).
 
 The sum core `splat_sum` is, for CUDA tensors, the autograd Function
-`SplatSum` over two hand-written CUDA kernels: `csrc/softsplat.cu` forward
-and `csrc/softsplat_bwd.cu` backward (the JAX package's gather-form VJP,
-`_splat_pallas_bwd`). For CPU tensors it is `splat_sum_plain`, four masked
-`index_add_` calls that autograd differentiates. There is no fallback
-between them: a CUDA tensor launches the kernels or raises. The mode
-prologue and epilogue are plain torch around the core.
-`splat_sum_backward_plain` is the backward kernel's plain version.
+`SplatSum` over two hand-written CUDA kernels: `csrc/softsplat_sorted.cu`
+forward (destination-sorted, summed in a fixed order, bit-deterministic
+as the JAX package's) and `csrc/softsplat_bwd.cu` backward (the JAX
+package's gather-form VJP, `_splat_pallas_bwd`). For CPU tensors it is
+`splat_sum_plain`, four masked `index_add_` calls that autograd
+differentiates. There is no fallback between them: a CUDA tensor launches
+the kernels or raises. The mode prologue and epilogue are plain torch
+around the core. `splat_sum_sorted_plain` is the forward kernel's order in
+plain torch, `splat_sum_backward_plain` the backward kernel's plain
+version. `csrc/softsplat.cu`, the forward by float atomics (its sums in
+an order that changes from call to call), is on no route; `chip_smoke.py`
+times it beside the sorted kernel.
 
 Layout: channels last, as in the reference. `ten_in` (N, H, W, C), `flow`
 (N, H, W, 2), `metric` (N, H, W, 1).
@@ -21,16 +26,18 @@ Layout: channels last, as in the reference. `ten_in` (N, H, W, C), `flow`
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 
 import torch
 
-from ..utils.kernel_build import CudaKernel
+from ..utils.kernel_build import CudaKernel, build_library
 
 _EPS = 1e-7
 
 
 class SplatKernel(CudaKernel):
-    """The CUDA splat kernel: built at first use, with a launch counter."""
+    """The CUDA splat kernel by float atomics: built at first use, with a
+    launch counter. On no route (`SortedSplatKernel` is the forward)."""
 
     def __init__(self):
         super().__init__(
@@ -90,18 +97,77 @@ class SplatBackwardKernel(CudaKernel):
         return d_vals, d_flow
 
 
+class SortedSplatKernel(CudaKernel):
+    """The deterministic CUDA splat, `csrc/softsplat_sorted.cu`: the keys
+    kernel, `torch.sort(stable=True)`, then the launcher of the segments
+    and gather kernels, whose launches the counter counts (one a call).
+    Built at first use."""
+
+    def __init__(self):
+        super().__init__(
+            name="softsplat_sorted_sum",
+            source="gimmvfi_tpu_torch/csrc/softsplat_sorted.cu",
+            symbol="softsplat_sorted_sum_f32",
+            argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 4,
+            replaces="gimmvfi_tpu/ops/splat_pallas.py:136",
+        )
+        self._keys_fn = None
+
+    def build(self) -> str:
+        log = super().build()
+        fn = build_library(Path(self.source).name)[0].softsplat_sorted_keys
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._keys_fn = fn
+        return log
+
+    def __call__(self, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        if vals.dim() != 4:
+            raise ValueError(f"splat kernel takes vals (N, H, W, C), got {tuple(vals.shape)}")
+        if torch.is_grad_enabled() and (vals.requires_grad or flow.requires_grad):
+            raise NotImplementedError(
+                "the splat kernel's output has no graph: call splat_sum, whose SplatSum "
+                "carries the backward kernel")
+        n, h, w, c = vals.shape
+        total = n * (h * w + 2 * (w + 1))
+        if total >= 2**31 - 1 or not 1 <= c <= 2**22:
+            raise ValueError(f"the sorted splat kernel takes N*(H*W + 2(W+1)) < 2**31 - 1 and "
+                             f"1 <= C <= 2**22, got {tuple(vals.shape)}")
+        self.check(("vals", vals, torch.float32),
+                   ("flow", flow, torch.float32, (n, h, w, 2), vals.device))
+        if self._fn is None:
+            self.build()
+        dev = vals.device
+        npix = n * h * w
+        keys = torch.empty(npix, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = self._keys_fn(flow.data_ptr(), keys.data_ptr(), n, h, w,
+                                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"softsplat_sorted_keys launch failed: cudaError {err}")
+        keys, order = torch.sort(keys, stable=True)
+        starts = torch.empty(total + 1, dtype=torch.int32, device=dev)
+        src = torch.empty(npix, dtype=torch.int32, device=dev)
+        wq = torch.empty(npix, 4, dtype=torch.float32, device=dev)
+        out = torch.empty_like(vals)
+        self.launch(dev, vals.data_ptr(), flow.data_ptr(), keys.data_ptr(), order.data_ptr(),
+                    starts.data_ptr(), src.data_ptr(), wq.data_ptr(), out.data_ptr(), n, h, w, c)
+        return out
+
+
 SPLAT_KERNEL = SplatKernel()
+SPLAT_SORTED_KERNEL = SortedSplatKernel()
 SPLAT_BACKWARD_KERNEL = SplatBackwardKernel()
 
 
 class SplatSum(torch.autograd.Function):
-    """The sum core on the card: forward `SPLAT_KERNEL`, backward
+    """The sum core on the card: forward `SPLAT_SORTED_KERNEL`, backward
     `SPLAT_BACKWARD_KERNEL` (d_flow only when flow needs it)."""
 
     @staticmethod
     def forward(ctx, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(vals, flow)
-        return SPLAT_KERNEL(vals, flow)
+        return SPLAT_SORTED_KERNEL(vals, flow)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -166,6 +232,53 @@ def splat_sum_plain(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         idx = torch.where(ok, img + iy * w + ix, p).reshape(p)
         out.index_add_(0, idx, flat * wgt.reshape(p, 1))
     return out[:p].reshape(n, h, w, c)
+
+
+def splat_sort_keys(flow: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Each source pixel's key, its base corner on the canvas padded by one
+    row and one column (`splat_pallas.py:177-181`): image * P + y0 * W + x0
+    + W + 1, flat (N*H*W,) int64; and P = H*W + 2(W + 1). A source none of
+    whose corners lies on the frame takes the image's last key, P - 1,
+    which no destination reads (JAX clips its key into [0, P))."""
+    n, h, w, _ = flow.shape
+    ix0, iy0, _, _ = splat_positions(flow)
+    p_pad = h * w + 2 * (w + 1)
+    some = (ix0 >= -1) & (ix0 < w) & (iy0 >= -1) & (iy0 < h)
+    base = torch.where(some, iy0 * w + ix0 + w + 1, p_pad - 1)
+    img = torch.arange(n, device=flow.device).view(n, 1, 1) * p_pad
+    return (img + base).reshape(-1), p_pad
+
+
+def splat_sum_sorted_plain(vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The sorted kernel's order in plain torch (`csrc/softsplat_sorted.cu`):
+    the sources stably sorted by `splat_sort_keys`; destination d (key k)
+    sums the corners (0,0), (1,0), (0,1), (1,1) from the keys k, k - 1,
+    k - W, k - W - 1, each run in sorted order, as acc = acc + v * w in
+    float32, masked corners weighing 0. For the tests and the card's
+    checks; no path calls it.
+
+    vals (N, H, W, C) float32, flow (N, H, W, 2) -> (N, H, W, C) float32.
+    """
+    n, h, w, c = vals.shape
+    p = n * h * w
+    dev = vals.device
+    keys, p_pad = splat_sort_keys(flow)
+    keys, order = torch.sort(keys, stable=True)
+    starts = torch.searchsorted(keys, torch.arange(n * p_pad + 1, device=dev))
+    weights = torch.stack([torch.where(ok, wgt, 0.0) for _, _, wgt, ok in splat_geometry(flow)],
+                          dim=-1).reshape(p, 4)[order]
+    rows = vals.reshape(p, c).float()[order]
+    pix = torch.arange(h * w, device=dev)
+    k = (torch.arange(n, device=dev).view(n, 1) * p_pad + pix + w + 1).reshape(p)
+    out = torch.zeros(p, c, dtype=torch.float32, device=dev)
+    for corner, delta in enumerate((0, 1, w, w + 1)):
+        lo, hi = starts[k - delta], starts[k - delta + 1]
+        count = hi - lo
+        for r in range(int(count.max()) if p else 0):
+            take = (count > r)[:, None]
+            j = torch.where(count > r, lo + r, 0)
+            out = torch.where(take, out + rows[j] * weights[j, corner, None], out)
+    return out.reshape(n, h, w, c)
 
 
 def splat_sum_backward_plain(vals: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,

@@ -22,7 +22,10 @@ The collectives are explicit here:
   * `broadcast_module_`: rank 0's parameters and buffers on every rank
     (the mesh's `replicate`);
   * `gather_disjoint`: a whole tensor on every rank from each rank's
-    disjoint piece of one axis, by a summing all-reduce.
+    disjoint piece of one axis, by a summing all-reduce;
+  * `exchange_halo`: each rank's piece of one axis widened by the
+    columns next to it that other ranks hold, by one summing all-reduce of
+    the edge columns alone.
 
 With no process group every helper returns its input or does nothing, so
 one process computes exactly what it did before data parallelism.
@@ -233,15 +236,58 @@ def gather_disjoint(part: torch.Tensor, lo: int, hi: int, size: int, dim: int,
     zero-filled whole buffer that each rank fills in its piece, then a
     summing all-reduce. The pieces are disjoint, so every element is one
     rank's value plus zeros and the sum is exact; the pieces may be
-    uneven, and gloo takes CUDA tensors this way. Without a group, the
-    buffer (`part` must then cover the axis)."""
+    uneven, and gloo takes CUDA tensors this way. 16-bit pieces are summed
+    in float32 (exact all the same). Without a group, the buffer (`part`
+    must then cover the axis)."""
     shape = list(part.shape)
     shape[dim] = size
-    out = part.new_zeros(shape)
+    wide = part.dtype in (torch.float16, torch.bfloat16) and group_up()
+    out = part.new_zeros(shape, dtype=torch.float32 if wide else part.dtype)
     out.narrow(dim, lo, hi - lo).copy_(part)
     if group_up():
         dist.all_reduce(out, group=group)
-    return out
+    return out.to(part.dtype)
+
+
+def exchange_halo(part: torch.Tensor, strips: list[tuple[int, int]], halo: int, dim: int,
+                  group=None) -> torch.Tensor:
+    """This rank's piece `part`, indices strips[rank] = [lo, hi) of an axis
+    `strips[-1][1]` long that the ranks' `strips` tile in rank order,
+    widened to [max(0, lo - halo), min(size, hi + halo)) on every rank of
+    `group`: what slicing the whole tensor there gives. A buffer of 2
+    `halo`-wide slots a rank (the columns left of its strip, then right of
+    it), zero-filled; each rank fills the columns of every other rank's
+    slots that lie in its own piece, then one summing all-reduce. A slot
+    may span several ranks' pieces (a halo wider than a strip); columns
+    past either end of the axis are not returned. 16-bit tensors are summed
+    in float32: every element is one rank's value plus zeros, so the result
+    is exact. Without a group, `part` (which must then be the whole axis)."""
+    if not group_up():
+        return part
+    rank = dist.get_rank(group)
+    lo, hi = strips[rank]
+    size = strips[-1][1]
+    if part.shape[dim] != hi - lo:
+        raise ValueError(f"rank {rank}'s piece is {part.shape[dim]} long on dim {dim}, its strip "
+                         f"{(lo, hi)}")
+    if halo == 0:
+        return part
+    work = part if part.dtype in (torch.float32, torch.float64) else part.float()
+    shape = list(work.shape)
+    shape[dim] = halo
+    buf = work.new_zeros([len(strips), 2] + shape)
+    for d, (a, b) in enumerate(strips):
+        if d == rank:
+            continue
+        for side, start in enumerate((a - halo, b)):
+            o0, o1 = max(start, lo), min(start + halo, hi)
+            if o0 < o1:
+                buf[d, side].narrow(dim, o0 - start, o1 - o0).copy_(
+                    work.narrow(dim, o0 - lo, o1 - o0))
+    dist.all_reduce(buf, group=group)
+    left, right = lo - max(0, lo - halo), min(size, hi + halo) - hi
+    edges = buf[rank, 0].narrow(dim, halo - left, left), buf[rank, 1].narrow(dim, 0, right)
+    return torch.cat([edges[0].to(part.dtype), part, edges[1].to(part.dtype)], dim=dim)
 
 
 def _rank_main(local_rank, fn, args, world, device, backend, init_method):

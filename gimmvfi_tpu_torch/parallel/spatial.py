@@ -1,17 +1,25 @@
-"""Spatial sharding: one frame pair interpolated with its per-timestep work
-split by frame width over the ranks of a process group
+"""Spatial sharding: one frame pair interpolated with its work split by
+frame width over the ranks of a process group
 (`gimmvfi_tpu/parallel/spatial.py: interpolate_spatial_sharded`).
 
 The JAX package shards the width over a mesh axis and lets GSPMD partition
 all of `interpolate_sequential`, with a halo exchange at every conv. The
-port shards only the work that grows with the width at full resolution,
-and recomputes a halo wide enough that no stage exchanges anything. On
-every rank of the group (one process a card under `torchrun`, NCCL;
-`dist.py`), per pair:
+port shards the work that grows with the width: RAFT (most of `prepare`)
+with a halo exchange an iteration, and the full-resolution decode, whose
+halos are recomputed so that it exchanges nothing. On every rank of the
+group (one process a card under `torchrun`, NCCL; `dist.py`), per pair:
 
-  1. replicated: `prepare` on the whole padded pair (flow, correlation
-     state, latents, splat weights, `f8_up` / `f4_up`); every later read
-     of a whole frame is served from it;
+  1. `GIMMVFI_R.prepare_sharded`: the DS resize whole; RAFT on the rank's
+     strip of 1/8-scale columns (`RAFT.forward_sharded`: the encoders on a
+     window with halo 7 and whole-frame instance-norm statistics, the
+     correlation state of the strip's queries against the whole other
+     map, the 20-iteration loop with one halo exchange of 14 columns an
+     iteration, the convex upsample), its flows, feature map and cnet
+     features gathered whole; then replicated: the 1x1 projections and the
+     AMT's correlation state, `normalize_flow`, the motion latents, the
+     splat weights and `f8_up` / `f4_up`. Every later read of a whole
+     frame is served from it. GIMMVFI_F keeps `prepare` whole
+     (`GIMMVFI_F.prepare_sharded`);
 and per timestep:
   2. replicated: both latent splats on the whole frame, so a splat whose
      target crosses a strip edge needs nothing special;
@@ -31,7 +39,8 @@ and after the last timestep one `gather_disjoint` of the image strips.
 Strips (`strip_bounds`) start on the grid of 4 working columns, the
 MultiFlowDecoder's 1/4 scale, so the x4 resize of a window is the same
 map as the whole frame's; the full-resolution start is start / ds, an
-integer for DS 1, 0.5 and 0.25.
+integer for DS 1, 0.5 and 0.25. RAFT's strips are even ones of the
+1/8-scale columns, so its strided convs see windows on their own grid.
 
 Halos (`halos`). A stage's output at column x is exact when its window
 holds, computed exactly, every column x depends on. A conv of kernel k
@@ -39,7 +48,8 @@ reads k // 2 columns on each side (zeros or reflections past a window
 edge, which stay within that reach of it); pointwise ops read none; a
 warp reads a whole replicated source at global positions. Every path
 through a module passes each of its convs at most once, so the sum of
-k // 2 over its convs bounds its reach (`receptive_radius`):
+k // 2 over its convs bounds its reach (`receptive_radius`; a strided
+stack's is `strided_reach`, `RAFT.halos`):
   * R1, the refiner (`gimm_core.py: latent_refiner`): two 3x3 convs, a
     LateralBlock of two, the reflect 3x3: 5, so 8 on the grid;
   * R2, in working columns: the decoder's conv block (a 3x3, three
@@ -51,8 +61,8 @@ k // 2 over its convs bounds its reach (`receptive_radius`):
     at DS 0.5, so 28; 24 at DS 0.25.
 A window that reaches the true image border ends there, where its
 padding and resize clamps are the frame's own. `tests/test_torch_spatial.py`
-holds the stitched strips against one window, and shows that halos of
-0 miss.
+holds the stitched strips against one window and the sharded `prepare`
+against one process's, and shows that halos of 0 miss.
 """
 
 from __future__ import annotations
@@ -65,20 +75,13 @@ import time
 
 import torch
 import torch.distributed as dist
-from torch import nn
 
+from ..nn.layers import receptive_radius
 from ..ops import corr as corr_ops
 from ..ops import softsplat as softsplat_ops
 from . import dist as dist_ops
 
 GRID = 4  # the MultiFlowDecoder's 1/4 scale, in working columns
-
-
-def receptive_radius(module: nn.Module) -> int:
-    """A bound on how many columns on each side one output column of
-    `module` reads: the sum of k // 2 (times the dilation) over its convs."""
-    return sum(m.dilation[1] * (m.kernel_size[1] // 2) for m in module.modules()
-               if isinstance(m, nn.Conv2d))
 
 
 def _on_grid(x: int) -> int:
@@ -95,13 +98,13 @@ def halos(model, ds_factor: float | None = None) -> tuple[int, int]:
     return _on_grid(r1), _on_grid(r2)
 
 
-def strip_bounds(width: int, world: int) -> list[tuple[int, int]]:
-    """`world` strips (a, b) of the working columns [0, width), starts on
-    the grid of 4, as even as the grid allows."""
-    if width % GRID:
-        raise ValueError(f"the working width {width} is not a multiple of {GRID}")
-    units = width // GRID
-    edges = [GRID * (units * r // world) for r in range(world + 1)]
+def strip_bounds(width: int, world: int, grid: int = GRID) -> list[tuple[int, int]]:
+    """`world` strips (a, b) of the columns [0, width), starts on the grid
+    (of 4 working columns by default), as even as the grid allows."""
+    if width % grid:
+        raise ValueError(f"the width {width} is not a multiple of {grid}")
+    units = width // grid
+    edges = [grid * (units * r // world) for r in range(world + 1)]
     return list(zip(edges[:-1], edges[1:]))
 
 
@@ -118,6 +121,17 @@ def _rank_world(group) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+def pad_width(img_xs, world: int) -> torch.Tensor:
+    """img_xs (N, 2, H, W, 3) edge-padded on W to a multiple of
+    lcm(world, 8), as the JAX function pads."""
+    img_xs = torch.as_tensor(img_xs)
+    mult = math.lcm(world, 8)
+    pad = -(-img_xs.shape[3] // mult) * mult - img_xs.shape[3]
+    if pad:
+        img_xs = torch.cat([img_xs, img_xs[:, :, :, -1:].expand(-1, -1, -1, pad, -1)], dim=3)
+    return img_xs
+
+
 def interpolate_spatial_sharded(model, img_xs, t_values, ds_factor: float | None = None,
                                 group=None) -> dict:
     """Nx interpolation of one pair with the width split over the ranks of
@@ -125,22 +139,19 @@ def interpolate_spatial_sharded(model, img_xs, t_values, ds_factor: float | None
 
     img_xs (N, 2, H, W, 3) in [0, 1]. Every parameter and buffer is first
     broadcast from the group's rank 0. W is edge-padded to a multiple of
-    lcm(world, 8), as the JAX function pads; the outputs are cropped back,
+    lcm(world, 8), as the JAX function pads (`pad_width`); `prepare_sharded`
+    (RAFT on a strip a rank) runs on the padded pair; the outputs are cropped back,
     `imgt_pred` (T, N, H, W, 3) to W and `flowt` (T, N, h, w', 2) to
     int(W * ds). Every rank gets the whole result, on its device. Equals
     `interpolate_sequential` on the padded pair up to float rounding."""
     rank, world = _rank_world(group)
     if world > 1:
         dist_ops.broadcast_module_(model, group)
-    img_xs = torch.as_tensor(img_xs)
-    w = img_xs.shape[3]
-    mult = math.lcm(world, 8)
-    pad = -(-w // mult) * mult - w
-    if pad:
-        img_xs = torch.cat([img_xs, img_xs[:, :, :, -1:].expand(-1, -1, -1, pad, -1)], dim=3)
+    w = torch.as_tensor(img_xs).shape[3]
+    img_xs = pad_width(img_xs, world)
     w_full = img_xs.shape[3]
     with torch.inference_mode():
-        prep = model.prepare(img_xs, ds_factor)
+        prep = model.prepare_sharded(img_xs, ds_factor, group)
         h, wk = prep["img0"].shape[2:]
         scale = w_full // wk
         if scale * wk != w_full or (prep["full_img"] is not None
@@ -163,7 +174,7 @@ def interpolate_spatial_sharded(model, img_xs, t_values, ds_factor: float | None
     return {"imgt_pred": imgt[..., :w, :], "flowt": torch.stack(flows)[..., :int(w * ds), :]}
 
 
-PATH_KERNELS = (softsplat_ops.SPLAT_KERNEL, corr_ops.WINDOWED_CORR_MMA_KERNEL,
+PATH_KERNELS = (softsplat_ops.SPLAT_SORTED_KERNEL, corr_ops.WINDOWED_CORR_MMA_KERNEL,
                 corr_ops.WINDOWED_CORR_TF32_KERNEL)
 
 
@@ -178,8 +189,8 @@ def interpolate_on_rank(cases_path: str, out_dir: str, num_threads: int | None =
     process starts with torch's defaults). Saves `out_dir/rank<r>.pt`: for
     each case the outputs on the CPU, the launches of the splat and both
     tensor-core windowed lookups counted from 0 around the call, its
-    seconds (host clock, synchronized) and, on a card, the peak allocated
-    bytes."""
+    seconds (host clock, synchronized), on a card the peak allocated bytes
+    over the call, and the seconds of one more `prepare_sharded` alone."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if num_threads is not None:
@@ -203,10 +214,18 @@ def interpolate_on_rank(cases_path: str, out_dir: str, num_threads: int | None =
         if cuda:
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in PATH_KERNELS}
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        # `prepare_sharded` once more, alone, after the counted call
+        img_xs = pad_width(case["img_xs"], dist_ops.world_size())
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.prepare_sharded(img_xs, case["ds_factor"])
+        if cuda:
+            torch.cuda.synchronize()
         results.append({"imgt_pred": out["imgt_pred"].cpu(), "flowt": out["flowt"].cpu(),
-                        "launches": {k.name: k.launches for k in PATH_KERNELS},
-                        "seconds": seconds,
-                        "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+                        "launches": launches, "seconds": seconds, "peak_bytes": peak,
+                        "prepare_seconds": time.perf_counter() - t0})
         del model, out
         gc.collect()
         if cuda:

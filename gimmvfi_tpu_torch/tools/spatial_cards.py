@@ -11,11 +11,12 @@ a seeded pair, 7 timesteps; for each world w of 1, 2 and the node's
 ranks, the first w ranks (a subgroup; the others wait) run
 `parallel/spatial.py: interpolate_spatial_sharded`: one warm-up call,
 then `--repeats` calls timed by CUDA events (fps = 7 / the call, the
-median), `prepare` alone timed as many times (decode ms a timestep =
-(call - prepare) / 7, medians), and the peak allocated bytes of each
-rank over the timed calls. Rank 0 holds world w's imgt_pred against
-world 1's (>= 50 dB; bf16 convs of other widths may take other cuDNN
-algorithms). A world whose call runs out of device memory is recorded
+median), `prepare_sharded` alone timed as many times (decode ms a
+timestep = (call - prepare) / 7, medians) and its sharded RAFT part
+alone (`RAFT.forward_sharded`; the replicated rest is prepare - RAFT),
+and the peak allocated bytes of each rank over the timed calls. Rank 0
+holds world w's imgt_pred against world 1's (>= 50 dB; bf16 convs of
+other widths may take other cuDNN algorithms). A world whose call runs out of device memory is recorded
 as such, and the worlds above it still run (unchecked without world 1).
 Rank 0 prints a line a reading, with the cards' names and power limits,
 and one JSON line last.
@@ -37,7 +38,7 @@ from ..bench import timed
 from ..models.gimmvfi_r import GIMMVFI_R
 from ..nn.layers import init_normal_
 from ..parallel import dist as dist_ops
-from ..parallel.spatial import interpolate_spatial_sharded
+from ..parallel.spatial import interpolate_spatial_sharded, pad_width, strip_bounds
 
 N_T = 7
 SEED = 0
@@ -55,15 +56,22 @@ def run_world(model, img_xs, ts, group, repeats: int, device: torch.device) -> d
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    calls, prepares = [], []
+    padded = pad_width(img_xs, dist.get_world_size(group))
+    pair = [255.0 * padded[:, i].permute(0, 3, 1, 2).float() for i in range(2)]
+    strips = strip_bounds(padded.shape[3] // 8, dist.get_world_size(group), 1)
+    calls, prepares, rafts = [], [], []
     for _ in range(repeats):
         out, ms = timed(lambda: interpolate_spatial_sharded(model, img_xs, ts, None, group), device)
         calls.append(ms)
         with torch.inference_mode():
-            _, ms = timed(lambda: model.prepare(img_xs, None), device)
-        prepares.append(ms)
+            _, ms = timed(lambda: model.prepare_sharded(padded, None, group), device)
+            prepares.append(ms)
+            _, ms = timed(lambda: model.flow_estimator.forward_sharded(*pair, strips, group),
+                          device)
+            rafts.append(ms)
     call, prep = statistics.median(calls), statistics.median(prepares)
     return {"fps": len(ts) / (call / 1000), "call_ms": calls, "prepare_ms": prepares,
+            "raft_sharded_ms": rafts, "rest_ms": prep - statistics.median(rafts),
             "decode_ms": (call - prep) / len(ts),
             "peak_bytes": torch.cuda.max_memory_allocated() if device.type == "cuda" else 0,
             "imgt_pred": out["imgt_pred"].cpu()}
@@ -135,7 +143,9 @@ def main(argv=None) -> dict:
                           + (f"out of memory ({res['out_of_memory']})" if "out_of_memory" in res
                              else f"{res['fps']:.4f} fps (median of {args.repeats}; calls "
                                   f"{', '.join(f'{x:.2f}' for x in res['call_ms'])} ms), prepare "
-                                  f"{statistics.median(res['prepare_ms']):.2f} ms, decode "
+                                  f"{statistics.median(res['prepare_ms']):.2f} ms (RAFT sharded "
+                                  f"{statistics.median(res['raft_sharded_ms']):.2f}, the "
+                                  f"replicated rest {res['rest_ms']:.2f}), decode "
                                   f"{res['decode_ms']:.2f} ms a timestep, peak a rank "
                                   f"{', '.join(f'{x / 2**20:.1f}' for x in res['peak_bytes_a_rank'])} "
                                   f"MiB"

@@ -12,7 +12,7 @@ and 1e-5 on the same images.
   * `vtf` and `vsf` on seeded `.flo` files at 64x64 with a GIMM `.pt`;
   * LPIPS port vs JAX with seeded random weights;
   * `_x4k_items` equal to JAX's on a fabricated tree; `x4k --split 4k` end
-    to end in the port on 33 linked 512x512 frames (7 items).
+    to end through both CLIs on 33 linked 512x512 frames (7 items).
 """
 
 import json
@@ -162,8 +162,9 @@ def test_x4k_items_match_jax(tmp_path):
 
 
 def test_x4k_4k_split_end_to_end(tmp_path, capsys, ckpts):
-    """The port's X4K harness on 33 frames (3 distinct, the rest links) at
-    512x512, DS 0.25: 7 items, finite metrics, 7 predictions saved."""
+    """Both X4K harnesses on 33 frames (3 distinct, the rest links) at
+    512x512, DS 0.25: 7 items each, finite metrics, PSNR within 1e-3 dB of
+    JAX's; the port's 7 predictions saved (PPM; the JAX CLI's are PNG)."""
     scene = tmp_path / "x4k" / "Type1" / "TEST01"
     scene.mkdir(parents=True)
     rng = np.random.default_rng(4)
@@ -175,12 +176,18 @@ def test_x4k_4k_split_end_to_end(tmp_path, capsys, ckpts):
     for i in range(33):
         os.symlink(distinct[0 if i == 0 else 2 if i == 32 else 1], scene / f"{i:04d}.ppm")
     preds = str(tmp_path / "preds")
-    res = benchmarks.main(["x4k", "--data-root", str(tmp_path / "x4k"), "--ckpt", ckpts["vfi"],
-                           "--flow-iters", "2", "--split", "4k", "--save-preds", preds,
-                           "--device", "cpu"])
-    assert "over 7 frames" in capsys.readouterr().out
-    assert np.isfinite(res["psnr"]) and res["lpips"] is None
-    names = sorted(os.listdir(preds))
+    argv = ["x4k", "--data-root", str(tmp_path / "x4k"), "--ckpt", ckpts["vfi"],
+            "--flow-iters", "2", "--split", "4k", "--save-preds", preds]
+    jax_benchmarks.main(argv)
+    ref_out = capsys.readouterr().out
+    ref = json.loads(ref_out.strip().splitlines()[-1])
+    res = benchmarks.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert json.loads(out.strip().splitlines()[-1]) == json.loads(json.dumps(res))
+    assert "over 7 frames" in out and "over 7 frames" in ref_out
+    assert np.isfinite(res["psnr"]) and res["lpips"] is None and ref["lpips"] is None
+    assert abs(res["psnr"] - ref["psnr"]) <= 1e-3
+    names = sorted(n for n in os.listdir(preds) if n.endswith(".ppm"))
     assert names == [f"{i:05d}.ppm" for i in range(7)]
     assert read_ppm(os.path.join(preds, names[0])).shape == (512, 512, 3)
 

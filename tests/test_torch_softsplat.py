@@ -7,10 +7,16 @@ non-finite and a smooth-flow case; `softsplat` against the reference for
 every mode and eps policy, with and without `return_norm`. Tolerance:
 rtol = atol = 1e-5 (float32 sums in another order).
 
-The CUDA kernel itself runs only on the card (`cuda` marker). On the CPU a
-model of its block walk (`_kernel_walk`, the source's index stepping in
-Python) is held against the plain version, and the wrapper's checks are
-shown to raise before anything is built.
+The deterministic kernel's order (`splat_sum_sorted_plain`: sources
+stably sorted by destination key, each output's four key runs summed in a
+fixed order) is held against the plain core and the Pallas kernel in
+interpret mode at the same shapes and on many-to-one collisions, <= 1e-5
+max-abs.
+
+The CUDA kernels themselves run only on the card (`cuda` marker). On the
+CPU a model of the atomic kernel's block walk (`_kernel_walk`, the
+source's index stepping in Python) is held against the plain version, and
+both wrappers' checks are shown to raise before anything is built.
 """
 
 import re
@@ -23,7 +29,17 @@ import torch
 from gimmvfi_tpu.ops.softsplat import _splat_core_xla
 from gimmvfi_tpu.ops.softsplat import softsplat as jax_softsplat
 from gimmvfi_tpu.ops.splat_pallas import splat_corners_sorted
-from gimmvfi_tpu_torch.ops.softsplat import SPLAT_KERNEL, softsplat, splat_sum, splat_sum_plain
+from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
+from gimmvfi_tpu_torch.ops.softsplat import (
+    SPLAT_KERNEL,
+    SPLAT_SORTED_KERNEL,
+    SplatSum,
+    softsplat,
+    splat_sort_keys,
+    splat_sum,
+    splat_sum_plain,
+    splat_sum_sorted_plain,
+)
 from gimmvfi_tpu_torch.tools import splat_ablate
 from gimmvfi_tpu_torch.tools.splat_ablate import CHECK_CASES, kernel_bound_ok, smooth_flow, splat_inputs
 from gimmvfi_tpu_torch.utils.kernel_build import CSRC
@@ -47,6 +63,15 @@ def _inputs(rng, shape, flow_scale, field="random"):
         flow[0, 7, 1, 0] = -np.inf
         flow[0, 2, 2, :] = 1e30
     return vals, flow
+
+
+def _collisions(rng, shape=(1, 20, 30, 4), at=(10.3, 7.6)):
+    """Every source pixel sent to one point: one destination quad takes all
+    of them (a key run as long as the frame)."""
+    n, h, w, _ = shape
+    jj, ii = np.meshgrid(np.arange(w), np.arange(h))
+    flow = np.stack([at[0] - jj, at[1] - ii], axis=-1)[None].repeat(n, 0).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32), flow
 
 
 def _close(got, ref):
@@ -87,11 +112,72 @@ def test_softsplat_modes(rng, base, eps):
     _close(got, ref)
 
 
+SORTED_CASES = ([(s, f, "random") for s, f in SHAPES]
+                + [((1, 16, 16, 2), 1.0, "non_finite"), ((2, 20, 36, 5), 6.0, "smooth"),
+                   ((1, 20, 30, 4), None, "collisions")])
+
+
+@pytest.mark.parametrize("reference", ["plain", "pallas_interpret"])
+@pytest.mark.parametrize("shape,flow_scale,field", SORTED_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{f}" for s, _, f in SORTED_CASES])
+def test_sorted_order_matches_reference(rng, reference, shape, flow_scale, field):
+    """The sorted kernel's order against the plain core and JAX's sorted
+    Pallas kernel (interpret mode): masked edges, non-finite and far
+    positions, many-to-one collisions; <= 1e-5 max-abs."""
+    vals, flow = _collisions(rng) if field == "collisions" else _inputs(rng, shape, flow_scale,
+                                                                         field)
+    if reference == "plain":
+        ref = splat_sum_plain(torch.from_numpy(vals), torch.from_numpy(flow)).numpy()
+    else:
+        ref = np.asarray(splat_corners_sorted(jnp.asarray(vals), jnp.asarray(flow),
+                                              interpret=True))
+    got = splat_sum_sorted_plain(torch.from_numpy(vals), torch.from_numpy(flow)).numpy()
+    assert got.shape == ref.shape
+    assert float(np.abs(got - ref).max()) <= 1e-5
+
+
+def test_sort_keys_are_the_padded_base_corners(rng):
+    """Keys = image * P + y0 * W + x0 + W + 1, P = H*W + 2(W + 1): zero flow
+    gives each pixel its own key, one off-frame row/column before it; a
+    position none of whose corners is on the frame, far or non-finite,
+    takes the image's last key, P - 1, which no destination reads."""
+    n, h, w = 2, 5, 7
+    flow = np.zeros((n, h, w, 2), np.float32)
+    keys, p_pad = splat_sort_keys(torch.from_numpy(flow))
+    assert p_pad == h * w + 2 * (w + 1)
+    want = (np.arange(n)[:, None] * p_pad + np.arange(h * w)[None] + w + 1).reshape(-1)
+    assert np.array_equal(keys.numpy(), want)
+    flow[0, 0, 0] = [np.nan, 0.0]
+    flow[0, 0, 1] = [1e30, 1e30]
+    flow[1, 4, 6] = [-1e30, -3.0]
+    flow[0, 0, 2] = [-2.5, -0.5]  # base corner (-1, -1): only its (1, 1) corner, (0, 0), is on
+    keys, _ = splat_sort_keys(torch.from_numpy(flow))
+    assert keys[0] == keys[1] == p_pad - 1 and keys[-1] == 2 * p_pad - 1 and keys[2] == 0
+    # destination d reads the keys d + W + 1 - {0, 1, W, W + 1}, all below P - 1
+    assert int(keys.min()) >= 0 and int(keys.max()) < n * p_pad
+
+
+def test_card_route_is_the_sorted_kernel(rng, monkeypatch):
+    """`SplatSum.forward`, the card's forward, calls the sorted kernel; shown
+    on CPU tensors with the kernel replaced by a recorder."""
+    calls = []
+
+    def recorder(vals, flow):
+        calls.append(vals.shape)
+        return splat_sum_sorted_plain(vals, flow)
+
+    monkeypatch.setattr(softsplat_ops, "SPLAT_SORTED_KERNEL", recorder)
+    vals, flow = _inputs(rng, (1, 8, 8, 3), 2.0)
+    got = SplatSum.apply(torch.from_numpy(vals), torch.from_numpy(flow))
+    assert calls == [(1, 8, 8, 3)]
+    _close(got, splat_sum_plain(torch.from_numpy(vals), torch.from_numpy(flow)))
+
+
 def test_cpu_tensor_takes_plain_core(rng):
     vals, flow = _inputs(rng, (1, 8, 8, 3), 2.0)
-    before = SPLAT_KERNEL.launches
+    before = SPLAT_KERNEL.launches, SPLAT_SORTED_KERNEL.launches
     got = splat_sum(torch.from_numpy(vals), torch.from_numpy(flow))
-    assert SPLAT_KERNEL.launches == before
+    assert (SPLAT_KERNEL.launches, SPLAT_SORTED_KERNEL.launches) == before
     _close(got, splat_sum_plain(torch.from_numpy(vals), torch.from_numpy(flow)))
 
 
@@ -136,8 +222,11 @@ def _faulty(fault):
     return vals, flow, ValueError, "CUDA tensor"
 
 
-@pytest.mark.parametrize("fault", ["vals_dtype", "flow_dtype", "non_contiguous", "misaligned",
-                                   "flow_shape", "flow_device", "rank", "cpu"])
+FAULTS = ["vals_dtype", "flow_dtype", "non_contiguous", "misaligned", "flow_shape",
+          "flow_device", "rank", "cpu"]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 def test_kernel_wrapper_checks_before_building(fault):
     """The wrapper raises on what the kernel does not take, through
     `CudaKernel.check`, before it builds or launches anything."""
@@ -147,6 +236,27 @@ def test_kernel_wrapper_checks_before_building(fault):
         SPLAT_KERNEL(vals, flow)
     assert SPLAT_KERNEL._fn is None
     assert SPLAT_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("fault", FAULTS + ["grad", "key_space"])
+def test_sorted_kernel_wrapper_checks_before_building(fault):
+    """The sorted kernel's wrapper: the same checks, its graph refusal and
+    its int32 key space, all before it builds or launches anything."""
+    if fault == "grad":
+        vals, flow = torch.zeros(1, 4, 6, 3, requires_grad=True), torch.zeros(1, 4, 6, 2)
+        error, match = NotImplementedError, "no graph"
+    elif fault == "key_space":
+        # 2 x (2**30 + 2 (2**30 + 1)) keys; meta tensors hold no memory
+        vals = torch.empty(2, 1, 2**30, 1, device="meta")
+        flow = torch.empty(2, 1, 2**30, 2, device="meta")
+        error, match = ValueError, "2\\*\\*31"
+    else:
+        vals, flow, error, match = _faulty(fault)
+    before = SPLAT_SORTED_KERNEL.launches
+    with pytest.raises(error, match=match):
+        SPLAT_SORTED_KERNEL(vals, flow)
+    assert SPLAT_SORTED_KERNEL._fn is None and SPLAT_SORTED_KERNEL._keys_fn is None
+    assert SPLAT_SORTED_KERNEL.launches == before
 
 
 def _kernel_walk(vals: np.ndarray, flow: np.ndarray, pixels: int, vec4: bool) -> np.ndarray:
@@ -289,9 +399,27 @@ def test_kernel_matches_plain_on_card(shape, field, std):
         pytest.skip("needs a CUDA card and nvcc; run on the card")
     vals, flow = splat_inputs(shape, field, std, seed=1)
     before = SPLAT_KERNEL.launches
-    got = splat_sum(vals, flow)
+    got = SPLAT_KERNEL(vals, flow)
     torch.cuda.synchronize()
     assert SPLAT_KERNEL.launches == before + 1
+    ref = splat_sum_plain(vals, flow)
+    ok, bound = kernel_bound_ok(float((got - ref).abs().max()), ref)
+    assert ok, (float((got - ref).abs().max()), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,field,std", CHECK_CASES)
+def test_sorted_kernel_matches_plain_on_card(shape, field, std):
+    """The route (`splat_sum`) launches the sorted kernel once; two calls
+    give the same bits; within the atomic kernel's bound of the plain core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; run on the card")
+    vals, flow = splat_inputs(shape, field, std, seed=1)
+    before = SPLAT_SORTED_KERNEL.launches
+    got = splat_sum(vals, flow)
+    torch.cuda.synchronize()
+    assert SPLAT_SORTED_KERNEL.launches == before + 1
+    assert torch.equal(got, SPLAT_SORTED_KERNEL(vals, flow))
     ref = splat_sum_plain(vals, flow)
     ok, bound = kernel_bound_ok(float((got - ref).abs().max()), ref)
     assert ok, (float((got - ref).abs().max()), bound)

@@ -20,6 +20,15 @@ One JAX `model.init` of GIMMVFI_R(raft_iters=2) gives the weights
   (v) GIMMVFI_F(ff_iters=2) on two ranks against its own single process.
  (vi) One rank with no group is `interpolate_sequential` on the padded
       pair, bit for bit.
+(vii) On the same spawned ranks (`_rank_checks`), after (iii)-(v): the
+      halo exchange against slicing (halos of 0, 3 and wider than a
+      strip, float32 and bf16); the sharded instance norm against one
+      process's, <= 1e-5 max(1, max|ref|); `prepare_sharded` against
+      `prepare`, the flows <= 1e-4 relative, every other field <= 1e-5
+      max(1, max|ref|), RAFT's correlation route (recorded at each lookup)
+      that of one process at the default limit and at a limit between the
+      strip's volume and the pair's (windowed); RAFT's encoder halo or loop
+      halo set to 0 misses one process's flow by more than 1e-3.
 The halos' derivation and the strips' grid are checked on their own.
 """
 
@@ -33,8 +42,10 @@ from gimmvfi_tpu.models.gimmvfi_r import GIMMVFI_R as JaxGIMMVFI_R
 from gimmvfi_tpu.parallel.mesh import create_mesh
 from gimmvfi_tpu.parallel.spatial import interpolate_spatial_sharded as jax_sharded
 from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
+from gimmvfi_tpu_torch.models.gimm_core import splatting_weights
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
-from gimmvfi_tpu_torch.nn.layers import init_normal_
+from gimmvfi_tpu_torch.nn.layers import init_normal_, instance_norm, instance_norm_sharded
+from gimmvfi_tpu_torch.ops import corr as corr_ops
 from gimmvfi_tpu_torch.parallel import dist as dist_ops
 from gimmvfi_tpu_torch.parallel import spatial
 from gimmvfi_tpu_torch.utils.convert import load_jax_params
@@ -79,22 +90,110 @@ def _case(family, model_kw, model, img, ds=None):
             "img_xs": torch.from_numpy(img), "t_values": T_VALUES, "ds_factor": ds}
 
 
+# between one rank's RAFT query window at TWO on two ranks (2 x 327,680
+# bytes: 30 of the 32 1/8-scale columns against the whole map, float32)
+# and the whole pair's (2 x 349,525): windowed only if the whole pair's
+# volume decides
+WINDOWED_LIMIT = 680_000
+HALO_WIDTH, HALO_STRIPS = 37, {2: [(0, 12), (12, 37)], 3: [(0, 5), (5, 20), (20, 37)]}
+NORM_STRIPS = {2: [(0, 16), (16, 40)], 3: [(0, 8), (8, 24), (24, 40)]}  # at stride 8 of 40 x 8
+
+
+def _seeded(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
+
+
+def _prepare_on_rank(state, img, limit, halos=None):
+    """`prepare_sharded` of the R model at `limit`, the correlation state
+    type of each RAFT lookup, and with `halos` RAFT's flow alone."""
+    model = GIMMVFI_R(raft_iters=2, device="cpu", corr_max_volume_bytes=limit)
+    model.load_state_dict(state)
+    routes, lookup = [], corr_ops.corr_lookup_any
+
+    def recording(state, coords):
+        routes.append(type(state).__name__)
+        return lookup(state, coords)
+
+    corr_ops.corr_lookup_any = recording
+    try:
+        with torch.inference_mode():
+            prep = model.prepare_sharded(img)
+            res = {}
+            for k, v in prep.items():  # every tensor, the tuples' and the windowed state's
+                parts = v if isinstance(v, tuple) else (v,)
+                if isinstance(v, corr_ops.WindowedCorr):
+                    parts = (v.f1, *v.f2_levels)
+                for i, t in enumerate(p for p in parts if isinstance(p, torch.Tensor)):
+                    res[f"{k}.{i}" if len(parts) > 1 else k] = t
+            res["routes"] = routes[:model.flow_estimator.iters]
+            pair = [255.0 * img[:, i].permute(0, 3, 1, 2) for i in range(2)]
+            w8, world = img.shape[3] // 8, dist_ops.world_size()
+            edges = [w8 * r // world for r in range(world + 1)]
+            strips = list(zip(edges[:-1], edges[1:]))
+            for name, h in (halos or {}).items():
+                res[name] = model.flow_estimator.forward_sharded(*pair, strips, None, h)[0]
+    finally:
+        corr_ops.corr_lookup_any = lookup
+    return res
+
+
+def _rank_checks(cases_path, out_dir):
+    """One rank of the `ranks` fixture: `interpolate_on_rank` over the
+    cases, then (vii)'s checks on this rank, saved to `extra<r>.pt`."""
+    spatial.interpolate_on_rank(cases_path, out_dir, 1)
+    rank, world = dist_ops.rank(), dist_ops.world_size()
+    res = {"halo": {}}
+    whole = _seeded((2, 3, 2, HALO_WIDTH), 7)
+    strips = HALO_STRIPS[world]
+    a, b = strips[rank]
+    for dtype in (torch.float32, torch.bfloat16):
+        for halo in (0, 3, 14):
+            res["halo"][str(dtype), halo] = dist_ops.exchange_halo(
+                whole.to(dtype)[..., a:b], strips, halo, 3)
+    x = _seeded((2, 4, 6, 40), 8) * 3 + 1
+    a, b = NORM_STRIPS[world][rank]
+    lo, hi = max(0, a - 5), min(40, b + 5)
+    res["norm"] = instance_norm_sharded(x[..., lo:hi], a - lo, b - lo, 40)
+    state = torch.load(cases_path, weights_only=False)[0]["state"]
+    img = torch.from_numpy(_frames(TWO, 1))
+    enc, it, up = GIMMVFI_R(raft_iters=2, device="cpu").flow_estimator.halos()
+    res["prep"] = _prepare_on_rank(state, img, corr_ops.MAX_VOLUME_BYTES,
+                                   {"no_encoder_halo": (0, it, up), "no_loop_halo": (enc, 0, up)}
+                                   if world == 2 else None)
+    if world == 2:
+        res["prep_windowed"] = _prepare_on_rank(state, img, WINDOWED_LIMIT)
+    torch.save(res, f"{out_dir}/extra{rank}.pt")
+
+
 @pytest.fixture(scope="module")
 def ranks(model, f_model, tmp_path_factory):
     """Each case's result on every rank: R at 128x256 and F at 128x128 on
-    two ranks, R at 128x128 on three."""
+    two ranks, R at 128x128 on three; and each rank's (vii) checks under
+    "extra2" / "extra3"."""
     out = {}
     for world, cases in ((2, {"r": _case(GIMMVFI_R, {"raft_iters": 2}, model, _frames(TWO, 1)),
                               "f": _case(GIMMVFI_F, {"ff_iters": 2}, f_model, _frames(F_HW, 2))}),
                          (3, {"r3": _case(GIMMVFI_R, {"raft_iters": 2}, model, _frames(THREE, 3))})):
         tmp = tmp_path_factory.mktemp(f"world{world}")
         torch.save(list(cases.values()), tmp / "cases.pt")
-        dist_ops.spawn_ranks(spatial.interpolate_on_rank, world, (str(tmp / "cases.pt"), str(tmp), 1),
+        dist_ops.spawn_ranks(_rank_checks, world, (str(tmp / "cases.pt"), str(tmp)),
                              rendezvous=str(tmp / "rendezvous"))
         per_rank = [torch.load(tmp / f"rank{r}.pt", weights_only=True) for r in range(world)]
         for i, name in enumerate(cases):
             out[name] = [res[i] for res in per_rank]
+        out[f"extra{world}"] = [torch.load(tmp / f"extra{r}.pt", weights_only=False)
+                                for r in range(world)]
     return out
+
+
+@pytest.fixture(scope="module")
+def one_process_prep(model):
+    """(vii)'s one-process references at TWO: `prepare` at the default and
+    the windowed limit with RAFT's routes, and RAFT's flow."""
+    state = model.state_dict()
+    img = torch.from_numpy(_frames(TWO, 1))
+    return {"default": _prepare_on_rank(state, img, corr_ops.MAX_VOLUME_BYTES),
+            "windowed": _prepare_on_rank(state, img, WINDOWED_LIMIT)}
 
 
 def _jax_sharded(variables, img, devices):
@@ -254,3 +353,84 @@ def test_one_rank_without_a_group_is_sequential_on_the_padded_pair(model):
     ref = _sequential(model, img, pad=4)
     assert got["imgt_pred"].shape == (2, 1, 128, 132, 3) and got["flowt"].shape == (2, 1, 128, 132, 2)
     assert all(torch.equal(got[k], ref[k]) for k in ("imgt_pred", "flowt"))
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_exchange_halo_is_slicing(ranks, world):
+    whole = _seeded((2, 3, 2, HALO_WIDTH), 7)
+    for r, (a, b) in enumerate(HALO_STRIPS[world]):
+        for dtype in (torch.float32, torch.bfloat16):
+            for halo in (0, 3, 14):  # 14 spans more than one neighbour's strip
+                got = ranks[f"extra{world}"][r]["halo"][str(dtype), halo]
+                want = whole.to(dtype)[..., max(0, a - halo):min(HALO_WIDTH, b + halo)]
+                assert got.dtype == dtype and torch.equal(got, want), (r, dtype, halo)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_instance_norm_matches_one_process(ranks, world):
+    x = _seeded((2, 4, 6, 40), 8) * 3 + 1
+    ref = instance_norm(x)
+    for r, (a, b) in enumerate(NORM_STRIPS[world]):
+        got = ranks[f"extra{world}"][r]["norm"]
+        lo = max(0, a - 5)
+        mine = got[..., a - lo:b - lo]
+        assert _max_abs(mine, ref[..., a:b]) <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+def _hold_prep(model, got, ref):
+    """The flows <= 1e-4 relative; the splat weights w1, w2 <= 1e-5 max(1,
+    max|ref|) of one process's `splatting_weights` of the rank's own flows
+    (their local-variance term, sqrt(E[f^2] - E[f]^2) over a 3x3 blur,
+    cancels where the flow is smooth and turns the flows' float32 rounding
+    into ~1e-4 of w: a function of the flows, not of the sharding); every
+    other tensor, the correlation levels and the decoder heads included,
+    <= 1e-5 max(1, max|ref|) of one process's."""
+    with torch.inference_mode():
+        w1, w2 = splatting_weights(got["flow01"], got["flow10"], model.alpha_v, model.alpha_fe)
+    for k, v in ref.items():
+        if k in ("routes", "no_encoder_halo", "no_loop_halo"):
+            continue
+        scale = float(v.abs().max())
+        if k.startswith("flow") or k == "nflows":
+            assert _max_abs(got[k], v) <= 1e-4 * scale, (k, _max_abs(got[k], v), scale)
+        else:
+            want = {"w1": w1, "w2": w2}.get(k, v)
+            assert _max_abs(got[k], want) <= 1e-5 * max(1.0, scale), (k, _max_abs(got[k], want))
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_prepare_sharded_matches_prepare(model, ranks, one_process_prep, world):
+    ref = one_process_prep["default"]
+    assert ref["routes"] == ["tuple"] * 2  # materialized at 128x256
+    for got in ranks[f"extra{world}"]:
+        assert got["prep"]["routes"] == ref["routes"]
+        _hold_prep(model, got["prep"], ref)
+
+
+def test_prepare_sharded_route_is_the_whole_pairs(model, ranks, one_process_prep):
+    """At a limit that a strip's volume is under and the pair's over, every
+    rank looks up the windowed state, as one process does."""
+    ref = one_process_prep["windowed"]
+    assert ref["routes"] == ["WindowedCorr"] * 2
+    for got in ranks["extra2"]:
+        assert got["prep_windowed"]["routes"] == ref["routes"]
+        _hold_prep(model, got["prep_windowed"], ref)
+
+
+@pytest.mark.parametrize("which", ["no_encoder_halo", "no_loop_halo"])
+def test_zero_raft_halos_miss(model, ranks, which):
+    img = torch.from_numpy(_frames(TWO, 1))
+    with torch.inference_mode():
+        ref = model.flow_estimator(*[255.0 * img[:, i].permute(0, 3, 1, 2) for i in range(2)])[0]
+    for got in ranks["extra2"]:
+        assert _max_abs(got["prep"][which], ref) > 1e-3
+
+
+def test_raft_halos_from_the_modules(model):
+    """The encoders' strided reach 53 input columns over a stride of 8: 7;
+    an iteration 6 + 6 + 2 = 14; the upsample 1."""
+    from gimmvfi_tpu_torch.nn.layers import strided_reach
+
+    raft = model.flow_estimator
+    assert strided_reach(raft.fnet) == strided_reach(raft.cnet) == (53, 8)
+    assert raft.halos() == (7, 14, 1)
