@@ -99,16 +99,16 @@ class SplatBackwardKernel(CudaKernel):
 
 class SortedSplatKernel(CudaKernel):
     """The deterministic CUDA splat, `csrc/softsplat_sorted.cu`: the keys
-    kernel, `torch.sort(stable=True)`, then the launcher of the segments
-    and gather kernels, whose launches the counter counts (one a call).
-    Built at first use."""
+    kernel, `torch.sort(stable=True)`, then the launcher of the tile-staged
+    gather kernel, whose launches the counter counts (one a call). Built at
+    first use."""
 
     def __init__(self):
         super().__init__(
             name="softsplat_sorted_sum",
             source="gimmvfi_tpu_torch/csrc/softsplat_sorted.cu",
             symbol="softsplat_sorted_sum_f32",
-            argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 4,
+            argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
             replaces="gimmvfi_tpu/ops/splat_pallas.py:136",
         )
         self._keys_fn = None
@@ -146,12 +146,9 @@ class SortedSplatKernel(CudaKernel):
         if err != 0:
             raise RuntimeError(f"softsplat_sorted_keys launch failed: cudaError {err}")
         keys, order = torch.sort(keys, stable=True)
-        starts = torch.empty(total + 1, dtype=torch.int32, device=dev)
-        src = torch.empty(npix, dtype=torch.int32, device=dev)
-        wq = torch.empty(npix, 4, dtype=torch.float32, device=dev)
         out = torch.empty_like(vals)
         self.launch(dev, vals.data_ptr(), flow.data_ptr(), keys.data_ptr(), order.data_ptr(),
-                    starts.data_ptr(), src.data_ptr(), wq.data_ptr(), out.data_ptr(), n, h, w, c)
+                    out.data_ptr(), n, h, w, c)
         return out
 
 

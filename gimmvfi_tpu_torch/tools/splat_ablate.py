@@ -1,10 +1,10 @@
 """The splat kernels' inputs, their check cases on the card, their PyTorch
 yardsticks and their ablations.
 
-    python -m gimmvfi_tpu_torch.tools.splat_ablate [--backward] [--against SOURCE ...]
+    python -m gimmvfi_tpu_torch.tools.splat_ablate [--backward | --sorted] [--against SOURCE ...]
 
-Card only: without CUDA `main` raises. Without `--backward` it ablates the
-forward kernel; each variant is `csrc/softsplat.cu` with a text
+Card only: without CUDA `main` raises. Without `--backward` or `--sorted`
+it ablates the atomic forward kernel; each variant is `csrc/softsplat.cu` with a text
 substitution, built with the same nvcc flags into `build/kernels/ablate/`:
   - kernel: the source as it is (128 pixels a block, one value a lane);
   - pixels256: a block owns 256 source pixels instead of 128;
@@ -62,6 +62,22 @@ earlier version taken from git history; a backward source gets the
 variants too. The backward section also times the PyTorch calls that
 compute the same functions (`library_calls`) beside the kernel.
 
+With `--sorted` it sweeps the deterministic splat's gather,
+`csrc/softsplat_sorted.cu`: its tile shape (kRows x kCols), staging
+memory (kSmemBytes, which sets how many entries a block stages at once),
+block size (kGatherThreads) and register cap (kMinBlocks), each point of `SORTED_SWEEP` built as the source with those constants
+substituted. Every point is first held bitwise to `splat_sum_sorted_plain`
+in `CHECK_CASES` and at `TRAIN_SPLAT`; then each is timed as the wrapper
+calls it (the keys kernel, `torch.sort`, the gather) at `MAIN_SHAPE` on a
+random and a smooth field (std 20 px) and at `TRAIN_SPLAT` (random, std 8),
+by device rows, twice in opposite orders: the gather's own row against the
+bound, and the whole call. Each point prints its capacity (entries a block
+stages at once) and its resident blocks an SM at C = 17. The ablations
+(`SORTED_ABLATIONS`: the sums, the value rows, the flow reads left out,
+or the sources taken in key order) are built at the source's constants and
+timed with the points, unchecked; so are three that return early, after
+each phase of a block (`upto_runs`, `upto_sources`, `upto_staging`).
+
 `splat_inputs`, `CHECK_CASES`, `bwd_inputs`, `BWD_CASES`,
 `library_calls` and `library_agreement` are shared with `chip_smoke.py`
 phases 3 and 11 and the card tests of `tests/test_torch_softsplat.py` and
@@ -72,15 +88,17 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.softsplat import splat_sum_backward_plain, splat_sum_plain
+from ..ops.softsplat import splat_sum_backward_plain, splat_sum_plain, splat_sum_sorted_plain
 from ..utils.kernel_build import CSRC, build_text, substitute
 from ..utils.timing import bound_ms, device_ms, fmt_ms, kernel_row
 
@@ -89,7 +107,11 @@ COARSE = (12, 20)  # the smooth field's grid of independent vectors at 720p
 # (shape, flow field, flow std in px): the main path's shape on both fields
 # and with non-finite and far flows; C in {1, 3, 5, 17, 33, 64}; N = 2; value
 # counts that are not a multiple of 4 (the 16-byte loads' ragged tail:
-# 2*37*53*17 and 7*13*5); one pixel block of one channel
+# 2*37*53*17 and 7*13*5); one pixel block of one channel; every source of a
+# 48x80 frame sent to one point (`collisions`): one key run of 3,840 entries,
+# past the sorted gather's capacity at C = 17, read by 4 destinations that
+# straddle its tiles' edges; C = 130, the sorted gather's 8-byte copies over
+# 5 channel slices
 CHECK_CASES = [
     (MAIN_SHAPE, "random", 20.0),
     (MAIN_SHAPE, "smooth", 20.0),
@@ -103,6 +125,8 @@ CHECK_CASES = [
     ((2, 24, 16, 3), "random", 30.0),
     ((1, 7, 13, 5), "random", 2.0),
     ((1, 8, 8, 1), "random", 0.6),
+    ((1, 48, 80, 17), "collisions", 0.0),
+    ((1, 36, 52, 130), "random", 4.0),
 ]
 # the kernel's walk over its block's values, which some variants replace
 WALK = """  const int m = np * c;  // values this block owns
@@ -271,17 +295,29 @@ def smooth_flow(rng: np.random.Generator, n: int, h: int, w: int, std: float,
     return up.permute(0, 2, 3, 1).contiguous().numpy()
 
 
+def collision_point(h: int, w: int) -> tuple[float, float]:
+    """Where the `collisions` field sends every source: (0.8 W - 0.7, H / 6
+    - 0.4), at 48x80 (63.3, 7.6), whose 4 destinations straddle a tile
+    edge of every power-of-two width up to 64 and height up to 8."""
+    return 0.8 * w - 0.7, h / 6 - 0.4
+
+
 def splat_inputs(shape, field: str, std: float, seed: int = 0, device="cuda"):
     """vals ~ N(0, 1) and a flow field from a seed, float32 on `device`.
 
     field: "random" (independent N(0, std) vectors), "smooth"
-    (`smooth_flow`) or "non_finite" (random, then 1% NaN, 1% +inf, 1% -inf
-    and 5% scaled by 1e4)."""
+    (`smooth_flow`), "non_finite" (random, then 1% NaN, 1% +inf, 1% -inf
+    and 5% scaled by 1e4) or "collisions" (every source sent to the point
+    `collision_point(h, w)`, off the pixel grid; std unused)."""
     n, h, w, _ = shape
     rng = np.random.default_rng(seed)
     vals = rng.standard_normal(shape).astype(np.float32)
     if field == "smooth":
         flow = smooth_flow(rng, n, h, w, std)
+    elif field == "collisions":
+        jj, ii = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+        at_x, at_y = collision_point(h, w)
+        flow = np.broadcast_to(np.stack([at_x - jj, at_y - ii], axis=-1), (n, h, w, 2)).copy()
     elif field in ("random", "non_finite"):
         flow = (rng.standard_normal((n, h, w, 2)) * std).astype(np.float32)
     else:
@@ -313,15 +349,187 @@ def variant_source(name: str, src: str) -> str:
     return substitute(src, VARIANTS[name][0], f"variant {name}")
 
 
-def build_source(name: str, text: str):
-    """Build `text` as build/kernels/ablate/softsplat_<name>.cu and bind its
-    launcher; returns (function, ptxas register lines)."""
-    lib, log = build_text(f"softsplat_{name}", text)
+def bind_atomic(lib):
+    """The atomic kernel's launcher, `softsplat_sum_f32`."""
     fn = lib.softsplat_sum_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    keep = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    return fn, " | ".join(keep)
+    return fn
+
+
+def bind_sorted(lib):
+    """The sorted splat's entry points: `keys`, `gather` (the launcher),
+    `capacity(c)` and `blocks_per_sm(c)`."""
+    fns = SimpleNamespace(keys=lib.softsplat_sorted_keys, gather=lib.softsplat_sorted_sum_f32,
+                          capacity=lib.softsplat_sorted_capacity,
+                          blocks_per_sm=lib.softsplat_sorted_blocks_per_sm)
+    fns.keys.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fns.gather.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fns.capacity.argtypes = fns.blocks_per_sm.argtypes = [ctypes.c_int]
+    for fn in vars(fns).values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def build_source(name: str, text: str, bind=bind_atomic):
+    """Build `text` as build/kernels/ablate/softsplat_<name>.cu and bind its
+    entry points with `bind`; returns (what `bind` returns, ptxas register
+    lines)."""
+    lib, log = build_text(f"softsplat_{name}", text)
+    keep = [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "smem" in ln]
+    return bind(lib), " | ".join(keep)
+
+
+# the sorted gather's sweep: point -> (kRows, kCols, kSmemBytes,
+# kGatherThreads, kMinBlocks)
+SORTED_SWEEP = {
+    "r4c64_s40k_t320_b4": (4, 64, 40960, 320, 4),
+    "r4c64_s40k_t320_b5": (4, 64, 40960, 320, 5),
+    "r4c64_s40k_t256_b5": (4, 64, 40960, 256, 5),
+    "r4c64_s48k_t320_b4": (4, 64, 49152, 320, 4),
+    "r4c32_s24k_t160_b8": (4, 32, 24576, 160, 8),
+    "r8c64_s72k_t320_b3": (8, 64, 73728, 320, 3),
+}
+# the sorted gather's ablations at the source's own constants: name ->
+# substitutions; none computes the splat, none is checked
+SORTED_ABLATIONS = {
+    # cumulative phases: the block returns after finding and marking its key
+    # rows' runs, after the source indices, after the staged rows and weights
+    # (no output written)
+    "upto_runs": [("  const int total = s_vend[0];", "  if (c > 0) return;\n  const int total = s_vend[0];")],
+    "upto_sources": [("      __syncthreads();\n      // their value rows",
+                      "      __syncthreads();\n      if (c > 0) return;\n      // their value rows")],
+    "upto_staging": [("      cp_async_wait_all();\n      __syncthreads();",
+                      "      cp_async_wait_all();\n      __syncthreads();\n      if (c > 0) return;")],
+    # the sums' walks over the runs left out (the outputs' loads and stores stay)
+    "no_sums": [("for (int e = a; e < m; ++e) {", "for (int e = a; e < a; ++e) {"),
+                ("for (int e = m; e < b; ++e) {", "for (int e = m; e < m; ++e) {")],
+    # no value row copied into shared memory
+    "no_value_rows": [("if (k < n) cp_async<V>(dst + k, src + k);",
+                       "if (k < n && c < 0) cp_async<V>(dst + k, src + k);"),
+                      ("cp_async<4>(dst, src);", "if (c < 0) cp_async<4>(dst, src);")],
+    # no flow read for the weights (a constant position instead)
+    "no_flow_reads": [("corner_weights(p, flow[p], h, w, x0, y0, wgt);\n        s_w[e] = wgt;",
+                       "corner_weights(p, make_float2(0.25f, 0.5f), h, w, x0, y0, wgt);\n"
+                       "        s_w[e] = wgt;")],
+    # each entry's source taken as its sorted position: the value rows and
+    # flows read in key order (near-contiguous) instead of scattered
+    "sorted_sources": [("const long long src = __ldg(reinterpret_cast<const long long*>(order) + g);",
+                        "const long long src = g;")],
+}
+SORTED_CONSTANTS = ("kRows", "kCols", "kGatherThreads", "kMinBlocks", "kSmemBytes",
+                    "kSliceChannels")
+
+
+def sorted_tile(src: str) -> dict:
+    """The sorted gather's compile-time constants (`SORTED_CONSTANTS`), read
+    from its source."""
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in SORTED_CONSTANTS}
+
+
+def sorted_capacity(c: int, tile: dict) -> int:
+    """The entries a sorted-gather block stages at once at C channels, as
+    the source's `plan` computes it: C cut into even slices of at most
+    kSliceChannels, an entry's 16 + 4 bytes of weights and source index and
+    its slice of values padded to a multiple of 4, rounded down to a
+    multiple of 4."""
+    nslices = -(-c // tile["kSliceChannels"])
+    slice_c = -(-c // nslices)
+    return tile["kSmemBytes"] // (20 + 16 * -(-slice_c // 4)) // 4 * 4
+
+
+def sorted_variant_source(src: str, rows: int, cols: int, smem: int, threads: int,
+                          min_blocks: int) -> str:
+    """The sorted splat's source with its tile, staging memory, block size
+    and register cap (the blocks an SM its registers must allow) set."""
+    tile = sorted_tile(src)
+    return substitute(src, [(f"constexpr int {name} = {tile[name]};",
+                             f"constexpr int {name} = {value};")
+                            for name, value in (("kRows", rows), ("kCols", cols),
+                                                ("kSmemBytes", smem),
+                                                ("kGatherThreads", threads),
+                                                ("kMinBlocks", min_blocks))],
+                      f"sorted point {rows}x{cols}, {smem} B, {threads} threads, "
+                      f"{min_blocks} blocks")
+
+
+def sorted_runner(fns, vals, flow):
+    """One call of a sorted build as the wrapper makes it: the keys kernel,
+    `torch.sort(stable=True)`, the gather into an output allocated here."""
+    n, h, w, c = vals.shape
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        keys = torch.empty(n * h * w, dtype=torch.int32, device=vals.device)
+        if fns.keys(flow.data_ptr(), keys.data_ptr(), n, h, w, stream):
+            raise RuntimeError("softsplat_sorted_keys launch failed")
+        keys, order = torch.sort(keys, stable=True)
+        out = torch.empty_like(vals)
+        err = fns.gather(vals.data_ptr(), flow.data_ptr(), keys.data_ptr(), order.data_ptr(),
+                         out.data_ptr(), n, h, w, c, stream)
+        if err != 0:
+            raise RuntimeError(f"softsplat_sorted_sum_f32 launch failed: error {err}")
+        return out
+    return run
+
+
+def sorted_main(smi: str, iters: int = 20) -> dict:
+    """The `--sorted` sweep (see the module's docstring); returns
+    {(shape, field): {point: [(gather ms, call ms) of each turn]}}."""
+    src = (CSRC / "softsplat_sorted.cu").read_text()
+    tile = sorted_tile(src)
+    as_is = tuple(tile[k] for k in ("kRows", "kCols", "kSmemBytes", "kGatherThreads",
+                                    "kMinBlocks"))
+    specs = {"kernel_r{}c{}_s{}k_t{}_b{}".format(as_is[0], as_is[1], as_is[2] // 1024,
+                                                 *as_is[3:]): src}
+    specs.update({name: sorted_variant_source(src, *dims)
+                  for name, dims in SORTED_SWEEP.items() if dims != as_is})
+    specs.update({f"ablate_{name}": substitute(src, subs, f"sorted ablation {name}")
+                  for name, subs in SORTED_ABLATIONS.items()})
+    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+        built = dict(zip(specs, pool.map(
+            lambda name: build_source(f"sorted_{name}", specs[name], bind_sorted), specs)))
+    for name, (fns, log) in built.items():
+        print(f"sorted {name}: capacity {fns.capacity(17)} entries at C=17, "
+              f"{fns.blocks_per_sm(17)} blocks an SM; ptxas {log}", flush=True)
+
+    cases = CHECK_CASES + [(TRAIN_SPLAT, "random", TRAIN_STD)]
+    for i, (shape, field, std) in enumerate(cases):
+        vals, flow = splat_inputs(shape, field, std, seed=i)
+        ref = splat_sum_sorted_plain(vals, flow)
+        for name, (fns, _) in built.items():
+            if name.startswith("ablate_"):
+                continue
+            if not torch.equal(sorted_runner(fns, vals, flow)(), ref):
+                raise AssertionError(f"sorted point {name} is not bitwise its order in plain "
+                                     f"torch at {shape} {field}")
+        del vals, flow, ref
+    print(f"every sorted point is bitwise equal to splat_sum_sorted_plain in all {len(cases)} "
+          f"cases (the ablations compute no splat and are not checked)", flush=True)
+
+    res = {}
+    for shape, field, std in ((MAIN_SHAPE, "random", 20.0), (MAIN_SHAPE, "smooth", 20.0),
+                              (TRAIN_SPLAT, "random", TRAIN_STD)):
+        vals, flow = splat_inputs(shape, field, std, seed=0)
+        bound, bound_by = splat_bound(vals)
+        calls = {name: sorted_runner(fns, vals, flow) for name, (fns, _) in built.items()}
+        times = {name: [] for name in calls}
+        for order in (list(calls), list(reversed(calls))):
+            for name in order:
+                total, by_name = device_ms(calls[name], iters=iters)
+                times[name].append((kernel_row(by_name, "splat_sorted_gather"), total))
+        for name, turns in times.items():
+            print(f"sorted {shape} {field} flow std {std:g} {name:26s} gather "
+                  f"{' / '.join(fmt_ms(g) for g, _ in turns)} ms "
+                  f"({' / '.join('-' if g is None else f'{100 * bound / g:.1f}' for g, _ in turns)}"
+                  f"% of the {bound:.4f} ms {bound_by} bound), whole call "
+                  f"{' / '.join(fmt_ms(x) for _, x in turns)} ms; {smi}", flush=True)
+        res[(shape, field)] = times
+        del vals, flow, calls
+        torch.cuda.empty_cache()
+    return res
 
 
 
@@ -552,6 +760,8 @@ def main(argv=None, iters=20):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--backward", action="store_true",
                         help="ablate the backward kernel instead of the forward one")
+    parser.add_argument("--sorted", action="store_true",
+                        help="sweep the sorted splat's tile shape and staging memory")
     parser.add_argument("--against", nargs="*", default=[],
                         help="other sources with the launcher of the kernel ablated")
     args = parser.parse_args(argv)
@@ -562,6 +772,8 @@ def main(argv=None, iters=20):
     print(smi, flush=True)
     if args.backward:
         return backward_main(args.against, smi, iters=iters)
+    if args.sorted:
+        return sorted_main(smi, iters=iters)
     kernel_src = (CSRC / "softsplat.cu").read_text()
     # name -> (source text, output channel pitch multiple, computes the splat)
     specs = {name: (variant_source(name, kernel_src), multiple, computes)

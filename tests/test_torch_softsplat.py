@@ -15,10 +15,14 @@ max-abs.
 
 The CUDA kernels themselves run only on the card (`cuda` marker). On the
 CPU a model of the atomic kernel's block walk (`_kernel_walk`, the
-source's index stepping in Python) is held against the plain version, and
-both wrappers' checks are shown to raise before anything is built.
+source's index stepping in Python) is held against the plain version; a
+model of the sorted kernel's tile-staged gather (`_sorted_tile_walk`: its
+range bounds, run marks, walk order and chunks) is held bitwise to
+`splat_sum_sorted_plain`; both wrappers' checks are shown to raise before
+anything is built.
 """
 
+import inspect
 import re
 
 import jax.numpy as jnp
@@ -35,20 +39,31 @@ from gimmvfi_tpu_torch.ops.softsplat import (
     SPLAT_SORTED_KERNEL,
     SplatSum,
     softsplat,
+    SortedSplatKernel,
+    splat_geometry,
     splat_sort_keys,
     splat_sum,
     splat_sum_plain,
     splat_sum_sorted_plain,
 )
 from gimmvfi_tpu_torch.tools import splat_ablate
-from gimmvfi_tpu_torch.tools.splat_ablate import CHECK_CASES, kernel_bound_ok, smooth_flow, splat_inputs
-from gimmvfi_tpu_torch.utils.kernel_build import CSRC
+from gimmvfi_tpu_torch.tools.splat_ablate import (
+    CHECK_CASES,
+    kernel_bound_ok,
+    smooth_flow,
+    sorted_capacity,
+    sorted_tile,
+    splat_inputs,
+)
+from gimmvfi_tpu_torch.utils.kernel_build import CSRC, substitute
 
 torch.set_num_threads(1)
 
 SHAPES = [((1, 16, 24, 5), 3.0), ((2, 24, 16, 3), 30.0), ((1, 8, 8, 1), 0.6)]
 KERNEL_SRC = (CSRC / "softsplat.cu").read_text()
 PIXELS = int(re.search(r"constexpr int kPixels = (\d+);", KERNEL_SRC).group(1))
+SORTED_SRC = (CSRC / "softsplat_sorted.cu").read_text()
+SORTED_TILE = sorted_tile(SORTED_SRC)
 
 
 def _inputs(rng, shape, flow_scale, field="random"):
@@ -355,6 +370,155 @@ def test_kernel_source_is_the_channel_contiguous_design():
         assert gone not in KERNEL_SRC, gone
 
 
+def _sorted_tile_walk(vals: np.ndarray, flow: np.ndarray, rows: int, cols: int,
+                      capacity: int) -> tuple[np.ndarray, int]:
+    """`csrc/softsplat_sorted.cu`'s gather on the CPU, one float32 operation
+    at a time (over a row's channels at once): for each tile of `rows` x
+    `cols` destinations of one image, its rows + 1 key rows' range bounds
+    in the sorted keys, the run marks (`vst`: each key's run end in walk
+    order), then the walk in chunks of `capacity` entries, each staged entry
+    placed as the kernel places it (from its key where one chunk holds the
+    tile, else found from its walk position), each (column,
+    channel) walked down the key rows, each output adding its runs' part in
+    the chunk to its partial sum. Asserts that the entries
+    each destination reads, over all chunks, are exactly its four key runs
+    of the whole sorted array. Returns (out, tiles that took more than one
+    chunk)."""
+    n, h, w, c = vals.shape
+    npix = n * h * w
+    keys, p_pad = splat_sort_keys(torch.from_numpy(flow))
+    keys, order = (a.numpy() for a in torch.sort(keys, stable=True))
+    wq = np.stack([torch.where(ok, wgt, 0.0).numpy()
+                   for _, _, wgt, ok in splat_geometry(torch.from_numpy(flow))],
+                  axis=-1).reshape(npix, 4)
+    rows_v = vals.reshape(npix, c)
+    out = np.full((npix, c), np.nan, np.float32)
+    read = {}  # (destination, corner) -> sorted positions read, in order
+    chunked = 0
+    for img in range(n):
+        for ya in range(0, h, rows):
+            for xa in range(0, w, cols):
+                wc, rt = min(cols, w - xa), min(rows, h - ya)
+                nr, kbase = rt + 1, img * p_pad + ya * w + xa
+                bound = [(int(np.searchsorted(keys, kbase + rr * w)),
+                          int(np.searchsorted(keys, kbase + rr * w + wc + 1))) for rr in range(nr)]
+                e_, vend, v = [0] * nr, [0] * nr, 0
+                for rr in reversed(range(nr)):
+                    e_[rr] = v + bound[rr][1]
+                    v += bound[rr][1] - bound[rr][0]
+                    vend[rr] = v
+                total = v
+                vst = [[e_[rr] - bound[rr][1]] * (wc + 2) for rr in range(nr)]
+                for rr, (b0, b1) in enumerate(bound):
+                    klo = kbase + rr * w
+                    for g in range(b0, b1):
+                        kp = -1 if g == b0 else keys[g - 1] - klo
+                        for j in range(kp + 1, keys[g] - klo + 1):
+                            vst[rr][j] = e_[rr] - g
+                v0 = 0
+                while True:
+                    v1 = min(total, v0 + capacity)
+                    staged = [None] * (v1 - v0)  # sorted position of each slot
+                    if total <= capacity:  # one chunk: each entry's slot from its key
+                        for rr, (b0, b1) in enumerate(bound):
+                            for g in range(b0, b1):
+                                j = keys[g] - (kbase + rr * w)
+                                staged[vst[rr][j + 1] + g - (e_[rr] - vst[rr][j])] = g
+                    else:  # each slot's entry from its walk position
+                        for v in range(v0, v1):
+                            rr = nr - 1
+                            while v >= vend[rr]:
+                                rr -= 1
+                            j = next(j for j in range(wc + 1) if vst[rr][j + 1] <= v)
+                            staged[v - v0] = e_[rr] - vst[rr][j] + v - vst[rr][j + 1]
+                    src = order[staged]
+                    s_w, s_val = wq[src], rows_v[src]
+                    zero = np.zeros(c, np.float32)
+                    for tx in range(wc):  # a column, down the key rows
+                        dst = [(img * h + ya + ty) * w + xa + tx for ty in range(rt)]
+                        upper = zero  # destination row rr, its (0,0), (1,0) summed
+                        lower = zero if v0 == 0 else out[dst[rt - 1]].copy()  # row rr - 1
+                        for rr in range(rt, -1, -1):
+                            vr = vst[rr]
+                            a, m = max(vr[tx + 2], v0) - v0, max(min(vr[tx + 1], v1), v0) - v0
+                            b = min(vr[tx], v1) - v0
+                            for lo, hi, up, low in ((a, m, 2, 0), (m, b, 3, 1)):
+                                for e in range(lo, hi):
+                                    upper = upper + s_val[e] * s_w[e, up]
+                                    lower = lower + s_val[e] * s_w[e, low]
+                                    if rr < rt:
+                                        read.setdefault((dst[rr], up), []).append(staged[e])
+                                    if rr > 0:
+                                        read.setdefault((dst[rr - 1], low), []).append(staged[e])
+                            if rr < rt:
+                                out[dst[rr]] = upper
+                            upper = lower
+                            lower = zero if v0 == 0 or rr < 2 else out[dst[rr - 2]].copy()
+                    v0 = v1
+                    if v0 >= total:
+                        break
+                chunked += total > capacity
+    for d in range(npix):
+        k = (d // (h * w)) * p_pad + d % (h * w) + w + 1
+        for corner, delta in enumerate((0, 1, w, w + 1)):
+            lo, hi = np.searchsorted(keys, [k - delta, k - delta + 1])
+            assert read.get((d, corner), []) == list(range(lo, hi)), (d, corner)
+    return out.reshape(vals.shape), chunked
+
+
+# (shape, flow std, field): the order tests' cases plus C = 17 with H and W
+# off every tile
+TILE_CASES = SORTED_CASES + [((1, 13, 37, 17), 4.0, "random")]
+
+
+@pytest.mark.parametrize("tile", ["kernel", "3x5"])
+@pytest.mark.parametrize("shape,flow_scale,field", TILE_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{f}" for s, _, f in TILE_CASES])
+def test_sorted_tile_walk_is_bitwise_the_plain_order(rng, shape, flow_scale, field, tile):
+    """The model of the sorted gather, at the source's tile (one ragged tile
+    spanning the whole width here, so neighbouring key rows share a key) and
+    at 3 x 5 tiles (many, ragged at the right and bottom edges), each with
+    the kernel's capacity at this C and with 2 entries (the chunked walk in
+    every tile that holds more), is bit-equal to `splat_sum_sorted_plain`."""
+    vals, flow = _collisions(rng) if field == "collisions" else _inputs(rng, shape, flow_scale,
+                                                                         field)
+    rows, cols = ((SORTED_TILE["kRows"], SORTED_TILE["kCols"]) if tile == "kernel" else (3, 5))
+    ref = splat_sum_sorted_plain(torch.from_numpy(vals), torch.from_numpy(flow)).numpy()
+    for capacity in (sorted_capacity(vals.shape[3], SORTED_TILE), 2):
+        got, chunked = _sorted_tile_walk(vals, flow, rows, cols, capacity)
+        assert got.dtype == np.float32 and np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+        if capacity == 2:
+            assert chunked > 0
+
+
+def test_sorted_kernel_source_is_the_tile_staged_gather():
+    """One gather kernel staging each tile's key ranges by `cp.async`, no
+    float atomic, no segments kernel and no global segment scratch; the
+    wrapper allocates only the keys and the output."""
+    code = re.sub(r"//[^\n]*", "", SORTED_SRC)
+    assert not re.search(r"\batom|\bred\.", code)  # atomicAdd, atom.*, red.* (PTX)
+    for gone in ("splat_sorted_segments_kernel", "starts", "wq"):
+        assert gone not in code, gone
+    for needle in ("splat_sorted_gather_kernel", "cp.async.ca.shared.global",
+                   "cp.async.cg.shared.global", "__fadd_rn(acc.x, __fmul_rn(v.x, w))"):
+        assert needle in code, needle
+    call = inspect.getsource(SortedSplatKernel.__call__)
+    assert call.count("torch.empty") == 2 and "launch(" in call
+    assert len(SPLAT_SORTED_KERNEL.argtypes) == 5 + 4 + 1
+
+
+@pytest.mark.parametrize("point", sorted(splat_ablate.SORTED_SWEEP))
+def test_sorted_sweep_points_apply_to_the_source(point):
+    """Each point of the sorted gather's sweep sets the source's constants;
+    each ablation applies to it."""
+    dims = splat_ablate.SORTED_SWEEP[point]
+    tile = sorted_tile(splat_ablate.sorted_variant_source(SORTED_SRC, *dims))
+    assert tuple(tile[k] for k in ("kRows", "kCols", "kSmemBytes", "kGatherThreads",
+                                   "kMinBlocks")) == dims
+    for name, subs in splat_ablate.SORTED_ABLATIONS.items():
+        assert substitute(SORTED_SRC, subs, name) != SORTED_SRC
+
+
 @pytest.mark.parametrize("name", sorted(splat_ablate.VARIANTS))
 def test_ablation_variants_apply_to_the_kernel_source(name):
     out = splat_ablate.variant_source(name, KERNEL_SRC)
@@ -363,13 +527,22 @@ def test_ablation_variants_apply_to_the_kernel_source(name):
 
 def test_check_cases_cover_the_kernel_edges():
     """The card's check cases: every channel count of the list, N = 2, value
-    counts off a multiple of 4, and all three flow fields at the main shape."""
+    counts off a multiple of 4, all three flow fields at the main shape, and
+    a collisions case whose one key run is longer than the sorted gather
+    stages at once at its C (the chunked walk on the card)."""
     shapes = [s for s, _, _ in CHECK_CASES]
     assert {s[3] for s in shapes} >= {1, 3, 5, 17, 33, 64}
     assert any(s[0] == 2 for s in shapes)
     assert any(np.prod(s) % 4 for s in shapes)
     assert {f for s, f, _ in CHECK_CASES if s == splat_ablate.MAIN_SHAPE} == {
         "random", "smooth", "non_finite"}
+    collisions = [(s, std) for s, f, std in CHECK_CASES if f == "collisions"]
+    assert len(collisions) == 1
+    shape, std = collisions[0]
+    _, flow = splat_inputs(shape, "collisions", std, device="cpu")
+    keys, _ = splat_sort_keys(flow)
+    longest = int(torch.unique(keys, return_counts=True)[1].max())
+    assert longest == np.prod(shape[:3]) > sorted_capacity(shape[3], SORTED_TILE)
 
 
 def test_splat_inputs_are_seeded_and_smooth():
@@ -411,7 +584,8 @@ def test_kernel_matches_plain_on_card(shape, field, std):
 @pytest.mark.parametrize("shape,field,std", CHECK_CASES)
 def test_sorted_kernel_matches_plain_on_card(shape, field, std):
     """The route (`splat_sum`) launches the sorted kernel once; two calls
-    give the same bits; within the atomic kernel's bound of the plain core."""
+    give the same bits, those of its order in plain torch; within the
+    atomic kernel's bound of the plain core."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc; run on the card")
     vals, flow = splat_inputs(shape, field, std, seed=1)
@@ -420,6 +594,7 @@ def test_sorted_kernel_matches_plain_on_card(shape, field, std):
     torch.cuda.synchronize()
     assert SPLAT_SORTED_KERNEL.launches == before + 1
     assert torch.equal(got, SPLAT_SORTED_KERNEL(vals, flow))
+    assert torch.equal(got, splat_sum_sorted_plain(vals, flow))
     ref = splat_sum_plain(vals, flow)
     ok, bound = kernel_bound_ok(float((got - ref).abs().max()), ref)
     assert ok, (float((got - ref).abs().max()), bound)
