@@ -6,7 +6,9 @@ its bench entry, its two probe entry points, its serving entry points
 training and stage-2 GIMM-VFI training (each recipe's step and the train
 CLI), data-parallel training (the step under a process group, two ranks
 against one process, the CLI under torchrun) and spatial sharding (one
-pair's RAFT and decode split by width over two ranks) once on one CUDA card.
+pair's RAFT and decode split by width over two ranks) once on one CUDA card;
+the windowed correlation lookup's backward kernel held to its plain
+version, and stage-2 training's recipe step on the windowed route.
 
     python3 chip_smoke.py
 
@@ -14,7 +16,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card: CUDA must be present; prints nvidia-smi's name and power limit;
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat_sorted.cu,
      softsplat.cu, softsplat_bwd.cu, windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
-     conv3x3.cu, gather_probe.cu) all at once, one nvcc each; counts the
+     windowed_corr_bwd.cu, conv3x3.cu, gather_probe.cu) all at once, one nvcc each; counts the
      HMMA (tensor-core) instructions in the SASS of windowed_corr_mma and
      windowed_corr_tf32 (`cuobjdump -sass`) and fails on none; prints the
      shared memory a block and the blocks an SM of windowed_corr_tf32 at
@@ -80,6 +82,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      DS 1.0 RAFT lookup on in-frame and smooth coordinates, at 720p beside
      the materialized lookup, and (after phase 8 (c)) on the inputs of the
      first and last RAFT lookups of a `prepare` of that path, captured;
+     then the backward (`csrc/windowed_corr_bwd.cu`, `WindowedCorrLookup`'s)
+     against `windowed_corr_lookup_backward_plain` in the same cases and
+     `WINDOWED_BWD_CASES` (radius 0 and 2, 3 levels; `windowed_bwd_agreement`:
+     float32 d_f1 and d_levels <= 1e-5 x max(1, max|plain|), d_coords <=
+     1e-4 x max(1, max|plain|), bf16 within one bf16 step, NaN at the same
+     places), with d_coords and without, and the route in each case:
+     torch.autograd.grad of a seeded weighted sum of `windowed_corr_lookup`'s
+     output on CUDA tensors against that of the plain lookup on the same
+     tensors (one forward and one backward launch), the coordinates needing
+     grad and not, under the same bounds; then its readings (`bwd_reading`:
+     events and device time against the bound, with d_coords and without,
+     d_levels over two calls, the forward's and the plain version's times) at (b)
+     the 720p F AMT lookup (1,92,160) float32, beside the yardstick (the
+     materialized lookup's autograd backward), and (c) the 2048x1088 DS
+     1.0 RAFT lookup (2,136,256) bf16; (a) is phase 12 (e)'s;
   8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
      (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
      1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
@@ -186,7 +203,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      second; exact launches, seconds an epoch and whether Pillow was found;
      (d) one recipe step of GIMMVFI_F() (`gimmvfi_f_arb.yaml`, the same
      LPIPS): exact launches counted from 0, 3 timed after 2 warm-ups (median
-     ms, peak), no trace;
+     ms, peak), no trace; (e) (a)'s step with `corr_max_volume_bytes=0`:
+     exact launches counted from 0 (42 float32 lookups, RAFT's 2 x 20 and
+     the AMT's 2, and 42 backward launches; no bf16 or CUDA-core one), a
+     finite loss, the events median beside (a)'s, the peak, the device
+     time of one traced step and of its lookups; the backward kernel's
+     readings (a) on the step's AMT lookup, captured, beside the yardstick;
+     then from the same seeded weights and batch the windowed step's
+     gradients against the default (materialized) step's on the card,
+     under (b)'s bounds;
  13. data-parallel training (`parallel/dist.py`), float32, in
      build/chip_smoke_phase13/: (a) phase 12 (a)'s recipe step through the
      data-parallel step under a process group of one NCCL rank on the card
@@ -213,7 +238,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      GIMMVFI_R(raft_iters=20, dtype=bfloat16) at 2048x1088 DS 1.0, >= 50
      dB, exactly 14 splat and 34 `windowed_corr_mma` launches a rank (RAFT's
      20 on each rank's query strip: `prepare_sharded` runs RAFT on a strip
-     a rank); (b)
+     a rank; no windowed backward launch on any path); (b)
      the same at 4096x2176 DS 0.25, >= 50 dB, 14 and 0; (c)
      GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs, 14 and
      0, one process against itself printed; the ranks' results bitwise
@@ -238,7 +263,10 @@ sorted splat's and the backward's records carry their phase 12 and phase
 13 (a) steps' counts (`launches_phase12_step`, `launches_phase13_step`);
 the atomic splat's `launches` are 0 (asserted on every path); the sorted
 splat's and the bf16 tensor-core lookup's records carry each rank's phase 14 counts
-(`launches_phase14`).
+(`launches_phase14`); the windowed backward's `launches` are those of
+phase 12 (e)'s counted step, 0 on every inference path (asserted), and the
+3xTF32 kernel's record carries that step's count too
+(`launches_phase12_windowed_step`).
 The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -277,10 +305,12 @@ from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
 from gimmvfi_tpu_torch.ops import corr as corr_ops
 from gimmvfi_tpu_torch.ops.corr import (
+    WINDOWED_CORR_BWD_KERNEL,
     WINDOWED_CORR_KERNEL,
     WINDOWED_CORR_MMA_KERNEL,
     WINDOWED_CORR_TF32_KERNEL,
     WindowedCorr,
+    windowed_corr_lookup_backward_plain,
     windowed_corr_lookup_plain,
 )
 from gimmvfi_tpu_torch.ops import softsplat as softsplat_ops
@@ -306,13 +336,16 @@ from gimmvfi_tpu_torch.tools.windowed_ablate import (
     RAFT_2K,
     RAFT_720P,
     TF32_CASES,
+    WINDOWED_BWD_CASES,
     WINDOWED_CASES,
+    bwd_bound,
     extent_summary,
     f32_lookup_bounds,
     fmt_extent,
     mma_tile_extents,
     tf32_config,
     windowed_agreement,
+    windowed_bwd_agreement,
     windowed_inputs,
 )
 from gimmvfi_tpu_torch.tools.splat_ablate import (
@@ -357,7 +390,7 @@ N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
 KERNELS = [SPLAT_SORTED_KERNEL, SPLAT_KERNEL, SPLAT_BACKWARD_KERNEL, WINDOWED_CORR_MMA_KERNEL,
-           WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_KERNEL] + PROBE_KERNELS
+           WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_KERNEL, WINDOWED_CORR_BWD_KERNEL] + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
 # 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
@@ -621,15 +654,17 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
     reset_counts()
     got = interpolate_sequential(gpu_model, img, ts, ds_factor)["imgt_pred"].cpu()
     windowed, mma = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
-    cuda_core = WINDOWED_CORR_KERNEL.launches
+    cuda_core, corr_bwd = WINDOWED_CORR_KERNEL.launches, WINDOWED_CORR_BWD_KERNEL.launches
     if got.shape != (len(ts), 1, *hw, 3):
         raise AssertionError(f"imgt_pred shape {tuple(got.shape)}")
     # RAFT's 2 lookups (FlowFormer's own volume is always materialized),
     # then the AMT's two a timestep
     flow_lookups = 2 if family is GIMMVFI_R else 0
-    if windowed != (flow_lookups + 2 * len(ts) if limit == 0 else 0) or mma or cuda_core:
+    if (windowed != (flow_lookups + 2 * len(ts) if limit == 0 else 0) or mma or cuda_core
+            or corr_bwd):
         raise AssertionError(f"{windowed} float32 windowed-correlation launches, {mma} of the "
-                             f"bf16 kernel, {cuda_core} of the CUDA-core one")
+                             f"bf16 kernel, {cuda_core} of the CUDA-core one, {corr_bwd} of "
+                             f"the backward")
     db = psnr(got, ref)
     print(f"[{phase}] {family.__name__}(2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
           f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB "
@@ -662,7 +697,7 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     end.synchronize()
     splats, wins = SPLAT_SORTED_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
     tf32, cuda_core = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_KERNEL.launches
-    atomic = SPLAT_KERNEL.launches
+    atomic, corr_bwd = SPLAT_KERNEL.launches, WINDOWED_CORR_BWD_KERNEL.launches
     total_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated()
 
@@ -677,11 +712,11 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     if not (lo >= 0.0 and hi <= 1.0):
         raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
     if (splats != 2 * len(ts) or wins != windowed_expected or tf32 != tf32_expected
-            or cuda_core != 0 or atomic != 0):
+            or cuda_core != 0 or atomic != 0 or corr_bwd != 0):
         raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma, {tf32} "
-                             f"windowed_corr_tf32, {cuda_core} windowed_corr and {atomic} atomic "
-                             f"splat launches, expected {2 * len(ts)}, {windowed_expected}, "
-                             f"{tf32_expected}, 0 and 0")
+                             f"windowed_corr_tf32, {cuda_core} windowed_corr, {atomic} atomic "
+                             f"splat and {corr_bwd} windowed_corr_bwd launches, expected "
+                             f"{2 * len(ts)}, {windowed_expected}, {tf32_expected}, 0, 0 and 0")
     del out, imgs, flows
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
@@ -949,20 +984,6 @@ def check_windowed() -> dict:
           f"max_abs_err {err:.3e}, max|materialized| {scale:.3e}", flush=True)
     if not err <= 1e-4 * scale:
         raise AssertionError("windowed and materialized lookups disagree at 720p")
-    # with grad on, the routed kernel refuses coordinates that need grad
-    # (it has no backward) instead of returning an output cut from the graph
-    coords.requires_grad_()
-    before = WINDOWED_CORR_TF32_KERNEL.launches
-    try:
-        with torch.enable_grad():
-            corr_ops.windowed_corr_lookup(wc, coords)
-    except NotImplementedError as e:
-        print(f"[7] with grad on: windowed_corr_lookup raised NotImplementedError ({e})",
-              flush=True)
-    else:
-        raise AssertionError("the windowed lookup returned a tensor cut from the graph")
-    if WINDOWED_CORR_TF32_KERNEL.launches != before:
-        raise AssertionError("the windowed kernel launched on an input that needs grad")
     del wc, coords, f1, f2, got, ref
     torch.cuda.empty_cache()
 
@@ -989,6 +1010,232 @@ def check_windowed() -> dict:
     del wc, coords, f1, f2, fwd, bwd, levels
     torch.cuda.empty_cache()
     return stats
+
+
+def bwd_agrees(label: str, got, ref) -> dict:
+    """`windowed_bwd_agreement` of the backward's (d_f1, d_levels,
+    d_coords) against the plain version's; prints the line and raises on
+    disagreement."""
+    agree = windowed_bwd_agreement(got, ref)
+    parts = "; ".join(f"{k} {v['max_abs_err']:.3e} of {v['scale']:.3e}, NaN {v['nan']}, "
+                      f"{v['bad']} over" for k, v in agree["tensors"].items())
+    print(f"{label}: {parts}; agrees {agree['ok']}", flush=True)
+    if not agree["ok"]:
+        raise AssertionError(f"the windowed backward disagrees with its plain version: {label}")
+    return agree
+
+
+def seeded_g(wc, coords, radius: int, seed: int) -> torch.Tensor:
+    """A seeded gradient of the lookup's output, in the features' dtype."""
+    n, _, h, w = coords.shape
+    shape = (n, len(wc.f2_levels) * (2 * radius + 1) ** 2, h, w)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(wc.f1.dtype).to(coords.device)
+
+
+def route_grads(wc, coords, radius: int, lookup, seed: int, dtype, with_coords: bool = True):
+    """torch.autograd.grad of a seeded weighted sum of `lookup`'s output
+    with respect to f1, the levels and (`with_coords`) the coordinates, the
+    features taken as `dtype` leaves (the same values): (d_f1, d_levels,
+    d_coords or None). The weights are rounded to the features' own dtype,
+    so that the output's gradient is the same whichever dtype the output
+    has."""
+    f1 = wc.f1.detach().to(dtype).requires_grad_()
+    levels = tuple(x.detach().to(dtype).requires_grad_() for x in wc.f2_levels)
+    xy = coords.detach().clone().requires_grad_(with_coords)
+    out = lookup(WindowedCorr(f1, levels, wc.shape_hw), xy, radius)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    weight = torch.randn(out.shape, generator=gen).to(wc.f1.dtype).float().to(out.device)
+    d = torch.autograd.grad((out.float() * weight).sum(), (f1, *levels, xy)[:len(levels) + 1
+                                                                           + with_coords])
+    return d[0], d[1:len(levels) + 1], d[-1] if with_coords else None
+
+
+def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int = 4) -> dict:
+    """The backward kernel on these inputs: held to its plain version, the
+    max-abs difference of d_levels over two calls (its atomic order), its
+    events and device time against the bound (`bwd_bound`: the bytes, or
+    for each tap on the map its dot again at the peak for the features'
+    type and four float32 operations a channel at the CUDA-core peak), the
+    same without d_coords (RAFT's mode: no dots) against its own bound, the
+    forward kernel's time on the same inputs, the
+    plain version's; with `library`, the yardstick: the autograd backward
+    of the materialized `corr_lookup` over `corr_pyramid` of the same maps
+    (grid_sample's backward, the pooling's and the bmm's), its d_fmap1
+    (d_f1 / sqrt(C)) and d_coords first held to the kernel's within 1e-3 x
+    max(1, max|kernel|). d_coords is held on the queries whose position
+    lies at least 1e-3 px from an integer at every level: the bilinear
+    weights' derivative jumps at integers, and grid_sample's normalized
+    grid rounds a position there to either side."""
+    call = lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius)  # noqa: E731
+    first, second = call(), call()
+    ref = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+    agree = bwd_agrees(f"{label}, held to its plain version", first, ref)
+    del ref
+    rerun = max(float((a.float() - b.float()).abs().max()) for a, b in zip(first[1], second[1]))
+    rerun_f1 = float((first[0].float() - second[0].float()).abs().max())
+    work = bwd_bound(wc, coords, radius)
+    bound, bound_by, nbytes = work["bound_ms"], work["bound_by"], work["bytes"]
+    flops = work["dot_flops"] + work["product_flops"]
+    fwd = corr_ops.windowed_corr_kernel_for(wc.f1.dtype)
+    fwd_row = "windowed_corr_mma_kernel" if fwd is WINDOWED_CORR_MMA_KERNEL else "windowed_corr_tf32_kernel"
+    out = {"max_abs_err": agree["max_abs_err"], "coords_max_abs_err": agree["coords_max_abs_err"],
+           "d_levels_rerun_max_abs": rerun, "d_f1_rerun_max_abs": rerun_f1, "bound_ms": bound,
+           "bound_by": bound_by, "bytes": nbytes, "dot_flops": work["dot_flops"],
+           "product_flops": work["product_flops"]}
+    out["ms"] = cuda_ms(call, warmup=2)
+    total, rows = device_ms(call, iters=5)
+    out["call_device_ms"], out["device_ms"] = total, kernel_row(rows, "windowed_corr_bwd_kernel")
+    lean = lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords=False)  # noqa: E731
+    lean_bound = bwd_bound(wc, coords, radius, need_coords=False)
+    out["no_coords_bound_ms"], out["no_coords_bound_by"] = (lean_bound["bound_ms"],
+                                                            lean_bound["bound_by"])
+    out["no_coords_ms"] = cuda_ms(lean, warmup=2)
+    out["no_coords_device_ms"] = kernel_row(device_ms(lean, iters=5)[1], "windowed_corr_bwd_kernel")
+    out["forward_ms"] = cuda_ms(lambda: fwd(wc, coords, radius), warmup=2)
+    out["forward_device_ms"] = kernel_row(device_ms(lambda: fwd(wc, coords, radius))[1], fwd_row)
+    out["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_backward_plain(wc, coords, g, radius),
+                              iters=3)
+    out["library_ms"] = out["library_device_ms"] = None
+    text = ""
+    if library:
+        n, p, c = wc.f1.shape
+        h, w = coords.shape[-2:]
+        fmap1 = (wc.f1.float() * math.sqrt(c)).to(wc.f1.dtype).transpose(1, 2).reshape(n, c, h, w)
+        fmap1 = fmap1.detach().requires_grad_()
+        fmap2 = wc.f2_levels[0].permute(0, 3, 1, 2).detach().requires_grad_()
+        xy = coords.detach().clone().requires_grad_()
+        vol = corr_ops.corr_lookup(corr_ops.corr_pyramid(fmap1, fmap2, len(wc.f2_levels)), xy,
+                                   radius)
+        lib = lambda: torch.autograd.grad(vol, (fmap1, fmap2, xy), g, retain_graph=True)  # noqa: E731
+        d_fmap1, _, d_xy = lib()
+        want = first[0].float().transpose(1, 2).reshape(n, c, h, w) / math.sqrt(c)
+        level_xy = [coords / 2.0**i for i in range(len(wc.f2_levels))]
+        clear = torch.stack([(x - x.floor() - 0.5).abs() <= 0.5 - 1e-3 for x in level_xy])
+        clear = clear.all(dim=0).all(dim=1, keepdim=True).expand_as(coords)
+        gaps = [float((a.float() - b)[m].abs().max()) / max(1.0, float(b[m].abs().max()))
+                for a, b, m in ((d_fmap1, want, torch.ones_like(want, dtype=torch.bool)),
+                                (d_xy, first[2], clear))]
+        if not max(gaps) <= 1e-3:
+            raise AssertionError(f"{label}: the yardstick's d_fmap1, d_coords are {gaps} off")
+        out["library_gaps"] = gaps
+        out["library_queries_held"] = float(clear[:, 0].float().mean())
+        out["library_ms"] = cuda_ms(lib, warmup=2)
+        out["library_device_ms"], _ = device_ms(lib, iters=5)
+        text = (f"; yardstick (autograd backward of the materialized corr_lookup over "
+                f"corr_pyramid, d_fmap1 and d_coords {gaps[0]:.2e}, {gaps[1]:.2e} of the "
+                f"kernel's, d_coords on {100 * out['library_queries_held']:.2f}% of the "
+                f"queries) {out['library_ms']:.4f} ms by events, device "
+                f"{fmt_ms(out['library_device_ms'])}")
+        del vol, fmap1, fmap2, xy, d_fmap1, d_xy
+    print(f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} {str(wc.f1.dtype)[6:]}: "
+          f"{WINDOWED_CORR_BWD_KERNEL.name} {out['ms']:.4f} ms by events "
+          f"({fmt_share(bound, out['ms'])}), device {fmt_ms(out['device_ms'])} "
+          f"({fmt_share(bound, out['device_ms'])}; the call with its zero fill and casts "
+          f"{fmt_ms(out['call_device_ms'])}); bound {bound:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {work['dot_flops'] / 1e9:.2f} GFLOP of dots at the "
+          f"{str(wc.f1.dtype)[6:]} peak and {work['product_flops'] / 1e9:.2f} GFLOP float32); "
+          f"without d_coords {out['no_coords_ms']:.4f} ms by events, device "
+          f"{fmt_ms(out['no_coords_device_ms'])} "
+          f"({fmt_share(out['no_coords_bound_ms'], out['no_coords_device_ms'])} of its "
+          f"{out['no_coords_bound_ms']:.4f} ms {out['no_coords_bound_by']} bound); the forward "
+          f"{fwd.name} {out['forward_ms']:.4f} ms by events, device "
+          f"{fmt_ms(out['forward_device_ms'])}; plain {out['plain_ms']:.4f} ms{text}; "
+          f"d_levels over two calls differ by {rerun:.3e} max-abs (atomic order), d_f1 by "
+          f"{rerun_f1:.3e}; {smi}", flush=True)
+    return out
+
+
+def check_windowed_backward(smi: str) -> dict:
+    """Phase 7, the backward: the kernel against
+    `windowed_corr_lookup_backward_plain` in `WINDOWED_CASES`, `MMA_CASES`,
+    `TF32_CASES` and `WINDOWED_BWD_CASES` (`windowed_bwd_agreement`, one launch a
+    call), with d_coords and without (its d_f1 and d_levels); the route in
+    the same cases: torch.autograd.grad of a seeded weighted sum of
+    `windowed_corr_lookup`'s output on CUDA tensors against that of
+    `windowed_corr_lookup_plain` on the same CUDA tensors (its features as
+    float32 leaves of the same values, so that its gradients are float32
+    sums cast once), one forward and one backward launch, with the
+    coordinates needing a gradient and not; then the kernel's readings
+    (`bwd_reading`) at (b) the 720p F path's AMT lookup (1,92,160) float32
+    and (c) the 2048x1088 DS 1.0 RAFT lookup (2,136,256) bf16, in-frame
+    coordinates (phase 12 (e) takes (a), the stage-2 AMT lookup)."""
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    route_worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    cases = WINDOWED_CASES + MMA_CASES + TF32_CASES + WINDOWED_BWD_CASES
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(cases):
+        wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + 100 + i)
+        g = seeded_g(wc, coords, radius, SEED + 200 + i)
+        label = f"[7] windowed backward {shape} C={c} {str(dtype)[6:]} r={radius} L={levels} {kind}"
+        plain = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+        for need_coords in (True, False):
+            before = WINDOWED_CORR_BWD_KERNEL.launches
+            got = WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords)
+            if WINDOWED_CORR_BWD_KERNEL.launches != before + 1 or (got[2] is None) == need_coords:
+                raise AssertionError(f"{label}, need_coords {need_coords}: the kernel did not "
+                                     f"launch once, or its d_coords is wrong")
+            agree = bwd_agrees(f"{label}{'' if need_coords else ', without d_coords'}", got, plain)
+            worst[dtype] = [max(worst[dtype][0], agree["max_abs_err"]),
+                            max(worst[dtype][1], agree["coords_max_abs_err"])]
+        fwd = corr_ops.windowed_corr_kernel_for(dtype)
+        for with_coords in (True, False):
+            counts_before = (fwd.launches, WINDOWED_CORR_BWD_KERNEL.launches)
+            routed = route_grads(wc, coords, radius, corr_ops.windowed_corr_lookup,
+                                 SEED + 300 + i, dtype, with_coords)
+            if (fwd.launches, WINDOWED_CORR_BWD_KERNEL.launches) != (counts_before[0] + 1,
+                                                                     counts_before[1] + 1):
+                raise AssertionError(f"{label}: the route did not launch {fwd.name} and "
+                                     f"{WINDOWED_CORR_BWD_KERNEL.name} once each")
+            ref = route_grads(wc, coords, radius, windowed_corr_lookup_plain, SEED + 300 + i,
+                              torch.float32, with_coords)
+            agree = bwd_agrees(f"{label}, through windowed_corr_lookup under autograd"
+                               f"{'' if with_coords else ', coords without grad'}", routed, ref)
+            route_worst[dtype] = [max(route_worst[dtype][0], agree["max_abs_err"]),
+                                  max(route_worst[dtype][1], agree["coords_max_abs_err"])]
+        del wc, coords, g, got, routed, ref, plain
+    torch.cuda.empty_cache()
+    res = {"max_abs_err_cases_f32": worst[torch.float32][0],
+           "coords_max_abs_err_cases_f32": worst[torch.float32][1],
+           "max_abs_err_cases_bf16": worst[torch.bfloat16][0],
+           "coords_max_abs_err_cases_bf16": worst[torch.bfloat16][1],
+           "route_max_abs_err_f32": route_worst[torch.float32][0],
+           "route_max_abs_err_bf16": route_worst[torch.bfloat16][0],
+           "route_coords_max_abs_err": max(route_worst[torch.float32][1],
+                                           route_worst[torch.bfloat16][1]),
+           "tolerance": "f32 d_f1, d_levels 1e-5 max(1, max|plain|), d_coords 1e-4 max(1, "
+                        "max|plain|); bf16 d_f1, d_levels 2**-7 |plain| + 1e-6 max|plain|",
+           "cases": len(cases)}
+    print(f"[7] windowed backward: {len(cases)} cases held to the plain version (with and "
+          f"without d_coords) and through the route (coordinates with and without grad): "
+          f"largest d_f1/d_levels error float32 {res['max_abs_err_cases_f32']:.3e}, bf16 "
+          f"{res['max_abs_err_cases_bf16']:.3e}; d_coords "
+          f"{max(worst[torch.float32][1], worst[torch.bfloat16][1]):.3e}", flush=True)
+    for key, shape, dtype, library in (("b", F_AMT_720P, torch.float32, True),
+                                       ("c", RAFT_2K, torch.bfloat16, False)):
+        wc, coords, _ = windowed_inputs(shape, 256, dtype, "in_frame", seed=SEED)
+        g = seeded_g(wc, coords, 4, SEED + 1)
+        what = ("the 720p F path's AMT lookup" if key == "b"
+                else "the 2048x1088 DS 1.0 RAFT lookup")
+        res[key] = bwd_reading(wc, coords, g, f"[7] ({key}) windowed backward at {what}", smi,
+                               library)
+        del wc, coords, g
+        torch.cuda.empty_cache()
+    return res
+
+
+class BwdRecorder:
+    """Stands in for the windowed backward kernel in `ops.corr` and keeps a
+    copy of the inputs of the calls that ask for d_coords (the AMT's)."""
+
+    def __init__(self, kernel=WINDOWED_CORR_BWD_KERNEL):
+        self.kernel, self.calls, self.inputs = kernel, 0, []
+
+    def __call__(self, wc, coords, g, radius=4, need_coords=True):
+        self.calls += 1
+        if need_coords:
+            self.inputs.append((WindowedCorr(wc.f1.clone(), tuple(x.clone() for x in wc.f2_levels),
+                                             wc.shape_hw), coords.clone(), g.clone(), radius))
+        return self.kernel(wc, coords, g, radius, need_coords)
 
 
 class LookupRecorder:
@@ -1223,16 +1470,18 @@ def counts() -> dict:
     return {"splat": SPLAT_SORTED_KERNEL.launches, "splat_atomic": SPLAT_KERNEL.launches,
             "splat_bwd": SPLAT_BACKWARD_KERNEL.launches,
             "tf32": WINDOWED_CORR_TF32_KERNEL.launches,
-            "mma": WINDOWED_CORR_MMA_KERNEL.launches, "cuda_core": WINDOWED_CORR_KERNEL.launches}
+            "mma": WINDOWED_CORR_MMA_KERNEL.launches, "cuda_core": WINDOWED_CORR_KERNEL.launches,
+            "corr_bwd": WINDOWED_CORR_BWD_KERNEL.launches}
 
 
 def expect_counts(label: str, got: dict, splat: int, tf32: int = 0, splat_bwd: int = 0,
-                  phase: int = 10):
-    """Exact launch counts of a phase 10 or 11 path: `splat` sorted splats,
-    `splat_bwd` splat backwards, `tf32` float32 windowed lookups, no atomic
-    splat, no bf16 or CUDA-core lookup."""
+                  phase: int = 10, corr_bwd: int = 0):
+    """Exact launch counts of a phase 10 to 13 path: `splat` sorted splats,
+    `splat_bwd` splat backwards, `tf32` float32 windowed lookups, `corr_bwd`
+    windowed lookup backwards, no atomic splat, no bf16 or CUDA-core
+    lookup."""
     want = {"splat": splat, "splat_atomic": 0, "splat_bwd": splat_bwd, "tf32": tf32, "mma": 0,
-            "cuda_core": 0}
+            "cuda_core": 0, "corr_bwd": corr_bwd}
     if got != want:
         raise AssertionError(f"[{phase}] {label}: launches {got}, expected {want}")
 
@@ -2037,16 +2286,18 @@ def run_stage2_step(smi: str, config: str, family, label: str, timed_steps: int,
     return res
 
 
-def vfi_step_fields(cfg, device: str, weights: dict, batch: dict) -> dict:
-    """One stage-2 step of GIMMVFI_R(raft_iters=2) from `weights`: the loss,
-    each parameter's gradient (on the CPU), the BatchNorm running statistics
-    after it, the fields u and c of the alphas' gradients (`alpha_fields`)
-    and the state dict after the step (on the CPU)."""
-    state = vfi_state(cfg, device=device, raft_iters=2)
+def vfi_step_fields(cfg, device: str, weights: dict, batch: dict, raft_iters: int = 2,
+                    lpips_fn=None, **model_kw) -> dict:
+    """One stage-2 step of GIMMVFI_R(raft_iters, **model_kw) from `weights`
+    (with `lpips_fn` as its perceptual loss): the loss, each parameter's
+    gradient (on the CPU), the BatchNorm running statistics after it, the
+    fields u and c of the alphas' gradients (`alpha_fields`) and the state
+    dict after the step (on the CPU)."""
+    state = vfi_state(cfg, device=device, raft_iters=raft_iters, **model_kw)
     state.model.load_state_dict(weights)
     batch = {k: v.to(device) for k, v in batch.items()}
     with alpha_fields(gimmvfi_r_model) as fields:
-        loss = float(make_gimmvfi_train_step(cfg.arch.rec_weight, None, use_ema=False)(
+        loss = float(make_gimmvfi_train_step(cfg.arch.rec_weight, lpips_fn, use_ema=False)(
             state, batch)["loss_total"])
     after = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     return {"loss": loss, **fields,
@@ -2141,6 +2392,98 @@ def check_vfi_step_gpu_vs_cpu() -> dict:
     print(f"[12] (b) one stage-2 step at 128x128, batch 2, GPU vs CPU, seeds {SEED}, {SEED + 1}: "
           f"{fmt_stage2(readings)}", flush=True)
     return readings
+
+
+def run_windowed_step(smi: str, lpips_path: Path, p12_step: dict) -> dict:
+    """Phase 12 (e): (a)'s recipe step with `corr_max_volume_bytes=0`, so
+    that RAFT's lookups and the AMT's go to the float32 windowed kernel and
+    its backward: exact launches counted from 0 (RAFT's lookups, one a
+    direction a call, twice `raft_iter`, and the AMT's 2; as many
+    backwards; 6 + 6 splats; no bf16 or CUDA-core lookup); a finite loss; the
+    events median of `TIMED_STEPS` after a warm-up beside (a)'s, the peak,
+    the device time of one traced step and of its lookups' rows; (a) the
+    backward kernel's readings (`bwd_reading`) on the step's AMT lookup,
+    captured; then, from the same seeded weights and batch of 4 at 224^2,
+    the windowed step's gradients against the default (materialized)
+    step's on the card, both with the perceptual loss, under (b)'s bounds
+    (`hold_stage2_step`: ROADMAP C3's stage-2 bounds)."""
+    cfg = load_config(RECIPE2)
+    n, iters = cfg.experiment.batch_size, cfg.arch.raft_iter
+    lookups = 2 * iters + 2
+    state = vfi_state(cfg, raft_iters=iters, corr_max_volume_bytes=0)
+    lpips_fn = train_cli.lpips_loss_fn(str(lpips_path), torch.device("cuda"))
+    step = make_gimmvfi_train_step(cfg.arch.rec_weight, lpips_fn, use_ema=bool(cfg.arch.ema))
+    batch = vfi_batch(n, (CROP2, CROP2), SEED + 21)
+    recorder = BwdRecorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    corr_ops.WINDOWED_CORR_BWD_KERNEL = recorder
+    try:
+        metrics = step(state, batch)
+    finally:
+        corr_ops.WINDOWED_CORR_BWD_KERNEL = WINDOWED_CORR_BWD_KERNEL
+    torch.cuda.synchronize()
+    got = counts()
+    expect_counts("(e) the windowed recipe step", got, STEP_SPLATS, tf32=lookups,
+                  splat_bwd=STEP_SPLATS, phase=12, corr_bwd=lookups)
+    if recorder.calls != lookups or len(recorder.inputs) != 2:
+        raise AssertionError(f"[12] (e) {recorder.calls} backward calls, {len(recorder.inputs)} "
+                             f"asking for d_coords; expected {lookups} and the AMT's 2")
+    losses = [float(metrics["loss_total"])]
+    step(state, batch)
+    times = []
+    for _ in range(TIMED_STEPS):
+        metrics, ms = bench.timed(lambda: step(state, batch), torch.device("cuda"))
+        times.append(ms)
+        losses.append(float(metrics["loss_total"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[12] (e) losses {losses}")
+    step_dev, rows = device_ms(lambda: step(state, batch), iters=1, warmup=0)
+    bwd_dev = kernel_row(rows, "windowed_corr_bwd_kernel")
+    fwd_dev = kernel_row(rows, "windowed_corr_tf32_kernel")
+    med = statistics.median(times)
+    print(f"[12] (e) the recipe step with corr_max_volume_bytes=0 (RAFT's and the AMT's "
+          f"correlation windowed, float32): launches {got} (RAFT's {2 * iters} lookups, one a "
+          f"direction a call, and the AMT's 2, each with its backward); {med:.2f} ms a step "
+          f"(median of {TIMED_STEPS} by events; {min(times):.2f}-{max(times):.2f}) against (a)'s "
+          f"{p12_step['step_ms']:.2f}; peak allocated {peak / 2**20:.1f} MiB against (a)'s "
+          f"{p12_step['peak_bytes'] / 2**20:.1f}; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"device time of one traced step {fmt_ms(step_dev)}, its {lookups} lookups "
+          f"{fmt_ms(fwd_dev)} and their backwards {fmt_ms(bwd_dev)}; {smi}", flush=True)
+    res = {"step_ms": med, "step_ms_all": times, "peak_bytes": peak, "launches": got,
+           "losses": losses, "step_device_ms": step_dev, "lookup_device_ms": fwd_dev,
+           "bwd_device_ms": bwd_dev}
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    wc, coords, g, radius = recorder.inputs[0]
+    res["a"] = bwd_reading(wc, coords, g, "[12] (e) (a) windowed backward at the stage-2 AMT "
+                           "lookup (captured from the step)", smi, True, radius)
+    del recorder, wc, coords, g
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED + 24)
+    weights = GIMMVFI_R(raft_iters=iters, device="cpu").state_dict()
+    batch = vfi_batch(n, (CROP2, CROP2), SEED + 25, device="cpu")
+    readings = stage2_readings()
+    ref = vfi_step_fields(cfg, "cuda", weights, batch, iters, lpips_fn)
+    reset_counts()
+    got_fields = vfi_step_fields(cfg, "cuda", weights, batch, iters, lpips_fn,
+                                 corr_max_volume_bytes=0)
+    if WINDOWED_CORR_BWD_KERNEL.launches != lookups:
+        raise AssertionError(f"[12] (e) the windowed step made {WINDOWED_CORR_BWD_KERNEL.launches} "
+                             f"backward launches, expected {lookups}")
+    hold_stage2_step(ref, got_fields, "[12] (e) windowed vs materialized", readings, SEED + 24)
+    print(f"[12] (e) the recipe step (batch {n}, {CROP2}x{CROP2}, raft_iters {iters}, the "
+          f"perceptual loss) windowed against materialized on the card, same weights and batch: "
+          f"{fmt_stage2(readings)}", flush=True)
+    res["vs_materialized"] = readings
+    del ref, got_fields, weights, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def fmt_stage2(readings: dict) -> str:
@@ -2247,6 +2590,7 @@ def run_phase12(smi: str, stage1_ckpt: str) -> dict:
              "cli": lambda: run_stage2_cli(smi, stage1_ckpt, lpips_path),
              "f_step": lambda: run_stage2_step(smi, RECIPE2_F, GIMMVFI_F, "d", 3, lpips_path, False)}
     res, seconds = {}, {}
+    parts["windowed_step"] = lambda: run_windowed_step(smi, lpips_path, res["step"])
     for name, part in parts.items():
         t0 = time.perf_counter()
         res[name] = part()
@@ -2464,11 +2808,12 @@ SPATIAL_WORLD = 2  # gloo ranks on the one card
 # rank's query strip, windowed because the whole pair's volume is over the
 # limit, and the AMT's 14 on the whole frame
 SPATIAL_CASES = [
-    ("a", {"raft_iters": 20, "dtype": torch.bfloat16}, (1088, 2048), 1.0, 50.0, None, (14, 34, 0)),
-    ("b", {"raft_iters": 20, "dtype": torch.bfloat16}, (2176, 4096), 0.25, 50.0, None, (14, 0, 0)),
-    ("c", {"raft_iters": 2}, (256, 512), None, None, 1e-5, (14, 0, 0)),
+    ("a", {"raft_iters": 20, "dtype": torch.bfloat16}, (1088, 2048), 1.0, 50.0, None, (14, 34, 0, 0)),
+    ("b", {"raft_iters": 20, "dtype": torch.bfloat16}, (2176, 4096), 0.25, 50.0, None, (14, 0, 0, 0)),
+    ("c", {"raft_iters": 2}, (256, 512), None, None, 1e-5, (14, 0, 0, 0)),
 ]
-SPATIAL_KERNELS = (SPLAT_SORTED_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL)
+SPATIAL_KERNELS = (SPLAT_SORTED_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL,
+                   WINDOWED_CORR_BWD_KERNEL)
 
 
 def raft_route(model, hw, ds) -> str:
@@ -2586,7 +2931,7 @@ def run_phase14(smi: str, device="cuda:0") -> dict:
               f"{flow_err:.3e}"
               + ("" if rerun is None else f" (one process against itself: {rerun:.3e})")
               + f"; ranks bitwise equal; launches a rank (sorted splat, windowed_corr_mma, "
-              f"windowed_corr_tf32) {launches}, RAFT {ref['route']} on each rank's strip; "
+              f"windowed_corr_tf32, windowed_corr_bwd) {launches}, RAFT {ref['route']} on each rank's strip; "
               f"prepare_sharded {', '.join(f'{1e3 * x:.2f}' for x in prep_s)} ms a rank against "
               f"one process's prepare {1e3 * ref['prepare_seconds']:.2f} ms; peak a rank "
               f"{', '.join(f'{p / 2**20:.1f}' for p in peaks)} MiB against one process's "
@@ -2632,6 +2977,7 @@ def main():
           flush=True)
     torch.cuda.empty_cache()
     wstats = check_windowed()
+    bstats = check_windowed_backward(smi)
     ds = run_ds_paths()
     f720 = run_f_path(smi)
     benches = run_bench_entries()
@@ -2676,6 +3022,7 @@ def main():
         return out
 
     lk = f720["lookup"]
+    wa = p12["windowed_step"]["a"]
     records = [
         # the route of every path: the deterministic splat
         record(SPLAT_SORTED_KERNEL, splat_launches, **sstats, **main_splat,
@@ -2729,7 +3076,34 @@ def main():
                materialized_ms=lk["materialized_ms"],
                materialized_device_ms=lk["materialized_device_ms"], extent=lk["extent"],
                decode_one_ms=f720["decode_turns"]["tf32"],
-               launches_phase10=p10_launches["tf32"]),
+               launches_phase10=p10_launches["tf32"],
+               launches_phase12_windowed_step=p12["windowed_step"]["launches"]["tf32"]),
+        # the windowed lookup's backward: its launches in the windowed recipe
+        # step (phase 12 (e), counted from 0; 0 on every inference path,
+        # asserted), its times there on the captured AMT lookup (a), beside
+        # the yardstick (the materialized lookup's autograd backward), and at
+        # (b) the 720p F AMT lookup and (c) the 2K DS 1.0 RAFT lookup in bf16
+        record(WINDOWED_CORR_BWD_KERNEL, p12["windowed_step"]["launches"]["corr_bwd"],
+               max_abs_err=max(bstats["max_abs_err_cases_f32"], wa["max_abs_err"]),
+               max_abs_err_cases_bf16=bstats["max_abs_err_cases_bf16"],
+               coords_max_abs_err=max(bstats["coords_max_abs_err_cases_f32"],
+                                      bstats["coords_max_abs_err_cases_bf16"], wa["coords_max_abs_err"]),
+               route_max_abs_err_f32=bstats["route_max_abs_err_f32"],
+               route_max_abs_err_bf16=bstats["route_max_abs_err_bf16"],
+               tolerance=bstats["tolerance"], ms=wa["ms"], device_ms=wa["device_ms"],
+               call_device_ms=wa["call_device_ms"], plain_ms=wa["plain_ms"],
+               bound_ms=wa["bound_ms"], bound_by=wa["bound_by"], library_ms=wa["library_ms"],
+               library_device_ms=wa["library_device_ms"], forward_ms=wa["forward_ms"],
+               forward_device_ms=wa["forward_device_ms"],
+               d_levels_rerun_max_abs=max(r["d_levels_rerun_max_abs"]
+                                          for r in (wa, bstats["b"], bstats["c"])),
+               step_bwd_device_ms=p12["windowed_step"]["bwd_device_ms"],
+               **{f"{key}_{k}": bstats[key][k] for key in ("b", "c")
+                  for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "library_device_ms", "forward_ms", "forward_device_ms")},
+               **{f"{key}_{k}": reading[k] for key, reading in (("a", wa), ("b", bstats["b"]),
+                                                                ("c", bstats["c"]))
+                  for k in ("no_coords_ms", "no_coords_device_ms", "no_coords_bound_ms")}),
         # the "before" kernel, on no path: its times on the same captured
         # lookup in the same run; the bf16_* times are the bf16 tensor-core
         # kernel's "before" at the 2K DS 1.0 lookups
@@ -2773,7 +3147,7 @@ def main():
           f"an epoch, PyYAML {yaml.__version__}, "
           f"tensorboardX {'found' if cli['writer'] == 'tensorboardX' else 'not found'}; {smi}",
           flush=True)
-    s2, c2, f2 = p12["step"], p12["cli"], p12["f_step"]
+    s2, c2, f2, w2 = p12["step"], p12["cli"], p12["f_step"], p12["windowed_step"]
     print(f"[12] stage-2 training: {s2['step_ms']:.2f} ms a recipe step (GIMMVFI_R, batch 4, "
           f"224x224, the perceptual loss), peak {s2['peak_bytes'] / 2**20:.1f} MiB, splats "
           f"{fmt_ms(None if s2['splat_fwd_device_ms'] is None else s2['splat_fwd_device_ms'] + s2['splat_bwd_device_ms'])}"
@@ -2781,7 +3155,11 @@ def main():
           f"{p12['gpu_vs_cpu']['grad_rel_l2']:.2e} relative L2; the CLI {c2['steps']} steps, "
           f"{', '.join(f'{x:.2f}' for x in c2['epoch_seconds'])} s an epoch, Pillow "
           f"{c2['pillow'] or 'not found'}; GIMMVFI_F step {f2['step_ms']:.2f} ms, peak "
-          f"{f2['peak_bytes'] / 2**20:.1f} MiB; {smi}", flush=True)
+          f"{f2['peak_bytes'] / 2**20:.1f} MiB; the windowed recipe step {w2['step_ms']:.2f} ms "
+          f"(the backward kernel {fmt_ms(wa['device_ms'])} device a launch at the AMT lookup, "
+          f"{wa['bound_ms']:.4f} ms bound, yardstick {fmt_ms(wa['library_ms'])} by events), "
+          f"gradients against the materialized step "
+          f"{w2['vs_materialized']['grad_rel_l2']:.2e} relative L2; {smi}", flush=True)
     d13 = p13["step"]
     print(f"[13] data-parallel training: the recipe step through one NCCL rank "
           f"{d13['step_ms']:.2f} ms against phase 12 (a)'s {s2['step_ms']:.2f}, peak "

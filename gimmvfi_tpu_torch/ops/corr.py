@@ -15,7 +15,11 @@ hand-written CUDA kernel for CUDA tensors, on the tensor cores:
 `csrc/windowed_corr_mma.cu` in bf16 and `csrc/windowed_corr_tf32.cu`
 (3xTF32) in float32; `windowed_corr_lookup_plain` for CPU tensors. A CUDA
 tensor launches its kernel or raises. `csrc/windowed_corr.cu` (CUDA cores)
-takes both dtypes; no route sends it a lookup.
+takes both dtypes; no route sends it a lookup. A CUDA lookup goes through
+`WindowedCorrLookup`, whose backward is the hand-written
+`csrc/windowed_corr_bwd.cu` (its plain version
+`windowed_corr_lookup_backward_plain`); on the CPU autograd differentiates
+the plain lookup.
 """
 
 from __future__ import annotations
@@ -219,36 +223,113 @@ def windowed_corr_lookup_plain(wc: WindowedCorr, coords: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-class WindowedCorrKernel(CudaKernel):
-    """The CUDA-core windowed-correlation lookup (`csrc/windowed_corr.cu`):
-    built at first use, with a launch counter. Takes C a multiple of 8 in
-    [8, 256], 1-4 levels and a radius of 0-4, in float32 or bf16; the
-    tensor-core kernels took over both routes, and it stays to be timed
-    beside them."""
+def windowed_corr_lookup_backward_plain(wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor,
+                                        radius: int = 4):
+    """Plain torch backward of `windowed_corr_lookup`: the formula of
+    `csrc/windowed_corr_bwd.cu`, vectorised as `windowed_corr_lookup_plain`.
+
+    g (N, levels*(2r+1)^2, H, W), the output's gradient. Per level and
+    query, with gv[j][i] = g[l*(2r+1)^2 + i*(2r+1) + j] (x offset outer):
+    the (2r+2)^2 dots s are recomputed (a tap off the map counts 0), the
+    y blend sy = s[j](1-fy) + s[j+1]fy with them; back through the x blend
+    dsy[j][i] += gv(1-fx), dsy[j][i+1] += gv fx, dfx = sum gv (sy[j][i+1] -
+    sy[j][i]); back through the y blend ds[j] += dsy(1-fy), ds[j+1] +=
+    dsy fy, dfy = sum dsy (s[j+1] - s[j]); each tap adds ds f2 to d_f1 and
+    ds f1 to its pixel of d_f2; d_coords gains (dfx, dfy) / 2^l (floor has
+    no gradient). Returns (d_f1 (N, P, C), d_levels as the levels,
+    d_coords (N, 2, H, W)), all float32.
+
+    A query with a non-finite coordinate gets what autograd of the plain
+    lookup gives: NaN in d_f1 and d_coords (its taps' zeros times a NaN),
+    nothing in d_levels (every tap is off the map).
+    """
+    n, _, h, w = coords.shape
+    p = h * w
+    win, span = 2 * radius + 1, 2 * radius + 2
+    m = span + 1
+    f1 = wc.f1.float()
+    c = f1.shape[-1]
+    flat = coords.float().reshape(n, 2, p)
+    gf = g.float().reshape(n, len(wc.f2_levels), win, win, p)  # [n, level, i (x), j (y), query]
+    steps = torch.arange(span, device=coords.device)
+    batch = torch.arange(n, device=coords.device).view(n, 1)
+    d_f1 = torch.zeros_like(f1)
+    d_coords = torch.zeros((n, 2, p), dtype=torch.float32, device=coords.device)
+    d_levels = []
+    for i, f2 in enumerate(wc.f2_levels):
+        _, hl, wl, _ = f2.shape
+        x0, fx = _window_base(flat[:, 0] / 2.0**i, radius, wl)
+        y0, fy = _window_base(flat[:, 1] / 2.0**i, radius, hl)
+        f2p = F.pad(f2.float(), (0, 0, m, m, m, m))
+        wlp = wl + 2 * m
+        # (N, P, span, span): each tap's pixel in the padded map, [tap row y, col x]
+        pix = (((y0 + m).view(n, p, 1, 1) + steps.view(1, 1, span, 1)) * wlp
+               + (x0 + m).view(n, p, 1, 1) + steps.view(1, 1, 1, span))
+        tap = f2p.reshape(n, -1, c)[batch, pix.reshape(n, -1)].reshape(n, p, span, span, c)
+        s = torch.einsum("npyxc,npc->npyx", tap, f1)
+        gv = gf[:, i].permute(0, 3, 2, 1)  # (N, P, j, i)
+        fy_ = fy.reshape(n, p, 1, 1)
+        fx_ = fx.reshape(n, p, 1, 1)
+        sy = s[:, :, :win] * (1.0 - fy_) + s[:, :, 1:] * fy_  # (N, P, win, span)
+        dsy = torch.zeros_like(sy)
+        dsy[..., :win] += gv * (1.0 - fx_)
+        dsy[..., 1:] += gv * fx_
+        dfx = (gv * (sy[..., 1:] - sy[..., :win])).sum(dim=(2, 3))
+        ds = torch.zeros_like(s)
+        ds[:, :, :win] += dsy * (1.0 - fy_)
+        ds[:, :, 1:] += dsy * fy_
+        dfy = (dsy * (s[:, :, 1:] - s[:, :, :win])).sum(dim=(2, 3))
+        d_f1 += torch.einsum("npyx,npyxc->npc", ds, tap)
+        d_f2p = torch.zeros((n * f2p.shape[1] * wlp, c), dtype=torch.float32, device=f2.device)
+        idx = (batch * (f2p.shape[1] * wlp) + pix.reshape(n, -1)).reshape(-1)
+        d_f2p.index_add_(0, idx, (ds.unsqueeze(-1) * f1.view(n, p, 1, 1, c)).reshape(-1, c))
+        d_levels.append(d_f2p.view(n, hl + 2 * m, wlp, c)[:, m:m + hl, m:m + wl].contiguous())
+        d_coords[:, 0] += dfx / 2.0**i
+        d_coords[:, 1] += dfy / 2.0**i
+        del tap, s, sy, dsy, ds, d_f2p
+    return d_f1, tuple(d_levels), d_coords.reshape(n, 2, h, w)
+
+
+class WindowedCorrCudaKernel(CudaKernel):
+    """What the windowed lookup's kernels and its backward take: C a
+    multiple of 8 in [8, 256], 1-4 levels and a radius of 0-4, in the
+    subclass's `DTYPES`. Built at first use, with a launch counter; each
+    launcher takes `pointers` device pointers, six ints and the levels'
+    heights and widths (padded to MAX_LEVELS)."""
 
     MAX_LEVELS = 4
     MAX_RADIUS = 4
     MAX_C = 256
     DTYPES = (torch.float32, torch.bfloat16)
 
-    def __init__(self, name="windowed_corr", source="gimmvfi_tpu_torch/csrc/windowed_corr.cu",
-                 symbol="windowed_corr_lookup"):
+    def __init__(self, name: str, source: str, symbol: str, pointers: int = 7):
         super().__init__(
             name=name,
             source=source,
             symbol=symbol,
-            argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + 2 * self.MAX_LEVELS),
+            argtypes=[ctypes.c_void_p] * pointers + [ctypes.c_int] * (6 + 2 * self.MAX_LEVELS),
             replaces="gimmvfi_tpu/ops/corr.py:249",
         )
 
     def checked(self, wc: WindowedCorr, coords: torch.Tensor, radius: int):
-        """Raise on what the kernel does not take; returns an empty output,
-        the level pointers and sizes (padded to MAX_LEVELS) and (N, C)."""
+        """A lookup's checks: raise on what the kernel does not take; returns
+        an empty output, the level pointers and sizes and (N, C)."""
+        ptrs, sizes, (n, c) = self.validated(wc, coords, radius)
+        h, w = coords.shape[-2:]
+        out = torch.empty((n, len(wc.f2_levels) * (2 * radius + 1) ** 2, h, w),
+                          dtype=wc.f1.dtype, device=wc.f1.device)
+        return out, ptrs, sizes, (n, c)
+
+    def validated(self, wc: WindowedCorr, coords: torch.Tensor, radius: int, *extra):
+        """Raise on what the kernel does not take (and on `extra` specs, as
+        `CudaKernel.check` takes them, checked with the inputs); returns the
+        level pointers and sizes (padded to MAX_LEVELS) and (N, C)."""
         f1, levels = wc.f1, wc.f2_levels
         if torch.is_grad_enabled() and any(t.requires_grad for t in (f1, coords, *levels)):
             raise NotImplementedError(
                 f"{self.name}: the windowed lookup kernels have no backward, and their output "
-                "would leave the graph; run them under torch.no_grad or inference_mode")
+                "would leave the graph; run them under torch.no_grad or inference_mode "
+                "(windowed_corr_lookup carries the backward kernel)")
         if f1.dim() != 3 or coords.dim() != 4 or coords.shape[1] != 2:
             raise ValueError(f"{self.name}: takes f1 (N, P, C) and coords (N, 2, H, W), got "
                              f"{tuple(f1.shape)} and {tuple(coords.shape)}")
@@ -271,13 +352,21 @@ class WindowedCorrKernel(CudaKernel):
                 raise ValueError(f"{self.name}: level {i} must be (N, h, w, C) = ({n}, h, w, {c}), "
                                  f"got {tuple(f2.shape)}")
             specs.append((f"level {i}", f2, f1.dtype, tuple(f2.shape), f1.device))
-        self.check(*specs)
-        nl = len(levels)
-        out = torch.empty((n, nl * (2 * radius + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)
-        pad = [0] * (self.MAX_LEVELS - nl)
+        self.check(*specs, *extra)
+        pad = [0] * (self.MAX_LEVELS - len(levels))
         ptrs = [f2.data_ptr() for f2 in levels] + pad
         sizes = [f2.shape[1] for f2 in levels] + pad + [f2.shape[2] for f2 in levels] + pad
-        return out, ptrs, sizes, (n, c)
+        return ptrs, sizes, (n, c)
+
+
+class WindowedCorrKernel(WindowedCorrCudaKernel):
+    """The CUDA-core windowed-correlation lookup (`csrc/windowed_corr.cu`),
+    in float32 or bf16; the tensor-core kernels took over both routes, and
+    it stays to be timed beside them."""
+
+    def __init__(self, name="windowed_corr", source="gimmvfi_tpu_torch/csrc/windowed_corr.cu",
+                 symbol="windowed_corr_lookup"):
+        super().__init__(name, source, symbol)
 
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
         out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
@@ -288,11 +377,10 @@ class WindowedCorrKernel(CudaKernel):
         return out
 
 
-class WindowedCorrTileKernel(WindowedCorrKernel):
+class WindowedCorrTileKernel(WindowedCorrCudaKernel):
     """The tensor-core windowed-correlation lookups' launcher: 16-query
     tiles of one image row, the union of their windows staged once in
-    shared memory, `mma.sync` dots. Takes what `WindowedCorrKernel` takes, in
-    the subclass's `DTYPES`."""
+    shared memory, `mma.sync` dots, in the subclass's `DTYPES`."""
 
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
         out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
@@ -326,12 +414,45 @@ class WindowedCorrTf32Kernel(WindowedCorrTileKernel):
                          symbol="windowed_corr_tf32_lookup")
 
 
+class WindowedCorrBwdKernel(WindowedCorrCudaKernel):
+    """The windowed lookup's backward (`csrc/windowed_corr_bwd.cu`). Takes
+    what the lookups take, and g (N, levels*(2r+1)^2, H, W) in the
+    features' dtype; returns (d_f1, d_levels, d_coords) in the inputs'
+    dtypes (d_coords float32, None unless `need_coords`: without it the
+    kernel skips the dots, which only d_coords needs). d_levels are summed
+    by float32 atomics into zero-filled buffers, so their last bits may
+    change from call to call."""
+
+    def __init__(self):
+        super().__init__("windowed_corr_bwd", "gimmvfi_tpu_torch/csrc/windowed_corr_bwd.cu",
+                         "windowed_corr_bwd", pointers=13)
+
+    def __call__(self, wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor, radius: int = 4,
+                 need_coords: bool = True):
+        g_shape = (coords.shape[0], len(wc.f2_levels) * (2 * radius + 1) ** 2, *coords.shape[-2:])
+        ptrs, sizes, (n, c) = self.validated(wc, coords, radius,
+                                             ("g", g, wc.f1.dtype, g_shape, wc.f1.device))
+        f1 = wc.f1
+        d_f1 = torch.empty_like(f1)
+        d_levels = [torch.zeros(f2.shape, dtype=torch.float32, device=f2.device)
+                    for f2 in wc.f2_levels]
+        d_coords = torch.empty_like(coords) if need_coords else None
+        pad = [0] * (self.MAX_LEVELS - len(d_levels))
+        self.launch(f1.device, f1.data_ptr(), *ptrs, coords.data_ptr(), g.data_ptr(),
+                    d_f1.data_ptr(), *[d.data_ptr() for d in d_levels], *pad,
+                    0 if d_coords is None else d_coords.data_ptr(),
+                    n, f1.shape[1], c, len(wc.f2_levels), radius,
+                    int(f1.dtype == torch.bfloat16), *sizes)
+        return d_f1, tuple(d.to(f1.dtype) for d in d_levels), d_coords
+
+
 WINDOWED_CORR_KERNEL = WindowedCorrKernel()
 WINDOWED_CORR_MMA_KERNEL = WindowedCorrMmaKernel()
 WINDOWED_CORR_TF32_KERNEL = WindowedCorrTf32Kernel()
+WINDOWED_CORR_BWD_KERNEL = WindowedCorrBwdKernel()
 
 
-def windowed_corr_kernel_for(dtype: torch.dtype) -> WindowedCorrKernel:
+def windowed_corr_kernel_for(dtype: torch.dtype) -> WindowedCorrTileKernel:
     """The kernel a CUDA lookup of this feature dtype goes to, on the tensor
     cores: bf16 `mma` for bf16, 3xTF32 `mma` for float32; an error for any
     other."""
@@ -342,12 +463,42 @@ def windowed_corr_kernel_for(dtype: torch.dtype) -> WindowedCorrKernel:
     raise TypeError(f"no windowed correlation kernel for {dtype}: takes bfloat16 or float32")
 
 
+class WindowedCorrLookup(torch.autograd.Function):
+    """The windowed lookup on the card: `apply(coords, f1, *levels,
+    radius)`. Forward the kernel of `windowed_corr_kernel_for`, backward
+    `WINDOWED_CORR_BWD_KERNEL` (d_coords only when coords need it); a
+    gradient is returned only where an input needs one. Under no_grad or
+    inference_mode, or when no input needs a gradient, it records no graph
+    and launches the forward kernel alone."""
+
+    @staticmethod
+    def forward(ctx, coords: torch.Tensor, f1: torch.Tensor, *levels_radius):
+        *levels, radius = levels_radius
+        ctx.radius = radius
+        ctx.save_for_backward(coords, f1, *levels)
+        wc = WindowedCorr(f1, tuple(levels), tuple(coords.shape[-2:]))
+        return windowed_corr_kernel_for(f1.dtype)(wc, coords, radius)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        coords, f1, *levels = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g = g.contiguous()
+        if g.data_ptr() % 16:  # a contiguous view at an offset, as torch.cat's backward gives
+            g = g.clone()
+        wc = WindowedCorr(f1, tuple(levels), tuple(coords.shape[-2:]))
+        d_f1, d_levels, d_coords = WINDOWED_CORR_BWD_KERNEL(wc, coords, g, ctx.radius,
+                                                            need_coords=need[0])
+        return (d_coords, d_f1 if need[1] else None,
+                *(d if ok else None for d, ok in zip(d_levels, need[2:])), None)
+
+
 def windowed_corr_lookup(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
     """Windowed lookup, the same output as `corr_lookup` on the materialized
-    pyramid: for CUDA tensors the kernel of `windowed_corr_kernel_for`, for
-    CPU tensors the plain version, an error for anything else."""
+    pyramid: for CUDA tensors `WindowedCorrLookup` (the kernels), for CPU
+    tensors the plain version under autograd, an error for anything else."""
     if coords.is_cuda:
-        return windowed_corr_kernel_for(wc.f1.dtype)(wc, coords.float().contiguous(), radius)
+        return WindowedCorrLookup.apply(coords.float().contiguous(), wc.f1, *wc.f2_levels, radius)
     if coords.device.type == "cpu":
         return windowed_corr_lookup_plain(wc, coords, radius)
     raise NotImplementedError(f"no windowed correlation lookup for device {coords.device}")
@@ -373,6 +524,24 @@ def windowed_corr_work(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) 
             counts.append((torch.clamp(start + span, max=size) - start.clamp(min=0)).clamp(0, span))
         taps += int((counts[0] * counts[1] * ok).sum())
     return nbytes, 2 * c * taps
+
+
+def windowed_corr_bwd_work(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
+                           need_coords: bool = True) -> tuple[int, int, int]:
+    """(bytes, dot operations, product operations) the windowed lookup's
+    backward needs on these inputs: f1, the levels, the coordinates and g
+    read once, d_f1 and d_levels (in the features' dtype) and d_coords
+    (with `need_coords`) written once. For each tap on its level's map, two
+    operations a channel for its dot again (products of the features'
+    dtype, summed in float32; only d_coords needs them) and four for its
+    shares of d_f1 and of its pixel's d_f2 (float32 products: ds is
+    float32)."""
+    nbytes, dots = windowed_corr_work(wc, coords, radius)
+    esize = wc.f1.element_size()
+    feats = (wc.f1.numel() + sum(f2.numel() for f2 in wc.f2_levels)) * esize
+    # the forward's output written becomes g read; the gradients come on top
+    nbytes += feats + (coords.numel() * 4 if need_coords else 0)
+    return nbytes, dots if need_coords else 0, 2 * dots
 
 
 def corr_lookup_any(pyr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:

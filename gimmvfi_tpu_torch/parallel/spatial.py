@@ -175,7 +175,7 @@ def interpolate_spatial_sharded(model, img_xs, t_values, ds_factor: float | None
 
 
 PATH_KERNELS = (softsplat_ops.SPLAT_SORTED_KERNEL, corr_ops.WINDOWED_CORR_MMA_KERNEL,
-                corr_ops.WINDOWED_CORR_TF32_KERNEL)
+                corr_ops.WINDOWED_CORR_TF32_KERNEL, corr_ops.WINDOWED_CORR_BWD_KERNEL)
 
 
 def interpolate_on_rank(cases_path: str, out_dir: str, num_threads: int | None = None) -> None:

@@ -4,6 +4,7 @@ ablations, and a CPU model of the tensor-core kernel's tile walk.
     python -m gimmvfi_tpu_torch.tools.windowed_ablate          # CUDA-core kernel
     python -m gimmvfi_tpu_torch.tools.windowed_ablate --mma    # bf16 tensor-core kernel
     python -m gimmvfi_tpu_torch.tools.windowed_ablate --tf32   # float32 tensor-core kernel
+    python -m gimmvfi_tpu_torch.tools.windowed_ablate --bwd    # the lookup's backward kernel
 
 Card only: without CUDA `main` raises. Each variant is a kernel's source
 with text substitutions, built with the same nvcc flags into
@@ -62,6 +63,12 @@ on both kinds, twice, in opposite orders, with each configuration's shared
 memory and blocks an SM (read from its library) and ptxas lines, against
 the 3xTF32 bound and the CUDA-core one (`f32_lookup_bounds`).
 
+With `--bwd`, `csrc/windowed_corr_bwd.cu` as it is (`bwd`) beside
+`BWD_VARIANTS`: `bwd_scalar_atomics`, d_f2's atomics one float at a time
+instead of 16 bytes (checked), and `bwd_no_atomics`, without them (an
+ablation, not checked); timed at the stage-2 AMT lookup's shape,
+`F_AMT_720P` and `RAFT_2K`, twice, in opposite orders.
+
 `mma_tile_walk` computes the lookup by the tensor-core kernels' own
 decomposition in plain torch, with a `dot` for the products (float32, or
 `split_tf32_dot`: the float32 kernel's 3xTF32), and `mma_tile_extents`
@@ -69,7 +76,8 @@ its union extents alone, for the CPU tests and `chip_smoke.py` phase 7.
 
 `WINDOWED_CASES`, `MMA_CASES`, `TF32_CASES`, the lookup shapes,
 `windowed_inputs` and `windowed_agreement` are shared with `chip_smoke.py`
-phases 7 and 9.
+phases 7 and 9; `WINDOWED_BWD_CASES` and `windowed_bwd_agreement` (the backward
+kernel's) with phases 7 and 12.
 """
 
 from __future__ import annotations
@@ -87,14 +95,16 @@ import torch
 from ..ops import corr as corr_ops
 from ..ops.corr import (
     WindowedCorr,
+    WindowedCorrBwdKernel,
     WindowedCorrKernel,
     WindowedCorrMmaKernel,
     WindowedCorrTf32Kernel,
     _window_base,
+    windowed_corr_lookup_backward_plain,
     windowed_corr_lookup_plain,
 )
 from ..utils.kernel_build import CSRC, build_text, substitute
-from ..utils.timing import H100_F32_FLOPS, H100_TF32_FLOPS, bound_ms, device_ms
+from ..utils.timing import H100_BF16_FLOPS, H100_F32_FLOPS, H100_TF32_FLOPS, bound_ms, device_ms
 from .splat_ablate import smooth_flow
 
 # (C, dtype, coordinate kind, radius, levels, (N, h, w)): the path's C at
@@ -140,6 +150,13 @@ TF32_CASES = [
     (8, torch.float32, "smooth", 4, 4, (1, 36, 64)),
     (200, torch.float32, "in_frame", 4, 4, (1, 13, 40)),
     (24, torch.float32, "far", 1, 1, (2, 7, 9)),
+]
+# the backward kernel's checks beyond the lookup's cases: the radii and
+# level counts those leave out (0, 2; 3 levels), at C 32 and 40
+WINDOWED_BWD_CASES = [
+    (32, torch.float32, "in_frame", 0, 3, (2, 12, 20)),
+    (40, torch.float32, "smooth", 2, 4, (1, 13, 23)),
+    (40, torch.bfloat16, "border", 2, 3, (2, 12, 20)),
 ]
 TILE_Q = 16  # queries a tile of csrc/windowed_corr_mma.cu: the mma's M
 
@@ -246,6 +263,24 @@ TF32_ABLATIONS = {
 TF32_PRODUCTS = 3  # TF32 `mma` products a float32 product takes in 3xTF32
 
 
+# csrc/windowed_corr_bwd.cu's d_f2 atomics, and the `--bwd` variants of them
+_BWD_ATOMICS = """                atomicAdd(reinterpret_cast<float4*>(dst),
+                          make_float4(ds * a[k][0], ds * a[k][1], ds * a[k][2], ds * a[k][3]));
+                atomicAdd(reinterpret_cast<float4*>(dst) + 1,
+                          make_float4(ds * a[k][4], ds * a[k][5], ds * a[k][6], ds * a[k][7]));"""
+# name -> (substitutions, whether the variant computes the backward)
+BWD_VARIANTS = {
+    "bwd_scalar_atomics": ([(_BWD_ATOMICS, """#pragma unroll
+                for (int j = 0; j < 8; ++j) atomicAdd(dst + j, ds * a[k][j]);""")], True),
+    "bwd_no_atomics": ([(_BWD_ATOMICS, "                (void)dst;")], False),
+}
+
+
+def bwd_variant_source(name: str, src: str) -> str:
+    """`csrc/windowed_corr_bwd.cu` with variant `name`'s substitutions."""
+    return substitute(src, BWD_VARIANTS[name][0], f"variant {name}")
+
+
 def tf32_config(src: str) -> tuple[int, int, int]:
     """The (warps a block, pixels a stage, stages a warp) a float32 kernel
     source is built with."""
@@ -276,6 +311,24 @@ def f32_lookup_bounds(wc: WindowedCorr, coords: torch.Tensor) -> dict:
     return {"tf32": bound_ms(nbytes, TF32_PRODUCTS * flops, H100_TF32_FLOPS),
             "cuda_core": bound_ms(nbytes, flops, H100_F32_FLOPS),
             "bytes": nbytes, "flops": flops}
+
+
+def bwd_bound(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
+              need_coords: bool = True) -> dict:
+    """The backward's bound on these inputs (`windowed_corr_bwd_work`): the
+    larger of its bytes over the HBM rate and its operations, each at the
+    peak for its type, summed: the dots at the dense bf16 tensor-core peak
+    for bf16 features (bf16 products summed in float32) and at the
+    CUDA-core float32 peak for float32 ones; the d_f1 and d_f2 products
+    (float32) at the CUDA-core peak. Returns `bound_ms`, `bound_by`,
+    `bytes`, `dot_flops` and `product_flops`."""
+    nbytes, dots, products = corr_ops.windowed_corr_bwd_work(wc, coords, radius, need_coords)
+    dot_peak = H100_BF16_FLOPS if wc.f1.dtype == torch.bfloat16 else H100_F32_FLOPS
+    # both parts as float32 operations at the CUDA-core peak: the same time
+    ops = dots * H100_F32_FLOPS / dot_peak + products
+    bound, bound_by = bound_ms(nbytes, ops, H100_F32_FLOPS)
+    return {"bound_ms": bound, "bound_by": bound_by, "bytes": nbytes, "dot_flops": dots,
+            "product_flops": products}
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -362,6 +415,44 @@ def windowed_agreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
     same_nan = torch.equal(torch.isnan(got), nan)
     return {"max_abs_err": float(err.max()) if err.numel() else 0.0, "scale": scale,
             "bad": bad, "nan": int(nan.sum()), "ok": bad == 0 and same_nan}
+
+
+def windowed_bwd_agreement(got, ref) -> dict:
+    """The backward kernel's tolerance against its plain version: `got`
+    and `ref` are (d_f1, d_levels, d_coords), `ref` float32. d_f1 and
+    d_levels in `got`'s dtype: float32 within 1e-5 x max(1, max|plain|)
+    (sums in other orders, d_levels' by atomics), bf16 within one bf16 step
+    of the plain sums cast once, 2**-7 |plain| + 1e-6 max|plain|; d_coords
+    (float32) within 1e-4 x max(1, max|plain|) (the blend's differences of
+    the dots summed over the window and the levels); NaN at the same
+    places in each. Returns each tensor's max-abs error, largest |plain|,
+    NaN count and elements over the bound, the largest error of d_f1 and
+    d_levels and of d_coords, and whether they agree. A `got` without
+    d_coords (None: the backward asked for none) is held on the rest."""
+    pairs = ([("d_f1", got[0], ref[0])]
+             + [(f"d_level{i}", a, b) for i, (a, b) in enumerate(zip(got[1], ref[1]))]
+             + ([] if got[2] is None else [("d_coords", got[2], ref[2])]))
+    ok = len(got[1]) == len(ref[1])
+    out = {"tensors": {}, "max_abs_err": 0.0, "coords_max_abs_err": 0.0}
+    for name, a, b in pairs:
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float(), (b.to(a.dtype) if bf16 else b).float()
+        nan = torch.isnan(b)
+        err = (a[~nan] - b[~nan]).abs()
+        scale = float(b[~nan].abs().max()) if err.numel() else 0.0
+        if bf16:
+            limit = 2.0**-7 * b[~nan].abs() + 1e-6 * scale
+        else:
+            limit = (1e-4 if name == "d_coords" else 1e-5) * max(1.0, scale)
+        bad = int((err > limit).sum())
+        worst = float(err.max()) if err.numel() else 0.0
+        out["tensors"][name] = {"max_abs_err": worst, "scale": scale, "nan": int(nan.sum()),
+                                "bad": bad}
+        key = "coords_max_abs_err" if name == "d_coords" else "max_abs_err"
+        out[key] = max(out[key], worst)
+        ok = ok and bad == 0 and torch.equal(torch.isnan(a), nan)
+    out["ok"] = ok
+    return out
 
 
 def bind(name: str, text: str, kind=WindowedCorrKernel) -> tuple[WindowedCorrKernel, str]:
@@ -527,10 +618,12 @@ def _card() -> str:
     return smi
 
 
-def _timed_turns(built: dict, wc, coords, iters: int) -> dict[str, list[float]]:
-    """Each built kernel's own device time on these inputs, twice, the
-    second turn in the opposite order."""
-    calls = {name: (lambda k=kernel: k(wc, coords)) for name, (kernel, _) in built.items()}
+def _timed_turns(built: dict, wc, coords, iters: int, g=None) -> dict[str, list[float]]:
+    """Each built kernel's own device time on these inputs (with the
+    output's gradient `g`, a backward's), twice, the second turn in the
+    opposite order."""
+    calls = {name: (lambda k=kernel: k(wc, coords) if g is None else k(wc, coords, g))
+             for name, (kernel, _) in built.items()}
     times = {name: [] for name in calls}
     for order in (list(calls), list(reversed(calls))):
         for name in order:
@@ -657,6 +750,58 @@ def main_tf32(iters=10):
     return res
 
 
+def main_bwd(iters=10):
+    """The backward kernel (`bwd`) beside its variants (`BWD_VARIANTS`):
+    those that compute the backward checked against
+    `windowed_corr_lookup_backward_plain` (`windowed_bwd_agreement`) in the
+    cases of `WINDOWED_CASES`, `TF32_CASES` and `WINDOWED_BWD_CASES`, with
+    and without d_coords, then
+    all timed by their own device time at the stage-2 AMT lookup's shape
+    (4,28,28) float32, `F_AMT_720P` float32 and `RAFT_2K` bf16, in-frame
+    coordinates, against the bound (`bwd_bound`)."""
+    smi = _card()
+    src = (CSRC / "windowed_corr_bwd.cu").read_text()
+    texts = {"bwd": src, **{name: bwd_variant_source(name, src) for name in BWD_VARIANTS}}
+    with ThreadPoolExecutor(max_workers=len(texts)) as pool:
+        built = dict(zip(texts, pool.map(
+            lambda name: bind(name, texts[name], WindowedCorrBwdKernel), texts)))
+    for name, (_, log) in built.items():
+        print(f"{name}: ptxas {log}", flush=True)
+    computes = [name for name in built if name == "bwd" or BWD_VARIANTS[name][1]]
+    cases = WINDOWED_CASES + TF32_CASES + WINDOWED_BWD_CASES
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(cases):
+        wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=i)
+        out_shape = (shape[0], levels * (2 * radius + 1) ** 2, *shape[1:])
+        gen = torch.Generator(device="cpu").manual_seed(i)
+        g = torch.randn(out_shape, generator=gen).to(dtype).cuda()
+        ref = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+        for name in computes:
+            for need_coords in (True, False):
+                got = built[name][0](wc, coords, g, radius, need_coords)
+                agree = windowed_bwd_agreement(got, ref)
+                if not agree["ok"] or (got[2] is None) == need_coords:
+                    raise AssertionError(f"{name} disagrees with the plain backward at {shape} "
+                                         f"C={c} {dtype} {kind}, need_coords {need_coords}: "
+                                         f"{agree}")
+        del wc, coords, g, ref
+    print(f"{', '.join(computes)} agree with the plain backward in all {len(cases)} cases",
+          flush=True)
+    res = {}
+    for label, shape, dtype in (("stage-2 AMT", (4, 28, 28), torch.float32),
+                                ("720p F AMT", F_AMT_720P, torch.float32),
+                                ("2048x1088 DS 1.0 RAFT", RAFT_2K, torch.bfloat16)):
+        wc, coords, _ = windowed_inputs(shape, 256, dtype, "in_frame")
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        g = torch.randn((shape[0], 4 * 81, *shape[1:]), generator=gen).to(dtype).cuda()
+        bound = bwd_bound(wc, coords)
+        res[label] = _timed_turns(built, wc, coords, iters, g)
+        _print_turns(res[label], f"backward {label} {shape} C=256 {str(dtype)[6:]}",
+                     bound["bound_ms"], bound["bound_by"], smi)
+        del wc, coords, g
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(iters=10):
     smi = _card()
     src = (CSRC / "windowed_corr.cu").read_text()
@@ -702,5 +847,7 @@ if __name__ == "__main__":
     which.add_argument("--tf32", action="store_true",
                        help="the float32 tensor-core kernel, its stage configurations and "
                             "ablations, beside the CUDA-core kernel")
+    which.add_argument("--bwd", action="store_true",
+                       help="the backward kernel beside its atomics' variants")
     args = parser.parse_args()
-    (main_mma if args.mma else main_tf32 if args.tf32 else main)()
+    (main_mma if args.mma else main_tf32 if args.tf32 else main_bwd if args.bwd else main)()

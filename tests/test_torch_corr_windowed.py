@@ -197,21 +197,23 @@ FAULTS = [
 # kernel's cases keep their ids
 WRAPPERS = [("cuda_core", torch.float32, "float32 or bfloat16"), ("mma", torch.bfloat16, "bfloat16"),
             ("tf32", torch.float32, "float32")]
+# the backward kernel's wrapper, which also takes the output's gradient g
+BWD_WRAPPER = ("bwd", torch.float32, "float32 or bfloat16")
 
 
 @pytest.mark.parametrize("fault,match,wrapper", [
     pytest.param(fault, match.format(dtypes=names, dtype=str(dtype)[6:]), wrapper,
                  id=f"{fault}-{match.format(dtypes=names, dtype=str(dtype)[6:])}"
                  if wrapper == "cuda_core" else f"{wrapper}-{fault}")
-    for wrapper, dtype, names in WRAPPERS for fault, match in FAULTS
+    for wrapper, dtype, names in WRAPPERS + [BWD_WRAPPER] for fault, match in FAULTS
 ])
 def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper):
     """The wrappers' checks run before any build, so they hold on the CPU;
     the bf16 tensor-core wrapper takes bf16 only, the 3xTF32 one float32
-    only."""
+    only, the backward's both (with g of the output's shape)."""
     kernel = {"cuda_core": tcorr.WINDOWED_CORR_KERNEL, "mma": tcorr.WINDOWED_CORR_MMA_KERNEL,
-              "tf32": tcorr.WINDOWED_CORR_TF32_KERNEL}[wrapper]
-    dtype = dict((w, d) for w, d, _ in WRAPPERS)[wrapper]
+              "tf32": tcorr.WINDOWED_CORR_TF32_KERNEL, "bwd": tcorr.WINDOWED_CORR_BWD_KERNEL}[wrapper]
+    dtype = dict((w, d) for w, d, _ in WRAPPERS + [BWD_WRAPPER])[wrapper]
     c = {"c": 20, "wide": 264}.get(fault, 16)
     f1, f2 = _maps(rng, 1, 8, 8, c)
     wc = tcorr.windowed_corr_pyramid(nchw(f1).to(dtype), nchw(f2).to(dtype),
@@ -223,9 +225,12 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper
         wc = wc._replace(f2_levels=(wc.f2_levels[0], wc.f2_levels[1].half(), wc.f2_levels[2]))
     elif fault == "level_shape":
         wc = wc._replace(f2_levels=wc.f2_levels[:2] + (wc.f2_levels[2][..., :8],))
+    radius = 5 if fault == "radius" else 4
+    g = torch.zeros((1, len(wc.f2_levels) * (2 * radius + 1) ** 2, *coords.shape[-2:]),
+                    dtype=wc.f1.dtype)
     before = kernel.launches
     with pytest.raises((TypeError, ValueError), match=match):
-        kernel(wc, coords, 5 if fault == "radius" else 4)
+        kernel(wc, coords, g, radius) if wrapper == "bwd" else kernel(wc, coords, radius)
     assert kernel.launches == before
 
 

@@ -1,0 +1,349 @@
+"""The windowed correlation lookup's backward, on the CPU.
+
+Inputs come from a seeded numpy generator: f1 (N, P, C), the levels
+(N, h_l, w_l, C) pooled from one map, coordinates (N, 2, H, W) and the
+output's gradient g, fed to every side as they are (JAX's coordinates and
+g channels-last). N = 2 and a 12x20 query map; C 32 and 40, radius 0, 2 and
+4, 1-4 levels, in-frame, smooth, border and far (finite) coordinates, and
+an odd level size (13x23 pools to 6x11, 3x5, 1x2). Tolerances: float32
+d_f1 and d_levels <= 1e-5 x max(1, max|ref|), d_coords <= 1e-4 x max(1,
+max|ref|) (float32 sums taken in other orders; d_coords sums the blend's
+differences of the dots over the window and the levels):
+  * autograd of `windowed_corr_lookup_plain` against `jax.vjp` of JAX
+    `windowed_corr_lookup` over (f1, levels, coords);
+  * `windowed_corr_lookup_backward_plain`, the backward kernel's formula,
+    against that autograd, also with non-finite coordinates (NaN at the
+    same places: in d_f1 and d_coords, none in d_levels);
+  * `WindowedCorrLookup` wired with the plain forward and backward in
+    place of the kernels, against the plain autograd, for each input alone
+    and all three needing grad (d_coords is asked for only when coords
+    need it), with a misaligned g (copied before the kernel), and without
+    grad (the forward alone, no graph).
+The backward kernel itself runs only on the card (`cuda` marker); its
+`tools/windowed_ablate.py --bwd` variants are checked here to apply to its
+source.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gimmvfi_tpu.ops import corr as jcorr
+from gimmvfi_tpu_torch.ops import corr as tcorr
+from gimmvfi_tpu_torch.tools import windowed_ablate
+from gimmvfi_tpu_torch.tools.splat_ablate import smooth_flow
+from gimmvfi_tpu_torch.utils.kernel_build import CSRC
+
+torch.set_num_threads(1)
+
+
+def _state(rng, n, hw, c, levels, hw2=None):
+    """A float32 windowed state from seeded maps: f1 (N, H*W, C) and the
+    levels pooled from an (N, C, h2, w2) map."""
+    h, w = hw
+    h2, w2 = hw2 or hw
+    f1 = torch.from_numpy(rng.standard_normal((n, c, h, w), dtype=np.float32))
+    f2 = torch.from_numpy(rng.standard_normal((n, c, h2, w2), dtype=np.float32))
+    return tcorr.windowed_corr_pyramid(f1, f2, levels)
+
+
+def _coords(rng, n, hw, hw2, kind) -> np.ndarray:
+    """(N, 2, H, W) pixel coordinates into the (h2, w2) map: in the frame,
+    the grid plus a smooth flow, around the border, far off it (finite), or
+    far with NaN and inf mixed in."""
+    (h, w), (h2, w2) = hw, hw2
+    if kind == "in_frame":
+        out = rng.random((n, 2, h, w)) * np.array([w2 - 1, h2 - 1]).reshape(1, 2, 1, 1)
+    elif kind == "smooth":
+        grid = np.stack(np.meshgrid(np.arange(w), np.arange(h), indexing="xy"))
+        out = grid + smooth_flow(rng, n, h, w, 4.0, coarse=(2, 3)).transpose(0, 3, 1, 2)
+    elif kind == "border":
+        edge = rng.choice([-4.5, -1.25, -0.5, 0.0, 0.75], size=(n, 2, h, w))
+        far = rng.random((n, 2, h, w)) < 0.5
+        out = np.where(far, np.array([w2, h2]).reshape(1, 2, 1, 1) - 1 - edge, edge)
+    elif kind in ("far", "non_finite"):
+        out = rng.choice([-1e3, 1e3, -1e10, 1e10, 3.5, 2.25], size=(n, 2, h, w))
+        if kind == "non_finite":
+            bad = rng.random((n, 2, h, w)) < 0.1
+            out[bad] = rng.choice([np.nan, np.inf, -np.inf], size=int(bad.sum()))
+    else:
+        raise ValueError(kind)
+    return np.ascontiguousarray(out, dtype=np.float32)
+
+
+# (C, radius, levels, coordinate kind, level-0 map (h2, w2)); the query map is 12x20
+CASES = [
+    (32, 4, 4, "in_frame", (12, 20)),
+    (40, 2, 3, "smooth", (12, 20)),
+    (32, 0, 1, "border", (12, 20)),
+    (40, 4, 2, "far", (12, 20)),
+    (40, 2, 4, "border", (13, 23)),
+    (32, 4, 4, "smooth", (13, 23)),
+]
+HW = (12, 20)
+
+
+def _inputs(seed, c, radius, levels, kind, hw2):
+    rng = np.random.default_rng(seed)
+    wc = _state(rng, 2, HW, c, levels, hw2)
+    coords = torch.from_numpy(_coords(rng, 2, HW, hw2, kind))
+    g = torch.from_numpy(rng.standard_normal(
+        (2, levels * (2 * radius + 1) ** 2, *HW), dtype=np.float32))
+    return wc, coords, g
+
+
+def _autograd(wc, coords, g, radius):
+    """Autograd of the plain lookup: (d_f1, d_levels, d_coords)."""
+    f1 = wc.f1.detach().clone().requires_grad_()
+    levels = tuple(x.detach().clone().requires_grad_() for x in wc.f2_levels)
+    xy = coords.detach().clone().requires_grad_()
+    out = tcorr.windowed_corr_lookup_plain(tcorr.WindowedCorr(f1, levels, wc.shape_hw), xy, radius)
+    d = torch.autograd.grad(out, (f1, *levels, xy), g)
+    return d[0], d[1:-1], d[-1]
+
+
+def _close(a, b, tol, what):
+    """NaN at the same places, the rest within tol x max(1, max|b|)."""
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    nan = torch.isnan(b)
+    assert torch.equal(torch.isnan(a), nan), what
+    if bool((~nan).any()):
+        scale = max(1.0, float(b[~nan].abs().max()))
+        err = float((a[~nan] - b[~nan]).abs().max())
+        assert err <= tol * scale, (what, err, scale)
+
+
+def _hold(got, ref, what):
+    """(d_f1, d_levels, d_coords) against the reference: d_f1 and d_levels
+    within 1e-5 x max(1, max|ref|), d_coords within 1e-4 x max(1, max|ref|)."""
+    assert len(got[1]) == len(ref[1]), what
+    _close(got[0], ref[0], 1e-5, f"{what}: d_f1")
+    for i, (a, b) in enumerate(zip(got[1], ref[1])):
+        _close(a, b, 1e-5, f"{what}: d_level{i}")
+    _close(got[2], ref[2], 1e-4, f"{what}: d_coords")
+
+
+@pytest.mark.parametrize("c,radius,levels,kind,hw2", CASES)
+def test_plain_autograd_matches_jax_vjp(c, radius, levels, kind, hw2):
+    wc, coords, g = _inputs(0, c, radius, levels, kind, hw2)
+    ref = _autograd(wc, coords, g, radius)
+
+    def lookup(f1, lv, xy):
+        return jcorr.windowed_corr_lookup(jcorr.WindowedCorr(f1, lv, HW), xy, radius)
+
+    @jax.jit
+    def vjp(f1, lv, xy, ct):
+        out, back = jax.vjp(lookup, f1, lv, xy)
+        return out.shape, back(ct)
+
+    out_shape, (d_f1, d_levels, d_coords) = vjp(
+        jnp.asarray(wc.f1.numpy()), tuple(jnp.asarray(x.numpy()) for x in wc.f2_levels),
+        jnp.asarray(coords.permute(0, 2, 3, 1).numpy()), jnp.asarray(g.permute(0, 2, 3, 1).numpy()))
+    assert out_shape == (2, *HW, g.shape[1])
+    jax_grads = (np.array(d_f1), [np.array(x) for x in d_levels],
+                 np.array(d_coords).transpose(0, 3, 1, 2))
+    _hold(ref, jax_grads, f"autograd vs JAX {c} r={radius} L={levels} {kind} {hw2}")
+    assert float(ref[0].abs().max()) > 0 and float(ref[2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("c,radius,levels,kind,hw2",
+                         CASES + [(32, 4, 4, "non_finite", (12, 20)),
+                                  (40, 2, 2, "non_finite", (13, 23))])
+def test_backward_plain_matches_autograd(c, radius, levels, kind, hw2):
+    wc, coords, g = _inputs(1, c, radius, levels, kind, hw2)
+    ref = _autograd(wc, coords, g, radius)
+    got = tcorr.windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+    assert got[0].dtype == got[2].dtype == torch.float32
+    _hold(got, ref, f"plain backward vs autograd {c} r={radius} L={levels} {kind} {hw2}")
+    if kind == "non_finite":
+        bad = ~torch.isfinite(coords).all(dim=1).reshape(2, -1)  # (N, P)
+        assert bool(bad.any())
+        assert bool(torch.isnan(got[0][bad]).all()) and not bool(torch.isnan(got[0][~bad]).any())
+        assert not any(bool(torch.isnan(d).any()) for d in got[1])
+
+
+class _PlainForward:
+    """Stands in for a forward kernel object: the plain lookup, counted."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, wc, coords, radius=4):
+        self.launches += 1
+        assert not torch.is_grad_enabled()
+        return tcorr.windowed_corr_lookup_plain(wc, coords, radius)
+
+
+class _PlainBackward:
+    """Stands in for `WINDOWED_CORR_BWD_KERNEL`: the plain backward, counted,
+    with what the caller asked of d_coords kept; g must be what the kernel
+    takes, contiguous and 16-byte aligned."""
+
+    def __init__(self):
+        self.launches, self.need_coords = 0, []
+
+    def __call__(self, wc, coords, g, radius=4, need_coords=True):
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0
+        self.launches += 1
+        self.need_coords.append(need_coords)
+        d_f1, d_levels, d_coords = tcorr.windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+        return d_f1, d_levels, d_coords if need_coords else None
+
+
+@pytest.mark.parametrize("needs", ["f1", "levels", "coords", "all"])
+def test_function_wiring_matches_plain_autograd(monkeypatch, needs):
+    fwd, bwd = _PlainForward(), _PlainBackward()
+    monkeypatch.setattr(tcorr, "WINDOWED_CORR_TF32_KERNEL", fwd)
+    monkeypatch.setattr(tcorr, "WINDOWED_CORR_BWD_KERNEL", bwd)
+    radius = 2
+    wc, coords, g = _inputs(2, 32, radius, 3, "smooth", (13, 23))
+    f1 = wc.f1.clone().requires_grad_(needs in ("f1", "all"))
+    levels = tuple(x.clone().requires_grad_(needs in ("levels", "all")) for x in wc.f2_levels)
+    xy = coords.clone().requires_grad_(needs in ("coords", "all"))
+    out = tcorr.WindowedCorrLookup.apply(xy, f1, *levels, radius)
+    inputs = [t for t in (f1, *levels, xy) if t.requires_grad]
+    got = torch.autograd.grad(out, inputs, g)
+    ref_all = _autograd(wc, coords, g, radius)
+    ref = [t for t, on in zip((ref_all[0], *ref_all[1], ref_all[2]), (f1, *levels, xy))
+           if on.requires_grad]
+    assert fwd.launches == 1 and bwd.launches == 1
+    assert bwd.need_coords == [needs in ("coords", "all")]
+    assert torch.equal(out, tcorr.windowed_corr_lookup_plain(wc, coords, radius))
+    for a, b in zip(got, ref, strict=True):
+        tol = 1e-4 if a.shape == coords.shape else 1e-5
+        assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+
+
+def test_function_backward_aligns_g(monkeypatch):
+    """torch.cat's backward hands a joined lookup's gradient on as a
+    contiguous view at an offset (N = 1, as GIMMVFI_R joins its two
+    lookups); with an odd H*W the view is not 16-byte aligned, and the
+    backward copies it before the kernel sees it."""
+    fwd, bwd = _PlainForward(), _PlainBackward()
+    monkeypatch.setattr(tcorr, "WINDOWED_CORR_TF32_KERNEL", fwd)
+    monkeypatch.setattr(tcorr, "WINDOWED_CORR_BWD_KERNEL", bwd)
+    rng = np.random.default_rng(5)
+    radius, hw = 1, (5, 7)
+    wc = _state(rng, 1, hw, 16, 2)
+    coords = torch.from_numpy(_coords(rng, 1, hw, hw, "in_frame"))
+    lead = torch.zeros((1, 1, *hw))
+    g = torch.from_numpy(rng.standard_normal((1, 1 + 2 * 9, *hw), dtype=np.float32))
+    grads = []
+    for lookup in (lambda f1: tcorr.WindowedCorrLookup.apply(coords, f1, *wc.f2_levels, radius),
+                   lambda f1: tcorr.windowed_corr_lookup_plain(
+                       tcorr.WindowedCorr(f1, wc.f2_levels, hw), coords, radius)):
+        f1 = wc.f1.clone().requires_grad_()
+        out = lookup(f1)
+        offsets = []
+        out.register_hook(lambda t: offsets.append(t.data_ptr() % 16))
+        grads.append(torch.autograd.grad(torch.cat([lead, out], dim=1), f1, g)[0])
+    assert offsets == [12] and bwd.launches == 1 and fwd.launches == 1
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5 * max(1.0, float(grads[1].abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_input_needs_grad"])
+def test_function_without_grad_launches_the_forward_alone(monkeypatch, mode):
+    """Every CUDA lookup goes through `WindowedCorrLookup`; where no
+    gradient can be asked for, it launches the forward once, returns the
+    plain lookup's output and records no graph."""
+    fwd, bwd = _PlainForward(), _PlainBackward()
+    monkeypatch.setattr(tcorr, "WINDOWED_CORR_TF32_KERNEL", fwd)
+    monkeypatch.setattr(tcorr, "WINDOWED_CORR_BWD_KERNEL", bwd)
+    wc, coords, _ = _inputs(6, 32, 2, 3, "smooth", (13, 23))
+    needs = mode != "no_input_needs_grad"
+    f1 = wc.f1.clone().requires_grad_(needs)
+    context = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode}.get(
+        mode, torch.enable_grad)
+    with context():
+        out = tcorr.WindowedCorrLookup.apply(coords, f1, *wc.f2_levels, 2)
+    assert fwd.launches == 1 and bwd.launches == 0
+    assert out.grad_fn is None and not out.requires_grad
+    assert torch.equal(out, tcorr.windowed_corr_lookup_plain(wc, coords, 2))
+
+
+@pytest.mark.parametrize("fault,match", [("shape", "g must have shape"),
+                                         ("dtype", "g must be torch.bfloat16"),
+                                         ("strided", "g must be contiguous"),
+                                         ("none", "must be a CUDA tensor")])
+def test_backward_wrapper_refuses_a_wrong_g(fault, match):
+    """g must have the output's shape and the features' dtype, contiguous;
+    the checks run before any build, so they hold on the CPU."""
+    wc, coords, g = _inputs(4, 16, 1, 2, "in_frame", (12, 20))
+    wc = tcorr.WindowedCorr(wc.f1.bfloat16(), tuple(x.bfloat16() for x in wc.f2_levels),
+                            wc.shape_hw)
+    g = {"shape": g[:, :9].bfloat16(), "dtype": g, "strided": g.bfloat16().transpose(2, 3).contiguous()
+         .transpose(2, 3), "none": g.bfloat16()}[fault]
+    before = tcorr.WINDOWED_CORR_BWD_KERNEL.launches
+    with pytest.raises((TypeError, ValueError), match=match):
+        tcorr.WINDOWED_CORR_BWD_KERNEL(wc, coords, g, 1)
+    assert tcorr.WINDOWED_CORR_BWD_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("name", list(windowed_ablate.BWD_VARIANTS))
+def test_bwd_variants_apply_to_the_kernel_source(name):
+    """Each `--bwd` variant's substitution occurs once in the kernel's
+    source; the scalar one keeps an atomic a float, the ablation none."""
+    src = (CSRC / "windowed_corr_bwd.cu").read_text()
+    text = windowed_ablate.bwd_variant_source(name, src)
+    assert text != src and "float4*>(dst)" not in text
+    assert ("atomicAdd(dst + j" in text) == windowed_ablate.BWD_VARIANTS[name][1]
+
+
+def test_bwd_ablation_needs_the_card():
+    """Off the card the `--bwd` ablation raises instead of running anything."""
+    if torch.cuda.is_available():
+        pytest.skip("runs on a CPU-only machine")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        windowed_ablate.main_bwd()
+
+
+# (C, dtype, coordinate kind, radius, levels, map size) on the card
+CARD_CASES = [
+    (256, torch.float32, "in_frame", 4, 4, (20, 28)),
+    (256, torch.bfloat16, "smooth", 4, 4, (20, 40)),
+    (40, torch.float32, "non_finite", 2, 3, (13, 23)),
+    (8, torch.bfloat16, "border", 0, 1, (7, 9)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype,kind,radius,levels,hw", CARD_CASES)
+def test_backward_kernel_matches_plain_on_card(c, dtype, kind, radius, levels, hw):
+    """The backward kernel against its plain version, with d_coords and
+    without (its d_f1 and d_levels): float32 as `_hold`; bf16 d_f1 and
+    d_levels within one bf16 step (2**-7 |plain| + 1e-6 max|plain|),
+    d_coords (float32) as `_hold`'s. One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; run on the card")
+    rng = np.random.default_rng(3)
+    f1 = torch.from_numpy(rng.standard_normal((2, c, *hw), dtype=np.float32)).to(dtype)
+    f2 = torch.from_numpy(rng.standard_normal((2, c, *hw), dtype=np.float32)).to(dtype)
+    wc = tcorr.windowed_corr_pyramid(f1.cuda(), f2.cuda(), levels)
+    coords = torch.from_numpy(_coords(rng, 2, hw, hw, kind)).cuda()
+    g = torch.from_numpy(rng.standard_normal(
+        (2, levels * (2 * radius + 1) ** 2, *hw), dtype=np.float32)).to(dtype).cuda()
+    ref = tcorr.windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+    for need_coords in (True, False):
+        before = tcorr.WINDOWED_CORR_BWD_KERNEL.launches
+        got = tcorr.WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords)
+        torch.cuda.synchronize()
+        assert tcorr.WINDOWED_CORR_BWD_KERNEL.launches == before + 1
+        assert (got[2] is not None) == need_coords
+        if dtype == torch.float32:
+            _hold([got[0].cpu(), [d.cpu() for d in got[1]], ref[2].cpu() if got[2] is None
+                   else got[2].cpu()],
+                  [ref[0].cpu(), [d.cpu() for d in ref[1]], ref[2].cpu()], "kernel vs plain")
+            continue
+        for a, b in [(got[0], ref[0])] + list(zip(got[1], ref[1])):
+            assert a.dtype == torch.bfloat16
+            b = b.to(torch.bfloat16).float()
+            a = a.float()
+            nan = torch.isnan(b)
+            assert torch.equal(torch.isnan(a), nan)
+            scale = float(b[~nan].abs().max())
+            assert bool(((a - b)[~nan].abs() <= 2.0**-7 * b[~nan].abs() + 1e-6 * scale).all())
+        if need_coords:
+            _close(got[2].cpu(), ref[2].cpu(), 1e-4, "kernel vs plain: d_coords")
