@@ -17,8 +17,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   2. builds the CUDA sources of gimmvfi_tpu_torch/csrc/ (softsplat_sorted.cu,
      softsplat.cu, softsplat_bwd.cu, windowed_corr_mma.cu, windowed_corr_tf32.cu, windowed_corr.cu,
      windowed_corr_bwd.cu, conv3x3.cu, gather_probe.cu) all at once, one nvcc each; counts the
-     HMMA (tensor-core) instructions in the SASS of windowed_corr_mma and
-     windowed_corr_tf32 (`cuobjdump -sass`) and fails on none; prints the
+     HMMA (tensor-core) instructions in the SASS of windowed_corr_mma,
+     windowed_corr_tf32 and windowed_corr_bwd (`cuobjdump -sass`) and fails
+     on none; prints the
      shared memory a block and the blocks an SM of windowed_corr_tf32 at
      C = 256, from its library;
   3. the atomic splat kernel (`csrc/softsplat.cu`, on no route) against its
@@ -87,16 +88,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      `WINDOWED_BWD_CASES` (radius 0 and 2, 3 levels; `windowed_bwd_agreement`:
      float32 d_f1 and d_levels <= 1e-5 x max(1, max|plain|), d_coords <=
      1e-4 x max(1, max|plain|), bf16 within one bf16 step, NaN at the same
-     places), with d_coords and without, and the route in each case:
+     places), with d_coords and without, two calls of each with bitwise
+     equal d_levels (asserted), and the route in each case:
      torch.autograd.grad of a seeded weighted sum of `windowed_corr_lookup`'s
      output on CUDA tensors against that of the plain lookup on the same
      tensors (one forward and one backward launch), the coordinates needing
      grad and not, under the same bounds; then its readings (`bwd_reading`:
-     events and device time against the bound, with d_coords and without,
-     d_levels over two calls, the forward's and the plain version's times) at (b)
-     the 720p F AMT lookup (1,92,160) float32, beside the yardstick (the
-     materialized lookup's autograd backward), and (c) the 2048x1088 DS
-     1.0 RAFT lookup (2,136,256) bf16; (a) is phase 12 (e)'s;
+     d_levels bitwise equal over two calls, asserted; events and device
+     time of the whole call and of its parts (query side, order, destination
+     side, chunk sum) against the bound, with d_coords and without, the
+     forward's and the plain version's times) at (b) the 720p F AMT lookup
+     (1,92,160) float32, beside the yardstick (the materialized lookup's
+     autograd backward), and (c) the 2048x1088 DS 1.0 RAFT lookup
+     (2,136,256) bf16; (a) is phase 12 (e)'s;
   8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
      (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
      1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
@@ -207,8 +211,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      exact launches counted from 0 (42 float32 lookups, RAFT's 2 x 20 and
      the AMT's 2, and 42 backward launches; no bf16 or CUDA-core one), a
      finite loss, the events median beside (a)'s, the peak, the device
-     time of one traced step and of its lookups; the backward kernel's
-     readings (a) on the step's AMT lookup, captured, beside the yardstick;
+     time of one traced step, of its lookups and of its backwards' own
+     kernels; the backward's readings (a) on the step's AMT lookup,
+     captured, beside the yardstick;
      then from the same seeded weights and batch the windowed step's
      gradients against the default (materialized) step's on the card,
      under (b)'s bounds;
@@ -338,7 +343,9 @@ from gimmvfi_tpu_torch.tools.windowed_ablate import (
     TF32_CASES,
     WINDOWED_BWD_CASES,
     WINDOWED_CASES,
+    bitwise_equal,
     bwd_bound,
+    bwd_parts,
     extent_summary,
     f32_lookup_bounds,
     fmt_extent,
@@ -425,7 +432,7 @@ def build_kernels():
         print(f"[2] {name}: wgmma.mma_async serialised by ptxas: "
               f"{'yes: ' + ' | '.join(serial) if serial else 'no'}", flush=True)
     print(f"[2] {len(logs)} sources built in parallel in {dt:.2f} s", flush=True)
-    for kernel in (WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL):
+    for kernel in (WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_BWD_KERNEL):
         name = Path(kernel.source).name
         sass = subprocess.run([str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
                                str(library_path(name))], capture_output=True, text=True, check=True)
@@ -1051,47 +1058,57 @@ def route_grads(wc, coords, radius: int, lookup, seed: int, dtype, with_coords: 
     return d[0], d[1:len(levels) + 1], d[-1] if with_coords else None
 
 
+def assert_bitwise_repeat(label: str, first, second) -> None:
+    """Two calls' d_levels must be bitwise equal (the destination side sums
+    each element in one fixed order)."""
+    if not bitwise_equal(first[1], second[1]):
+        diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(first[1], second[1]))
+        raise AssertionError(f"{label}: d_levels differ over two calls (max-abs {diff:.3e})")
+
+
+def fmt_parts(parts: dict) -> str:
+    return ", ".join(f"{k} {fmt_ms(v)}" for k, v in parts.items())
+
+
 def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int = 4) -> dict:
-    """The backward kernel on these inputs: held to its plain version, the
-    max-abs difference of d_levels over two calls (its atomic order), its
-    events and device time against the bound (`bwd_bound`: the bytes, or
-    for each tap on the map its dot again at the peak for the features'
-    type and four float32 operations a channel at the CUDA-core peak), the
-    same without d_coords (RAFT's mode: no dots) against its own bound, the
-    forward kernel's time on the same inputs, the
-    plain version's; with `library`, the yardstick: the autograd backward
-    of the materialized `corr_lookup` over `corr_pyramid` of the same maps
-    (grid_sample's backward, the pooling's and the bmm's), its d_fmap1
-    (d_f1 / sqrt(C)) and d_coords first held to the kernel's within 1e-3 x
-    max(1, max|kernel|). d_coords is held on the queries whose position
-    lies at least 1e-3 px from an integer at every level: the bilinear
-    weights' derivative jumps at integers, and grid_sample's normalized
-    grid rounds a position there to either side."""
+    """The backward on these inputs: held to its plain version, two calls'
+    d_levels asserted bitwise equal, its events and device time (the whole
+    call and its parts, `bwd_parts`) against the bound (`bwd_bound`: the
+    bytes, or for each tap on the map its dot again and its d_f1 and d_f2
+    products, each at the peak of the tensor-core unit that takes it), the
+    same without d_coords (RAFT's mode:
+    no dots) against its own bound, the forward kernel's time on the same
+    inputs, the plain version's; with `library`, the yardstick: the
+    autograd backward of the materialized `corr_lookup` over `corr_pyramid`
+    of the same maps (grid_sample's backward, the pooling's and the bmm's),
+    its d_fmap1 (d_f1 / sqrt(C)) and d_coords first held to the kernel's
+    within 1e-3 x max(1, max|kernel|). d_coords is held on the queries
+    whose position lies at least 1e-3 px from an integer at every level: the
+    bilinear weights' derivative jumps at integers, and grid_sample's
+    normalized grid rounds a position there to either side."""
     call = lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius)  # noqa: E731
     first, second = call(), call()
     ref = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
     agree = bwd_agrees(f"{label}, held to its plain version", first, ref)
     del ref
-    rerun = max(float((a.float() - b.float()).abs().max()) for a, b in zip(first[1], second[1]))
-    rerun_f1 = float((first[0].float() - second[0].float()).abs().max())
+    assert_bitwise_repeat(label, first, second)
     work = bwd_bound(wc, coords, radius)
     bound, bound_by, nbytes = work["bound_ms"], work["bound_by"], work["bytes"]
-    flops = work["dot_flops"] + work["product_flops"]
     fwd = corr_ops.windowed_corr_kernel_for(wc.f1.dtype)
     fwd_row = "windowed_corr_mma_kernel" if fwd is WINDOWED_CORR_MMA_KERNEL else "windowed_corr_tf32_kernel"
     out = {"max_abs_err": agree["max_abs_err"], "coords_max_abs_err": agree["coords_max_abs_err"],
-           "d_levels_rerun_max_abs": rerun, "d_f1_rerun_max_abs": rerun_f1, "bound_ms": bound,
-           "bound_by": bound_by, "bytes": nbytes, "dot_flops": work["dot_flops"],
-           "product_flops": work["product_flops"]}
+           "d_levels_bitwise_repeat": True, "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+           "dot_flops": work["dot_flops"], "product_flops": work["product_flops"]}
     out["ms"] = cuda_ms(call, warmup=2)
-    total, rows = device_ms(call, iters=5)
-    out["call_device_ms"], out["device_ms"] = total, kernel_row(rows, "windowed_corr_bwd_kernel")
+    out["device_ms"], rows = device_ms(call, iters=5)
+    out["parts_device_ms"] = bwd_parts(out["device_ms"], rows)
     lean = lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords=False)  # noqa: E731
     lean_bound = bwd_bound(wc, coords, radius, need_coords=False)
     out["no_coords_bound_ms"], out["no_coords_bound_by"] = (lean_bound["bound_ms"],
                                                             lean_bound["bound_by"])
     out["no_coords_ms"] = cuda_ms(lean, warmup=2)
-    out["no_coords_device_ms"] = kernel_row(device_ms(lean, iters=5)[1], "windowed_corr_bwd_kernel")
+    out["no_coords_device_ms"], rows = device_ms(lean, iters=5)
+    out["no_coords_parts_device_ms"] = bwd_parts(out["no_coords_device_ms"], rows)
     out["forward_ms"] = cuda_ms(lambda: fwd(wc, coords, radius), warmup=2)
     out["forward_device_ms"] = kernel_row(device_ms(lambda: fwd(wc, coords, radius))[1], fwd_row)
     out["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_backward_plain(wc, coords, g, radius),
@@ -1131,18 +1148,18 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
     print(f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} {str(wc.f1.dtype)[6:]}: "
           f"{WINDOWED_CORR_BWD_KERNEL.name} {out['ms']:.4f} ms by events "
           f"({fmt_share(bound, out['ms'])}), device {fmt_ms(out['device_ms'])} "
-          f"({fmt_share(bound, out['device_ms'])}; the call with its zero fill and casts "
-          f"{fmt_ms(out['call_device_ms'])}); bound {bound:.4f} ms ({bound_by}: "
-          f"{nbytes / 1e6:.1f} MB, {work['dot_flops'] / 1e9:.2f} GFLOP of dots at the "
-          f"{str(wc.f1.dtype)[6:]} peak and {work['product_flops'] / 1e9:.2f} GFLOP float32); "
-          f"without d_coords {out['no_coords_ms']:.4f} ms by events, device "
+          f"({fmt_share(bound, out['device_ms'])}; {fmt_parts(out['parts_device_ms'])}); bound "
+          f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {work['dot_flops'] / 1e9:.2f} "
+          f"GFLOP of dots and {work['product_flops'] / 1e9:.2f} GFLOP of products at the "
+          f"tensor cores' peaks as the kernel takes them); without d_coords "
+          f"{out['no_coords_ms']:.4f} ms by events, device "
           f"{fmt_ms(out['no_coords_device_ms'])} "
           f"({fmt_share(out['no_coords_bound_ms'], out['no_coords_device_ms'])} of its "
-          f"{out['no_coords_bound_ms']:.4f} ms {out['no_coords_bound_by']} bound); the forward "
+          f"{out['no_coords_bound_ms']:.4f} ms {out['no_coords_bound_by']} bound; "
+          f"{fmt_parts(out['no_coords_parts_device_ms'])}); the forward "
           f"{fwd.name} {out['forward_ms']:.4f} ms by events, device "
-          f"{fmt_ms(out['forward_device_ms'])}; plain {out['plain_ms']:.4f} ms{text}; "
-          f"d_levels over two calls differ by {rerun:.3e} max-abs (atomic order), d_f1 by "
-          f"{rerun_f1:.3e}; {smi}", flush=True)
+          f"{fmt_ms(out['forward_device_ms'])}; plain {out['plain_ms']:.4f} ms{text}; d_levels "
+          f"bitwise equal over two calls; {smi}", flush=True)
     return out
 
 
@@ -1150,7 +1167,8 @@ def check_windowed_backward(smi: str) -> dict:
     """Phase 7, the backward: the kernel against
     `windowed_corr_lookup_backward_plain` in `WINDOWED_CASES`, `MMA_CASES`,
     `TF32_CASES` and `WINDOWED_BWD_CASES` (`windowed_bwd_agreement`, one launch a
-    call), with d_coords and without (its d_f1 and d_levels); the route in
+    call), with d_coords and without (its d_f1 and d_levels), two calls of
+    each mode with bitwise equal d_levels (asserted); the route in
     the same cases: torch.autograd.grad of a seeded weighted sum of
     `windowed_corr_lookup`'s output on CUDA tensors against that of
     `windowed_corr_lookup_plain` on the same CUDA tensors (its features as
@@ -1171,10 +1189,13 @@ def check_windowed_backward(smi: str) -> dict:
         for need_coords in (True, False):
             before = WINDOWED_CORR_BWD_KERNEL.launches
             got = WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords)
-            if WINDOWED_CORR_BWD_KERNEL.launches != before + 1 or (got[2] is None) == need_coords:
+            again = WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords)
+            if WINDOWED_CORR_BWD_KERNEL.launches != before + 2 or (got[2] is None) == need_coords:
                 raise AssertionError(f"{label}, need_coords {need_coords}: the kernel did not "
-                                     f"launch once, or its d_coords is wrong")
-            agree = bwd_agrees(f"{label}{'' if need_coords else ', without d_coords'}", got, plain)
+                                     f"launch once a call, or its d_coords is wrong")
+            what = f"{label}{'' if need_coords else ', without d_coords'}"
+            assert_bitwise_repeat(what, got, again)
+            agree = bwd_agrees(what, got, plain)
             worst[dtype] = [max(worst[dtype][0], agree["max_abs_err"]),
                             max(worst[dtype][1], agree["coords_max_abs_err"])]
         fwd = corr_ops.windowed_corr_kernel_for(dtype)
@@ -1192,7 +1213,7 @@ def check_windowed_backward(smi: str) -> dict:
                                f"{'' if with_coords else ', coords without grad'}", routed, ref)
             route_worst[dtype] = [max(route_worst[dtype][0], agree["max_abs_err"]),
                                   max(route_worst[dtype][1], agree["coords_max_abs_err"])]
-        del wc, coords, g, got, routed, ref, plain
+        del wc, coords, g, got, again, routed, ref, plain
     torch.cuda.empty_cache()
     res = {"max_abs_err_cases_f32": worst[torch.float32][0],
            "coords_max_abs_err_cases_f32": worst[torch.float32][1],
@@ -1206,7 +1227,8 @@ def check_windowed_backward(smi: str) -> dict:
                         "max|plain|); bf16 d_f1, d_levels 2**-7 |plain| + 1e-6 max|plain|",
            "cases": len(cases)}
     print(f"[7] windowed backward: {len(cases)} cases held to the plain version (with and "
-          f"without d_coords) and through the route (coordinates with and without grad): "
+          f"without d_coords; d_levels bitwise equal over two calls in each) and through the "
+          f"route (coordinates with and without grad): "
           f"largest d_f1/d_levels error float32 {res['max_abs_err_cases_f32']:.3e}, bf16 "
           f"{res['max_abs_err_cases_bf16']:.3e}; d_coords "
           f"{max(worst[torch.float32][1], worst[torch.bfloat16][1]):.3e}", flush=True)
@@ -2441,7 +2463,9 @@ def run_windowed_step(smi: str, lpips_path: Path, p12_step: dict) -> dict:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[12] (e) losses {losses}")
     step_dev, rows = device_ms(lambda: step(state, batch), iters=1, warmup=0)
-    bwd_dev = kernel_row(rows, "windowed_corr_bwd_kernel")
+    # the backward's own kernels (its sorts share their rows with the splat's)
+    own = [v for k, v in rows.items() if "windowed_corr_bwd_" in k]
+    bwd_dev = sum(own) if own else None
     fwd_dev = kernel_row(rows, "windowed_corr_tf32_kernel")
     med = statistics.median(times)
     print(f"[12] (e) the recipe step with corr_max_volume_bytes=0 (RAFT's and the AMT's "
@@ -2451,7 +2475,8 @@ def run_windowed_step(smi: str, lpips_path: Path, p12_step: dict) -> dict:
           f"{p12_step['step_ms']:.2f}; peak allocated {peak / 2**20:.1f} MiB against (a)'s "
           f"{p12_step['peak_bytes'] / 2**20:.1f}; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"device time of one traced step {fmt_ms(step_dev)}, its {lookups} lookups "
-          f"{fmt_ms(fwd_dev)} and their backwards {fmt_ms(bwd_dev)}; {smi}", flush=True)
+          f"{fmt_ms(fwd_dev)} and their backwards {fmt_ms(bwd_dev)} (the backward's own kernels; "
+          f"its sorts' rows are the splat's too); {smi}", flush=True)
     res = {"step_ms": med, "step_ms_all": times, "peak_bytes": peak, "launches": got,
            "losses": losses, "step_device_ms": step_dev, "lookup_device_ms": fwd_dev,
            "bwd_device_ms": bwd_dev}
@@ -3091,16 +3116,15 @@ def main():
                route_max_abs_err_f32=bstats["route_max_abs_err_f32"],
                route_max_abs_err_bf16=bstats["route_max_abs_err_bf16"],
                tolerance=bstats["tolerance"], ms=wa["ms"], device_ms=wa["device_ms"],
-               call_device_ms=wa["call_device_ms"], plain_ms=wa["plain_ms"],
+               plain_ms=wa["plain_ms"],
                bound_ms=wa["bound_ms"], bound_by=wa["bound_by"], library_ms=wa["library_ms"],
                library_device_ms=wa["library_device_ms"], forward_ms=wa["forward_ms"],
                forward_device_ms=wa["forward_device_ms"],
-               d_levels_rerun_max_abs=max(r["d_levels_rerun_max_abs"]
-                                          for r in (wa, bstats["b"], bstats["c"])),
+               d_levels_bitwise_repeat=True, parts_device_ms=wa["parts_device_ms"],
                step_bwd_device_ms=p12["windowed_step"]["bwd_device_ms"],
                **{f"{key}_{k}": bstats[key][k] for key in ("b", "c")
-                  for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                            "library_device_ms", "forward_ms", "forward_device_ms")},
+                  for k in ("ms", "device_ms", "parts_device_ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "library_device_ms", "forward_ms", "forward_device_ms")},
                **{f"{key}_{k}": reading[k] for key, reading in (("a", wa), ("b", bstats["b"]),
                                                                 ("c", bstats["c"]))
                   for k in ("no_coords_ms", "no_coords_device_ms", "no_coords_bound_ms")}),

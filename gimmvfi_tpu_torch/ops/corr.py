@@ -26,12 +26,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..utils.kernel_build import CudaKernel
+from ..utils.kernel_build import CudaKernel, build_library
 from .interp import bilinear_sampler
 
 MAX_VOLUME_BYTES = 2 << 30
@@ -414,36 +415,151 @@ class WindowedCorrTf32Kernel(WindowedCorrTileKernel):
                          symbol="windowed_corr_tf32_lookup")
 
 
+BWD_TILE = 8  # destination tiles of the backward: 8x8 pixels of a level's map
+BWD_KEY_PAD = 16  # the key tiles' padding of a level's map on its low sides
+
+
+def bwd_chunk_queries(entries: int) -> int:
+    """The entries a chunk of the backward's destination side takes, from
+    N*levels*P: a power of two in [128, 1024], about 9 x entries / 1024
+    (the candidates of all tiles number ~9 x entries), so that a large
+    lookup's chunks number a few per SM and a small one's coarse tiles
+    still split; the best of 64-4096 at each of the three shapes timed on
+    the card (`PERF.md` §6). A function of the shape alone, so the order of
+    every sum is the same from call to call."""
+    q = 1 << max(0, (9 * entries // 1024).bit_length() - 1)
+    return min(1024, max(128, q))
+
+
+BWD_SPLIT_BELOW = 2048  # query tiles below which the backward's query side splits the levels
+
+
+def bwd_split_levels(n: int, h: int, w: int) -> bool:
+    """Whether the backward's query side takes a block a (tile of 16
+    queries, level) rather than a block a tile: when the tiles number fewer
+    than `BWD_SPLIT_BELOW`, a few waves of blocks or less, as at stage-2
+    training's 28x28 lookups (224 tiles) and 720p F's AMT lookup (920),
+    where it was faster on the card, and not at the 2K RAFT lookup (4,352),
+    where it was slower (`PERF.md` §6); the levels' parts of d_f1 and
+    d_coords are then added in level order. A function of the shape alone."""
+    return n * h * -(-w // 16) < BWD_SPLIT_BELOW
+
+
+class BwdPlanSizes(NamedTuple):
+    """The backward's keys and destination tiles (`csrc/windowed_corr_bwd.cu:
+    make_geometry`): level l has (KY_l, KX_l) = ((h_l + 23) // 8, (w_l + 23)
+    // 8) key tiles and (TY_l, TX_l) = ((h_l + 7) // 8, (w_l + 7) // 8)
+    destination tiles; keys and tiles are numbered image, level, row,
+    column; the sentinel key (a window off the map) is N * keys_per_image."""
+
+    kx: tuple[int, ...]
+    key_base: tuple[int, ...]
+    keys_per_image: int
+    tx: tuple[int, ...]
+    ty: tuple[int, ...]
+    sentinel: int
+    tiles: int
+    entries: int
+    chunk_q: int
+    max_chunks: int  # tiles + ceil(9 entries / chunk_q): no plan has more chunks
+
+
+def bwd_plan_sizes(level_hw, n: int, p: int) -> BwdPlanSizes:
+    """`BwdPlanSizes` of levels of (h_l, w_l), N images and P queries."""
+    kx = tuple((w + 23) // 8 for _, w in level_hw)
+    ky = tuple((h + 23) // 8 for h, _ in level_hw)
+    tx = tuple((w + 7) // 8 for _, w in level_hw)
+    ty = tuple((h + 7) // 8 for h, _ in level_hw)
+    key_sizes = [a * b for a, b in zip(kx, ky)]
+    key_base = tuple(sum(key_sizes[:i]) for i in range(len(key_sizes)))
+    entries = n * len(level_hw) * p
+    chunk_q = bwd_chunk_queries(entries)
+    tiles = n * sum(a * b for a, b in zip(tx, ty))
+    return BwdPlanSizes(kx, key_base, sum(key_sizes), tx, ty, n * sum(key_sizes), tiles, entries,
+                        chunk_q, tiles + -(-9 * entries // chunk_q))
+
+
 class WindowedCorrBwdKernel(WindowedCorrCudaKernel):
     """The windowed lookup's backward (`csrc/windowed_corr_bwd.cu`). Takes
     what the lookups take, and g (N, levels*(2r+1)^2, H, W) in the
     features' dtype; returns (d_f1, d_levels, d_coords) in the inputs'
     dtypes (d_coords float32, None unless `need_coords`: without it the
-    kernel skips the dots, which only d_coords needs). d_levels are summed
-    by float32 atomics into zero-filled buffers, so their last bits may
-    change from call to call."""
+    query side skips the dots, which only d_coords needs). One call runs
+    the query side (`windowed_corr_bwd_query`: ds, keys, d_f1, d_coords),
+    `torch.sort(stable=True)` of the keys, then the destination side
+    (`windowed_corr_bwd`, whose launches the counter counts: one a call),
+    which writes every element of d_levels once, summed in a fixed order:
+    d_levels are bitwise the same from call to call."""
+
+    QUERY_SYMBOL = "windowed_corr_bwd_query"
 
     def __init__(self):
         super().__init__("windowed_corr_bwd", "gimmvfi_tpu_torch/csrc/windowed_corr_bwd.cu",
-                         "windowed_corr_bwd", pointers=13)
+                         "windowed_corr_bwd")
+        ints = [ctypes.c_int] * (7 + 2 * self.MAX_LEVELS)
+        self.argtypes = [ctypes.c_void_p] * 12 + ints + [ctypes.c_void_p]
+        self.query_argtypes = [ctypes.c_void_p] * 14 + ints + [ctypes.c_int, ctypes.c_void_p]
+        self._query_fn = None
+
+    def build(self) -> str:
+        log = super().build()
+        self.attach(build_library(Path(self.source).name)[0])
+        return log
+
+    def attach(self, lib) -> None:
+        """Bind the query side's launcher of library `lib` (the counted
+        launcher is bound as every kernel's)."""
+        fn = getattr(lib, self.QUERY_SYMBOL)
+        fn.argtypes = self.query_argtypes
+        fn.restype = ctypes.c_int
+        self._query_fn = fn
 
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor, radius: int = 4,
                  need_coords: bool = True):
         g_shape = (coords.shape[0], len(wc.f2_levels) * (2 * radius + 1) ** 2, *coords.shape[-2:])
         ptrs, sizes, (n, c) = self.validated(wc, coords, radius,
                                              ("g", g, wc.f1.dtype, g_shape, wc.f1.device))
-        f1 = wc.f1
+        f1, levels = wc.f1, wc.f2_levels
+        p = f1.shape[1]
+        h, w = coords.shape[-2:]
+        plan = bwd_plan_sizes([tuple(f2.shape[1:3]) for f2 in levels], n, p)
+        if plan.entries >= 2**31 or max(max(f2.shape[1:3]) for f2 in levels) > 32000:
+            raise ValueError(f"{self.name}: needs N*levels*P < 2**31 and level sizes <= 32000, "
+                             f"got {plan.entries} entries, levels "
+                             f"{[tuple(f2.shape[1:3]) for f2 in levels]}")
+        if self._fn is None:
+            self.build()
+        dev = f1.device
+        ntaps = (2 * radius + 2) ** 2
+        is_bf16 = int(f1.dtype == torch.bfloat16)
         d_f1 = torch.empty_like(f1)
-        d_levels = [torch.zeros(f2.shape, dtype=torch.float32, device=f2.device)
-                    for f2 in wc.f2_levels]
         d_coords = torch.empty_like(coords) if need_coords else None
-        pad = [0] * (self.MAX_LEVELS - len(d_levels))
-        self.launch(f1.device, f1.data_ptr(), *ptrs, coords.data_ptr(), g.data_ptr(),
-                    d_f1.data_ptr(), *[d.data_ptr() for d in d_levels], *pad,
-                    0 if d_coords is None else d_coords.data_ptr(),
-                    n, f1.shape[1], c, len(wc.f2_levels), radius,
-                    int(f1.dtype == torch.bfloat16), *sizes)
-        return d_f1, tuple(d.to(f1.dtype) for d in d_levels), d_coords
+        split = bwd_split_levels(n, h, w)
+        parts = [torch.empty((len(levels), *t.shape), dtype=torch.float32, device=dev)
+                 if split and t is not None else None for t in (d_f1, d_coords)]
+        ds = torch.empty((n, len(levels), p, ntaps), dtype=torch.float32, device=dev)
+        keys = torch.empty(plan.entries, dtype=torch.int32, device=dev)
+        bases = torch.empty(plan.entries, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = self._query_fn(f1.data_ptr(), *ptrs, coords.data_ptr(), g.data_ptr(),
+                                 *[0 if t is None else t.data_ptr() for t in (d_f1, d_coords, *parts)],
+                                 ds.data_ptr(), keys.data_ptr(), bases.data_ptr(), n, h, w, c,
+                                 len(levels), radius, is_bf16, int(split), *sizes,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.QUERY_SYMBOL} launch failed: cudaError {err}")
+        sorted_keys, order = torch.sort(keys, stable=True)
+        offsets = torch.empty(plan.sentinel + 1, dtype=torch.int32, device=dev)
+        chunk_start = torch.empty(plan.tiles + 1, dtype=torch.int32, device=dev)
+        partial = torch.empty((plan.max_chunks, BWD_TILE * BWD_TILE, c), dtype=torch.float32,
+                              device=dev)
+        d_levels = [torch.empty_like(f2) for f2 in levels]
+        pad = [0] * (self.MAX_LEVELS - len(levels))
+        self.launch(dev, f1.data_ptr(), ds.data_ptr(), sorted_keys.data_ptr(), order.data_ptr(),
+                    bases.data_ptr(), offsets.data_ptr(), chunk_start.data_ptr(),
+                    partial.data_ptr(), *[d.data_ptr() for d in d_levels], *pad, n, p, c,
+                    len(levels), radius, is_bf16, plan.chunk_q, *sizes)
+        return d_f1, tuple(d_levels), d_coords
 
 
 WINDOWED_CORR_KERNEL = WindowedCorrKernel()

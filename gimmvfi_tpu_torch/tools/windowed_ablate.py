@@ -63,16 +63,21 @@ on both kinds, twice, in opposite orders, with each configuration's shared
 memory and blocks an SM (read from its library) and ptxas lines, against
 the 3xTF32 bound and the CUDA-core one (`f32_lookup_bounds`).
 
-With `--bwd`, `csrc/windowed_corr_bwd.cu` as it is (`bwd`) beside
-`BWD_VARIANTS`: `bwd_scalar_atomics`, d_f2's atomics one float at a time
-instead of 16 bytes (checked), and `bwd_no_atomics`, without them (an
-ablation, not checked); timed at the stage-2 AMT lookup's shape,
-`F_AMT_720P` and `RAFT_2K`, twice, in opposite orders.
+With `--bwd`, `csrc/windowed_corr_bwd.cu` as it is (`bwd`, checked, d_levels
+bitwise over two calls) beside `BWD_VARIANTS`, ablations that do not
+compute the backward and are not checked: `bwd_no_levels` (the destination
+side's kernels not launched; the sort still runs) and `bwd_no_stage` (the
+query side without the cp.async of the window rows); each call timed with
+its parts (query side, order, destination side, chunk sum) at the stage-2
+AMT lookup's shape, `F_AMT_720P` and `RAFT_2K`, twice, in opposite orders.
 
 `mma_tile_walk` computes the lookup by the tensor-core kernels' own
 decomposition in plain torch, with a `dot` for the products (float32, or
 `split_tf32_dot`: the float32 kernel's 3xTF32), and `mma_tile_extents`
 its union extents alone, for the CPU tests and `chip_smoke.py` phase 7.
+`bwd_order_model` computes the backward by the backward kernel's own
+partition and order (query tiles, destination keys, runs and chunks), the
+written statement of the order it sums d_levels in.
 
 `WINDOWED_CASES`, `MMA_CASES`, `TF32_CASES`, the lookup shapes,
 `windowed_inputs` and `windowed_agreement` are shared with `chip_smoke.py`
@@ -159,6 +164,8 @@ WINDOWED_BWD_CASES = [
     (40, torch.bfloat16, "border", 2, 3, (2, 12, 20)),
 ]
 TILE_Q = 16  # queries a tile of csrc/windowed_corr_mma.cu: the mma's M
+DEST_BATCH = 32  # candidates a staging batch of csrc/windowed_corr_bwd.cu's destination side
+DEST_KSTEP = 8  # entries a k-step of its products (the mma's K)
 
 _LEVELS_OUTER = """  for (int l = 0; l < levels; ++l) {
     const int hl = lv.h[l], wl = lv.w[l];
@@ -261,24 +268,28 @@ TF32_ABLATIONS = {
                                 "bhi[1] ^ blo[0] ^ blo[1]) & 0x007fffffu);\n")],
 }
 TF32_PRODUCTS = 3  # TF32 `mma` products a float32 product takes in 3xTF32
+# TF32 `mma` products the backward's ds x feature products take: ds split
+# in two, a float32 feature split too (the small x small term dropped), a
+# bf16 one exact in TF32
+BWD_PRODUCTS_TF32 = {torch.float32: 3, torch.bfloat16: 2}
 
 
-# csrc/windowed_corr_bwd.cu's d_f2 atomics, and the `--bwd` variants of them
-_BWD_ATOMICS = """                atomicAdd(reinterpret_cast<float4*>(dst),
-                          make_float4(ds * a[k][0], ds * a[k][1], ds * a[k][2], ds * a[k][3]));
-                atomicAdd(reinterpret_cast<float4*>(dst) + 1,
-                          make_float4(ds * a[k][4], ds * a[k][5], ds * a[k][6], ds * a[k][7]));"""
-# name -> (substitutions, whether the variant computes the backward)
+# ablations of csrc/windowed_corr_bwd.cu for `--bwd`, which do not compute
+# the backward: name -> substitutions
+_BWD_DEST = "  if (tiles > 0) {\n    const cudaError_t err"
+_BWD_STAGE = "    cp_async16(smem_addr(dst + px * rs + per * ch), src + px * c + per * ch);\n"
 BWD_VARIANTS = {
-    "bwd_scalar_atomics": ([(_BWD_ATOMICS, """#pragma unroll
-                for (int j = 0; j < 8; ++j) atomicAdd(dst + j, ds * a[k][j]);""")], True),
-    "bwd_no_atomics": ([(_BWD_ATOMICS, "                (void)dst;")], False),
+    # part 2 skipped: the sort still runs, nothing writes d_levels
+    "bwd_no_levels": [(_BWD_DEST, "  if (false) {\n    const cudaError_t err")],
+    # part 1 without the cp.async of the window rows (the rings' stale
+    # contents are multiplied; the walk, the waits and the products stay)
+    "bwd_no_stage": [(_BWD_STAGE, "    (void)src;\n")],
 }
 
 
 def bwd_variant_source(name: str, src: str) -> str:
     """`csrc/windowed_corr_bwd.cu` with variant `name`'s substitutions."""
-    return substitute(src, BWD_VARIANTS[name][0], f"variant {name}")
+    return substitute(src, BWD_VARIANTS[name], f"variant {name}")
 
 
 def tf32_config(src: str) -> tuple[int, int, int]:
@@ -317,16 +328,21 @@ def bwd_bound(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
               need_coords: bool = True) -> dict:
     """The backward's bound on these inputs (`windowed_corr_bwd_work`): the
     larger of its bytes over the HBM rate and its operations, each at the
-    peak for its type, summed: the dots at the dense bf16 tensor-core peak
-    for bf16 features (bf16 products summed in float32) and at the
-    CUDA-core float32 peak for float32 ones; the d_f1 and d_f2 products
-    (float32) at the CUDA-core peak. Returns `bound_ms`, `bound_by`,
-    `bytes`, `dot_flops` and `product_flops`."""
+    peak of the unit that takes it in `csrc/windowed_corr_bwd.cu`, summed:
+    the dots on the tensor cores, bf16 products at the dense bf16 peak for
+    bf16 features, `TF32_PRODUCTS` TF32 products a float32 one at the dense
+    TF32 peak for float32 ones (3xTF32); the d_f1 and d_f2 products (float32
+    ds by the features) at the TF32 peak, `BWD_PRODUCTS_TF32[dtype]` TF32
+    products each (ds split in two, a float32 feature in two as well).
+    Returns `bound_ms`, `bound_by`, `bytes`, `dot_flops` and
+    `product_flops`."""
     nbytes, dots, products = corr_ops.windowed_corr_bwd_work(wc, coords, radius, need_coords)
-    dot_peak = H100_BF16_FLOPS if wc.f1.dtype == torch.bfloat16 else H100_F32_FLOPS
-    # both parts as float32 operations at the CUDA-core peak: the same time
-    ops = dots * H100_F32_FLOPS / dot_peak + products
-    bound, bound_by = bound_ms(nbytes, ops, H100_F32_FLOPS)
+    if wc.f1.dtype == torch.bfloat16:
+        dot_tf32 = dots * H100_TF32_FLOPS / H100_BF16_FLOPS  # the same time at the TF32 peak
+    else:
+        dot_tf32 = TF32_PRODUCTS * dots
+    ops = dot_tf32 + BWD_PRODUCTS_TF32[wc.f1.dtype] * products
+    bound, bound_by = bound_ms(nbytes, ops, H100_TF32_FLOPS)
     return {"bound_ms": bound, "bound_by": bound_by, "bytes": nbytes, "dot_flops": dots,
             "product_flops": products}
 
@@ -466,6 +482,8 @@ def bind(name: str, text: str, kind=WindowedCorrKernel) -> tuple[WindowedCorrKer
     fn.argtypes = kernel.argtypes
     fn.restype = ctypes.c_int
     kernel._fn = fn
+    if hasattr(kernel, "attach"):  # a launcher of its own besides the counted one
+        kernel.attach(lib)
     keep = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     return kernel, " | ".join(keep)
 
@@ -587,6 +605,179 @@ def mma_tile_extents(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) ->
         for k in EXTENT_KEYS:
             per_level[k].append(got[k])
     return {k: torch.stack(v) for k, v in per_level.items()}
+
+
+def bwd_query_ds(wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor, radius: int, level: int):
+    """Level `level`'s ds of every query, (N, H, W, 2r+2, 2r+2) [query, tap
+    row, tap column], float32: g's blend backward as the plain backward
+    takes it; with dsy (N, H, W, 2r+1, 2r+2) and gv (N, H, W, 2r+1, 2r+1)
+    [query, y offset j, x offset i] for d_coords."""
+    n, _, h, w = coords.shape
+    win, span = 2 * radius + 1, 2 * radius + 2
+    hl, wl = wc.f2_levels[level].shape[1:3]
+    _, _, fx, fy, *_ = _level_windows(coords, radius, level, hl, wl)
+    gv = g.float().reshape(n, len(wc.f2_levels), win, win, h, w)[:, level].permute(0, 3, 4, 2, 1)
+    fx_, fy_ = fx[..., None, None], fy[..., None, None]
+    dsy = torch.zeros((n, h, w, win, span))
+    dsy[..., :win] += gv * (1.0 - fx_)
+    dsy[..., 1:] += gv * fx_
+    ds = torch.zeros((n, h, w, span, span))
+    ds[..., :win, :] += dsy * (1.0 - fy_)
+    ds[..., 1:, :] += dsy * fy_
+    return ds, dsy, gv
+
+
+def bwd_order_model(wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor, radius: int = 4,
+                    chunk_q: int | None = None, dot=_tile_products):
+    """The backward by the kernel's own partition and order
+    (`csrc/windowed_corr_bwd.cu`), float32 on the host (slow: Python loops
+    over tiles, rows and entries). The written statement of the order the
+    kernel sums d_levels in.
+
+    Query side: tiles of 16 consecutive queries of one image row. For each
+    level, every query's ds (`bwd_query_ds`), key and base: a live window
+    (finite coordinate, touching the map) has key n * keys_per_image +
+    key_base[l] + ((y0 + 16) // 8) * KX_l + (x0 + 16) // 8
+    (`ops/corr.py: bwd_plan_sizes`), any other the sentinel. The union of
+    the tile's live windows is walked as `mma_tile_walk` walks it, a row at
+    a time in blocks of 8 pixels: d_f1 += ds_block (16 queries x 8 pixels,
+    zero off a query's window) @ pixels, and the dots (by `dot`) into each
+    query's (2r+2)^2 sums, from which dfx, dfy. A non-finite ds on a tap off
+    the map makes the query's d_f1 NaN.
+
+    Destination side: the entries (N, levels, P) sorted stably by key, so a
+    key's run holds its entries in index order; a destination tile (8x8
+    pixels of level l) takes as candidates the runs of its 3 key rows, ty ..
+    ty + 2, each the key tiles tx .. tx + 2, in row order; the list is cut
+    into chunks of `chunk_q` entries (default `bwd_chunk_queries`; at least
+    one chunk, maybe empty); a chunk takes its candidates in batches of
+    `DEST_BATCH`, keeps those whose window reaches the tile, in list order,
+    and adds their ds x f1 over the tile's pixels to its partial a k-step of
+    `DEST_KSTEP` entries at a time (the tensor cores sum a k-step's products
+    in an order of their own); the tile's d_f2 is the partials added in
+    chunk order, cast once to the features' dtype.
+
+    Returns ((d_f1, d_levels, d_coords) in the kernel's dtypes, plan): plan
+    holds `sorted_keys`, `order`, `offsets` (each key's first sorted
+    entry), `sizes` (`BwdPlanSizes`), and `tiles`, one dict a destination
+    tile: (n, l, ty, tx), its `runs` (start, end) in sorted order, its
+    `list` of entries, its `chunks` (start, end) in the list and their
+    `partials` (8, 8, C)."""
+    n, p, c = wc.f1.shape
+    h, w = coords.shape[-2:]
+    win, span = 2 * radius + 1, 2 * radius + 2
+    nl = len(wc.f2_levels)
+    sizes = corr_ops.bwd_plan_sizes([tuple(f2.shape[1:3]) for f2 in wc.f2_levels], n, p)
+    q_size = chunk_q or sizes.chunk_q
+    tiles_x = -(-w // TILE_Q)
+    f1 = wc.f1.float().reshape(n, h, w, c)
+    d_f1 = torch.zeros((n, h, w, c))
+    d_coords = torch.zeros((n, 2, h, w))
+    bad = torch.zeros((n, h, w), dtype=torch.bool)
+    ds_all, x0_all, y0_all = [], [], []
+    keys = torch.empty((n, nl, h, w), dtype=torch.long)
+    for lvl, f2 in enumerate(wc.f2_levels):
+        hl, wl = f2.shape[1:3]
+        f2 = f2.float()
+        x0, y0, fx, fy, live, wx0, wx1, wy0, wy1 = _level_windows(coords, radius, lvl, hl, wl)
+        ds, dsy, gv = bwd_query_ds(wc, coords, g, radius, lvl)
+        ds_all.append(ds)
+        x0_all.append(x0)
+        y0_all.append(y0)
+        key = (torch.arange(n).view(n, 1, 1) * sizes.keys_per_image + sizes.key_base[lvl]
+               + torch.div(y0 + corr_ops.BWD_KEY_PAD, 8, rounding_mode="floor") * sizes.kx[lvl]
+               + torch.div(x0 + corr_ops.BWD_KEY_PAD, 8, rounding_mode="floor"))
+        keys[:, lvl] = torch.where(live, key, sizes.sentinel)
+        ty_ = y0.view(n, h, w, 1, 1) + torch.arange(span).view(1, 1, 1, span, 1)
+        tx_ = x0.view(n, h, w, 1, 1) + torch.arange(span).view(1, 1, 1, 1, span)
+        off = (ty_ < 0) | (ty_ >= hl) | (tx_ < 0) | (tx_ >= wl)
+        bad |= (off & ~torch.isfinite(ds)).flatten(3).any(-1)
+        fxq, fyq = fx[..., None, None], fy[..., None, None]
+        for b in range(n):
+            for qy in range(h):
+                for tx in range(tiles_x):
+                    q = slice(tx * TILE_Q, min(w, (tx + 1) * TILE_Q))
+                    m = q.stop - q.start
+                    a = f1[b, qy, q]
+                    s = torch.zeros(m, span, span)
+                    ok, ty0, ty1 = live[b, qy, q], wy0[b, qy, q], wy1[b, qy, q]
+                    rows = range(int(ty0[ok].min()), int(ty1[ok].max())) if ok.any() else ()
+                    for y in rows:
+                        cover = ok & (ty0 <= y) & (y < ty1)
+                        if not cover.any():
+                            continue
+                        rx0, rx1 = int(wx0[b, qy, q][cover].min()), int(wx1[b, qy, q][cover].max())
+                        nb = -(-(rx1 - rx0) // 8)
+                        pix = torch.zeros(nb * 8, c)
+                        pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
+                        cols = rx0 + torch.arange(nb * 8)
+                        dy = (y - y0[b, qy, q]).view(-1, 1)
+                        dx = cols.view(1, -1) - x0[b, qy, q].view(-1, 1)
+                        take = ((dy >= 0) & (dy < span) & (dx >= 0) & (dx < span)
+                                & (cols < rx1).view(1, -1))
+                        r, k = take.nonzero(as_tuple=True)
+                        block = torch.zeros(m, nb * 8)
+                        block[r, k] = ds[b, qy, q][r, dy[r, 0], dx[r, k]]
+                        for i in range(nb):  # k-steps of 8 pixels
+                            d_f1[b, qy, q] += block[:, 8 * i:8 * i + 8] @ pix[8 * i:8 * i + 8]
+                        prod = dot(a, pix.view(nb, 8, c)).reshape(m, -1)
+                        s[r, dy[r, 0], dx[r, k]] = prod[r, k]
+                    sy = s[:, :win] * (1.0 - fyq[b, qy, q]) + s[:, 1:] * fyq[b, qy, q]
+                    dfx = (gv[b, qy, q] * (sy[..., 1:] - sy[..., :win])).sum(dim=(1, 2))
+                    dfy = (dsy[b, qy, q] * (s[:, 1:] - s[:, :win])).sum(dim=(1, 2))
+                    d_coords[b, 0, qy, q] += dfx / 2.0**lvl
+                    d_coords[b, 1, qy, q] += dfy / 2.0**lvl
+    d_f1 = d_f1 + torch.where(bad, float("nan"), 0.0).unsqueeze(-1)
+
+    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
+    offsets = torch.searchsorted(sorted_keys, torch.arange(sizes.sentinel + 1))
+    d_levels = [torch.zeros(f2.shape) for f2 in wc.f2_levels]
+    plan_tiles = []
+    for b in range(n):
+        for lvl, f2 in enumerate(wc.f2_levels):
+            hl, wl = f2.shape[1:3]
+            kx = sizes.kx[lvl]
+            for ty in range(sizes.ty[lvl]):
+                for tx in range(sizes.tx[lvl]):
+                    k0 = b * sizes.keys_per_image + sizes.key_base[lvl] + ty * kx + tx
+                    runs = [(int(offsets[k0 + r * kx]), int(offsets[k0 + r * kx + 3]))
+                            for r in range(3)]
+                    lst = torch.cat([order[s0:s1] for s0, s1 in runs])
+                    bounds = [(i, min(i + q_size, len(lst)))
+                              for i in range(0, max(1, len(lst)), q_size)]
+                    partials = []
+                    for c0, c1 in bounds:
+                        acc = torch.zeros(8, 8, c)
+                        cand = lst[c0:c1].tolist()
+                        for s0 in range(0, len(cand), DEST_BATCH):
+                            kept = []  # the batch's candidates whose window reaches the tile
+                            for e in cand[s0:s0 + DEST_BATCH]:
+                                qy, qx = divmod(e - (b * nl + lvl) * p, w)
+                                ex0, ey0 = int(x0_all[lvl][b, qy, qx]), int(y0_all[lvl][b, qy, qx])
+                                ya, yb = max(ey0, 8 * ty), min(ey0 + span, 8 * ty + 8)
+                                xa, xb = max(ex0, 8 * tx), min(ex0 + span, 8 * tx + 8)
+                                if ya < yb and xa < xb:
+                                    kept.append((qy, qx, ex0, ey0, ya, yb, xa, xb))
+                            for k in range(0, len(kept), DEST_KSTEP):
+                                step = torch.zeros(8, 8, c)  # one k-step's products
+                                for qy, qx, ex0, ey0, ya, yb, xa, xb in kept[k:k + DEST_KSTEP]:
+                                    d = ds_all[lvl][b, qy, qx, ya - ey0:yb - ey0, xa - ex0:xb - ex0]
+                                    step[ya - 8 * ty:yb - 8 * ty, xa - 8 * tx:xb - 8 * tx] += (
+                                        d.unsqueeze(-1) * f1[b, qy, qx])
+                                acc = acc + step
+                        partials.append(acc)
+                    total = partials[0]
+                    for part in partials[1:]:
+                        total = total + part
+                    rows, cols = min(8, hl - 8 * ty), min(8, wl - 8 * tx)
+                    d_levels[lvl][b, 8 * ty:8 * ty + rows, 8 * tx:8 * tx + cols] = total[:rows, :cols]
+                    plan_tiles.append({"tile": (b, lvl, ty, tx), "runs": runs, "list": lst,
+                                       "chunks": bounds, "partials": partials})
+    dtype = wc.f1.dtype
+    grads = (d_f1.reshape(n, p, c).to(dtype), tuple(d.to(dtype) for d in d_levels), d_coords)
+    plan = {"sorted_keys": sorted_keys, "order": order, "offsets": offsets, "sizes": sizes,
+            "chunk_q": q_size, "tiles": plan_tiles}
+    return grads, plan
 
 
 def extent_summary(extents: dict, c: int, esize: int = 2) -> dict:
@@ -750,15 +941,43 @@ def main_tf32(iters=10):
     return res
 
 
+BWD_SHAPES = [("stage-2 AMT", (4, 28, 28), torch.float32),
+              ("720p F AMT", F_AMT_720P, torch.float32),
+              ("2048x1088 DS 1.0 RAFT", RAFT_2K, torch.bfloat16)]
+# the backward's own kernels by part: the query side (with its level sum
+# where it splits the levels), the destination side, the chunk sum
+BWD_PARTS = {"query": ("query", "level_sum"), "dest": ("dest",), "chunk_sum": ("chunk_sum",)}
+
+
+def bitwise_equal(xs, ys) -> bool:
+    """Whether two sequences of float32 or bf16 tensors hold the same bits."""
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    return len(xs) == len(ys) and all(torch.equal(bits(a), bits(b)) for a, b in zip(xs, ys))
+
+
+def bwd_parts(total: float | None, rows: dict) -> dict:
+    """A backward call's device time by part from a `device_ms` reading:
+    the query side, the order (the sort, the offsets and plan kernels: the
+    rest of the call), the destination side and the chunk sum."""
+    if total is None:
+        return {"query": None, "order": None, "dest": None, "chunk_sum": None}
+    own = {part: sum(v for k, v in rows.items()
+                     if any(f"windowed_corr_bwd_{name}_kernel" in k for name in names))
+           for part, names in BWD_PARTS.items()}
+    return {"query": own["query"], "order": total - sum(own.values()), "dest": own["dest"],
+            "chunk_sum": own["chunk_sum"]}
+
+
 def main_bwd(iters=10):
-    """The backward kernel (`bwd`) beside its variants (`BWD_VARIANTS`):
-    those that compute the backward checked against
-    `windowed_corr_lookup_backward_plain` (`windowed_bwd_agreement`) in the
-    cases of `WINDOWED_CASES`, `TF32_CASES` and `WINDOWED_BWD_CASES`, with
-    and without d_coords, then
-    all timed by their own device time at the stage-2 AMT lookup's shape
-    (4,28,28) float32, `F_AMT_720P` float32 and `RAFT_2K` bf16, in-frame
-    coordinates, against the bound (`bwd_bound`)."""
+    """The backward (`bwd`) beside its ablations (`BWD_VARIANTS`): `bwd`
+    checked against `windowed_corr_lookup_backward_plain`
+    (`windowed_bwd_agreement`) in the cases of `WINDOWED_CASES`,
+    `TF32_CASES` and `WINDOWED_BWD_CASES`, with and without d_coords, two
+    calls' d_levels bitwise equal; then all timed by the device time of
+    their whole call and its parts (`bwd_parts`) at `BWD_SHAPES`, in-frame
+    coordinates, twice, in opposite orders, against the bound
+    (`bwd_bound`)."""
     smi = _card()
     src = (CSRC / "windowed_corr_bwd.cu").read_text()
     texts = {"bwd": src, **{name: bwd_variant_source(name, src) for name in BWD_VARIANTS}}
@@ -767,7 +986,7 @@ def main_bwd(iters=10):
             lambda name: bind(name, texts[name], WindowedCorrBwdKernel), texts)))
     for name, (_, log) in built.items():
         print(f"{name}: ptxas {log}", flush=True)
-    computes = [name for name in built if name == "bwd" or BWD_VARIANTS[name][1]]
+    kernel = built["bwd"][0]
     cases = WINDOWED_CASES + TF32_CASES + WINDOWED_BWD_CASES
     for i, (c, dtype, kind, radius, levels, shape) in enumerate(cases):
         wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=i)
@@ -775,28 +994,38 @@ def main_bwd(iters=10):
         gen = torch.Generator(device="cpu").manual_seed(i)
         g = torch.randn(out_shape, generator=gen).to(dtype).cuda()
         ref = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
-        for name in computes:
-            for need_coords in (True, False):
-                got = built[name][0](wc, coords, g, radius, need_coords)
-                agree = windowed_bwd_agreement(got, ref)
-                if not agree["ok"] or (got[2] is None) == need_coords:
-                    raise AssertionError(f"{name} disagrees with the plain backward at {shape} "
-                                         f"C={c} {dtype} {kind}, need_coords {need_coords}: "
-                                         f"{agree}")
+        for need_coords in (True, False):
+            got = kernel(wc, coords, g, radius, need_coords)
+            again = kernel(wc, coords, g, radius, need_coords)
+            agree = windowed_bwd_agreement(got, ref)
+            same = bitwise_equal(got[1], again[1])
+            if not agree["ok"] or not same or (got[2] is None) == need_coords:
+                raise AssertionError(f"bwd disagrees with the plain backward at {shape} C={c} "
+                                     f"{dtype} {kind}, need_coords {need_coords} (d_levels "
+                                     f"bitwise over two calls: {same}): {agree}")
         del wc, coords, g, ref
-    print(f"{', '.join(computes)} agree with the plain backward in all {len(cases)} cases",
-          flush=True)
+    print(f"bwd agrees with the plain backward in all {len(cases)} cases, d_levels bitwise "
+          f"equal over two calls", flush=True)
     res = {}
-    for label, shape, dtype in (("stage-2 AMT", (4, 28, 28), torch.float32),
-                                ("720p F AMT", F_AMT_720P, torch.float32),
-                                ("2048x1088 DS 1.0 RAFT", RAFT_2K, torch.bfloat16)):
+    for label, shape, dtype in BWD_SHAPES:
         wc, coords, _ = windowed_inputs(shape, 256, dtype, "in_frame")
         gen = torch.Generator(device="cpu").manual_seed(1)
         g = torch.randn((shape[0], 4 * 81, *shape[1:]), generator=gen).to(dtype).cuda()
         bound = bwd_bound(wc, coords)
-        res[label] = _timed_turns(built, wc, coords, iters, g)
-        _print_turns(res[label], f"backward {label} {shape} C=256 {str(dtype)[6:]}",
-                     bound["bound_ms"], bound["bound_by"], smi)
+        times = {name: [] for name in built}
+        for order in (list(built), list(reversed(built))):
+            for name in order:
+                total, rows = device_ms(lambda k=built[name][0]: k(wc, coords, g), iters=iters)
+                times[name].append((total, bwd_parts(total, rows)))
+        for name, turns in times.items():
+            print(f"windowed_corr backward {label} {shape} C=256 {str(dtype)[6:]} {name:13s} "
+                  f"device {' / '.join('n/a' if t is None else f'{t:.4f}' for t, _ in turns)} ms "
+                  f"({' / '.join('n/a' if t is None else f'{100 * bound['bound_ms'] / t:.1f}' for t, _ in turns)}"
+                  f"% of the {bound['bound_ms']:.4f} ms {bound['bound_by']} bound); parts "
+                  + " / ".join(", ".join(f"{k} {'n/a' if v is None else f'{v:.4f}'}"
+                                         for k, v in parts.items()) for _, parts in turns)
+                  + f"; {smi}", flush=True)
+        res[label] = times
         del wc, coords, g
         torch.cuda.empty_cache()
     return res
@@ -848,6 +1077,6 @@ if __name__ == "__main__":
                        help="the float32 tensor-core kernel, its stage configurations and "
                             "ablations, beside the CUDA-core kernel")
     which.add_argument("--bwd", action="store_true",
-                       help="the backward kernel beside its atomics' variants")
+                       help="the backward beside its ablations")
     args = parser.parse_args()
     (main_mma if args.mma else main_tf32 if args.tf32 else main_bwd if args.bwd else main)()

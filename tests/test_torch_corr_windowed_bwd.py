@@ -18,11 +18,20 @@ differences of the dots over the window and the levels):
     place of the kernels, against the plain autograd, for each input alone
     and all three needing grad (d_coords is asked for only when coords
     need it), with a misaligned g (copied before the kernel), and without
-    grad (the forward alone, no graph).
+    grad (the forward alone, no graph);
+  * `tools/windowed_ablate.py: bwd_order_model`, the kernel's partition
+    and order in plain torch (query tiles, destination keys and runs,
+    chunks of a few entries so that tiles take several), against the plain
+    backward and against `jax.vjp` under the same bounds, and its order:
+    sorted keys, each key's run in entry order, each tile's candidates its
+    three key rows' runs, the chunks consecutive pieces of that list and
+    the partials added in chunk order.
 The backward kernel itself runs only on the card (`cuda` marker); its
-`tools/windowed_ablate.py --bwd` variants are checked here to apply to its
+`tools/windowed_ablate.py --bwd` ablations are checked here to apply to its
 source.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -126,10 +135,11 @@ def _hold(got, ref, what):
     _close(got[2], ref[2], 1e-4, f"{what}: d_coords")
 
 
-@pytest.mark.parametrize("c,radius,levels,kind,hw2", CASES)
-def test_plain_autograd_matches_jax_vjp(c, radius, levels, kind, hw2):
+@functools.lru_cache(maxsize=None)
+def _jax_grads(c, radius, levels, kind, hw2):
+    """`jax.vjp` of JAX `windowed_corr_lookup` on `_inputs(0, ...)`: (output
+    shape, (d_f1, d_levels, d_coords)) as numpy, d_coords channels first."""
     wc, coords, g = _inputs(0, c, radius, levels, kind, hw2)
-    ref = _autograd(wc, coords, g, radius)
 
     def lookup(f1, lv, xy):
         return jcorr.windowed_corr_lookup(jcorr.WindowedCorr(f1, lv, HW), xy, radius)
@@ -142,11 +152,94 @@ def test_plain_autograd_matches_jax_vjp(c, radius, levels, kind, hw2):
     out_shape, (d_f1, d_levels, d_coords) = vjp(
         jnp.asarray(wc.f1.numpy()), tuple(jnp.asarray(x.numpy()) for x in wc.f2_levels),
         jnp.asarray(coords.permute(0, 2, 3, 1).numpy()), jnp.asarray(g.permute(0, 2, 3, 1).numpy()))
+    return out_shape, (np.array(d_f1), [np.array(x) for x in d_levels],
+                       np.array(d_coords).transpose(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("c,radius,levels,kind,hw2", CASES)
+def test_plain_autograd_matches_jax_vjp(c, radius, levels, kind, hw2):
+    wc, coords, g = _inputs(0, c, radius, levels, kind, hw2)
+    ref = _autograd(wc, coords, g, radius)
+    out_shape, jax_grads = _jax_grads(c, radius, levels, kind, hw2)
     assert out_shape == (2, *HW, g.shape[1])
-    jax_grads = (np.array(d_f1), [np.array(x) for x in d_levels],
-                 np.array(d_coords).transpose(0, 3, 1, 2))
     _hold(ref, jax_grads, f"autograd vs JAX {c} r={radius} L={levels} {kind} {hw2}")
     assert float(ref[0].abs().max()) > 0 and float(ref[2].abs().max()) > 0
+
+
+MODEL_CHUNK = 24  # entries a chunk in the order model's checks: tiles take several
+
+
+@pytest.mark.parametrize("c,radius,levels,kind,hw2",
+                         CASES + [(32, 4, 4, "non_finite", (12, 20)),
+                                  (40, 2, 2, "non_finite", (13, 23))])
+def test_order_model_matches_plain_and_jax(c, radius, levels, kind, hw2):
+    """The kernel's partition and order in plain torch gives the plain
+    backward's gradients, and JAX's, under `_hold`'s bounds (NaN at the same
+    places); JAX's only on finite coordinates, as the JAX test above."""
+    wc, coords, g = _inputs(0, c, radius, levels, kind, hw2)
+    got, plan = windowed_ablate.bwd_order_model(wc, coords, g, radius, chunk_q=MODEL_CHUNK)
+    what = f"order model {c} r={radius} L={levels} {kind} {hw2}"
+    _hold(got, tcorr.windowed_corr_lookup_backward_plain(wc, coords, g, radius), f"{what} vs plain")
+    if kind != "non_finite":
+        _hold(got, _jax_grads(c, radius, levels, kind, hw2)[1], f"{what} vs JAX")
+        assert any(len(t["chunks"]) > 1 for t in plan["tiles"])
+    else:
+        bad = ~torch.isfinite(coords).all(dim=1).reshape(2, -1)
+        assert bool(torch.isnan(got[0][bad]).all()) and not any(bool(torch.isnan(d).any())
+                                                                 for d in got[1])
+
+
+def test_order_model_order():
+    """The order the kernel sums d_levels in, as the model states it: keys
+    sorted, each key's run in entry order; a live entry's key is its level
+    base's 8x8 key tile (a dead one the sentinel, sorted last); each tile's
+    candidates are its three key rows' runs in row order, the key tiles tx
+    .. tx + 2, holding every entry whose window reaches the tile; the
+    chunks are consecutive pieces of `chunk_q` entries (at least one);
+    each tile's d_f2 is its partials added in chunk order, bitwise; and the
+    kernel's chunk size and level split rules."""
+    c, radius, levels, kind, hw2 = 32, 4, 4, "smooth", (13, 23)
+    wc, coords, g = _inputs(7, c, radius, levels, kind, hw2)
+    (_, d_levels, _), plan = windowed_ablate.bwd_order_model(wc, coords, g, radius,
+                                                             chunk_q=MODEL_CHUNK)
+    sizes, keys, order = plan["sizes"], plan["sorted_keys"], plan["order"]
+    assert bool((keys[1:] >= keys[:-1]).all())
+    same = keys[1:] == keys[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())
+    assert int(keys[-1]) <= sizes.sentinel and sizes.tiles == len(plan["tiles"])
+    p = HW[0] * HW[1]
+    span = 2 * radius + 2
+    multi = 0
+    for t in plan["tiles"]:
+        b, lvl, ty, tx = t["tile"]
+        k0 = b * sizes.keys_per_image + sizes.key_base[lvl] + ty * sizes.kx[lvl] + tx
+        parts = []
+        for r, (s0, s1) in enumerate(t["runs"]):
+            assert bool(((keys[s0:s1] >= k0 + r * sizes.kx[lvl])
+                         & (keys[s0:s1] < k0 + r * sizes.kx[lvl] + 3)).all())
+            parts.append(order[s0:s1])
+        assert torch.equal(t["list"], torch.cat(parts))
+        # every live entry of this image and level whose window reaches the tile
+        hl, wl = wc.f2_levels[lvl].shape[1:3]
+        x0, y0, *_, live, _, _, _, _ = windowed_ablate._level_windows(coords, radius, lvl, hl, wl)
+        reach = (live[b] & (x0[b] <= 8 * tx + 7) & (x0[b] + span > 8 * tx)
+                 & (y0[b] <= 8 * ty + 7) & (y0[b] + span > 8 * ty)).reshape(-1)
+        want = set(((b * levels + lvl) * p + torch.nonzero(reach).reshape(-1)).tolist())
+        assert want <= set(t["list"].tolist())
+        m, q = len(t["list"]), plan["chunk_q"]
+        assert t["chunks"] == [(i, min(i + q, m)) for i in range(0, max(1, m), q)]
+        multi += len(t["chunks"]) > 1
+        total = functools.reduce(lambda a, x: a + x, t["partials"])
+        rows, cols = min(8, hl - 8 * ty), min(8, wl - 8 * tx)
+        assert torch.equal(d_levels[lvl][b, 8 * ty:8 * ty + rows, 8 * tx:8 * tx + cols],
+                           total[:rows, :cols])
+    assert multi > 0
+    assert [tcorr.bwd_chunk_queries(e) for e in (1, 12544, 58880, 278528, 10**8)] == [
+        128, 128, 512, 1024, 1024]
+    # the query side splits the levels only where its tiles are few: the
+    # stage-2 step's (4, 28x28) lookups and 720p F's, not the 2K RAFT lookup
+    assert [tcorr.bwd_split_levels(*s) for s in ((4, 28, 28), (1, 92, 160), (2, 136, 256))] == [
+        True, True, False]
 
 
 @pytest.mark.parametrize("c,radius,levels,kind,hw2",
@@ -284,12 +377,16 @@ def test_backward_wrapper_refuses_a_wrong_g(fault, match):
 
 @pytest.mark.parametrize("name", list(windowed_ablate.BWD_VARIANTS))
 def test_bwd_variants_apply_to_the_kernel_source(name):
-    """Each `--bwd` variant's substitution occurs once in the kernel's
-    source; the scalar one keeps an atomic a float, the ablation none."""
+    """Each `--bwd` ablation's substitution occurs once in the kernel's
+    source: `bwd_no_levels` launches none of the destination side's
+    kernels, `bwd_no_stage` stages no window row; the source itself has no
+    atomic."""
     src = (CSRC / "windowed_corr_bwd.cu").read_text()
     text = windowed_ablate.bwd_variant_source(name, src)
-    assert text != src and "float4*>(dst)" not in text
-    assert ("atomicAdd(dst + j" in text) == windowed_ablate.BWD_VARIANTS[name][1]
+    assert text != src and "atomicAdd" not in src
+    stages = text.count("cp_async16(smem_addr(dst + px * rs")
+    assert (stages, "if (false)" in text) == {"bwd_no_levels": (1, True),
+                                              "bwd_no_stage": (0, False)}[name]
 
 
 def test_bwd_ablation_needs_the_card():
@@ -315,7 +412,8 @@ def test_backward_kernel_matches_plain_on_card(c, dtype, kind, radius, levels, h
     """The backward kernel against its plain version, with d_coords and
     without (its d_f1 and d_levels): float32 as `_hold`; bf16 d_f1 and
     d_levels within one bf16 step (2**-7 |plain| + 1e-6 max|plain|),
-    d_coords (float32) as `_hold`'s. One launch a call."""
+    d_coords (float32) as `_hold`'s. One launch a call; two calls give
+    bitwise equal d_levels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc; run on the card")
     rng = np.random.default_rng(3)
@@ -329,9 +427,11 @@ def test_backward_kernel_matches_plain_on_card(c, dtype, kind, radius, levels, h
     for need_coords in (True, False):
         before = tcorr.WINDOWED_CORR_BWD_KERNEL.launches
         got = tcorr.WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords)
+        again = tcorr.WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius, need_coords)
         torch.cuda.synchronize()
-        assert tcorr.WINDOWED_CORR_BWD_KERNEL.launches == before + 1
+        assert tcorr.WINDOWED_CORR_BWD_KERNEL.launches == before + 2
         assert (got[2] is not None) == need_coords
+        assert windowed_ablate.bitwise_equal(got[1], again[1])  # d_levels over two calls
         if dtype == torch.float32:
             _hold([got[0].cpu(), [d.cpu() for d in got[1]], ref[2].cpu() if got[2] is None
                    else got[2].cpu()],
