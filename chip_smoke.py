@@ -6,7 +6,8 @@ its bench entry, its two probe entry points, its serving entry points
 training and stage-2 GIMM-VFI training (each recipe's step and the train
 CLI), data-parallel training (the step under a process group, two ranks
 against one process, the CLI under torchrun) and spatial sharding (one
-pair's RAFT and decode split by width over two ranks) once on one CUDA card;
+pair's flow estimator and decode split by width over two ranks, R and F)
+once on one CUDA card;
 the windowed correlation lookup's backward kernel held to its plain
 version, and stage-2 training's recipe step on the windowed route.
 
@@ -43,7 +44,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      yardstick and the bound; the route's rule (its whole call at or
      below the atomic call, device time, at 720p) printed;
   4. GIMMVFI_R(raft_iters=2) float32 at 128x192 on the card (kernel) against
-     the CPU (plain core), same seeded weights, TF32 off: PSNR >= 50 dB;
+     the CPU (plain core), same seeded weights, TF32 off: PSNR >= 50 dB; then
+     the constructor options off JAX's defaults (`R_OPTIONS`: num_flows 2,
+     the softmax splat, AMT lookups of radius 3, coord_range (-0.5, 0.5))
+     the same way, materialized and at `corr_max_volume_bytes=0` (8
+     radius-3 launches of the 3xTF32 kernel), each >= 50 dB, the launch
+     counts printed;
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
      736x1280 pair, 7 timesteps through interpolate_sequential; checks shape,
      finiteness, range, exactly 14 sorted-splat launches, none of the atomic
@@ -69,23 +75,29 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      one bf16 step, NaN at the same places), in `WINDOWED_CASES`,
      `MMA_CASES` and `TF32_CASES` (C = 256 and small C, C = 200, an odd
      level size, in-frame, smooth, border and far or non-finite
-     coordinates, each float32 case also in bf16), at the shapes the
+     coordinates, each float32 case also in bf16; `RADIUS3_CASES`, radius 3
+     in both dtypes), at the shapes the
      2048x1088 DS 1.0 path gives it (RAFT's (2,136,256) and the AMT's
      (1,136,256), C = 256, bf16), the 720p F path's AMT shape (1,92,160)
      and the float32 720p R path's RAFT shape (2,92,160), both C = 256,
-     float32, on in-frame and smooth coordinates; the
+     float32, on in-frame and smooth coordinates; a radius of 5 and 5
+     levels on CUDA tensors raise in each forward kernel, the route and
+     the backward, launching nothing (`check_refusals`); the
      float32 lookup against the materialized `corr_lookup` at the 720p
      fmap (92x160, C = 256, <= 1e-4); the CUDA-core `windowed_corr.cu`,
      called directly, on the float32 cases of `WINDOWED_CASES`; then the
      bf16 kernel and the CUDA-core one, each checked on the inputs first,
      timed in bf16 in the same run, against the bound, with
      the tile walk's union extent (`mma_tile_extents`): at the 2048x1088
-     DS 1.0 RAFT lookup on in-frame and smooth coordinates, at 720p beside
-     the materialized lookup, and (after phase 8 (c)) on the inputs of the
+     DS 1.0 RAFT lookup on in-frame and smooth coordinates (in-frame beside
+     the library composition: the volume formed from the same maps under
+     a raised limit, pooled and sampled, `library_lookup_reading`), at
+     720p beside the materialized lookup, and (after phase 8 (c)) on the inputs of the
      first and last RAFT lookups of a `prepare` of that path, captured;
      then the backward (`csrc/windowed_corr_bwd.cu`, `WindowedCorrLookup`'s)
      against `windowed_corr_lookup_backward_plain` in the same cases and
-     `WINDOWED_BWD_CASES` (radius 0 and 2, 3 levels; `windowed_bwd_agreement`:
+     `WINDOWED_BWD_CASES` (radius 0 and 2, 3 levels) and `RADIUS3_BWD_CASES`
+     (radius 3 in both dtypes; `windowed_bwd_agreement`:
      float32 d_f1 and d_levels <= 1e-5 x max(1, max|plain|), d_coords <=
      1e-4 x max(1, max|plain|), bf16 within one bf16 step, NaN at the same
      places), with d_coords and without, two calls of each with bitwise
@@ -98,9 +110,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      time of the whole call and of its parts (query side, order, destination
      side, chunk sum) against the bound, with d_coords and without, the
      forward's and the plain version's times) at (b) the 720p F AMT lookup
-     (1,92,160) float32, beside the yardstick (the materialized lookup's
-     autograd backward), and (c) the 2048x1088 DS 1.0 RAFT lookup
-     (2,136,256) bf16; (a) is phase 12 (e)'s;
+     (1,92,160) float32, and (c) the 2048x1088 DS 1.0 RAFT lookup
+     (2,136,256) bf16, each beside the yardstick (the materialized lookup's
+     autograd backward, its volume formed under a raised limit); (a) is
+     phase 12 (e)'s;
   8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
      (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
      1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
@@ -125,9 +138,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      lookup timed in the same run by events and device time, each kernel
      against its own bound (the 3xTF32 kernel: its bytes, or three TF32
      products a float32 one at the TF32 tensor-core peak; the CUDA-core
-     kernel: float32 operations at the CUDA-core peak);
+     kernel: float32 operations at the CUDA-core peak), and the library
+     composition on the same lookup;
      (b) `gimmvfi_tpu_torch.bench.main` for `--model r` and `--model f` at
      736x1280 in this process, each printing one JSON line with its label;
+     the R run with `--trace-dir build/chip_smoke_phase9`: the trace it
+     names holds one `prepare` and 7 `decode_one` spans and 14 device rows
+     of the sorted splat's gather (where the card's profiler records
+     device activity);
      (c) GIMMVFI_F(ff_iters=2) float32 at 128x192, GPU vs CPU >= 50 dB, at
      the default limit and at `corr_max_volume_bytes=0` (exactly 2 x 3
      3xTF32 launches: only the AMT goes windowed);
@@ -246,8 +264,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      a rank; no windowed backward launch on any path); (b)
      the same at 4096x2176 DS 0.25, >= 50 dB, 14 and 0; (c)
      GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs, 14 and
-     0, one process against itself printed; the ranks' results bitwise
-     equal, RAFT's route, the peak a rank beside the single process's,
+     0, one process against itself printed; (d) GIMMVFI_F(ff_iters=32,
+     dtype=bfloat16) at 736x1280, FlowFormer's query map sharded
+     (`FlowFormer.forward_sharded`), >= 50 dB, exactly 14 splat and 14
+     `windowed_corr_tf32` launches a rank (the AMT's, whole on every rank)
+     and none of the others; the ranks' results bitwise
+     equal, the flow estimator's route, the peak a rank beside the single process's,
      each call's seconds and a `prepare_sharded`'s beside one process's
      `prepare` (two ranks share the card: no speed figure).
 Phase 2 prints ptxas's registers, spills and warnings for each source and
@@ -262,7 +284,8 @@ of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
 and each CLI call of 11 and of 12, the counted step of 13 (a), each
 case of 14 in this process and on each rank) and read just after it;
 the sorted splat's and the
-3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`),
+3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`)
+and (the 3xTF32 kernel) each rank's phase 14 counts,
 the splat backward's `launches` are those of the counted recipe step; the
 sorted splat's and the backward's records carry their phase 12 and phase
 13 (a) steps' counts (`launches_phase12_step`, `launches_phase13_step`);
@@ -645,17 +668,19 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
-                    limit=corr_ops.MAX_VOLUME_BYTES, family=GIMMVFI_R) -> tuple[float, int]:
+                    limit=corr_ops.MAX_VOLUME_BYTES, family=GIMMVFI_R,
+                    **options) -> tuple[float, int]:
     """GPU vs CPU float32 on one small pair, same seeded weights, of
-    `family` with 2 flow iterations; the card's windowed lookups are
-    float32, so they go to the 3xTF32 kernel. Returns (PSNR, that kernel's
-    launches, counted from 0)."""
+    `family` with 2 flow iterations and the constructor `options`; the
+    card's windowed lookups are float32, so they go to the 3xTF32 kernel.
+    Returns (PSNR, that kernel's launches, counted from 0)."""
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
-    cpu_model = init_normal_(family(2, device="cpu", corr_max_volume_bytes=limit), SEED)
+    cpu_model = init_normal_(family(2, device="cpu", corr_max_volume_bytes=limit, **options),
+                             SEED)
     # the card, same seeded weights
-    gpu_model = init_normal_(family(2, corr_max_volume_bytes=limit), SEED)
+    gpu_model = init_normal_(family(2, corr_max_volume_bytes=limit, **options), SEED)
     ref = interpolate_sequential(cpu_model, img, ts, ds_factor)["imgt_pred"]
     # the host frames go in as they are: prepare moves them to the card
     reset_counts()
@@ -673,9 +698,11 @@ def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
                              f"bf16 kernel, {cuda_core} of the CUDA-core one, {corr_bwd} of "
                              f"the backward")
     db = psnr(got, ref)
-    print(f"[{phase}] {family.__name__}(2) f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
-          f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB "
-          f"({windowed} windowed-correlation launches on the card)", flush=True)
+    print(f"[{phase}] {family.__name__}(2{''.join(f', {k}={v}' for k, v in options.items())}) "
+          f"f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, corr_max_volume_bytes={limit}, t={ts}: "
+          f"GPU vs CPU PSNR {db:.2f} dB ({windowed} windowed_corr_tf32, {mma} windowed_corr_mma, "
+          f"{cuda_core} windowed_corr and {corr_bwd} windowed_corr_bwd launches on the card; "
+          f"{SPLAT_SORTED_KERNEL.launches} sorted splat)", flush=True)
     if not db >= 50.0:
         raise AssertionError(f"GPU and CPU disagree: {db:.2f} dB < 50 dB")
     return db, windowed
@@ -939,6 +966,86 @@ def windowed_reading(wc, coords, label: str, levels_mat=None) -> dict:
     return out
 
 
+# radius 3 (GIMMVFI_R's `corr_radius` option) through the two routed forward
+# kernels and the backward, beyond the radius-3 case of WINDOWED_CASES
+RADIUS3_CASES = [
+    (256, torch.bfloat16, "in_frame", 3, 4, (2, 40, 48)),
+    (256, torch.float32, "smooth", 3, 4, (2, 40, 48)),
+    (24, torch.float32, "border", 3, 3, (1, 13, 23)),
+]
+RADIUS3_BWD_CASES = [
+    (256, torch.float32, "in_frame", 3, 4, (1, 16, 24)),
+    (40, torch.bfloat16, "smooth", 3, 4, (2, 13, 23)),
+]
+# R's constructor options off JAX's defaults (phase 4)
+R_OPTIONS = {"num_flows": 2, "fwarp_type": "softmax", "corr_radius": 3, "coord_range": (-0.5, 0.5)}
+
+
+def check_refusals() -> list[str]:
+    """A radius of 5 or 5 levels on CUDA tensors: the routed forward kernel
+    of each dtype, `windowed_corr_lookup` and the backward kernel each
+    raise ValueError and launch nothing (no fallback to the plain
+    version). Returns the messages."""
+    said = []
+    for radius, levels in ((5, 4), (4, 5)):
+        for dtype in (torch.float32, torch.bfloat16):
+            wc, coords, _ = windowed_inputs((1, 40, 48), 32, dtype, "in_frame", levels, seed=SEED)
+            g = seeded_g(wc, coords, radius, SEED)
+            fwd = corr_ops.windowed_corr_kernel_for(dtype)
+            for name, call in ((fwd.name, lambda: fwd(wc, coords, radius)),
+                               ("windowed_corr_lookup",
+                                lambda: corr_ops.windowed_corr_lookup(wc, coords, radius)),
+                               (WINDOWED_CORR_BWD_KERNEL.name,
+                                lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius))):
+                before = [k.launches for k in KERNELS]
+                try:
+                    call()
+                except ValueError as e:
+                    said.append(str(e))
+                else:
+                    raise AssertionError(f"[7] {name} at radius {radius}, {levels} levels, "
+                                         f"{str(dtype)[6:]} on the card did not raise")
+                if [k.launches for k in KERNELS] != before:
+                    raise AssertionError(f"[7] {name} launched a kernel before refusing")
+    print(f"[7] radius 5 and 5 levels on CUDA tensors: {len(said)} refusals (each forward "
+          f"kernel, the route, the backward; no launch), e.g. {said[0]!r}", flush=True)
+    return said
+
+
+def library_lookup_reading(wc, coords, label: str) -> dict:
+    """The PyTorch composition that computes the lookup from the same maps
+    (the state's query features times sqrt(C), its level 0): the
+    materialized pyramid under a raised limit (`corr_pyramid_auto`: a bmm
+    volume and its pooling) and `corr_lookup` (grid_sample), as one call;
+    held to the routed kernel first (max-abs <= 1e-4 max|kernel| in
+    float32, 2**-5 in bf16, whose volume is rounded before the sampling);
+    its events and device time."""
+    n, _, c = wc.f1.shape
+    h, w = coords.shape[-2:]
+    f1 = (wc.f1.float() * math.sqrt(c)).to(wc.f1.dtype).transpose(1, 2).reshape(n, c, h, w)
+    f2 = wc.f2_levels[0].permute(0, 3, 1, 2)
+
+    def lib():
+        pyr = corr_ops.corr_pyramid_auto(f1, f2, len(wc.f2_levels), max_volume_bytes=1 << 42)
+        return corr_ops.corr_lookup_any(pyr, coords)
+
+    got = lib().float()
+    want = corr_ops.windowed_corr_lookup(wc, coords).float()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not err <= (1e-4 if wc.f1.dtype == torch.float32 else 2**-5) * scale:
+        raise AssertionError(f"{label}: the library composition is {err:.3e} off the kernel "
+                             f"(max {scale:.3e})")
+    del got, want
+    out = {"library_max_abs_err": err, "library_ms": cuda_ms(lib, iters=5, warmup=1)}
+    out["library_device_ms"], _ = device_ms(lib, iters=3)
+    print(f"{label}: the library composition (corr_pyramid_auto with a raised limit + "
+          f"corr_lookup, {str(f1.dtype)[6:]} volume) {out['library_ms']:.4f} ms by events, "
+          f"device {fmt_ms(out['library_device_ms'])}; {err:.3e} off the kernel (max {scale:.3e})",
+          flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_windowed() -> dict:
     """Phase 7: the routed windowed kernels against the plain version in the
     check cases (float32 on the 3xTF32 kernel, bf16 on the bf16 tensor-core
@@ -948,12 +1055,16 @@ def check_windowed() -> dict:
     the materialized one; then the bf16 kernel's and the CUDA-core kernel's
     times in bf16."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    radius3 = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cuda_core_err = 0.0
-    cases = WINDOWED_CASES + MMA_CASES + TF32_CASES
+    cases = WINDOWED_CASES + MMA_CASES + TF32_CASES + RADIUS3_CASES
     for i, (c, dtype, kind, radius, levels, shape) in enumerate(cases):
         wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + i)
         label = f"[7] windowed {shape} C={c} {str(dtype)[6:]} r={radius} L={levels} {kind}"
-        worst[dtype] = max(worst[dtype], windowed_agrees(label, wc, coords, radius))
+        err = windowed_agrees(label, wc, coords, radius)
+        worst[dtype] = max(worst[dtype], err)
+        if radius == 3:
+            radius3[dtype] = max(radius3[dtype], err)
         # the CUDA-core kernel, timed beside the tensor-core ones, on the
         # float32 cases the route sent it before the 3xTF32 kernel
         if i < len(WINDOWED_CASES) and dtype == torch.float32:
@@ -996,16 +1107,20 @@ def check_windowed() -> dict:
 
     stats = {"path_err": path_err, "max_abs_err_cases_f32": worst[torch.float32],
              "max_abs_err_cases_bf16": worst[torch.bfloat16],
+             "max_abs_err_radius3_f32": radius3[torch.float32],
+             "max_abs_err_radius3_bf16": radius3[torch.bfloat16],
              "cuda_core_max_abs_err_cases_f32": cuda_core_err,
-             "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|"}
+             "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|",
+             "refusals": len(check_refusals())}
     for kind in PATH_KINDS:
         wc, coords, _ = windowed_inputs(RAFT_2K, 256, torch.bfloat16, kind)
-        stats[kind] = windowed_reading(
-            wc, coords, f"[7] at the 2048x1088 DS 1.0 RAFT lookup, {kind} coordinates")
+        label = f"[7] at the 2048x1088 DS 1.0 RAFT lookup, {kind} coordinates"
+        stats[kind] = windowed_reading(wc, coords, label)
         if kind == "in_frame":
             stats["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_plain(wc, coords), iters=3)
             print(f"[7] plain windowed_corr_lookup_plain there: {stats['plain_ms']:.4f} ms",
                   flush=True)
+            stats[kind].update(library_lookup_reading(wc, coords, label))
         del wc, coords
         torch.cuda.empty_cache()
     wc, coords, (f1, f2) = windowed_inputs(RAFT_720P, 256, torch.bfloat16, "in_frame")
@@ -1082,7 +1197,9 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
     autograd backward of the materialized `corr_lookup` over `corr_pyramid`
     of the same maps (grid_sample's backward, the pooling's and the bmm's),
     its d_fmap1 (d_f1 / sqrt(C)) and d_coords first held to the kernel's
-    within 1e-3 x max(1, max|kernel|). d_coords is held on the queries
+    within 1e-3 x max(1, max|kernel|) in float32 and 2**-5 x max(1,
+    max|kernel|) in bf16 (its volume and the maps it starts from are
+    rounded to bf16; the kernel's sums are float32). d_coords is held on the queries
     whose position lies at least 1e-3 px from an integer at every level: the
     bilinear weights' derivative jumps at integers, and grid_sample's
     normalized grid rounds a position there to either side."""
@@ -1133,7 +1250,7 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
         gaps = [float((a.float() - b)[m].abs().max()) / max(1.0, float(b[m].abs().max()))
                 for a, b, m in ((d_fmap1, want, torch.ones_like(want, dtype=torch.bool)),
                                 (d_xy, first[2], clear))]
-        if not max(gaps) <= 1e-3:
+        if not max(gaps) <= (1e-3 if wc.f1.dtype == torch.float32 else 2**-5):
             raise AssertionError(f"{label}: the yardstick's d_fmap1, d_coords are {gaps} off")
         out["library_gaps"] = gaps
         out["library_queries_held"] = float(clear[:, 0].float().mean())
@@ -1180,7 +1297,7 @@ def check_windowed_backward(smi: str) -> dict:
     coordinates (phase 12 (e) takes (a), the stage-2 AMT lookup)."""
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     route_worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
-    cases = WINDOWED_CASES + MMA_CASES + TF32_CASES + WINDOWED_BWD_CASES
+    cases = WINDOWED_CASES + MMA_CASES + TF32_CASES + WINDOWED_BWD_CASES + RADIUS3_BWD_CASES
     for i, (c, dtype, kind, radius, levels, shape) in enumerate(cases):
         wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + 100 + i)
         g = seeded_g(wc, coords, radius, SEED + 200 + i)
@@ -1233,7 +1350,7 @@ def check_windowed_backward(smi: str) -> dict:
           f"{res['max_abs_err_cases_bf16']:.3e}; d_coords "
           f"{max(worst[torch.float32][1], worst[torch.bfloat16][1]):.3e}", flush=True)
     for key, shape, dtype, library in (("b", F_AMT_720P, torch.float32, True),
-                                       ("c", RAFT_2K, torch.bfloat16, False)):
+                                       ("c", RAFT_2K, torch.bfloat16, True)):
         wc, coords, _ = windowed_inputs(shape, 256, dtype, "in_frame", seed=SEED)
         g = seeded_g(wc, coords, 4, SEED + 1)
         what = ("the 720p F path's AMT lookup" if key == "b"
@@ -1403,6 +1520,8 @@ def f32_lookup_reading(wc, coords, label: str) -> dict:
           f"{out['plain_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP float32 (x3 in TF32), "
           f"{nbytes / 1e6:.1f} MB: {out['bytes_bound_ms']:.4f} ms; tile walk: {out['extent']}",
           flush=True)
+    del levels
+    out.update(library_lookup_reading(wc, coords, label))
     return out
 
 
@@ -1460,14 +1579,43 @@ def run_f_path(smi: str) -> dict:
     return res
 
 
+TRACE9 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase9"
+
+
+def check_bench_trace(lines: list[str]) -> dict:
+    """Phase 9 (b)'s `--trace-dir` trace of the R bench: the file its line
+    names exists, holds the `prepare` span and 7 `decode_one` spans, and,
+    where the card's profiler recorded device activity, device rows of the
+    sorted splat's gather kernel (2 a timestep)."""
+    (path,) = [line.rsplit(": ", 1)[1] for line in lines if line.startswith("trace of one call")]
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    # host-side spans (the card's timeline repeats them as gpu_user_annotation)
+    names = [e.get("name", "") for e in events if e.get("cat") == "user_annotation"]
+    spans = {k: names.count(k) for k in ("prepare", "decode_one")}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    gathers = sum("splat_sorted_gather" in e.get("name", "") for e in kernels)
+    if spans != {"prepare": 1, "decode_one": N_T} or (kernels and gathers != 2 * N_T):
+        raise AssertionError(f"[9] (b) the trace {path}: spans {spans}, {len(kernels)} kernel "
+                             f"rows, {gathers} of the sorted splat's gather")
+    print(f"[9] (b) the bench's trace {path} ({Path(path).stat().st_size} bytes): spans {spans}, "
+          f"{len(kernels)} kernel rows, "
+          + (f"{gathers} of splat_sorted_gather" if kernels
+             else "none (the card's profiler recorded no device activity: not measured)"),
+          flush=True)
+    return {"path": path, "spans": spans, "kernel_rows": len(kernels), "gather_rows": gathers}
+
+
 def run_bench_entries() -> dict:
     """Phase 9 (b): `gimmvfi_tpu_torch.bench.main` for R and F at 720p, in
-    this process; each must print one JSON line, last, with its label."""
+    this process; each must print one JSON line, last, with its label. The
+    R run also writes a `--trace-dir` trace (`check_bench_trace`)."""
     records = {}
+    shutil.rmtree(TRACE9, ignore_errors=True)
     for family in ("r", "f"):
         out = io.StringIO()
+        trace = ["--trace-dir", str(TRACE9)] if family == "r" else []
         with contextlib.redirect_stdout(out):
-            record = bench.main(["--model", family])
+            record = bench.main(["--model", family, *trace])
         lines = out.getvalue().strip().splitlines()
         for line in lines:
             print(f"[9] (b) bench --model {family}: {line}", flush=True)
@@ -1476,6 +1624,8 @@ def run_bench_entries() -> dict:
                 or sum(line.startswith("{") for line in lines) != 1):
             raise AssertionError(f"bench --model {family} printed no single {label} line")
         records[family] = record
+        if trace:
+            records["trace"] = check_bench_trace(lines)
         torch.cuda.empty_cache()
     return records
 
@@ -2827,23 +2977,33 @@ def run_phase13(smi: str, stage1_ckpt: str, p12: dict) -> dict:
 # ------------------------------------------------------------------ phase 14
 WORK14 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase14"
 SPATIAL_WORLD = 2  # gloo ranks on the one card
-# (label, GIMMVFI_R keywords, (H, W), ds_factor, the least PSNR against one
+# (label, model keywords, (H, W), ds_factor, the least PSNR against one
 # process or None, the most max-abs or None, launches a rank: sorted splat,
-# windowed_corr_mma, windowed_corr_tf32). (a)'s 34 lookups: RAFT's 20 on the
-# rank's query strip, windowed because the whole pair's volume is over the
-# limit, and the AMT's 14 on the whole frame
+# windowed_corr_mma, windowed_corr_tf32, windowed_corr_bwd). (a)'s 34
+# lookups: RAFT's 20 on the rank's query strip, windowed because the whole
+# pair's volume is over the limit, and the AMT's 14 on the whole frame;
+# (d)'s 14: the AMT's float32 windowed lookups over FlowFormer's feature map
 SPATIAL_CASES = [
     ("a", {"raft_iters": 20, "dtype": torch.bfloat16}, (1088, 2048), 1.0, 50.0, None, (14, 34, 0, 0)),
     ("b", {"raft_iters": 20, "dtype": torch.bfloat16}, (2176, 4096), 0.25, 50.0, None, (14, 0, 0, 0)),
     ("c", {"raft_iters": 2}, (256, 512), None, None, 1e-5, (14, 0, 0, 0)),
+    ("d", {"ff_iters": 32, "dtype": torch.bfloat16}, (736, 1280), None, 50.0, None, (14, 0, 14, 0)),
 ]
+
+
+def spatial_family(kw: dict):
+    """GIMMVFI_F for a case with FlowFormer's iterations, else GIMMVFI_R."""
+    return GIMMVFI_F if "ff_iters" in kw else GIMMVFI_R
 SPATIAL_KERNELS = (SPLAT_SORTED_KERNEL, WINDOWED_CORR_MMA_KERNEL, WINDOWED_CORR_TF32_KERNEL,
                    WINDOWED_CORR_BWD_KERNEL)
 
 
 def raft_route(model, hw, ds) -> str:
     """RAFT's correlation route at this frame size, from the whole pair's
-    volume as `RAFT.forward` and `forward_sharded` decide it."""
+    volume as `RAFT.forward` and `forward_sharded` decide it; FlowFormer
+    forms the cost rows of each rank's strip."""
+    if isinstance(model, GIMMVFI_F):
+        return "FlowFormer cost rows"
     h, w = (int(x * (ds or 1)) // 8 for x in hw)
     fmap = torch.empty(1, 256, h, w, dtype=model.dtype or torch.float32, device="meta")
     raft = model.flow_estimator
@@ -2860,7 +3020,8 @@ def spatial_references(device="cuda") -> tuple[list[dict], list[dict]]:
     ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
     cases, refs = [], []
     for label, kw, hw, ds, _, max_err, want in SPATIAL_CASES:
-        model = init_normal_(GIMMVFI_R(**kw, device=device), SEED)
+        family = spatial_family(kw)
+        model = init_normal_(family(**kw, device=device), SEED)
         gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
         img = torch.rand((1, 2, *hw, 3), generator=gen)
         gc.collect()
@@ -2885,7 +3046,7 @@ def spatial_references(device="cuda") -> tuple[list[dict], list[dict]]:
         if max_err is not None:
             again = interpolate_sequential(model, img, ts, ds)["imgt_pred"].cpu()
             refs[-1]["rerun_max_abs_err"] = float((again - refs[-1]["imgt_pred"]).abs().max())
-        cases.append({"family": GIMMVFI_R, "model_kw": {**kw, "device": device},
+        cases.append({"family": family, "model_kw": {**kw, "device": device},
                       "state": {k: v.cpu() for k, v in model.state_dict().items()},
                       "img_xs": img, "t_values": ts, "ds_factor": ds})
         del model, out
@@ -2900,10 +3061,12 @@ def run_phase14(smi: str, device="cuda:0") -> dict:
     each case against one process on the same weights and pair: (a)
     2048x1088 DS 1.0 bf16, (b) 4096x2176 DS 0.25 bf16, both >= 50 dB, (c)
     GIMMVFI_R(raft_iters=2) float32 at 256x512, <= 1e-5 max-abs, one
-    process against itself printed beside it; the ranks' results bitwise
-    equal, exact launches a rank, RAFT's route, the peaks, and the seconds
-    of a `prepare_sharded` alone on each rank beside one process's
-    `prepare` (two ranks share the card: no speed figure)."""
+    process against itself printed beside it, (d) GIMMVFI_F(ff_iters=32)
+    bf16 at 720p, >= 50 dB, FlowFormer's query map sharded too; the ranks'
+    results bitwise equal, exact launches a rank, the flow estimator's
+    route, the peaks, and the seconds of a `prepare_sharded` alone on each
+    rank beside one process's `prepare` (two ranks share the card: no
+    speed figure)."""
     t_phase = time.perf_counter()
     shutil.rmtree(WORK14, ignore_errors=True)
     WORK14.mkdir(parents=True)
@@ -2950,13 +3113,17 @@ def run_phase14(smi: str, device="cuda:0") -> dict:
                       "peak_bytes": peaks, "one_process_peak_bytes": ref["peak_bytes"],
                       "seconds": [rk[i]["seconds"] for rk in ranks],
                       "one_process_seconds": ref["seconds"]}
-        print(f"[14] ({label}) {w}x{h} DS {ds} {'bf16' if kw.get('dtype') else 'float32'} "
-              f"raft_iters {kw['raft_iters']} 8x on {SPATIAL_WORLD} gloo ranks of one card against "
+        family = spatial_family(kw).__name__
+        iters = kw.get("raft_iters", kw.get("ff_iters"))
+        print(f"[14] ({label}) {family}({iters}) {w}x{h} DS {ds} "
+              f"{'bf16' if kw.get('dtype') else 'float32'} 8x on {SPATIAL_WORLD} gloo ranks of "
+              f"one card against "
               f"one process: imgt_pred {db:.2f} dB, max-abs {err:.3e}, flowt max-abs "
               f"{flow_err:.3e}"
               + ("" if rerun is None else f" (one process against itself: {rerun:.3e})")
               + f"; ranks bitwise equal; launches a rank (sorted splat, windowed_corr_mma, "
-              f"windowed_corr_tf32, windowed_corr_bwd) {launches}, RAFT {ref['route']} on each rank's strip; "
+              f"windowed_corr_tf32, windowed_corr_bwd) {launches}, {ref['route']} on each "
+              f"rank's strip; "
               f"prepare_sharded {', '.join(f'{1e3 * x:.2f}' for x in prep_s)} ms a rank against "
               f"one process's prepare {1e3 * ref['prepare_seconds']:.2f} ms; peak a rank "
               f"{', '.join(f'{p / 2**20:.1f}' for p in peaks)} MiB against one process's "
@@ -2978,6 +3145,9 @@ def main():
     kstats = check_kernel()
     sstats = check_sorted_kernel()
     check_small_e2e()
+    options_db = {label: check_small_e2e(4, (128, 192), None, limit, **R_OPTIONS)
+                  for label, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES),
+                                       ("windowed", 0))}
     splat_launches, main_splat = run_main_path()
     torch.cuda.empty_cache()
     conv_err = check_conv()
@@ -3021,7 +3191,8 @@ def main():
     p14 = run_phase14(smi)
     p14_launches = {key: {label: [x[key] for x in p14[label]["launches"]]
                           for label, *_ in SPATIAL_CASES}
-                    for key in (SPLAT_SORTED_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name)}
+                    for key in (SPLAT_SORTED_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name,
+                                WINDOWED_CORR_TF32_KERNEL.name)}
     # each kernel's launches on the phase 10 paths, each counted from 0
     p10_paths = {"gimm_forward": p10["gimm"]["forward"], "gimm_forward_multi": p10["gimm"][
         "forward_multi"], "video_cli": p10["video"], **p10["harnesses"]}
@@ -3037,7 +3208,8 @@ def main():
         main, lk = wstats["in_frame"], ds["lookups"]
         out = {"ms": main[f"{key}_ms"], "device_ms": main[f"{key}_device_ms"],
                "plain_ms": wstats["plain_ms"], "bound_ms": main["bound_ms"],
-               "bound_by": main["bound_by"], "library_ms": None}
+               "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+               "library_device_ms": main["library_device_ms"]}
         for label, reading in (("smooth", wstats["smooth"]), ("p720", wstats["p720"]),
                                ("path_first", lk["first"]), ("path_last", lk["last"])):
             out.update({f"{label}_{k}": reading[f"{key}_{k}"] for k in ("ms", "device_ms")})
@@ -3079,6 +3251,9 @@ def main():
                max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
                                ds["lookups"]["last"]["max_abs_err"]),
                max_abs_err_cases_bf16=wstats["max_abs_err_cases_bf16"],
+               max_abs_err_radius3=wstats["max_abs_err_radius3_bf16"],
+               library_max_abs_err=wstats["in_frame"]["library_max_abs_err"],
+               refusals=wstats["refusals"],
                tolerance=wstats["tolerance"], **windowed_numbers("mma"),
                extent_in_frame=fmt_extent(wstats["in_frame"]),
                extent_smooth=fmt_extent(wstats["smooth"]),
@@ -3086,8 +3261,8 @@ def main():
                launches_phase14=p14_launches[WINDOWED_CORR_MMA_KERNEL.name]),
         # the float32 route, on the 720p F path: its launches there and its
         # times on that path's captured AMT lookup, beside the materialized
-        # float32 lookup's (library_ms stays null: no PyTorch call computes
-        # the lookup from the same inputs)
+        # float32 lookup's and the library composition's (the volume formed
+        # from the same maps, pooled and sampled)
         record(WINDOWED_CORR_TF32_KERNEL, f720["tf32_launches"],
                launches_f32_gpu_vs_cpu={"r": ds["f32_windowed_launches"],
                                         "f": f_db["windowed"][1]},
@@ -3095,9 +3270,13 @@ def main():
                                *p10["video"]["lookup_max_abs_err"].values()),
                max_abs_err_phase10=p10["video"]["lookup_max_abs_err"],
                max_abs_err_cases_f32=wstats["max_abs_err_cases_f32"],
+               max_abs_err_radius3=wstats["max_abs_err_radius3_f32"],
+               launches_options_gpu_vs_cpu=options_db["windowed"][1],
+               launches_phase14=p14_launches[WINDOWED_CORR_TF32_KERNEL.name],
                tolerance=wstats["tolerance"], ms=lk["tf32_ms"], device_ms=lk["tf32_device_ms"],
                plain_ms=lk["plain_ms"], bound_ms=lk["tf32_bound_ms"], bound_by=lk["tf32_bound_by"],
-               bytes_bound_ms=lk["bytes_bound_ms"], library_ms=None,
+               bytes_bound_ms=lk["bytes_bound_ms"], library_ms=lk["library_ms"],
+               library_device_ms=lk["library_device_ms"],
                materialized_ms=lk["materialized_ms"],
                materialized_device_ms=lk["materialized_device_ms"], extent=lk["extent"],
                decode_one_ms=f720["decode_turns"]["tf32"],
@@ -3139,9 +3318,10 @@ def main():
                tolerance=wstats["tolerance"], times_dtype="float32", ms=lk["cuda_core_ms"],
                device_ms=lk["cuda_core_device_ms"], plain_ms=lk["plain_ms"],
                bound_ms=lk["cuda_core_bound_ms"], bound_by=lk["cuda_core_bound_by"],
-               library_ms=None, decode_one_ms=f720["decode_turns"]["cuda_core"],
+               library_ms=lk["library_ms"], library_device_ms=lk["library_device_ms"],
+               decode_one_ms=f720["decode_turns"]["cuda_core"],
                **{f"bf16_{k}": v for k, v in windowed_numbers("cuda_core").items()
-                  if k != "library_ms"}),
+                  if not k.startswith("library")}),
         record(CONV3X3_KERNEL, launches[CONV3X3_KERNEL.name], max_abs_err=conv_err,
                ms=conv["kernel_ms"], device_ms=conv["kernel_device_ms"],
                plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"], bound_by=conv["bound_by"],
@@ -3151,6 +3331,10 @@ def main():
         record(GATHERS[name][0], launches[name], max_abs_err=gather_err[name], **gathers[name])
         for name in GATHERS
     ]
+    print(f"[4] GIMMVFI_R(2, {', '.join(f'{k}={v}' for k, v in R_OPTIONS.items())}) GPU vs CPU: "
+          f"{options_db['materialized'][0]:.2f} dB materialized, {options_db['windowed'][0]:.2f} "
+          f"dB windowed ({options_db['windowed'][1]} windowed_corr_tf32 launches at radius 3)",
+          flush=True)
     print(f"[9] F path: {f720['fps']:.4f} fps at 720p; bench lines "
           f"{json.dumps(benches)}; GPU vs CPU F {f_db['materialized'][0]:.2f} dB materialized, "
           f"{f_db['windowed'][0]:.2f} dB windowed", flush=True)

@@ -2,7 +2,7 @@
 GIMM-VFI-F, on one CUDA card: the counterpart of the repo's `bench.py`.
 
     python -m gimmvfi_tpu_torch.bench [--model r|f] [--size 736x1280]
-        [--ds 0.5] [--f32] [--profile] [--append-results]
+        [--ds 0.5] [--f32] [--profile] [--trace-dir DIR] [--append-results]
 
 `--model r` builds GIMMVFI_R(raft_iters=20), `--model f`
 GIMMVFI_F(ff_iters=32); bf16 unless `--f32`; random weights (normal 0.02
@@ -11,7 +11,11 @@ from a seed, `init_normal_`) and a seeded random frame pair of `--size`
 `--ds`. TF32 is off. One warm-up call, then the median of 3 calls timed
 with CUDA events (their min and max on an earlier line). `--profile` first
 prints the stage split of one more pair: `prepare`, each `decode_one`, and
-the flow estimator alone. The last line is one JSON object with the JAX
+the flow estimator alone. `--trace-dir DIR` writes a `torch.profiler`
+Chrome trace (CPU and, on the card, CUDA activity) of one more call after
+the warm-up, untimed, as the JAX bench's `--trace-dir` does: `prepare` and
+each `decode_one` sit in spans of those names (`interpolate_sequential`);
+its path is printed. The last line is one JSON object with the JAX
 bench's metric label (`interp_frames_per_sec_720p_8x`, or
 `interp_frames_per_sec_{size}_ds{ds}_8x`; `_f` appended for F), the
 allocator's peak (`peak_mib`) and the card's name and power limit from
@@ -56,6 +60,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--f32", action="store_true", help="float32 compute (default bf16)")
     p.add_argument("--profile", action="store_true",
                    help="print the prepare / decode_one / flow-estimator split first")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace of one call into this directory")
     p.add_argument("--append-results", action="store_true",
                    help=f"append the JSON line to {RESULTS_PATH.name}")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -102,6 +108,28 @@ def build(args, device: torch.device) -> GIMMVFI_R:
     return init_normal_(model, SEED)
 
 
+def write_trace(run, args, device: torch.device) -> Path:
+    """One call of `run` under `torch.profiler` (CPU activity, and CUDA on
+    the card), exported as a Chrome trace into `args.trace_dir`; prints
+    and returns its path. The call is not one of the timed ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        run()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    out = Path(args.trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / (f"bench_{args.model}_{args.size}_ds{args.ds or 1}_"
+                  f"{'f32' if args.f32 else 'bf16'}.trace.json")
+    prof.export_chrome_trace(str(path))
+    print(f"trace of one call (spans prepare, decode_one): {path}", flush=True)
+    return path
+
+
 @torch.inference_mode()
 def profile_stages(model: GIMMVFI_R, img_xs, ts, ds, device) -> dict:
     """One more pair in stages: `prepare`, each `decode_one`, and the flow
@@ -141,6 +169,8 @@ def main(argv=None) -> dict:
     run()  # warm-up
     if args.profile:
         profile_stages(model, img_xs, ts, args.ds, device)
+    if args.trace_dir:
+        write_trace(run, args, device)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

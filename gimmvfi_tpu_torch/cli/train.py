@@ -138,13 +138,16 @@ def add_subsample(batch: dict, rng: np.random.Generator, ratio: float,
 
 
 def build_model(cfg, arch: str, device: torch.device) -> torch.nn.Module:
-    """The config's model, float32, from torch's global generator."""
+    """The config's model, float32, from torch's global generator, with the
+    config's `fwarp_type` and `coord_range`."""
+    kw = {"coord_range": tuple(cfg.arch.coord_range), "fwarp_type": cfg.arch.fwarp_type,
+          "device": device}
     if arch == "gimm":
-        return GIMM(coord_range=tuple(cfg.arch.coord_range), device=device)
+        return GIMM(**kw)
     if arch == "gimmvfi_r":
-        return GIMMVFI_R(raft_iters=cfg.arch.raft_iter, device=device)
+        return GIMMVFI_R(raft_iters=cfg.arch.raft_iter, **kw)
     if arch == "gimmvfi_f":
-        return GIMMVFI_F(device=device)
+        return GIMMVFI_F(**kw)
     raise ValueError(f"unknown arch: {arch}")
 
 

@@ -155,9 +155,9 @@ class BasicUpdateBlock(nn.Module):
     """Motion encoder -> SepConvGRU -> flow head; `mask` is the convex-upsample
     mask head, applied once after the loop (`upsample_mask`)."""
 
-    def __init__(self, hidden_dim=128, dtype=None):
+    def __init__(self, hidden_dim=128, dtype=None, corr_planes=4 * 81):
         super().__init__()
-        self.encoder = BasicMotionEncoder(dtype=dtype)
+        self.encoder = BasicMotionEncoder(corr_planes, dtype)
         self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim, dtype)
         self.flow_head = FlowHead(hidden_dim, 256, dtype)
         self.mask = nn.Sequential(
@@ -197,6 +197,11 @@ class RAFT(nn.Module):
     makes one such call a direction); the results have N rows, the fnet
     output being image1's.
 
+    `corr_levels` and `corr_radius` (JAX's fields, 4 and 4 by default) set
+    every lookup and the motion encoder's input, levels x (2r+1)^2 planes.
+    On the card the windowed kernels take 1-4 levels and a radius of 0-4:
+    past that a windowed lookup raises there (`ops/corr.py`).
+
     Above `corr_max_volume_bytes` (both directions' pyramids together) no
     volume is formed: the loop looks up the windowed state
     (`ops/corr.py: WindowedCorr`), whose rows are the forward direction's
@@ -207,14 +212,16 @@ class RAFT(nn.Module):
     """
 
     def __init__(self, iters=20, dtype=None, device=None,
-                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES):
+                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES, corr_levels=4, corr_radius=4):
         super().__init__()
         self.iters = iters
         self.dtype = dtype
         self.corr_max_volume_bytes = corr_max_volume_bytes
+        self.corr_levels, self.corr_radius = corr_levels, corr_radius
         self.fnet = BasicEncoder(256, "instance", dtype)
         self.cnet = BasicEncoder(256, "batch", dtype)
-        self.update_block = BasicUpdateBlock(128, dtype)
+        self.update_block = BasicUpdateBlock(128, dtype,
+                                             corr_levels * (2 * corr_radius + 1) ** 2)
         self.to(torch.device("cuda") if device is None else device)
 
     def forward(self, image1, image2, train=False, bidir=True):
@@ -225,17 +232,19 @@ class RAFT(nn.Module):
         fmaps, _ = self.fnet(torch.cat([image1, image2], dim=0))
         fmaps = fmaps.to(fdt)
         fmap1, fmap2 = fmaps[:n], fmaps[n:]
+        levels = self.corr_levels
 
         if not bidir:
             corr_state = corr_ops.corr_pyramid_auto(
-                fmap1, fmap2, max_volume_bytes=self.corr_max_volume_bytes)
+                fmap1, fmap2, levels, max_volume_bytes=self.corr_max_volume_bytes)
             cnet_in, fmaps = image1, fmap1
         elif 2 * corr_ops.volume_bytes(fmap1, fmap2) > self.corr_max_volume_bytes:
             # both directions batched: queries [fmap1; fmap2] against [fmap2; fmap1]
-            corr_state = corr_ops.windowed_corr_pyramid(fmaps, torch.cat([fmap2, fmap1], dim=0))
+            corr_state = corr_ops.windowed_corr_pyramid(fmaps, torch.cat([fmap2, fmap1], dim=0),
+                                                        levels)
             cnet_in = torch.cat([image1, image2], dim=0)
         else:
-            fwd, bwd = corr_ops.bidir_corr_pyramid(fmap1, fmap2)
+            fwd, bwd = corr_ops.bidir_corr_pyramid(fmap1, fmap2, levels)
             corr_state = tuple(torch.cat([f, b], dim=0) for f, b in zip(fwd, bwd))
             cnet_in = torch.cat([image1, image2], dim=0)
 
@@ -250,7 +259,7 @@ class RAFT(nn.Module):
             # as the reference, no gradient flows through the coordinates
             # from one iteration into the next
             coords1 = coords1.detach()
-            corr = corr_ops.corr_lookup_any(corr_state, coords1)
+            corr = corr_ops.corr_lookup_any(corr_state, coords1, self.corr_radius)
             net, delta_flow = self.update_block(net, inp, corr, coords1 - coords0)
             coords1 = coords1 + delta_flow
 
@@ -327,12 +336,14 @@ class RAFT(nn.Module):
         wlo, whi = max(0, a - it), min(w8, b + it)
         queries = fmaps[..., wlo:whi]
         # the route of the whole pair's volume, as `forward` takes it
+        levels = self.corr_levels
         if 2 * corr_ops.volume_bytes(fmap1, fmap2) > self.corr_max_volume_bytes:
-            corr_state = corr_ops.windowed_corr_pyramid(queries, torch.cat([fmap2, fmap1], dim=0))
+            corr_state = corr_ops.windowed_corr_pyramid(queries, torch.cat([fmap2, fmap1], dim=0),
+                                                        levels)
         else:
-            corr_state = tuple(torch.cat(levels, dim=0) for levels in zip(
-                corr_ops.corr_pyramid(queries[:n], fmap2),
-                corr_ops.corr_pyramid(queries[n:], fmap1)))
+            corr_state = tuple(torch.cat(both, dim=0) for both in zip(
+                corr_ops.corr_pyramid(queries[:n], fmap2, levels),
+                corr_ops.corr_pyramid(queries[n:], fmap1, levels)))
 
         cnet, feats = self.cnet(x)
         feats = [gather(feats[0][..., 2 * (a - lo):2 * (b - lo)], 2), gather(feats[1][..., own], 1)]
@@ -352,7 +363,7 @@ class RAFT(nn.Module):
         coords1 = coords0[..., mine]
         for _ in range(self.iters):
             net_w, coords_w = widened(net, coords1, it)
-            corr = corr_ops.corr_lookup_any(corr_state, coords_w)
+            corr = corr_ops.corr_lookup_any(corr_state, coords_w, self.corr_radius)
             net_w, delta_flow = self.update_block(net_w, inp, corr, coords_w - coords0)
             net = net_w[..., mine]
             coords1 = coords1 + delta_flow[..., mine]

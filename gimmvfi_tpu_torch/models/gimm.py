@@ -4,8 +4,9 @@
 It encodes two normalized flows, forward-splats the latents to time t
 (the splat kernel, twice a timestep), fuses them with a residual refiner
 and decodes the flow at (t, y, x) with the SIREN HypoNet. The splat is
-"linear" with zero-eps normalisation, the only `fwarp_type` any config
-uses. Parameter names follow the reference GIMM state dict; float32.
+`fwarp_type` ("linear", every config's, or "softmax") with zero-eps
+normalisation; another type raises at construction. Parameter names
+follow the reference GIMM state dict; float32.
 
 Entry points take channels-last flows like the reference and return
 channels-last outputs; internals are NCHW.
@@ -19,7 +20,13 @@ import torch
 from torch import nn
 
 from ..ops.coords import sample_coords_3d, sample_coords_3d_per_sample
-from .gimm_core import latent_refiner, motion_encoder, splat_fuse_latents, splatting_weights
+from .gimm_core import (
+    check_fwarp_type,
+    latent_refiner,
+    motion_encoder,
+    splat_fuse_latents,
+    splatting_weights,
+)
 from .hyponet import HypoNet
 
 
@@ -28,9 +35,11 @@ class GIMM(nn.Module):
     (`device="cpu"`, as the CPU tests do). Without a card the default
     raises. Inputs are moved to the model's device."""
 
-    def __init__(self, coord_range: tuple[float, float] = (-1.0, 1.0), device=None):
+    def __init__(self, coord_range: tuple[float, float] = (-1.0, 1.0), device=None,
+                 fwarp_type: str = "linear"):
         super().__init__()
         self.coord_range = tuple(coord_range)
+        self.fwarp_type = check_fwarp_type(fwarp_type)
         self.cnn_encoder = motion_encoder()
         self.res_conv = latent_refiner()
         self.hyponet = HypoNet()
@@ -63,7 +72,7 @@ class GIMM(nn.Module):
         latent0, latent1, flow01, flow10, w1, w2 = self._encode(xs, ori_flow)
         t = torch.as_tensor(t, dtype=torch.float32, device=latent0.device).reshape(n)
         pixel_latent = splat_fuse_latents(self.res_conv, latent0, latent1, flow01, flow10,
-                                          w1, w2, t)
+                                          w1, w2, t, self.fwarp_type)
         if coord is None:
             coord = sample_coords_3d_per_sample(t, (h, w), self.coord_range)
         return self.hyponet(coord.to(t.device), pixel_latent)
@@ -82,7 +91,7 @@ class GIMM(nn.Module):
         for tv in ts:
             t = torch.full((n,), float(tv), dtype=torch.float32, device=latent0.device)
             pixel_latent = splat_fuse_latents(self.res_conv, latent0, latent1, flow01, flow10,
-                                              w1, w2, t)
+                                              w1, w2, t, self.fwarp_type)
             coord = torch.cat([base[..., :1] * t.view(n, 1, 1, 1, 1), base[..., 1:]], dim=-1)
             outs.append(self.hyponet(coord, pixel_latent)[:, 0])
         return torch.stack(outs, dim=1)

@@ -84,11 +84,25 @@ def _splat_nchw(x, flow, metric, mode):
     return out.permute(0, 3, 1, 2)
 
 
-def splat_latents(latent0, latent1, flow01, flow10, w1, w2, t):
-    """Forward-splat both latents to time t (two linear-zeroeps splat calls,
-    one per direction). t (N,). Returns the splatted pair, (N, 32, H, W)."""
+FWARP_TYPES = ("linear", "softmax")  # the splat modes that take a metric
+
+
+def check_fwarp_type(fwarp_type: str) -> str:
+    """`fwarp_type` if the latent splat can run it, else a ValueError:
+    the splat passes the splat weights as its metric, and "sum" and "avg"
+    take none (JAX's `softsplat` asserts the same)."""
+    if fwarp_type not in FWARP_TYPES:
+        raise ValueError(f"fwarp_type {fwarp_type!r}: the latent splat takes one of "
+                         f"{FWARP_TYPES} (its metric is the splat weights)")
+    return fwarp_type
+
+
+def splat_latents(latent0, latent1, flow01, flow10, w1, w2, t, fwarp_type="linear"):
+    """Forward-splat both latents to time t (two `fwarp_type`-zeroeps splat
+    calls, one per direction). t (N,). Returns the splatted pair, (N, 32,
+    H, W)."""
     t = t.view(-1, 1, 1, 1)
-    mode = "linear-zeroeps"
+    mode = check_fwarp_type(fwarp_type) + "-zeroeps"
     s0 = _splat_nchw(latent0, flow01 * t, w1, mode)
     s1 = _splat_nchw(latent1, flow10 * (1.0 - t), w2, mode)
     return torch.cat([s0, s1], dim=1)
@@ -105,8 +119,9 @@ def refine_latents(refiner, latent0, latent1, fused, lo=0, hi=None):
     return fused[..., cols] + refiner(x)
 
 
-def splat_fuse_latents(refiner, latent0, latent1, flow01, flow10, w1, w2, t):
+def splat_fuse_latents(refiner, latent0, latent1, flow01, flow10, w1, w2, t,
+                       fwarp_type="linear"):
     """Forward-splat both latents to time t (`splat_latents`) and fuse them
     (`refine_latents`). t (N,). Returns the (N, 32, H, W) latent."""
-    fused = splat_latents(latent0, latent1, flow01, flow10, w1, w2, t)
+    fused = splat_latents(latent0, latent1, flow01, flow10, w1, w2, t, fwarp_type)
     return refine_latents(refiner, latent0, latent1, fused)

@@ -7,9 +7,10 @@ features [128 ch at 1/4, 256 ch at 1/8] go to the AMT as they are, and the
 bidirectional correlation pyramid is built over FlowFormer's float32
 feature map itself; above `corr_max_volume_bytes` (the 720p pair's 2.3 GB
 is) that is the float32 windowed state. FlowFormer computes in float32
-under any `dtype`. Every entry point (`prepare`, `decode_one`,
-`interpolate`, `interpolate_sequential`, `train_forward`) is inherited;
-`prepare_sharded` is `prepare`, whole on every rank.
+under any `dtype`. Every entry point (`prepare`, `prepare_sharded`,
+`decode_one`, `interpolate`, `interpolate_sequential`, `train_forward`) is
+inherited; `prepare_sharded` splits FlowFormer's query map by width over
+the ranks (`FlowFormer.forward_sharded`) and runs the rest whole on each.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from .gimmvfi_r import GIMMVFI_R
 
 
 class GIMMVFI_F(GIMMVFI_R):
+    """GIMMVFI_R's constructor options, with FlowFormer's `ff_iters`."""
+
     def __init__(self, ff_iters=32, dtype=None, device=None,
-                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES):
-        super().__init__(ff_iters, dtype, device, corr_max_volume_bytes)
+                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES, **options):
+        super().__init__(ff_iters, dtype, device, corr_max_volume_bytes, **options)
 
     def _setup_flow_estimator(self, iters, device):
         self.flow_estimator = FlowFormer(iters, device=device)
@@ -35,19 +38,11 @@ class GIMMVFI_F(GIMMVFI_R):
         mode (`train` changes nothing)."""
         return self.flow_estimator(img0, img1, bidir=True)
 
-    def prepare_sharded(self, img_xs, ds_factor=None, group=None) -> dict:
-        """`prepare`, whole on every rank of any group: FlowFormer's Twins
-        global attention attends over the whole 1/8 map and its cost
-        perceiver reads each query's whole all-pairs row, so no stage of
-        it has a window that a width strip could own."""
-        return self.prepare(img_xs, ds_factor)
-
-    def cal_bidirection_flow(self, img0, img1, train=False):
-        """Bidirectional FlowFormer in one batched pass, the unprojected
-        features and the bidirectional pyramid over the raw feature map.
-        img0/img1 (N, 3, H, W) in [0, 255]."""
-        n = img0.shape[0]
-        flow_2n, feats_2n, fnet_2n = self.bidir_flow(img0, img1, train)
+    def flow_state(self, flow_2n, feats_2n, fnet_2n):
+        """The rest of `cal_bidirection_flow` from FlowFormer's results for
+        both directions: the unprojected features and the bidirectional
+        pyramid over the raw feature map, and the normalized flows."""
+        n = flow_2n.shape[0] // 2
         f01, f10 = flow_2n[:n], flow_2n[n:]
         corr_pyrs = corr_ops.bidir_corr_pyramid_auto(
             fnet_2n[:n], fnet_2n[n:], max_volume_bytes=self.corr_max_volume_bytes)

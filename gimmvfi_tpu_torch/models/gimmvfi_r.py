@@ -7,8 +7,9 @@ runs once per timestep (latent splat, HypoNet flow, synthesis).
 `interpolate_sequential` is the 8x entry point: one `prepare`, then a
 Python loop of `decode_one`.
 
-`prepare_sharded` is `prepare` with RAFT split by width over the ranks of
-a process group (`RAFT.forward_sharded`); `parallel/spatial.py` calls it.
+`prepare_sharded` is `prepare` with the flow estimator split by width over
+the ranks of a process group (`RAFT.forward_sharded`, or FlowFormer's in
+GIMMVFI_F); `parallel/spatial.py` calls it.
 
 `decode_one` is `decode_strip` over the whole width: three stages,
 `flow_strip` (both latent splats on the whole frame, the latent refiner
@@ -42,6 +43,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.profiler import record_function
 
 from ..flow.raft import RAFT
 from ..nn.layers import conv
@@ -57,6 +59,7 @@ from ..ops.interp import resize, warp
 from ..parallel import dist as dist_ops
 from ..parallel.spatial import strip_bounds
 from .gimm_core import (
+    check_fwarp_type,
     latent_refiner,
     motion_encoder,
     refine_latents,
@@ -65,7 +68,14 @@ from .gimm_core import (
     splatting_weights,
 )
 from .hyponet import HypoNet
-from .synthesis import InitDecoder, MultiFlowDecoder, UpdateBlock, comb_block, multi_flow_combine
+from .synthesis import (
+    NUM_FLOWS,
+    InitDecoder,
+    MultiFlowDecoder,
+    UpdateBlock,
+    comb_block,
+    multi_flow_combine,
+)
 
 
 class GIMMVFI_R(nn.Module):
@@ -79,22 +89,36 @@ class GIMMVFI_R(nn.Module):
 
     Above `corr_max_volume_bytes` RAFT and the AMT pyramid use the windowed
     correlation instead of a materialized volume (each decides on its own
-    volume's size); the setting holds no parameter."""
+    volume's size); the setting holds no parameter.
+
+    JAX's fields, with its defaults: `num_flows` flow pairs that the
+    MultiFlowDecoder predicts and the combine blends; `fwarp_type`, the
+    latent splat's mode ("linear" or "softmax", with zero-eps
+    normalisation; another raises here); `corr_radius`, the AMT's lookups
+    (RAFT keeps its own 4) and the width of the update blocks that read
+    them (on the card the windowed kernels take 0-4, and past that the
+    lookup raises there); `coord_range`, the HypoNet's coordinate span."""
 
     def __init__(self, raft_iters=20, dtype=None, device=None,
-                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES):
+                 corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES, num_flows=NUM_FLOWS,
+                 fwarp_type="linear", corr_radius=4, coord_range=(-1.0, 1.0)):
         super().__init__()
         device = torch.device("cuda") if device is None else torch.device(device)
         self.dtype = dtype
         self.corr_max_volume_bytes = corr_max_volume_bytes
+        self.num_flows = num_flows
+        self.fwarp_type = check_fwarp_type(fwarp_type)
+        self.corr_radius = corr_radius
+        self.coord_range = tuple(coord_range)
         f0, f1 = 256, 128
         skip = f1 // 2
         self._setup_flow_estimator(raft_iters, device)
+        corr_planes = 2 * 4 * (2 * corr_radius + 1) ** 2  # both directions, the AMT's 4 levels
         self.amt_init_decoder = InitDecoder(f0, skip, dtype)
-        self.amt_final_decoder = MultiFlowDecoder(f1, skip, dtype)
-        self.amt_update4_low = UpdateBlock(scale_factor=2.0, dtype=dtype)
-        self.amt_update4_high = UpdateBlock(scale_factor=None, dtype=dtype)
-        self.amt_comb_block = comb_block(dtype)
+        self.amt_final_decoder = MultiFlowDecoder(f1, skip, dtype, num_flows)
+        self.amt_update4_low = UpdateBlock(2.0, dtype, corr_planes)
+        self.amt_update4_high = UpdateBlock(None, dtype, corr_planes)
+        self.amt_comb_block = comb_block(dtype, num_flows)
         self.cnn_encoder = motion_encoder(dtype)
         self.res_conv = latent_refiner(dtype)
         self.hyponet = HypoNet()
@@ -163,7 +187,7 @@ class GIMMVFI_R(nn.Module):
         (N, T, h, w, 2), or (N, K, 2) at the (N, K) `sub_idx` points."""
         pixel_latent = splat_fuse_latents(
             self.res_conv, lat["latent0"], lat["latent1"], lat["flow01"], lat["flow10"],
-            lat["w1"], lat["w2"], t,
+            lat["w1"], lat["w2"], t, self.fwarp_type,
         )
         return self.hyponet(coord, pixel_latent, sub_idx)
 
@@ -180,10 +204,10 @@ class GIMMVFI_R(nn.Module):
         dev = prep["img0"].device
         t = torch.full((n,), float(tv), dtype=torch.float32, device=dev)
         fused = splat_latents(prep["latent0"], prep["latent1"], prep["flow01"], prep["flow10"],
-                              prep["w1"], prep["w2"], t)
+                              prep["w1"], prep["w2"], t, self.fwarp_type)
         (a, b), (lo, hi) = strip, window
         latent = refine_latents(self.res_conv, prep["latent0"], prep["latent1"], fused, lo, hi)
-        ninr = self.hyponet(sample_coords_3d(n, (h, w), tv, dev, cols=strip),
+        ninr = self.hyponet(sample_coords_3d(n, (h, w), tv, dev, self.coord_range, cols=strip),
                             latent[..., a - lo:b - lo])
         return unnormalize_flow(ninr, prep["scalers"])[:, 0], ninr
 
@@ -215,7 +239,8 @@ class GIMMVFI_R(nn.Module):
         flow0 = 0.5 * resize(flow0, 0.5)
         flow1 = 0.5 * resize(flow1, 0.5)
         corr0, corr1 = corr_ops.bidir_corr_lookup(
-            corr_pyrs, coord + flow1 * (1.0 / (1.0 - embt)), coord + flow0 * (1.0 / embt)
+            corr_pyrs, coord + flow1 * (1.0 / (1.0 - embt)), coord + flow0 * (1.0 / embt),
+            self.corr_radius,
         )
         return torch.cat([corr0, corr1], dim=1), torch.cat([flow0, flow1], dim=1)
 
@@ -329,11 +354,11 @@ class GIMMVFI_R(nn.Module):
 
     def prepare_sharded(self, img_xs: torch.Tensor, ds_factor: float | None = None,
                         group=None) -> dict:
-        """`prepare` with RAFT split by width over the ranks of `group` (the
-        default group if None; `RAFT.forward_sharded` on even strips of
-        1/8-scale columns, its results gathered whole); the DS resize before
-        it and everything after it (`flow_state`, the motion latents, the
-        decoder heads) run whole on every rank. Every rank passes the whole
+        """`prepare` with the flow estimator split by width over the ranks
+        of `group` (the default group if None; its `forward_sharded` on
+        even strips of 1/8-scale columns, its results gathered whole); the
+        DS resize before it and everything after it (`flow_state`, the
+        motion latents, the decoder heads) run whole on every rank. Every rank passes the whole
         pair and gets `prepare`'s dict, equal to one process's up to float
         rounding. The working width must be a multiple of 8 and at least 8
         columns a rank. With no group up, `prepare`."""
@@ -438,11 +463,12 @@ class GIMMVFI_R(nn.Module):
         )
         lat = self.motion_latents(nflows, f01, f10)
         ones = torch.ones(n, dtype=torch.float32, device=dev)
-        inr0 = self.decode_flow(lat, 0.0 * ones, sample_coords_3d(n, (h, w), 0.0, dev),
+        span = self.coord_range
+        inr0 = self.decode_flow(lat, 0.0 * ones, sample_coords_3d(n, (h, w), 0.0, dev, span),
                                 sub_idx0.to(dev))
-        inr1 = self.decode_flow(lat, ones, sample_coords_3d(n, (h, w), 1.0, dev),
+        inr1 = self.decode_flow(lat, ones, sample_coords_3d(n, (h, w), 1.0, dev, span),
                                 sub_idx1.to(dev))
-        inr_t = self.decode_flow(lat, t, sample_coords_3d_per_sample(t, (h, w)))
+        inr_t = self.decode_flow(lat, t, sample_coords_3d_per_sample(t, (h, w), span))
         flow_t = unnormalize_flow(inr_t, scalers)[:, 0]  # (N, H, W, 2)
         f8_up, f4_up = self.upsample_synth_features(features, train)
         out = self.frame_synthesize(
@@ -464,11 +490,14 @@ def interpolate_sequential(model: GIMMVFI_R, img_xs: torch.Tensor,
                            t_values: Sequence[float], ds_factor: float | None = None) -> dict:
     """Nx interpolation: one `prepare`, then one `decode_one` per timestep,
     keeping only the outputs. Returns {imgt_pred: (T, N, H, W, 3),
-    flowt: (T, N, h, w, 2)}, (h, w) the working size."""
-    prep = model.prepare(img_xs, ds_factor)
+    flowt: (T, N, h, w, 2)}, (h, w) the working size. Each stage sits in a
+    `torch.profiler` span of its name (the bench's `--trace-dir`)."""
+    with record_function("prepare"):
+        prep = model.prepare(img_xs, ds_factor)
     imgs, flows = [], []
     for tv in t_values:
-        out = model.decode_one(prep, tv)
+        with record_function("decode_one"):
+            out = model.decode_one(prep, tv)
         imgs.append(out["imgt_pred"])
         flows.append(out["flowt"])
     return {"imgt_pred": torch.stack(imgs), "flowt": torch.stack(flows)}

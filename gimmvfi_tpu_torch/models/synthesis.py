@@ -17,7 +17,8 @@ from torch import nn
 from ..nn.layers import BatchNorm2d, PReLU, conv, conv_prelu, leaky_relu
 from ..ops.interp import resize, warp
 
-NUM_FLOWS = 3  # flow pairs the MultiFlowDecoder predicts and the combine blends
+NUM_FLOWS = 3  # the default flow pairs the MultiFlowDecoder predicts and the combine blends
+CORR_PLANES = 2 * 4 * 81  # both directions x 4 levels x (2r+1)^2 taps at the default radius 4
 
 
 class LateralBlock(nn.Module):
@@ -130,14 +131,15 @@ class InitDecoder(nn.Module):
 
 class UpdateBlock(nn.Module):
     """AMT update block: bidirectional corr + flow-pair encoders -> conv
-    'gru' -> delta feature and delta flow; optional internal 2x scale."""
+    'gru' -> delta feature and delta flow; optional internal 2x scale.
+    `corr_planes` is the width of the lookups it reads: both directions x
+    the levels x (2r+1)^2 taps."""
 
-    def __init__(self, scale_factor=None, dtype=None):
+    def __init__(self, scale_factor=None, dtype=None, corr_planes=CORR_PLANES):
         super().__init__()
         self.scale_factor = scale_factor
         self.dtype = dtype
         cdim, hidden_dim, flow_dim, corr_dim, corr_dim2, fc_dim = 128, 192, 64, 256, 192, 188
-        corr_planes = 2 * 4 * 81  # both directions x 4 levels x (2r+1)^2 taps
         self.convc1 = conv(corr_planes, corr_dim, 1, 1, 0, dtype)
         self.convc2 = conv(corr_dim, corr_dim2, 3, 1, 1, dtype)
         self.convf1 = conv(4, flow_dim * 2, 7, 1, 3, dtype)
@@ -183,9 +185,9 @@ class MultiFlowDecoder(nn.Module):
     at global positions (the concat takes the window's columns of the
     images). With x0 = 0 and a whole-width state it decodes the frame."""
 
-    def __init__(self, in_ch=128, skip_ch=64, dtype=None):
+    def __init__(self, in_ch=128, skip_ch=64, dtype=None, num_flows=NUM_FLOWS):
         super().__init__()
-        self.num_flows = num_flows = NUM_FLOWS
+        self.num_flows = num_flows
         self.upsample = UpsampleHead(in_ch, 2, dtype)
         c_feat = in_ch // 2
         cin = in_ch + 2 * c_feat + 2 * 2 + 1 + 4 * 3
@@ -213,9 +215,10 @@ class MultiFlowDecoder(nn.Module):
         return flow0, flow1, mask, img_res
 
 
-def comb_block(dtype=None) -> nn.Sequential:
-    """7x7 conv + PReLU + 7x7 conv correction head (keys `.0`, `.1`, `.2`)."""
-    n = NUM_FLOWS
+def comb_block(dtype=None, num_flows=NUM_FLOWS) -> nn.Sequential:
+    """7x7 conv + PReLU + 7x7 conv correction head over `num_flows` warps
+    (keys `.0`, `.1`, `.2`)."""
+    n = num_flows
     return nn.Sequential(
         conv(3 * n, 6 * n, 7, 1, 3, dtype), PReLU(6 * n), conv(6 * n, 3, 7, 1, 3, dtype)
     )

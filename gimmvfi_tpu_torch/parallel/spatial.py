@@ -4,22 +4,29 @@ frame width over the ranks of a process group
 
 The JAX package shards the width over a mesh axis and lets GSPMD partition
 all of `interpolate_sequential`, with a halo exchange at every conv. The
-port shards the work that grows with the width: RAFT (most of `prepare`)
-with a halo exchange an iteration, and the full-resolution decode, whose
-halos are recomputed so that it exchanges nothing. On every rank of the
-group (one process a card under `torchrun`, NCCL; `dist.py`), per pair:
+port shards the work that grows with the width: the flow estimator (most
+of `prepare`) with a halo exchange an iteration, and the full-resolution
+decode, whose halos are recomputed so that it exchanges nothing. On every
+rank of the group (one process a card under `torchrun`, NCCL; `dist.py`),
+per pair:
 
-  1. `GIMMVFI_R.prepare_sharded`: the DS resize whole; RAFT on the rank's
-     strip of 1/8-scale columns (`RAFT.forward_sharded`: the encoders on a
+  1. `GIMMVFI_R.prepare_sharded`: the DS resize whole; the flow estimator
+     on the rank's strip of 1/8-scale columns, its flows and features
+     gathered whole: for R, `RAFT.forward_sharded` (the encoders on a
      window with halo 7 and whole-frame instance-norm statistics, the
      correlation state of the strip's queries against the whole other
      map, the 20-iteration loop with one halo exchange of 14 columns an
-     iteration, the convex upsample), its flows, feature map and cnet
-     features gathered whole; then replicated: the 1x1 projections and the
-     AMT's correlation state, `normalize_flow`, the motion latents, the
-     splat weights and `f8_up` / `f4_up`. Every later read of a whole
-     frame is served from it. GIMMVFI_F keeps `prepare` whole
-     (`GIMMVFI_F.prepare_sharded`);
+     iteration, the convex upsample); for F, `FlowFormer.forward_sharded`
+     (the Twins encoders whole, the cost rows of the strip's queries of
+     each direction against the whole other map, the cost perceiver on
+     them with a halo of 6 for the local vertical attention and the
+     global one's keys from the gathered map, the 32-iteration decoder on
+     the strip with GMA's attention of its window's rows, a halo exchange
+     of 14 columns and a gather of the motion features an iteration);
+     then replicated: the 1x1 projections (R) and the AMT's correlation
+     state, `normalize_flow`, the motion latents, the splat weights and
+     `f8_up` / `f4_up`. Every later read of a whole frame is served from
+     it;
 and per timestep:
   2. replicated: both latent splats on the whole frame, so a splat whose
      target crosses a strip edge needs nothing special;
@@ -140,7 +147,7 @@ def interpolate_spatial_sharded(model, img_xs, t_values, ds_factor: float | None
     img_xs (N, 2, H, W, 3) in [0, 1]. Every parameter and buffer is first
     broadcast from the group's rank 0. W is edge-padded to a multiple of
     lcm(world, 8), as the JAX function pads (`pad_width`); `prepare_sharded`
-    (RAFT on a strip a rank) runs on the padded pair; the outputs are cropped back,
+    (the flow estimator on a strip a rank) runs on the padded pair; the outputs are cropped back,
     `imgt_pred` (T, N, H, W, 3) to W and `flowt` (T, N, h, w', 2) to
     int(W * ds). Every rank gets the whole result, on its device. Equals
     `interpolate_sequential` on the padded pair up to float rounding."""

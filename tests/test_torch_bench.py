@@ -3,8 +3,9 @@
 Its flags, its metric labels (the JAX bench's, `bench.py:299-305`), and the
 one JSON line it prints last, for both model families, at 128x128 with
 `--device cpu`; the timestep and call counts are cut to 2 so that a run
-takes seconds (the flow iterations, 20 for R and 32 for F, stay). Without
-a card the default device raises.
+takes seconds (the flow iterations, 20 for R and 32 for F, stay). The R
+run also writes its `--trace-dir` trace, a Chrome trace that names the
+`prepare` and `decode_one` spans. Without a card the default device raises.
 """
 
 import json
@@ -29,7 +30,8 @@ def quick(monkeypatch, tmp_path):
 def test_flag_defaults():
     args = bench.parse_args([])
     assert (args.model, args.size, args.ds, args.f32, args.profile, args.append_results,
-            args.device) == ("r", "736x1280", None, False, False, False, "cuda")
+            args.device, args.trace_dir) == ("r", "736x1280", None, False, False, False, "cuda",
+                                             None)
     args = bench.parse_args(["--model", "f", "--size", "1088x2048", "--ds", "0.5", "--f32",
                              "--profile", "--append-results", "--device", "cpu"])
     assert (args.model, args.size, args.ds, args.f32, args.profile, args.append_results,
@@ -52,10 +54,13 @@ def test_metric_labels_are_the_jax_benchs(model, size, ds, label):
 
 
 @pytest.mark.parametrize("model,extra", [
-    ("r", ["--profile", "--append-results"]),
+    ("r", ["--profile", "--append-results", "--trace-dir"]),
     ("f", ["--f32"]),
 ])
 def test_one_json_line_on_the_cpu(quick, capsys, model, extra):
+    trace_dir = quick.parent / "trace"
+    if extra[-1] == "--trace-dir":  # into the scratch directory
+        extra = [*extra, str(trace_dir)]
     record = bench.main(["--model", model, "--size", "128x128", "--device", "cpu", *extra])
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == record
@@ -73,6 +78,13 @@ def test_one_json_line_on_the_cpu(quick, capsys, model, extra):
         assert quick.read_text() == lines[-1] + "\n"
     else:
         assert not quick.exists()
+    if "--trace-dir" in extra:
+        (path,) = trace_dir.glob("*.json")
+        assert any(line.endswith(str(path)) for line in lines[:-1])
+        names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+        assert {"prepare", "decode_one"} <= names
+    else:
+        assert not trace_dir.exists()
 
 
 def test_default_device_is_the_card():

@@ -74,7 +74,7 @@ def _both(f1, f2, coords, radius, levels, jdt=jnp.float32, tdt=torch.float32):
     return wc, twc, np.asarray(ref.astype(jnp.float32)), nhwc(got)
 
 
-@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 2), (1, 1)])
+@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 4), (3, 2), (1, 1)])
 def test_windowed_pyramid_and_lookup_match_jax(rng, radius, levels):
     f1, f2 = _maps(rng, 2, 12, 17, 32)
     coords = _coords(rng, 2, 12, 17, "span")

@@ -4,6 +4,8 @@ One JAX `init` of GIMM at 64x96 (N = 2) serves every test; its parameters
 reach the port through `jax_gimm_params_to_torch`. Tolerance (ROADMAP C3):
 <= 1e-5 max-abs on the normalized flow and >= 60 dB.
   * `forward` at per-sample timesteps, `forward_multi` over VSF's five;
+  * `fwarp_type="softmax"` (the same parameters) against JAX's GIMM with
+    that field, `forward` and `forward_multi`;
   * the VSF coordinate override (INR time (t_id - 1) / 6, splat t_id / 6);
   * `jax_gimm_params_to_torch` after `convert_gimm` gives the state dict
     back; `gimm_loss` as JAX's.
@@ -71,6 +73,26 @@ def test_forward_matches_jax(params, model):
         got = model(torch.from_numpy(xs), torch.from_numpy(ori), torch.from_numpy(t)).numpy()
     assert got.shape == (N, 1, H, W, 2)
     _agrees(got, ref)
+
+
+def test_softmax_fwarp_type_matches_jax(params):
+    xs, ori = _flows(5)
+    t = np.asarray([0.3, 0.7], np.float32)
+    jm = JaxGIMM(fwarp_type="softmax")
+    ref = jax.jit(lambda p, a, b, tt: (jm.apply({"params": p}, a, b, tt), jm.apply(
+        {"params": p}, a, b, jnp.asarray(VSF_TS[:2], jnp.float32), method=JaxGIMM.forward_multi)))(
+        params, jnp.asarray(xs), jnp.asarray(ori), jnp.asarray(t))
+    model = GIMM(device="cpu", fwarp_type="softmax")
+    model.load_state_dict(jax_gimm_params_to_torch(params), strict=True)
+    with torch.inference_mode():
+        got = (model(torch.from_numpy(xs), torch.from_numpy(ori), torch.from_numpy(t)),
+               model.forward_multi(torch.from_numpy(xs), torch.from_numpy(ori), VSF_TS[:2]))
+        linear = GIMM(device="cpu")
+        linear.load_state_dict(model.state_dict())
+        other = linear(torch.from_numpy(xs), torch.from_numpy(ori), torch.from_numpy(t)).numpy()
+    for g, r in zip(got, ref):
+        _agrees(g.numpy(), np.asarray(r))
+    assert np.abs(got[0].numpy() - other).max() > 1e-4  # the mode changed the splat
 
 
 def test_forward_multi_matches_jax(params, model):

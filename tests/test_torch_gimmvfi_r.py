@@ -6,6 +6,14 @@
 <= 1e-4 * max(1, max|ref|). bf16: the two stacks round at other places, so
 only a loose agreement is asserted (>= 45 dB; measured ~61 dB) and the
 point is that the port's bf16 path runs and stays finite.
+
+The constructor options that are not JAX's defaults (`OPTIONS`: two flow
+pairs, the softmax splat, AMT lookups of radius 3, a coordinate span of
+(-0.5, 0.5)), from one JAX `model.init` with those fields: float32 >= 60
+dB, flowt <= 1e-4 of max|ref|, materialized and, in the port, windowed
+(`corr_max_volume_bytes=0`: the plain radius-3 lookup); the converter
+round trip at those widths consumes every key; `fwarp_type="avg"` raises
+(JAX's `softsplat` asserts that "avg" takes no metric).
 """
 
 import jax
@@ -16,13 +24,18 @@ import torch
 
 from gimmvfi_tpu.models.gimmvfi_r import GIMMVFI_R as JaxGIMMVFI_R
 from gimmvfi_tpu.models.gimmvfi_r import interpolate_sequential as jax_interpolate_sequential
+from gimmvfi_tpu.utils import convert as jax_convert
 from gimmvfi_tpu.utils.convert import convert_gimmvfi_r
 from gimmvfi_tpu_torch.flow.raft import RAFT
+from gimmvfi_tpu_torch.models.gimm import GIMM
+from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
+from gimmvfi_tpu_torch.nn.layers import init_normal_
 from gimmvfi_tpu_torch.utils.convert import jax_params_to_torch, load_jax_params
 
 torch.set_num_threads(1)
 T_VALUES = [0.25, 0.5, 0.75]
+OPTIONS = {"num_flows": 2, "fwarp_type": "softmax", "corr_radius": 3, "coord_range": (-0.5, 0.5)}
 
 
 @pytest.fixture(scope="module")
@@ -112,3 +125,72 @@ def test_weight_round_trip_is_exact(setup):
         assert ta == tb
         for x, y in zip(fa, fb):
             assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def options_setup(setup):
+    """One JAX init with `OPTIONS`, its `interpolate_sequential` on the
+    fixture's pair, and the port model with its weights."""
+    img = setup[0]
+    jm = JaxGIMMVFI_R(raft_iters=2, remat=False, **OPTIONS)
+    variables = jax.jit(lambda r, x: jm.init(r, x, (0.5,)))(jax.random.PRNGKey(1),
+                                                          jnp.asarray(img))
+    ref = jax.jit(lambda v, x: jax_interpolate_sequential(jm, v, x, jnp.asarray(T_VALUES)))(
+        variables, jnp.asarray(img))
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+    return img, params, stats, {k: np.asarray(v) for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("limit", [None, 0])
+def test_constructor_options_match_jax(options_setup, limit, record_property):
+    """At the default limit (materialized) and at 0 (the windowed plain
+    lookup at radius 3), both against JAX's materialized run."""
+    img, params, stats, ref = options_setup
+    kw = {} if limit is None else {"corr_max_volume_bytes": limit}
+    model = load_jax_params(GIMMVFI_R(raft_iters=2, device="cpu", **OPTIONS, **kw), params, stats)
+    assert model.amt_final_decoder.num_flows == 2 and model.coord_range == (-0.5, 0.5)
+    assert model.amt_update4_low.convc1.in_channels == 2 * 4 * 7**2
+    got = {k: v.numpy() for k, v in interpolate_sequential(model, torch.from_numpy(img),
+                                                            T_VALUES).items()}
+    db = _psnr(got["imgt_pred"], ref["imgt_pred"])
+    record_property("imgt_pred_psnr_db", float(db))
+    assert got["flowt"].shape == ref["flowt"].shape == (3, 1, 128, 192, 2)
+    assert db >= 60.0
+    assert np.abs(got["flowt"] - ref["flowt"]).max() <= 1e-4 * float(np.abs(ref["flowt"]).max())
+
+
+def test_weight_round_trip_with_options_consumes_every_key(options_setup, monkeypatch):
+    _, params, stats, _ = options_setup
+    trees = []
+
+    class Recording(jax_convert._Tree):
+        """The JAX converter's key accumulator, kept for `unused_keys`."""
+
+        def __init__(self, state):
+            super().__init__(state)
+            trees.append(self)
+
+    monkeypatch.setattr(jax_convert, "_Tree", Recording)
+    sd = {k: v.numpy() for k, v in
+          init_normal_(GIMMVFI_R(raft_iters=2, device="cpu", **OPTIONS), 3).state_dict().items()}
+    mine, _ = jax_convert.convert_gimmvfi_r(sd)
+    assert jax_convert.unused_keys(sd, trees[0]) == []
+    got_leaves, got_def = jax.tree_util.tree_flatten(mine)
+    ref_leaves, ref_def = jax.tree_util.tree_flatten(params)
+    assert got_def == ref_def and [x.shape for x in got_leaves] == [x.shape for x in ref_leaves]
+    back_p, back_s = convert_gimmvfi_r(jax_params_to_torch(params, stats))
+    for a, b in ((back_p, params), (back_s, stats)):
+        fa, ta = jax.tree_util.tree_flatten(a)
+        fb, tb = jax.tree_util.tree_flatten(b)
+        assert ta == tb
+        assert all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(fa, fb))
+
+
+@pytest.mark.parametrize("family", [GIMMVFI_R, GIMMVFI_F, GIMM])
+def test_avg_fwarp_type_raises(family):
+    """The latent splat's metric is the splat weights, and "avg" (or "sum")
+    takes none: construction refuses it rather than splat otherwise."""
+    for bad in ("avg", "sum", "bilinear"):
+        with pytest.raises(ValueError, match="fwarp_type"):
+            family(fwarp_type=bad, device="cpu")

@@ -3,6 +3,9 @@
 Weights come from the JAX `model.init` and go through
 `jax_raft_params_to_torch`. Tolerance: max-abs <= 1e-4 * max(1, max|ref|)
 (float32 convolutions summed in another order, through 2 GRU iterations).
+RAFT's `corr_levels` and `corr_radius` off JAX's defaults (3 and 3, one
+JAX init): the flows within 1e-4 of max|ref|, materialized and windowed
+(`corr_max_volume_bytes=0` on both sides).
 """
 
 import jax
@@ -54,6 +57,35 @@ def test_raft_bidir_matches_jax(raft_pair):
         got = got.permute(0, 2, 3, 1).numpy()
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= _bound(ref)
+
+
+@pytest.fixture(scope="module")
+def raft_options(raft_pair):
+    """One JAX init of RAFT(iters=2, corr_levels=3, corr_radius=3) on the
+    fixture's pair."""
+    img1, img2 = raft_pair[:2]
+    model = JaxRAFT(iters=2, corr_levels=3, corr_radius=3)
+    variables = jax.jit(lambda r, a, b: model.init(r, a, b, bidir=True))(
+        jax.random.PRNGKey(1), jnp.asarray(img1), jnp.asarray(img2))
+    return {k: jax.tree_util.tree_map(np.asarray, v) for k, v in variables.items()}
+
+
+@pytest.mark.parametrize("limit", [2 << 30, 0])
+def test_raft_levels_and_radius_match_jax(raft_pair, raft_options, limit):
+    img1, img2 = raft_pair[:2]
+    jm = JaxRAFT(iters=2, corr_levels=3, corr_radius=3, corr_max_volume_bytes=limit)
+    ref = np.asarray(jax.jit(lambda v, a, b: jm.apply(v, a, b, bidir=True)[0])(
+        raft_options, jnp.asarray(img1), jnp.asarray(img2)))
+    model = RAFT(iters=2, device="cpu", corr_max_volume_bytes=limit, corr_levels=3,
+                 corr_radius=3)
+    model.load_state_dict(jax_raft_params_to_torch(raft_options["params"],
+                                                   raft_options["batch_stats"]), strict=True)
+    assert model.update_block.encoder.convc1.in_channels == 3 * 7**2
+    with torch.inference_mode():
+        flow = model(*(torch.from_numpy(x).permute(0, 3, 1, 2) for x in (img1, img2)))[0]
+    got = flow.permute(0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-4 * float(np.abs(ref).max())
 
 
 def test_raft_weight_round_trip_is_exact(raft_pair):

@@ -17,7 +17,8 @@ One JAX `model.init` of GIMMVFI_R(raft_iters=2) gives the weights
  (iv) Three ranks at W = 128: padded to 144 as JAX pads (lcm(3, 8) = 24),
       cropped back to 128, against the port on the padded pair and against
       JAX on a 3-device mesh.
-  (v) GIMMVFI_F(ff_iters=2) on two ranks against its own single process.
+  (v) GIMMVFI_F(ff_iters=2) on two ranks against its own single process,
+      its `prepare` sharded too (FlowFormer's query map by width).
  (vi) One rank with no group is `interpolate_sequential` on the padded
       pair, bit for bit.
 (vii) On the same spawned ranks (`_rank_checks`), after (iii)-(v): the
@@ -28,8 +29,21 @@ One JAX `model.init` of GIMMVFI_R(raft_iters=2) gives the weights
       max(1, max|ref|), RAFT's correlation route (recorded at each lookup)
       that of one process at the default limit and at a limit between the
       strip's volume and the pair's (windowed); RAFT's encoder halo or loop
-      halo set to 0 misses one process's flow by more than 1e-3.
+      halo set to 0 misses one process's flow by more than 1e-3; and
+      GIMMVFI_F(ff_iters=2) at F_HW (weights at std 0.05, so that the flows
+      reach tens of pixels and the cost memory moves them): its
+      `prepare_sharded` against `prepare` under the same bounds, each
+      rank's cost rows (recorded at `flowformer.cost_rows`) its own
+      strip's queries of each direction and never the whole volume, and
+      with the local vertical attention's halo or the decoder's loop halo
+      set to 0, FlowFormer's flow misses one process's by more than 1e-3.
+      At 3 ranks the strips of the 16 columns are 5, 5 and 6: edges off
+      the local attention's grid of 7.
 The halos' derivation and the strips' grid are checked on their own.
+The JAX side of F's sharding is held by transitivity: one process's
+GIMMVFI_F is held against JAX's in `tests/test_torch_gimmvfi_f.py`, and
+JAX's `interpolate_spatial_sharded` is its `interpolate_sequential`
+partitioned by GSPMD.
 """
 
 import jax
@@ -41,6 +55,7 @@ import torch
 from gimmvfi_tpu.models.gimmvfi_r import GIMMVFI_R as JaxGIMMVFI_R
 from gimmvfi_tpu.parallel.mesh import create_mesh
 from gimmvfi_tpu.parallel.spatial import interpolate_spatial_sharded as jax_sharded
+from gimmvfi_tpu_torch.flow import flowformer
 from gimmvfi_tpu_torch.models.gimmvfi_f import GIMMVFI_F
 from gimmvfi_tpu_torch.models.gimm_core import splatting_weights
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
@@ -110,9 +125,9 @@ def _prepare_on_rank(state, img, limit, halos=None):
     model.load_state_dict(state)
     routes, lookup = [], corr_ops.corr_lookup_any
 
-    def recording(state, coords):
+    def recording(state, coords, *radius):
         routes.append(type(state).__name__)
-        return lookup(state, coords)
+        return lookup(state, coords, *radius)
 
     corr_ops.corr_lookup_any = recording
     try:
@@ -134,6 +149,60 @@ def _prepare_on_rank(state, img, limit, halos=None):
                 res[name] = model.flow_estimator.forward_sharded(*pair, strips, None, h)[0]
     finally:
         corr_ops.corr_lookup_any = lookup
+    return res
+
+
+F_STD = 0.05  # (vii)'s F weights: flows of tens of pixels at F_HW
+
+
+def f_checks_model():
+    """(vii)'s GIMMVFI_F, the same weights in every process."""
+    return init_normal_(GIMMVFI_F(ff_iters=2, device="cpu"), 5, F_STD)
+
+
+def _flat_tensors(prep: dict) -> dict:
+    """Every tensor of a `prepare` dict, nested tuples and windowed states
+    included, under dotted names."""
+    out = {}
+
+    def walk(name, v):
+        if isinstance(v, torch.Tensor):
+            out[name] = v
+        elif isinstance(v, corr_ops.WindowedCorr):
+            walk(name, (v.f1, *v.f2_levels))
+        elif isinstance(v, (tuple, list)):
+            for i, x in enumerate(v):
+                walk(f"{name}.{i}", x)
+
+    for k, v in prep.items():
+        walk(k, v)
+    return out
+
+
+def _f_prepare_on_rank(halos=None):
+    """`prepare_sharded` of (vii)'s F model at F_HW with the query count of
+    each cost-row call (queries, keys), and with `halos` FlowFormer's flow
+    alone."""
+    model = f_checks_model()
+    img = torch.from_numpy(_frames(F_HW, 6))
+    rows, form = [], flowformer.cost_rows
+
+    def recording(queries, keys):
+        rows.append((queries.shape[2] * queries.shape[3], keys.shape[2] * keys.shape[3]))
+        return form(queries, keys)
+
+    flowformer.cost_rows = recording
+    try:
+        with torch.inference_mode():
+            res = _flat_tensors(model.prepare_sharded(img))
+            res["cost_rows"] = list(rows)  # the halo variants below form more
+            pair = [255.0 * img[:, i].permute(0, 3, 1, 2) for i in range(2)]
+            w8, world = F_HW[1] // 8, dist_ops.world_size()
+            strips = spatial.strip_bounds(w8, world, 1)
+            for name, h in (halos or {}).items():
+                res[name] = model.flow_estimator.forward_sharded(*pair, strips, None, h)[0]
+    finally:
+        flowformer.cost_rows = form
     return res
 
 
@@ -162,6 +231,9 @@ def _rank_checks(cases_path, out_dir):
                                    if world == 2 else None)
     if world == 2:
         res["prep_windowed"] = _prepare_on_rank(state, img, WINDOWED_LIMIT)
+    lsa, it, up = f_checks_model().flow_estimator.halos()
+    res["f_prep"] = _f_prepare_on_rank({"no_lsa_halo": (0, it, up), "no_loop_halo": (lsa, 0, up)}
+                                       if world == 2 else None)
     torch.save(res, f"{out_dir}/extra{rank}.pt")
 
 
@@ -424,6 +496,61 @@ def test_zero_raft_halos_miss(model, ranks, which):
         ref = model.flow_estimator(*[255.0 * img[:, i].permute(0, 3, 1, 2) for i in range(2)])[0]
     for got in ranks["extra2"]:
         assert _max_abs(got["prep"][which], ref) > 1e-3
+
+
+@pytest.fixture(scope="module")
+def one_process_f_prep():
+    """(vii)'s one-process F reference at F_HW: `prepare`, its cost-row
+    calls, and FlowFormer's flow."""
+    res = _f_prepare_on_rank()
+    model = f_checks_model()
+    img = torch.from_numpy(_frames(F_HW, 6))
+    with torch.inference_mode():
+        res["flow"] = model.flow_estimator(*[255.0 * img[:, i].permute(0, 3, 1, 2)
+                                             for i in range(2)], bidir=True)[0]
+    return res
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_f_prepare_sharded_matches_prepare(ranks, one_process_f_prep, world):
+    ref = {k: v for k, v in one_process_f_prep.items() if k not in ("cost_rows", "flow")}
+    assert float(ref["flow01"].abs().max()) >= 10.0  # the flows cross the strips' edges
+    for got in ranks[f"extra{world}"]:
+        _hold_prep(f_checks_model(), got["f_prep"], ref)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_f_cost_rows_are_the_ranks_strip(ranks, one_process_f_prep, world):
+    """One process forms the whole forward volume once (the reverse is its
+    transpose); each rank forms only its strip's rows of each direction."""
+    h8, w8 = F_HW[0] // 8, F_HW[1] // 8
+    assert one_process_f_prep["cost_rows"] == [(h8 * w8, h8 * w8)]
+    strips = spatial.strip_bounds(w8, world, 1)
+    if world == 3:
+        assert [b - a for a, b in strips] == [5, 5, 6]
+    for (a, b), got in zip(strips, ranks[f"extra{world}"]):
+        assert got["f_prep"]["cost_rows"] == [(h8 * (b - a), h8 * w8)] * 2
+
+
+@pytest.mark.parametrize("which", ["no_lsa_halo", "no_loop_halo"])
+def test_zero_flowformer_halos_miss(ranks, one_process_f_prep, which):
+    for got in ranks["extra2"]:
+        assert _max_abs(got["f_prep"][which], one_process_f_prep["flow"]) > 1e-3
+
+
+def test_flowformer_halos_from_the_modules(f_model):
+    """The local attention's windows of 7: 6; an iteration 6 + 6 + 2 = 14;
+    the upsample 1."""
+    assert f_model.flow_estimator.halos() == (6, 14, 1)
+
+
+def test_halos_hold_at_other_options():
+    """Two flow pairs, the softmax splat, AMT lookups of radius 3: the
+    decode's and RAFT's halos come from the same convs."""
+    model = GIMMVFI_R(raft_iters=2, device="cpu", num_flows=2, fwarp_type="softmax",
+                      corr_radius=3, coord_range=(-0.5, 0.5))
+    assert spatial.halos(model) == (8, 28) and spatial.halos(model, 0.25) == (8, 24)
+    assert model.flow_estimator.halos() == (7, 14, 1)
 
 
 def test_raft_halos_from_the_modules(model):
