@@ -9,7 +9,9 @@ against one process, the CLI under torchrun) and spatial sharding (one
 pair's flow estimator and decode split by width over two ranks, R and F)
 once on one CUDA card;
 the windowed correlation lookup's backward kernel held to its plain
-version, and stage-2 training's recipe step on the windowed route.
+version, and stage-2 training's recipe step on the windowed route; the
+pipeline FLOP count at every path, and both training recipes through the
+training-throughput tool.
 
     python3 chip_smoke.py
 
@@ -141,7 +143,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      kernel: float32 operations at the CUDA-core peak), and the library
      composition on the same lookup;
      (b) `gimmvfi_tpu_torch.bench.main` for `--model r` and `--model f` at
-     736x1280 in this process, each printing one JSON line with its label;
+     736x1280 in this process, each printing one JSON line with its label
+     and the JAX bench's four FLOP fields (`pipeline_tflops`,
+     `v100_speed_of_light_fps`, `vs_baseline`, `baseline_is_flop_bound`)
+     and the count, after a line with the achieved TFLOP/s;
      the R run with `--trace-dir build/chip_smoke_phase9`: the trace it
      names holds one `prepare` and 7 `decode_one` spans and 14 device rows
      of the sorted splat's gather (where the card's profiler records
@@ -271,7 +276,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      and none of the others; the ranks' results bitwise
      equal, the flow estimator's route, the peak a rank beside the single process's,
      each call's seconds and a `prepare_sharded`'s beside one process's
-     `prepare` (two ranks share the card: no speed figure).
+     `prepare` (two ranks share the card: no speed figure);
+ 15. the pipeline FLOP count (`bench.count_flops`: matmul and conv
+     products, a windowed lookup charged `windowed_corr_work`'s dots):
+     (a) on the card and on the CPU, equal op by op, for
+     GIMMVFI_R(raft_iters=2) float32 at 128x192 and GIMMVFI_F(ff_iters=2)
+     at 128x128, 3 timesteps, materialized and at
+     `corr_max_volume_bytes=0` (8 and 6 `windowed_corr_tf32` launches on
+     the card); (b) at every path of phases 5, 8 and 9 (a), each counted
+     once more from the same seed and pair with the timed run's launches,
+     and the achieved TFLOP/s at that phase's fps; 720p R's count equal to
+     the bench's; (c) `tools.train_throughput.main` at 20 steps a stage
+     (stage 1: GIMM, batch 32 at 256x256; stage 2: GIMMVFI_R(raft_iters=20),
+     batch 4 at 224x224, no perceptual loss): its record printed last,
+     finite losses, exactly 160 forward and 160 backward splat launches.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -282,7 +300,8 @@ profiler records no device activity, those readings are null and print as
 counts are set to 0 just before each path (5, the probes of 6, each path
 of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
 and each CLI call of 11 and of 12, the counted step of 13 (a), each
-case of 14 in this process and on each rank) and read just after it;
+case of 14 in this process and on each rank, each counted call of 15 and
+its training tool's run) and read just after it;
 the sorted splat's and the
 3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`)
 and (the 3xTF32 kernel) each rank's phase 14 counts,
@@ -353,7 +372,7 @@ from gimmvfi_tpu_torch.ops.softsplat import (
     splat_sum_plain,
     splat_sum_sorted_plain,
 )
-from gimmvfi_tpu_torch.tools import conv_proto, gather_ablate, gather_cost_probe
+from gimmvfi_tpu_torch.tools import conv_proto, gather_ablate, gather_cost_probe, train_throughput
 from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS, SUBGATHER_KERNEL, subgather_plain
 from gimmvfi_tpu_torch.tools.windowed_ablate import (
@@ -816,7 +835,7 @@ def run_main_path() -> tuple[int, dict]:
           f"launch ({fmt_share(readings[0]['bound_ms'], in_situ)}; its sort not counted)",
           flush=True)
     print(f"[5] main path bf16 {H}x{W} 8x: {path_lines(5, res)}", flush=True)
-    return res["splat_launches"], splat
+    return res["splat_launches"], splat, res
 
 
 def reset_counts():
@@ -1623,6 +1642,9 @@ def run_bench_entries() -> dict:
         if (json.loads(lines[-1]) != record or record["metric"] != label
                 or sum(line.startswith("{") for line in lines) != 1):
             raise AssertionError(f"bench --model {family} printed no single {label} line")
+        if (any(k not in record for k in FLOP_FIELDS) or not record["pipeline_flops"] > 0
+                or not any(line.startswith("pipeline FLOPs") for line in lines)):
+            raise AssertionError(f"bench --model {family}: no pipeline FLOP count, {record}")
         records[family] = record
         if trace:
             records["trace"] = check_bench_trace(lines)
@@ -3137,6 +3159,129 @@ def run_phase14(smi: str, device="cuda:0") -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 15
+FLOP_FIELDS = ("pipeline_tflops", "v100_speed_of_light_fps", "vs_baseline", "baseline_is_flop_bound")
+TRAIN_STEPS15 = 20  # steps a stage of the training tool in (c)
+
+
+def small_count(family, limit: int, device: str) -> tuple[dict, dict]:
+    """`bench.count_flops` of one 8x call of `family`(2) float32 on a seeded
+    small pair (R 128x192, F 128x128; 3 timesteps) at the correlation limit
+    `limit`, seeded weights; with the launches of the call, counted from 0."""
+    hw = (128, 192) if family is GIMMVFI_R else (128, 128)
+    rng = np.random.default_rng(SEED)
+    img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32)).to(device)
+    model = init_normal_(family(2, device=device, corr_max_volume_bytes=limit), SEED)
+    reset_counts()
+    by_op = bench.count_flops(model, lambda: interpolate_sequential(model, img, [0.25, 0.5, 0.75]))
+    return by_op, counts()
+
+
+def check_counts_by_device() -> dict:
+    """Phase 15 (a): the pipeline count on the card against the CPU's, for
+    both families, materialized and windowed (`corr_max_volume_bytes=0`):
+    equal, op by op (the windowed lookups charged `windowed_corr_work`'s
+    dots on each device's own coordinates); the card's windowed lookups
+    went through the 3xTF32 kernel (8 for R: RAFT's 2 and the AMT's 6; 6
+    for F)."""
+    res = {}
+    for family in (GIMMVFI_R, GIMMVFI_F):
+        for route, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES), ("windowed", 0)):
+            cpu, _ = small_count(family, limit, "cpu")
+            gpu, got = small_count(family, limit, "cuda")
+            lookups = (2 if family is GIMMVFI_R else 0) + 2 * 3 if limit == 0 else 0
+            expect_counts(f"(a) {family.__name__} {route}", got, 6, tf32=lookups, phase=15)
+            if gpu != cpu:
+                raise AssertionError(f"[15] (a) {family.__name__} {route}: the card counts {gpu}, "
+                                     f"the CPU {cpu}")
+            res[f"{family.__name__}_{route}"] = sum(gpu.values())
+            print(f"[15] (a) {family.__name__}(2) float32 {route}: {sum(gpu.values())} FLOPs on the "
+                  f"card and on the CPU, op by op {json.dumps(gpu)}; card launches {got}", flush=True)
+    return res
+
+
+def count_paths(main_res: dict, ds: dict, f720: dict, benches: dict, smi: str) -> dict:
+    """Phase 15 (b): the pipeline count of every path of phases 5, 8 and 9
+    (a), each on a model built again from the same seed and the same seeded
+    pair, launches counted from 0 and held to the timed run's; the achieved
+    TFLOP/s from that phase's timed pair. 720p R's count must equal the
+    bench's (phase 9 (b)): the same model, pair and materialized route."""
+    ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
+    paths = [("720p", GIMMVFI_R, (H, W), None, SEED + 1, main_res),
+             *((f"({label})", GIMMVFI_R, hw, dsf, SEED + 2, ds[label])
+               for label, hw, dsf, _ in DS_PATHS),
+             ("F 720p", GIMMVFI_F, (H, W), None, SEED + 1, f720)]
+    res = {}
+    for label, family, (h, w), dsf, seed, timed in paths:
+        iters = 20 if family is GIMMVFI_R else 32
+        model = init_normal_(family(iters, dtype=torch.bfloat16), SEED)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        img_xs = torch.rand((1, 2, h, w, 3), generator=gen).cuda()
+        reset_counts()
+        t0 = time.perf_counter()
+        by_op = bench.count_flops(model, lambda: interpolate_sequential(model, img_xs, ts, dsf))
+        seconds = time.perf_counter() - t0
+        got = counts()
+        want = {"splat": timed["splat_launches"], "mma": timed["windowed_launches"],
+                "tf32": timed["tf32_launches"]}
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"[15] (b) {label}: counted call's launches {got}, the timed "
+                                 f"run's {want}")
+        flops = sum(by_op.values())
+        tflops = flops / (timed["pair_ms"] / 1e3) / 1e12
+        fields = bench.flop_fields(flops, timed["fps"], N_T)
+        res[label] = {"flops": flops, "by_op": by_op, "achieved_tflops_per_s": tflops,
+                      "fps": timed["fps"], "seconds": seconds, **fields}
+        print(f"[15] (b) {family.__name__}({iters}) bf16 {w}x{h} DS {dsf or 1} 8x: {flops} FLOPs a "
+              f"pair ({json.dumps(by_op)}); at phase {5 if label == '720p' else 9 if family is GIMMVFI_F else 8}'s "
+              f"{timed['fps']:.4f} fps, {tflops:.2f} TFLOP/s achieved; the V100 speed of light "
+              f"{fields['v100_speed_of_light_fps']} fps (vs_baseline {fields['vs_baseline']}); "
+              f"counted in {seconds:.2f} s; {smi}", flush=True)
+        del model, img_xs
+        torch.cuda.empty_cache()
+    if res["720p"]["flops"] != benches["r"]["pipeline_flops"]:
+        raise AssertionError(f"[15] (b) 720p R counts {res['720p']['flops']}, the bench "
+                             f"{benches['r']['pipeline_flops']}")
+    return res
+
+
+def run_train_tool(smi: str) -> dict:
+    """Phase 15 (c): `tools.train_throughput.main` at `TRAIN_STEPS15` steps a
+    stage, in this process: its record is its last line, each stage's
+    losses finite; the launches counted from 0 over both stages (2 splats
+    forward and 2 backward a stage-1 step, 6 and 6 a stage-2 step, no
+    windowed one)."""
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        record = train_throughput.main(["--steps", str(TRAIN_STEPS15)])
+    got = counts()
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[15] (c) train_throughput --steps {TRAIN_STEPS15}: {line}", flush=True)
+    if json.loads(lines[-1]) != record:
+        raise AssertionError("[15] (c) the training tool's last line is not its record")
+    for stage in ("stage1", "stage2"):
+        curve = record[stage]["loss_curve"]
+        if len(curve) != 5 or not all(math.isfinite(loss) for _, loss in curve):
+            raise AssertionError(f"[15] (c) {stage} loss curve {curve}")
+    expect_counts("(c) the training tool", got, 8 * TRAIN_STEPS15, splat_bwd=8 * TRAIN_STEPS15,
+                  phase=15)
+    return {**record, "launches": got}
+
+
+def run_phase15(main_res: dict, ds: dict, f720: dict, benches: dict, smi: str) -> dict:
+    t0 = time.perf_counter()
+    res = {"by_device": check_counts_by_device()}
+    torch.cuda.empty_cache()
+    res["paths"] = count_paths(main_res, ds, f720, benches, smi)
+    res["train"] = run_train_tool(smi)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[15] phase 15 took {res['seconds']:.2f} s", flush=True)
+    return res
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3148,7 +3293,7 @@ def main():
     options_db = {label: check_small_e2e(4, (128, 192), None, limit, **R_OPTIONS)
                   for label, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES),
                                        ("windowed", 0))}
-    splat_launches, main_splat = run_main_path()
+    splat_launches, main_splat, main_res = run_main_path()
     torch.cuda.empty_cache()
     conv_err = check_conv()
     gather_err = check_gathers()
@@ -3189,6 +3334,8 @@ def main():
     p13 = run_phase13(smi, stage1_ckpt, p12)
     torch.cuda.empty_cache()
     p14 = run_phase14(smi)
+    torch.cuda.empty_cache()
+    p15 = run_phase15(main_res, ds, f720, benches, smi)
     p14_launches = {key: {label: [x[key] for x in p14[label]["launches"]]
                           for label, *_ in SPATIAL_CASES}
                     for key in (SPLAT_SORTED_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name,
@@ -3385,6 +3532,15 @@ def main():
                       f"{p14[label]['one_process_peak_bytes'] / 2**20:.1f}"
                       for label, *_ in SPATIAL_CASES)
           + f"; {p14['seconds']:.2f} s; {smi}", flush=True)
+    t15 = p15["train"]
+    print(f"[15] pipeline FLOPs, card = CPU at the small points: {json.dumps(p15['by_device'])}; "
+          f"every path: "
+          + "; ".join(f"{label} {x['flops']} ({x['achieved_tflops_per_s']:.2f} TFLOP/s, vs_baseline "
+                      f"{x['vs_baseline']})" for label, x in p15["paths"].items())
+          + f"; the training tool at {TRAIN_STEPS15} steps: stage 1 "
+          f"{t15['stage1']['steps_per_sec']:.3f} steps/s, stage 2 "
+          f"{t15['stage2']['steps_per_sec']:.3f} steps/s; {p15['seconds']:.2f} s; {smi}",
+          flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,17 @@ allocator's peak (`peak_mib`) and the card's name and power limit from
 `bench_results_torch.jsonl` (never to `bench_results.jsonl`, the TPU
 record).
 
+After the timed calls and the peak, one more call, untimed, is counted
+(`pipeline_flops`): the record gains the JAX bench's four fields
+(`bench.py:285-297`): `pipeline_tflops`, `v100_speed_of_light_fps` (the
+fps a V100 would reach doing that work at its published float32 peak,
+`V100_F32_PEAK_FLOPS`, with every gather free: the reference runs on a
+V100 in float32), `vs_baseline` (fps over that bound) and
+`baseline_is_flop_bound`, and the exact count, `pipeline_flops`. The line
+before the record gives the achieved TFLOP/s (the count times fps over
+7) with the card's name and power limit. `--profile` also prints the
+count of `prepare` and of one `decode_one`.
+
 `--device cpu` is for the CPU tests only: it times with the host clock and
 has no card, peak or power limit. The default is the card, and without one
 the bench raises.
@@ -38,15 +49,22 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from .models.gimmvfi_f import GIMMVFI_F
 from .models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from .nn.layers import init_normal_
+from .ops import corr as corr_ops
 
 N_T = 7  # 8x: 7 frames between the pair
 TIMED_CALLS = 3
 SEED = 0
 RESULTS_PATH = Path(__file__).resolve().parent.parent / "bench_results_torch.jsonl"
+# The V100's published float32 peak (15.7 TFLOP/s), the reference's card,
+# as the JAX bench defines it (`bench.py:26`): the denominator of its
+# speed-of-light bound, not a number measured here.
+V100_F32_PEAK_FLOPS = 15.7e12
+WINDOWED_LOOKUP_OP = "windowed_corr_lookup"  # the count's key for the lookups' dots
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -130,6 +148,75 @@ def write_trace(run, args, device: torch.device) -> Path:
     return path
 
 
+def count_flops(model: torch.nn.Module, fn) -> dict:
+    """The FLOPs of one call of `fn()` by `torch.utils.flop_counter`: the
+    products of matmuls and convolutions (sdpa too), two a multiply-add.
+    Returns {op name: FLOPs} (an op's total over the call).
+
+    What it leaves out: elementwise work, resizes, pooling and bilinear
+    lookups (`grid_sample` is a gather) and the splat, on every device.
+    The JAX bench's count (XLA's cost analysis) counts elementwise work
+    too, and the JAX package's TPU formulations of gathers as the dots
+    they are there: `ops/corr.py: corr_lookup`'s tent einsums,
+    `ops/interp.py: bilinear_sample`'s corner-weight einsum; the splat's
+    Pallas kernel counts nothing there. `flow/raft.py:
+    convex_upsample_8x` is an einsum there and a broadcast product here.
+    A float32 `GemmConv2d` counts as its matmul, the same number as the
+    conv.
+
+    A windowed correlation lookup (`ops/corr.py: windowed_corr_lookup`)
+    is charged the dots of `windowed_corr_work` on its inputs, the work
+    its kernel's bound counts, under the key `WINDOWED_LOOKUP_OP`, and its
+    own ops run outside the count: the card's kernel is invisible to the
+    counter and the CPU's plain version would count its own formulation,
+    so the count is the same on both devices. The parameters are set not
+    to need grad while it counts (and restored after): the counter's module
+    tracker fails on an expanded Parameter under inference mode."""
+    counter = FlopCounterMode(display=False)
+    lookup = corr_ops.windowed_corr_lookup
+
+    def charged(wc, coords, radius=4):
+        counter.flop_counts["Global"][WINDOWED_LOOKUP_OP] += corr_ops.windowed_corr_work(
+            wc, coords, radius)[1]
+        registry, counter.flop_registry = counter.flop_registry, {}
+        try:
+            return lookup(wc, coords, radius)
+        finally:
+            counter.flop_registry = registry
+
+    trained = [p for p in model.parameters() if p.requires_grad]
+    corr_ops.windowed_corr_lookup = charged
+    try:
+        for p in trained:
+            p.requires_grad_(False)
+        with counter:
+            fn()
+    finally:
+        corr_ops.windowed_corr_lookup = lookup
+        for p in trained:
+            p.requires_grad_(True)
+    return {str(op): n for op, n in counter.get_flop_counts().get("Global", {}).items()}
+
+
+def pipeline_flops(model: GIMMVFI_R, img_xs, ts, ds) -> int:
+    """The FLOPs of one 8x call, `interpolate_sequential(model, img_xs, ts,
+    ds)`, counted eagerly as `count_flops` counts (the counterpart of the
+    JAX bench's `pipeline_flops`, which composes its count from parts only
+    because XLA counts a scan body once). The call runs once more, untimed."""
+    return sum(count_flops(model, lambda: interpolate_sequential(model, img_xs, ts, ds)).values())
+
+
+def flop_fields(flops: int, fps: float, n_t: int) -> dict:
+    """The JAX bench's four fields for a pipeline of `n_t` frames and
+    `flops` run at `fps`, and the exact count."""
+    v100_fps = n_t * V100_F32_PEAK_FLOPS / flops
+    return {"pipeline_tflops": round(flops / 1e12, 2),
+            "v100_speed_of_light_fps": round(v100_fps, 3),
+            "vs_baseline": round(fps / v100_fps, 3),
+            "baseline_is_flop_bound": True,
+            "pipeline_flops": flops}
+
+
 @torch.inference_mode()
 def profile_stages(model: GIMMVFI_R, img_xs, ts, ds, device) -> dict:
     """One more pair in stages: `prepare`, each `decode_one`, and the flow
@@ -145,6 +232,10 @@ def profile_stages(model: GIMMVFI_R, img_xs, ts, ds, device) -> dict:
           f"{len(ts)} calls (min {min(decode):.2f}, max {max(decode):.2f})", flush=True)
     print(f"flow estimator alone ({name}, both directions): {flow_ms:.2f} ms", flush=True)
     print(f"=> modeled total for {len(ts)} frames: {prep_ms + sum(decode):.2f} ms", flush=True)
+    split["prepare_flops"] = sum(count_flops(model, lambda: model.prepare(img_xs, ds)).values())
+    split["decode_flops"] = sum(count_flops(model, lambda: model.decode_one(prep, ts[0])).values())
+    print(f"FLOPs: prepare {split['prepare_flops']}, one decode_one (t={ts[0]}) "
+          f"{split['decode_flops']}", flush=True)
     return split
 
 
@@ -184,10 +275,17 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         name, power_limit = card_info()
         peak_mib = round(torch.cuda.max_memory_allocated() / 2**20, 1)
+    # counted after the timed calls and the peak, so that it moves neither
+    flops = pipeline_flops(model, img_xs, ts, args.ds)
+    value = N_T / (median_ms / 1e3)
+    print(f"pipeline FLOPs {flops} ({flops / 1e12:.4f} TFLOP a pair); achieved "
+          f"{flops / (median_ms / 1e3) / 1e12:.2f} TFLOP/s at the median; "
+          f"{name or args.device}, power limit {power_limit or 'none'}", flush=True)
     record = {
         "metric": metric_label(args.model, args.size, args.ds),
-        "value": round(N_T / (median_ms / 1e3), 4),
+        "value": round(value, 4),
         "unit": "frames/sec",
+        **flop_fields(flops, value, N_T),
         "dtype": "float32" if args.f32 else "bfloat16",
         "peak_mib": peak_mib,
         "name": name,
