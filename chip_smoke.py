@@ -51,7 +51,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      the softmax splat, AMT lookups of radius 3, coord_range (-0.5, 0.5))
      the same way, materialized and at `corr_max_volume_bytes=0` (8
      radius-3 launches of the 3xTF32 kernel), each >= 50 dB, the launch
-     counts printed;
+     counts printed; GIMMVFI_R(2, corr_radius=6, corr_max_volume_bytes=0)
+     in float32 and in bf16 the same way (RAFT's 2 lookups on the routed
+     kernel's fast case, the AMT's 6 on its general case, exactly), each
+     >= 50 dB; RAFT(iters=2, corr_levels=5, corr_radius=5,
+     corr_max_volume_bytes=0) float32 at 256x256, both directions' flows
+     GPU vs CPU within 1e-4 of the largest (4 general launches: two groups
+     of levels a lookup);
   5. the main path: GIMMVFI_R(raft_iters=20, dtype=bfloat16) on a seeded
      736x1280 pair, 7 timesteps through interpolate_sequential; checks shape,
      finiteness, range, exactly 14 sorted-splat launches, none of the atomic
@@ -82,10 +88,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      2048x1088 DS 1.0 path gives it (RAFT's (2,136,256) and the AMT's
      (1,136,256), C = 256, bf16), the 720p F path's AMT shape (1,92,160)
      and the float32 720p R path's RAFT shape (2,92,160), both C = 256,
-     float32, on in-frame and smooth coordinates; a radius of 5 and 5
-     levels on CUDA tensors raise in each forward kernel, the route and
-     the backward, launching nothing (`check_refusals`); the
-     float32 lookup against the materialized `corr_lookup` at the 720p
+     float32, on in-frame and smooth coordinates; the kernels' general
+     case (a radius past 4 or more than 4 levels: tap tiles, a launch a
+     group of at most 4 levels) in `BIG_WINDOW_CASES` ((r, L) = (5, 4),
+     (8, 4), (4, 5), (4, 6), (6, 5), each in both dtypes, in-frame, border
+     and far or non-finite coordinates, every level at least 2 px a side)
+     through the route and called directly, against the plain version under
+     the same bounds, the general launches counted (`check_big_windows`);
+     the float32 lookup against the materialized `corr_lookup` at the 720p
      fmap (92x160, C = 256, <= 1e-4); the CUDA-core `windowed_corr.cu`,
      called directly, on the float32 cases of `WINDOWED_CASES`; then the
      bf16 kernel and the CUDA-core one, each checked on the inputs first,
@@ -115,7 +125,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      (1,92,160) float32, and (c) the 2048x1088 DS 1.0 RAFT lookup
      (2,136,256) bf16, each beside the yardstick (the materialized lookup's
      autograd backward, its volume formed under a raised limit); (a) is
-     phase 12 (e)'s;
+     phase 12 (e)'s; the backward's general case in `BIG_WINDOW_CASES`
+     the same way (with d_coords and without, two calls with bitwise equal
+     d_levels, the route's autograd against the plain lookup's;
+     `check_big_windows_backward`); then readings at radius 8 and at 6
+     levels beside radius 4 in the same run: the bf16 kernel at (c)'s
+     shape and the 3xTF32 kernel at (b)'s, each held to the plain version
+     (in row chunks) and beside the library composition at the same radius
+     and levels (`window_readings`), and the backward at (a)'s shape (4,
+     28, 28) (radius 4 and 8), (b) and (c) (`bwd_window_readings`; at (c)
+     not held to the plain version, whose gathered windows would take tens
+     of GB);
   8. three more main paths, each 8x bf16 with 7 timesteps and counts from 0:
      (a) 2048x1088 at DS 0.5, (b) 4096x2176 at DS 0.25, both materialized at
      1024x544, and (c) 2048x1088 at DS 1.0, windowed in RAFT and the AMT;
@@ -125,7 +145,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      prepare/decode_one split and peak memory (beside the reference's V100
      envelopes for (a) and (b)); then GPU vs CPU float32 >= 50 dB with the
      windowed path forced at 128x192 (float32 lookups: the 3xTF32 kernel,
-     8 launches counted from 0) and with DS 0.5 at 256x384;
+     8 launches counted from 0) and with DS 0.5 at 256x384; (d)
+     GIMMVFI_R(raft_iters=20, dtype=bfloat16, corr_radius=6) at 2048x1088
+     DS 1.0 on (c)'s pair, 7 timesteps: exactly 20 launches of the bf16
+     kernel's fast case (RAFT) and 14 of its general case (the AMT at
+     radius 6), fps, the split and the peak;
   9. GIMM-VFI-F: (a) GIMMVFI_F(ff_iters=32, dtype=bfloat16) on the seeded
      736x1280 pair, 7 timesteps, through `drive_path`: shape, finiteness,
      range, exactly 14 splat, 14 `windowed_corr_tf32`, 0 `windowed_corr`
@@ -239,7 +263,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      captured, beside the yardstick;
      then from the same seeded weights and batch the windowed step's
      gradients against the default (materialized) step's on the card,
-     under (b)'s bounds;
+     under (b)'s bounds; (f) (b)'s step with
+     GIMMVFI_R(raft_iters=2, corr_radius=5, corr_max_volume_bytes=0), GPU
+     vs CPU under (b)'s bounds, exact launches (RAFT's 4 lookups and their
+     backwards on the fast cases, the AMT's 2 and theirs on the general
+     cases);
  13. data-parallel training (`parallel/dist.py`), float32, in
      build/chip_smoke_phase13/: (a) phase 12 (a)'s recipe step through the
      data-parallel step under a process group of one NCCL rank on the card
@@ -302,7 +330,10 @@ of 8, 9 (a), each GPU-vs-CPU run, each path of 10, the counted step
 and each CLI call of 11 and of 12, the counted step of 13 (a), each
 case of 14 in this process and on each rank, each counted call of 15 and
 its training tool's run) and read just after it;
-the sorted splat's and the
+the general cases' records carry the launches of their own paths (the
+bf16 one phase 8 (d)'s, the 3xTF32 one phase 4's radius-6 float32 path,
+the backward phase 12 (f)'s) and their readings at radius 8 (their
+numbers) and 6 levels beside the fast case's; the sorted splat's and the
 3xTF32 kernel's records carry their phase 10 counts (`launches_phase10`)
 and (the 3xTF32 kernel) each rank's phase 14 counts,
 the splat backward's `launches` are those of the counted recipe step; the
@@ -344,6 +375,7 @@ from gimmvfi_tpu_torch import bench
 from gimmvfi_tpu_torch.cli import benchmarks as bench_cli
 from gimmvfi_tpu_torch.cli import video_nx
 from gimmvfi_tpu_torch.data.frame_io import read_image, read_ppm, write_flo, write_ppm
+from gimmvfi_tpu_torch.flow.raft import RAFT
 from gimmvfi_tpu_torch.models import gimm as gimm_model
 from gimmvfi_tpu_torch.models import gimmvfi_r as gimmvfi_r_model
 from gimmvfi_tpu_torch.models.gimm import GIMM
@@ -352,9 +384,12 @@ from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R, interpolate_sequential
 from gimmvfi_tpu_torch.nn.layers import init_normal_
 from gimmvfi_tpu_torch.ops import corr as corr_ops
 from gimmvfi_tpu_torch.ops.corr import (
+    WINDOWED_CORR_BWD_GENERAL_KERNEL,
     WINDOWED_CORR_BWD_KERNEL,
     WINDOWED_CORR_KERNEL,
+    WINDOWED_CORR_MMA_GENERAL_KERNEL,
     WINDOWED_CORR_MMA_KERNEL,
+    WINDOWED_CORR_TF32_GENERAL_KERNEL,
     WINDOWED_CORR_TF32_KERNEL,
     WindowedCorr,
     windowed_corr_lookup_backward_plain,
@@ -377,12 +412,16 @@ from gimmvfi_tpu_torch.tools.conv_proto import CONV3X3_KERNEL, conv3x3_plain
 from gimmvfi_tpu_torch.tools.gather_cost_probe import GATHERS, SUBGATHER_KERNEL, subgather_plain
 from gimmvfi_tpu_torch.tools.windowed_ablate import (
     AMT_2K,
+    BIG_WINDOW_CASES,
     F_AMT_720P,
     MMA_CASES,
     PATH_KINDS,
     RAFT_2K,
     RAFT_720P,
+    STAGE2_AMT,
     TF32_CASES,
+    TF32_PRODUCTS,
+    WINDOW_READINGS,
     WINDOWED_BWD_CASES,
     WINDOWED_CASES,
     bitwise_equal,
@@ -425,6 +464,7 @@ from gimmvfi_tpu_torch.utils.config import load_config
 from gimmvfi_tpu_torch.utils.kernel_build import CSRC, build_libraries, find_nvcc, library_path
 from gimmvfi_tpu_torch.utils.timing import (
     H100_BYTES_PER_S,
+    H100_TF32_FLOPS,
     bound_ms,
     cuda_ms,
     device_ms,
@@ -438,8 +478,13 @@ H, W = 736, 1280
 N_T = 7
 SEED = 0
 PROBE_KERNELS = [CONV3X3_KERNEL] + [g[0] for g in GATHERS.values()]
+# the windowed kernels' general cases (any radius and level count), each
+# counted on its own
+GENERAL_KERNELS = [WINDOWED_CORR_MMA_GENERAL_KERNEL, WINDOWED_CORR_TF32_GENERAL_KERNEL,
+                   WINDOWED_CORR_BWD_GENERAL_KERNEL]
 KERNELS = [SPLAT_SORTED_KERNEL, SPLAT_KERNEL, SPLAT_BACKWARD_KERNEL, WINDOWED_CORR_MMA_KERNEL,
-           WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_KERNEL, WINDOWED_CORR_BWD_KERNEL] + PROBE_KERNELS
+           WINDOWED_CORR_TF32_KERNEL, WINDOWED_CORR_KERNEL, WINDOWED_CORR_BWD_KERNEL
+           ] + GENERAL_KERNELS + PROBE_KERNELS
 # (x shape, Cout): the probe shape, then ragged rows, tiles and channel chunks;
 # then one pixel, W one over a 128-pixel tile multiple, and Cin off the
 # 64-channel chunk with Cout under a 256-channel tile (the TMA zero fill)
@@ -687,55 +732,92 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_small_e2e(phase=4, hw=(128, 192), ds_factor=None,
-                    limit=corr_ops.MAX_VOLUME_BYTES, family=GIMMVFI_R,
+                    limit=corr_ops.MAX_VOLUME_BYTES, family=GIMMVFI_R, dtype=None,
                     **options) -> tuple[float, int]:
-    """GPU vs CPU float32 on one small pair, same seeded weights, of
-    `family` with 2 flow iterations and the constructor `options`; the
-    card's windowed lookups are float32, so they go to the 3xTF32 kernel.
-    Returns (PSNR, that kernel's launches, counted from 0)."""
+    """GPU vs CPU on one small pair, same seeded weights, of `family` with 2
+    flow iterations, `dtype` (float32 when None) and the constructor
+    `options`; the card's windowed lookups go to the kernel of the features'
+    dtype: float32 to the 3xTF32 kernel, bf16 to the bf16 one, each on its
+    general case where the AMT's radius passes 4 (RAFT's stays 4). The
+    launches are counted from 0 and held exactly. Returns (PSNR, the routed
+    kernel's fast-case launches)."""
     rng = np.random.default_rng(SEED)
     img = torch.from_numpy(rng.random((1, 2, *hw, 3), dtype=np.float32))
     ts = [0.25, 0.5, 0.75]
-    cpu_model = init_normal_(family(2, device="cpu", corr_max_volume_bytes=limit, **options),
-                             SEED)
+    cpu_model = init_normal_(family(2, dtype=dtype, device="cpu", corr_max_volume_bytes=limit,
+                                    **options), SEED)
     # the card, same seeded weights
-    gpu_model = init_normal_(family(2, corr_max_volume_bytes=limit, **options), SEED)
+    gpu_model = init_normal_(family(2, dtype=dtype, corr_max_volume_bytes=limit, **options), SEED)
     ref = interpolate_sequential(cpu_model, img, ts, ds_factor)["imgt_pred"]
     # the host frames go in as they are: prepare moves them to the card
     reset_counts()
     got = interpolate_sequential(gpu_model, img, ts, ds_factor)["imgt_pred"].cpu()
-    windowed, mma = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
-    cuda_core, corr_bwd = WINDOWED_CORR_KERNEL.launches, WINDOWED_CORR_BWD_KERNEL.launches
+    launches = {k.name: k.launches for k in KERNELS if k is not SPLAT_SORTED_KERNEL}
     if got.shape != (len(ts), 1, *hw, 3):
         raise AssertionError(f"imgt_pred shape {tuple(got.shape)}")
     # RAFT's 2 lookups (FlowFormer's own volume is always materialized),
     # then the AMT's two a timestep
+    routed = WINDOWED_CORR_MMA_KERNEL if dtype == torch.bfloat16 else WINDOWED_CORR_TF32_KERNEL
     flow_lookups = 2 if family is GIMMVFI_R else 0
-    if (windowed != (flow_lookups + 2 * len(ts) if limit == 0 else 0) or mma or cuda_core
-            or corr_bwd):
-        raise AssertionError(f"{windowed} float32 windowed-correlation launches, {mma} of the "
-                             f"bf16 kernel, {cuda_core} of the CUDA-core one, {corr_bwd} of "
-                             f"the backward")
+    amt = corr_ops.fast_case(4, options.get("corr_radius", 4))
+    want = {name: 0 for name in launches}
+    if limit == 0:
+        want[routed.name] = flow_lookups + (2 * len(ts) if amt else 0)
+        want[routed.general.name] = 0 if amt else 2 * len(ts)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
     db = psnr(got, ref)
+    counted = {k: v for k, v in launches.items() if v}
     print(f"[{phase}] {family.__name__}(2{''.join(f', {k}={v}' for k, v in options.items())}) "
-          f"f32 {hw[0]}x{hw[1]}, ds_factor={ds_factor}, corr_max_volume_bytes={limit}, t={ts}: "
-          f"GPU vs CPU PSNR {db:.2f} dB ({windowed} windowed_corr_tf32, {mma} windowed_corr_mma, "
-          f"{cuda_core} windowed_corr and {corr_bwd} windowed_corr_bwd launches on the card; "
-          f"{SPLAT_SORTED_KERNEL.launches} sorted splat)", flush=True)
+          f"{str(dtype or torch.float32)[6:]} {hw[0]}x{hw[1]}, ds_factor={ds_factor}, "
+          f"corr_max_volume_bytes={limit}, t={ts}: GPU vs CPU PSNR {db:.2f} dB (windowed "
+          f"launches on the card {counted or 'none'}; {SPLAT_SORTED_KERNEL.launches} sorted "
+          f"splat)", flush=True)
     if not db >= 50.0:
         raise AssertionError(f"GPU and CPU disagree: {db:.2f} dB < 50 dB")
-    return db, windowed
+    return db, launches[routed.name]
+
+
+def check_raft_gpu_vs_cpu(hw=(256, 256)) -> dict:
+    """Phase 4: RAFT(iters=2, corr_levels=5, corr_radius=5,
+    corr_max_volume_bytes=0) float32 on one seeded pair, both directions,
+    on the card (every lookup on the 3xTF32 kernel's general case: two
+    groups of levels, 4 and 1, so 2 launches a lookup) and on the CPU from
+    the same seeded weights: every flow within 1e-4 of the largest CPU
+    flow."""
+    kw = {"iters": 2, "corr_levels": 5, "corr_radius": 5, "corr_max_volume_bytes": 0}
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    img1, img2 = (torch.rand((1, 3, *hw), generator=gen) * 255.0 for _ in range(2))
+    cpu_model = init_normal_(RAFT(device="cpu", **kw), SEED)
+    gpu_model = init_normal_(RAFT(**kw), SEED)
+    with torch.inference_mode():
+        ref = cpu_model(img1, img2)[0]
+        reset_counts()
+        got = gpu_model(img1.cuda(), img2.cuda())[0].cpu()
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    want = {WINDOWED_CORR_TF32_GENERAL_KERNEL.name: 2 * kw["iters"]}
+    if launches != want:
+        raise AssertionError(f"[4] RAFT launches {launches}, expected {want}")
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"[4] RAFT({', '.join(f'{k}={v}' for k, v in kw.items())}) f32 {hw[0]}x{hw[1]}, both "
+          f"directions: GPU vs CPU flows max-abs {err:.3e} of max|flow| {scale:.3e} "
+          f"({err / scale:.2e} relative; launches {launches})", flush=True)
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"[4] RAFT GPU and CPU flows disagree: {err:.3e} > 1e-4 x {scale:.3e}")
+    return {"max_abs_err": err, "scale": scale, "launches": launches}
 
 
 def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
-               tf32_expected: int = 0):
+               tf32_expected: int = 0, general_expected: int = 0):
     """One main path through `interpolate_sequential`: a warm-up, then the
     timed run with every count set to 0 just before it and read just after;
     checks the shapes, finiteness, range and launch counts (14 splats,
-    `windowed_expected` of the bf16 tensor-core lookup, `tf32_expected` of
-    the float32 one, none of the CUDA-core one); then the stage split on the
-    same inputs, CUDA events around `prepare` and each `decode_one`.
-    Returns (numbers, the split run's prepare output)."""
+    `windowed_expected` of the bf16 tensor-core lookup's fast case,
+    `general_expected` of its general case, `tf32_expected` of the float32
+    one's fast case, none of the float32 general case, the CUDA-core one or
+    a backward); then the stage split on the same inputs, CUDA events
+    around `prepare` and each `decode_one`. Returns (numbers, the split
+    run's prepare output)."""
     _, _, h, w, _ = img_xs.shape
     scale = ds_factor or 1
     interpolate_sequential(model, img_xs, ts, ds_factor)  # warm-up
@@ -751,6 +833,9 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     splats, wins = SPLAT_SORTED_KERNEL.launches, WINDOWED_CORR_MMA_KERNEL.launches
     tf32, cuda_core = WINDOWED_CORR_TF32_KERNEL.launches, WINDOWED_CORR_KERNEL.launches
     atomic, corr_bwd = SPLAT_KERNEL.launches, WINDOWED_CORR_BWD_KERNEL.launches
+    general = {k.name: k.launches for k in GENERAL_KERNELS}
+    want_general = {k.name: general_expected if k is WINDOWED_CORR_MMA_GENERAL_KERNEL else 0
+                    for k in GENERAL_KERNELS}
     total_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated()
 
@@ -765,11 +850,12 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
     if not (lo >= 0.0 and hi <= 1.0):
         raise AssertionError(f"{label}: imgt_pred leaves [0, 1]")
     if (splats != 2 * len(ts) or wins != windowed_expected or tf32 != tf32_expected
-            or cuda_core != 0 or atomic != 0 or corr_bwd != 0):
+            or cuda_core != 0 or atomic != 0 or corr_bwd != 0 or general != want_general):
         raise AssertionError(f"{label}: {splats} splat, {wins} windowed_corr_mma, {tf32} "
                              f"windowed_corr_tf32, {cuda_core} windowed_corr, {atomic} atomic "
-                             f"splat and {corr_bwd} windowed_corr_bwd launches, expected "
-                             f"{2 * len(ts)}, {windowed_expected}, {tf32_expected}, 0, 0 and 0")
+                             f"splat and {corr_bwd} windowed_corr_bwd launches, general cases "
+                             f"{general}, expected {2 * len(ts)}, {windowed_expected}, "
+                             f"{tf32_expected}, 0, 0, 0 and {want_general}")
     del out, imgs, flows
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(ts) + 2)]
@@ -786,14 +872,16 @@ def drive_path(model, img_xs, ts, ds_factor, windowed_expected: int, label: str,
             "prepare_ms": events[0].elapsed_time(events[1]),
             "decode_ms": statistics.mean(decode_ms), "peak_bytes": peak,
             "splat_launches": splats, "windowed_launches": wins, "tf32_launches": tf32,
-            "cuda_core_launches": cuda_core, "range": (lo, hi)}, prep
+            "cuda_core_launches": cuda_core, "general_launches": general,
+            "range": (lo, hi)}, prep
 
 
 def path_lines(phase: int, res: dict) -> str:
     return (f"imgt_pred finite in [{res['range'][0]:.4f}, {res['range'][1]:.4f}]; splat launches "
             f"{res['splat_launches']}, windowed_corr_mma launches {res['windowed_launches']}, "
             f"windowed_corr_tf32 launches {res['tf32_launches']}, "
-            f"windowed_corr launches {res['cuda_core_launches']}\n"
+            f"windowed_corr launches {res['cuda_core_launches']}, general cases "
+            f"{res['general_launches']}\n"
             f"[{phase}] {res['fps']:.4f} fps ({res['pair_ms']:.2f} ms per pair); prepare "
             f"{res['prepare_ms']:.2f} ms; decode_one mean {res['decode_ms']:.2f} ms; peak "
             f"allocated {res['peak_bytes']} B ({res['peak_bytes'] / 2**20:.1f} MiB)")
@@ -1000,43 +1088,232 @@ RADIUS3_BWD_CASES = [
 R_OPTIONS = {"num_flows": 2, "fwarp_type": "softmax", "corr_radius": 3, "coord_range": (-0.5, 0.5)}
 
 
-def check_refusals() -> list[str]:
-    """A radius of 5 or 5 levels on CUDA tensors: the routed forward kernel
-    of each dtype, `windowed_corr_lookup` and the backward kernel each
-    raise ValueError and launch nothing (no fallback to the plain
-    version). Returns the messages."""
-    said = []
-    for radius, levels in ((5, 4), (4, 5)):
-        for dtype in (torch.float32, torch.bfloat16):
-            wc, coords, _ = windowed_inputs((1, 40, 48), 32, dtype, "in_frame", levels, seed=SEED)
-            g = seeded_g(wc, coords, radius, SEED)
-            fwd = corr_ops.windowed_corr_kernel_for(dtype)
-            for name, call in ((fwd.name, lambda: fwd(wc, coords, radius)),
-                               ("windowed_corr_lookup",
-                                lambda: corr_ops.windowed_corr_lookup(wc, coords, radius)),
-                               (WINDOWED_CORR_BWD_KERNEL.name,
-                                lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius))):
-                before = [k.launches for k in KERNELS]
-                try:
-                    call()
-                except ValueError as e:
-                    said.append(str(e))
-                else:
-                    raise AssertionError(f"[7] {name} at radius {radius}, {levels} levels, "
-                                         f"{str(dtype)[6:]} on the card did not raise")
-                if [k.launches for k in KERNELS] != before:
-                    raise AssertionError(f"[7] {name} launched a kernel before refusing")
-    print(f"[7] radius 5 and 5 levels on CUDA tensors: {len(said)} refusals (each forward "
-          f"kernel, the route, the backward; no launch), e.g. {said[0]!r}", flush=True)
-    return said
+def check_big_windows() -> dict:
+    """The kernels' general case (a radius past 4 or more than 4 levels) in
+    `BIG_WINDOW_CASES`, both dtypes, against the plain version under
+    `windowed_agreement`'s bounds, through `windowed_corr_lookup` and the
+    routed kernel called directly: each call launches the general case once
+    a group of at most 4 levels and the fast case never. Returns the largest
+    errors by dtype."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(BIG_WINDOW_CASES):
+        wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + 400 + i)
+        kernel = corr_ops.windowed_corr_kernel_for(dtype)
+        groups = len(corr_ops.level_groups(levels))
+        ref = windowed_corr_lookup_plain(wc, coords, radius)
+        label = f"[7] general case {shape} C={c} {str(dtype)[6:]} r={radius} L={levels} {kind}"
+        for how, call in (("through windowed_corr_lookup",
+                           lambda: corr_ops.windowed_corr_lookup(wc, coords, radius)),
+                          ("called directly", lambda: kernel(wc, coords, radius))):
+            before = (kernel.launches, kernel.general.launches)
+            got = call()
+            torch.cuda.synchronize()
+            if (kernel.launches, kernel.general.launches) != (before[0], before[1] + groups):
+                raise AssertionError(f"{label} {how}: launched {kernel.name} "
+                                     f"{kernel.launches - before[0]} and {kernel.general.name} "
+                                     f"{kernel.general.launches - before[1]} times, expected 0 "
+                                     f"and {groups}")
+            agree = windowed_agreement(got, ref)
+            print(f"{label} {how} ({kernel.general.name}, {groups} launch"
+                  f"{'es' if groups > 1 else ''}): max_abs_err {agree['max_abs_err']:.3e}, "
+                  f"max|plain| {agree['scale']:.3e}, NaN {agree['nan']}, {agree['bad']} over "
+                  f"the bound, agrees {agree['ok']}", flush=True)
+            if not agree["ok"]:
+                raise AssertionError(f"the general case disagrees with the plain version: {label}")
+            worst[dtype] = max(worst[dtype], agree["max_abs_err"])
+        del wc, coords, ref, got
+    torch.cuda.empty_cache()
+    return {"cases": len(BIG_WINDOW_CASES), "max_abs_err_f32": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16]}
 
 
-def library_lookup_reading(wc, coords, label: str) -> dict:
+def check_big_windows_backward() -> dict:
+    """The backward's general case in `BIG_WINDOW_CASES` against
+    `windowed_corr_lookup_backward_plain` (`windowed_bwd_agreement`), with
+    d_coords and without, two calls of each with bitwise equal d_levels
+    (asserted), one general launch a group of levels a call and no fast
+    one; then the route: torch.autograd.grad of `windowed_corr_lookup` on
+    CUDA tensors against that of the plain lookup, coordinates with and
+    without grad, one forward and one backward launch a group."""
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    bwd, gen = WINDOWED_CORR_BWD_KERNEL, WINDOWED_CORR_BWD_GENERAL_KERNEL
+    for i, (c, dtype, kind, radius, levels, shape) in enumerate(BIG_WINDOW_CASES):
+        wc, coords, _ = windowed_inputs(shape, c, dtype, kind, levels, seed=SEED + 500 + i)
+        g = seeded_g(wc, coords, radius, SEED + 600 + i)
+        groups = len(corr_ops.level_groups(levels))
+        label = (f"[7] general case backward {shape} C={c} {str(dtype)[6:]} r={radius} "
+                 f"L={levels} {kind}")
+        plain = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+        for need_coords in (True, False):
+            before = (bwd.launches, gen.launches)
+            got = bwd(wc, coords, g, radius, need_coords)
+            again = bwd(wc, coords, g, radius, need_coords)
+            if (bwd.launches, gen.launches) != (before[0], before[1] + 2 * groups) or (
+                    got[2] is None) == need_coords:
+                raise AssertionError(f"{label}, need_coords {need_coords}: launches "
+                                     f"{bwd.launches - before[0]} fast, "
+                                     f"{gen.launches - before[1]} general, expected 0 and "
+                                     f"{2 * groups}, or its d_coords is wrong")
+            what = f"{label}{'' if need_coords else ', without d_coords'}"
+            assert_bitwise_repeat(what, got, again)
+            agree = bwd_agrees(what, got, plain)
+            worst[dtype] = [max(worst[dtype][0], agree["max_abs_err"]),
+                            max(worst[dtype][1], agree["coords_max_abs_err"])]
+        fwd = corr_ops.windowed_corr_kernel_for(dtype)
+        for with_coords in (True, False):
+            before = (fwd.general.launches, gen.launches)
+            routed = route_grads(wc, coords, radius, corr_ops.windowed_corr_lookup,
+                                 SEED + 700 + i, dtype, with_coords)
+            if (fwd.general.launches, gen.launches) != (before[0] + groups, before[1] + groups):
+                raise AssertionError(f"{label}: the route did not launch {fwd.general.name} and "
+                                     f"{gen.name} once a group each")
+            ref = route_grads(wc, coords, radius, windowed_corr_lookup_plain, SEED + 700 + i,
+                              torch.float32, with_coords)
+            bwd_agrees(f"{label}, through windowed_corr_lookup under autograd"
+                       f"{'' if with_coords else ', coords without grad'}", routed, ref)
+        del wc, coords, g, plain, got, again, routed, ref
+    torch.cuda.empty_cache()
+    return {"cases": len(BIG_WINDOW_CASES), "max_abs_err_f32": worst[torch.float32][0],
+            "max_abs_err_bf16": worst[torch.bfloat16][0],
+            "coords_max_abs_err": max(worst[torch.float32][1], worst[torch.bfloat16][1])}
+
+
+def plain_by_rows(wc, coords, radius: int, rows: int) -> torch.Tensor:
+    """`windowed_corr_lookup_plain` over `rows` query rows at a time: the
+    same values (the lookup is pointwise in the query), in less memory than
+    the whole lookup's gathered windows take at a large radius."""
+    n, _, h, w = coords.shape
+    c = wc.f1.shape[-1]
+    f1 = wc.f1.view(n, h, w, c)
+    outs = []
+    for r0 in range(0, h, rows):
+        r1 = min(h, r0 + rows)
+        part = WindowedCorr(f1[:, r0:r1].reshape(n, -1, c), wc.f2_levels, (r1 - r0, w))
+        outs.append(windowed_corr_lookup_plain(part, coords[:, :, r0:r1].contiguous(), radius))
+    return torch.cat(outs, dim=2)
+
+
+def lookup_reading(wc, coords, radius: int, label: str, smi: str, plain_rows: int) -> dict:
+    """The routed lookup at `radius` on these inputs (its fast or general
+    case, counted), held to the plain version first (`plain_by_rows`,
+    `plain_rows` query rows at a time); its events and device time against
+    its bound (bf16: bytes, or the dots at the bf16 tensor-core peak;
+    float32: bytes, or `TF32_PRODUCTS` TF32 products a float32 one at the
+    TF32 peak), the plain version's time and the library composition at the
+    same radius and levels (`library_lookup_reading`)."""
+    bf16 = wc.f1.dtype == torch.bfloat16
+    kernel = corr_ops.windowed_corr_kernel_for(wc.f1.dtype)
+    levels = len(wc.f2_levels)
+    fast = corr_ops.fast_case(levels, radius)
+    counted = kernel if fast else kernel.general
+    call = lambda: kernel(wc, coords, radius)  # noqa: E731
+    plain = lambda: plain_by_rows(wc, coords, radius, plain_rows)  # noqa: E731
+    before = counted.launches
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    if counted.launches - before != (1 if fast else len(corr_ops.level_groups(levels))):
+        raise AssertionError(f"{label}: {counted.name} launched {counted.launches - before} times")
+    agree = windowed_agreement(got, ref)
+    if not agree["ok"]:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version ({agree})")
+    del got, ref
+    nbytes, flops = corr_ops.windowed_corr_work(wc, coords, radius)
+    bound, bound_by = (bound_ms(nbytes, flops) if bf16
+                       else bound_ms(nbytes, TF32_PRODUCTS * flops, H100_TF32_FLOPS))
+    out = {"kernel": counted.name, "radius": radius, "levels": levels,
+           "max_abs_err": agree["max_abs_err"], "bound_ms": bound, "bound_by": bound_by,
+           "bytes": nbytes, "flops": flops, "ms": cuda_ms(call, warmup=3)}
+    _, rows = device_ms(call)
+    row = "windowed_corr_mma_kernel" if bf16 else "windowed_corr_tf32_kernel"
+    own = [v for k, v in rows.items() if row in k]
+    out["device_ms"] = sum(own) if own else None
+    out["plain_ms"] = cuda_ms(plain, iters=3)
+    out.update(library_lookup_reading(wc, coords, label, radius))
+    print(f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} {str(wc.f1.dtype)[6:]} r={radius} "
+          f"L={levels}: {counted.name} {out['ms']:.4f} ms by events "
+          f"({fmt_share(bound, out['ms'])}), device {fmt_ms(out['device_ms'])} "
+          f"({fmt_share(bound, out['device_ms'])}); bound {bound:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); plain {out['plain_ms']:.4f} ms "
+          f"({plain_rows} query rows at a time); max_abs_err {agree['max_abs_err']:.3e} of "
+          f"{agree['scale']:.3e}; {smi}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_readings(smi: str) -> dict:
+    """Phase 7: the forward at each (radius, levels) of `WINDOW_READINGS`
+    (the fast case, then the general case at radius 8 and at 6 levels), in
+    the same run: the bf16 kernel at the 2048x1088 DS 1.0 RAFT lookup
+    (2,136,256) and the 3xTF32 kernel at the 720p F AMT lookup (1,92,160),
+    C = 256, in-frame coordinates (`lookup_reading`)."""
+    out = {}
+    for key, shape, dtype, rows, where in (
+            ("mma", RAFT_2K, torch.bfloat16, 34, "the 2048x1088 DS 1.0 RAFT lookup"),
+            ("tf32", F_AMT_720P, torch.float32, 92, "the 720p F AMT lookup")):
+        for radius, levels in WINDOW_READINGS:
+            wc, coords, _ = windowed_inputs(shape, 256, dtype, "in_frame", levels, seed=SEED)
+            out[f"{key}_r{radius}_l{levels}"] = lookup_reading(
+                wc, coords, radius, f"[7] reading at {where}", smi, rows)
+            del wc, coords
+            torch.cuda.empty_cache()
+    return out
+
+
+def bwd_window_readings(smi: str) -> dict:
+    """Phase 7: the backward at radius 8 and at 6 levels (its general case),
+    beside the fast case's (b) and (c) readings of the same run: (a) the
+    stage-2 AMT lookup (4,28,28) float32 (its fast case too, on these
+    inputs), (b) the 720p F AMT lookup (1,92,160) float32 and (c) the
+    2048x1088 DS 1.0 RAFT lookup (2,136,256) bf16, in-frame coordinates,
+    each beside the yardstick (`bwd_reading`); (a) not at 6 levels, which
+    its 28x28 map pools to 1x1 and 0x0 (the yardstick's pooling and sampler
+    need 2 px a side). At (c) the plain backward's gathered windows would
+    take tens of GB: there the kernel is not held to it (it is at (a), (b)
+    and in `check_big_windows_backward`)."""
+    out = {}
+    for key, shape, dtype in (("a", STAGE2_AMT, torch.float32), ("b", F_AMT_720P, torch.float32),
+                              ("c", RAFT_2K, torch.bfloat16)):
+        for radius, levels in WINDOW_READINGS:
+            if (key != "a" and (radius, levels) == (4, 4)) or (key == "a" and levels > 4):
+                continue  # `check_windowed_backward`'s (b) and (c) readings; (a)'s map
+            wc, coords, _ = windowed_inputs(shape, 256, dtype, "in_frame", levels, seed=SEED)
+            g = seeded_g(wc, coords, radius, SEED + 1)
+            out[f"{key}_r{radius}_l{levels}"] = bwd_reading(
+                wc, coords, g, f"[7] ({key}) windowed backward at r={radius} L={levels}", smi,
+                True, radius, hold=key != "c")
+            del wc, coords, g
+            torch.cuda.empty_cache()
+    return out
+
+
+def cudnn_enabled(enabled: bool):
+    """cuDNN on or off for a block, every other cuDNN setting as it is."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=enabled, benchmark=b.benchmark, deterministic=b.deterministic,
+                   allow_tf32=b.allow_tf32)
+
+
+def sampler_that_runs(fn) -> tuple[bool, object]:
+    """(whether cuDNN is kept, fn's result): fn under cuDNN, or where cuDNN's
+    sampler refuses the size (`CUDNN_STATUS_NOT_SUPPORTED`, as `grid_sample`
+    at radius 8 over the 2K DS 1.0 volume), fn again with cuDNN off, so that
+    `grid_sample` takes PyTorch's own kernel."""
+    try:
+        return True, fn()
+    except RuntimeError as e:
+        if "CUDNN_STATUS_NOT_SUPPORTED" not in str(e):
+            raise
+    with cudnn_enabled(False):
+        return False, fn()
+
+
+def library_lookup_reading(wc, coords, label: str, radius: int = 4) -> dict:
     """The PyTorch composition that computes the lookup from the same maps
     (the state's query features times sqrt(C), its level 0): the
     materialized pyramid under a raised limit (`corr_pyramid_auto`: a bmm
-    volume and its pooling) and `corr_lookup` (grid_sample), as one call;
-    held to the routed kernel first (max-abs <= 1e-4 max|kernel| in
+    volume and its pooling) and `corr_lookup` (grid_sample; PyTorch's own
+    sampler where cuDNN's refuses the size, `sampler_that_runs`), as one
+    call; held to the routed kernel first (max-abs <= 1e-4 max|kernel| in
     float32, 2**-5 in bf16, whose volume is rounded before the sampling);
     its events and device time."""
     n, _, c = wc.f1.shape
@@ -1044,21 +1321,29 @@ def library_lookup_reading(wc, coords, label: str) -> dict:
     f1 = (wc.f1.float() * math.sqrt(c)).to(wc.f1.dtype).transpose(1, 2).reshape(n, c, h, w)
     f2 = wc.f2_levels[0].permute(0, 3, 1, 2)
 
-    def lib():
+    def composition():
         pyr = corr_ops.corr_pyramid_auto(f1, f2, len(wc.f2_levels), max_volume_bytes=1 << 42)
-        return corr_ops.corr_lookup_any(pyr, coords)
+        return corr_ops.corr_lookup_any(pyr, coords, radius)
 
-    got = lib().float()
-    want = corr_ops.windowed_corr_lookup(wc, coords).float()
+    use_cudnn, got = sampler_that_runs(composition)
+
+    def lib():
+        with cudnn_enabled(use_cudnn):
+            return composition()
+
+    got = got.float()
+    want = corr_ops.windowed_corr_lookup(wc, coords, radius).float()
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     if not err <= (1e-4 if wc.f1.dtype == torch.float32 else 2**-5) * scale:
         raise AssertionError(f"{label}: the library composition is {err:.3e} off the kernel "
                              f"(max {scale:.3e})")
     del got, want
-    out = {"library_max_abs_err": err, "library_ms": cuda_ms(lib, iters=5, warmup=1)}
+    out = {"library_max_abs_err": err, "library_ms": cuda_ms(lib, iters=5, warmup=1),
+           "library_sampler": "cuDNN" if use_cudnn else "PyTorch's own (cuDNN refuses the size)"}
     out["library_device_ms"], _ = device_ms(lib, iters=3)
     print(f"{label}: the library composition (corr_pyramid_auto with a raised limit + "
-          f"corr_lookup, {str(f1.dtype)[6:]} volume) {out['library_ms']:.4f} ms by events, "
+          f"corr_lookup, {str(f1.dtype)[6:]} volume, {out['library_sampler']} grid_sample) "
+          f"{out['library_ms']:.4f} ms by events, "
           f"device {fmt_ms(out['library_device_ms'])}; {err:.3e} off the kernel (max {scale:.3e})",
           flush=True)
     torch.cuda.empty_cache()
@@ -1130,7 +1415,7 @@ def check_windowed() -> dict:
              "max_abs_err_radius3_bf16": radius3[torch.bfloat16],
              "cuda_core_max_abs_err_cases_f32": cuda_core_err,
              "tolerance": "bf16 2**-7 |plain| + 1e-6 max|plain|; f32 1e-5 max|plain|",
-             "refusals": len(check_refusals())}
+             "general": check_big_windows()}
     for kind in PATH_KINDS:
         wc, coords, _ = windowed_inputs(RAFT_2K, 256, torch.bfloat16, kind)
         label = f"[7] at the 2048x1088 DS 1.0 RAFT lookup, {kind} coordinates"
@@ -1204,7 +1489,8 @@ def fmt_parts(parts: dict) -> str:
     return ", ".join(f"{k} {fmt_ms(v)}" for k, v in parts.items())
 
 
-def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int = 4) -> dict:
+def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int = 4,
+                hold: bool = True) -> dict:
     """The backward on these inputs: held to its plain version, two calls'
     d_levels asserted bitwise equal, its events and device time (the whole
     call and its parts, `bwd_parts`) against the bound (`bwd_bound`: the
@@ -1221,12 +1507,15 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
     rounded to bf16; the kernel's sums are float32). d_coords is held on the queries
     whose position lies at least 1e-3 px from an integer at every level: the
     bilinear weights' derivative jumps at integers, and grid_sample's
-    normalized grid rounds a position there to either side."""
+    normalized grid rounds a position there to either side. Without `hold`
+    the plain version is neither run nor timed (its errors and time None)."""
     call = lambda: WINDOWED_CORR_BWD_KERNEL(wc, coords, g, radius)  # noqa: E731
     first, second = call(), call()
-    ref = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
-    agree = bwd_agrees(f"{label}, held to its plain version", first, ref)
-    del ref
+    agree = {"max_abs_err": None, "coords_max_abs_err": None}
+    if hold:
+        ref = windowed_corr_lookup_backward_plain(wc, coords, g, radius)
+        agree = bwd_agrees(f"{label}, held to its plain version", first, ref)
+        del ref
     assert_bitwise_repeat(label, first, second)
     work = bwd_bound(wc, coords, radius)
     bound, bound_by, nbytes = work["bound_ms"], work["bound_by"], work["bytes"]
@@ -1247,8 +1536,8 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
     out["no_coords_parts_device_ms"] = bwd_parts(out["no_coords_device_ms"], rows)
     out["forward_ms"] = cuda_ms(lambda: fwd(wc, coords, radius), warmup=2)
     out["forward_device_ms"] = kernel_row(device_ms(lambda: fwd(wc, coords, radius))[1], fwd_row)
-    out["plain_ms"] = cuda_ms(lambda: windowed_corr_lookup_backward_plain(wc, coords, g, radius),
-                              iters=3)
+    out["plain_ms"] = (cuda_ms(lambda: windowed_corr_lookup_backward_plain(wc, coords, g, radius),
+                               iters=3) if hold else None)
     out["library_ms"] = out["library_device_ms"] = None
     text = ""
     if library:
@@ -1258,10 +1547,18 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
         fmap1 = fmap1.detach().requires_grad_()
         fmap2 = wc.f2_levels[0].permute(0, 3, 1, 2).detach().requires_grad_()
         xy = coords.detach().clone().requires_grad_()
-        vol = corr_ops.corr_lookup(corr_ops.corr_pyramid(fmap1, fmap2, len(wc.f2_levels)), xy,
-                                   radius)
-        lib = lambda: torch.autograd.grad(vol, (fmap1, fmap2, xy), g, retain_graph=True)  # noqa: E731
-        d_fmap1, _, d_xy = lib()
+
+        def forward_and_grads():
+            vol = corr_ops.corr_lookup(corr_ops.corr_pyramid(fmap1, fmap2, len(wc.f2_levels)),
+                                       xy, radius)
+            return vol, torch.autograd.grad(vol, (fmap1, fmap2, xy), g, retain_graph=True)
+
+        use_cudnn, (vol, (d_fmap1, _, d_xy)) = sampler_that_runs(forward_and_grads)
+
+        def lib():
+            with cudnn_enabled(use_cudnn):
+                return torch.autograd.grad(vol, (fmap1, fmap2, xy), g, retain_graph=True)
+
         want = first[0].float().transpose(1, 2).reshape(n, c, h, w) / math.sqrt(c)
         level_xy = [coords / 2.0**i for i in range(len(wc.f2_levels))]
         clear = torch.stack([(x - x.floor() - 0.5).abs() <= 0.5 - 1e-3 for x in level_xy])
@@ -1275,12 +1572,15 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
         out["library_queries_held"] = float(clear[:, 0].float().mean())
         out["library_ms"] = cuda_ms(lib, warmup=2)
         out["library_device_ms"], _ = device_ms(lib, iters=5)
+        out["library_sampler"] = "cuDNN" if use_cudnn else "PyTorch's own (cuDNN refuses the size)"
         text = (f"; yardstick (autograd backward of the materialized corr_lookup over "
-                f"corr_pyramid, d_fmap1 and d_coords {gaps[0]:.2e}, {gaps[1]:.2e} of the "
+                f"corr_pyramid, {out['library_sampler']} grid_sample, d_fmap1 and d_coords "
+                f"{gaps[0]:.2e}, {gaps[1]:.2e} of the "
                 f"kernel's, d_coords on {100 * out['library_queries_held']:.2f}% of the "
                 f"queries) {out['library_ms']:.4f} ms by events, device "
                 f"{fmt_ms(out['library_device_ms'])}")
         del vol, fmap1, fmap2, xy, d_fmap1, d_xy
+    plain = "not run" if out["plain_ms"] is None else f"{out['plain_ms']:.4f} ms"
     print(f"{label} {tuple(coords.shape)} C={wc.f1.shape[-1]} {str(wc.f1.dtype)[6:]}: "
           f"{WINDOWED_CORR_BWD_KERNEL.name} {out['ms']:.4f} ms by events "
           f"({fmt_share(bound, out['ms'])}), device {fmt_ms(out['device_ms'])} "
@@ -1294,7 +1594,7 @@ def bwd_reading(wc, coords, g, label: str, smi: str, library: bool, radius: int 
           f"{out['no_coords_bound_ms']:.4f} ms {out['no_coords_bound_by']} bound; "
           f"{fmt_parts(out['no_coords_parts_device_ms'])}); the forward "
           f"{fwd.name} {out['forward_ms']:.4f} ms by events, device "
-          f"{fmt_ms(out['forward_device_ms'])}; plain {out['plain_ms']:.4f} ms{text}; d_levels "
+          f"{fmt_ms(out['forward_device_ms'])}; plain {plain}{text}; d_levels "
           f"bitwise equal over two calls; {smi}", flush=True)
     return out
 
@@ -1378,6 +1678,8 @@ def check_windowed_backward(smi: str) -> dict:
                                library)
         del wc, coords, g
         torch.cuda.empty_cache()
+    res["general"] = check_big_windows_backward()
+    res["readings"] = bwd_window_readings(smi)
     return res
 
 
@@ -1560,6 +1862,27 @@ def decode_turns(model, prep, tv, iters: int = 5) -> dict:
     return {k: statistics.mean(v) for k, v in times.items()}
 
 
+def run_wide_radius_path(smi: str) -> dict:
+    """Phase 8 (d): GIMMVFI_R(raft_iters=20, dtype=bfloat16, corr_radius=6)
+    at 2048x1088 DS 1.0 on (c)'s seeded pair, 7 timesteps (`drive_path`):
+    RAFT's 20 lookups (radius 4) on the bf16 kernel's fast case and the
+    AMT's 14 (radius 6, two a timestep) on its general case, exactly; fps,
+    the prepare/decode_one split and the peak."""
+    model = init_normal_(GIMMVFI_R(raft_iters=20, dtype=torch.bfloat16, corr_radius=6), SEED)
+    h, w = DS_PATHS[2][1]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    img_xs = torch.rand((1, 2, h, w, 3), generator=gen).cuda()
+    ts = [(i + 1) / (N_T + 1) for i in range(N_T)]
+    res, prep = drive_path(model, img_xs, ts, 1.0, model.flow_estimator.iters, "(d)",
+                           general_expected=2 * N_T)
+    print(f"[8] (d) {w}x{h} DS 1.0 bf16 8x, GIMMVFI_R(raft_iters=20, corr_radius=6), windowed "
+          f"correlation (the AMT's radius 6 on the general case): {path_lines(8, res)}; {smi}",
+          flush=True)
+    del prep, model, img_xs
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_f_path(smi: str) -> dict:
     """Phase 9 (a): GIMMVFI_F(ff_iters=32, bf16) at 720p, 7 timesteps. The
     float32 feature map's bidirectional volume (2.31 GB) is over the limit,
@@ -1665,17 +1988,23 @@ def counts() -> dict:
             "splat_bwd": SPLAT_BACKWARD_KERNEL.launches,
             "tf32": WINDOWED_CORR_TF32_KERNEL.launches,
             "mma": WINDOWED_CORR_MMA_KERNEL.launches, "cuda_core": WINDOWED_CORR_KERNEL.launches,
-            "corr_bwd": WINDOWED_CORR_BWD_KERNEL.launches}
+            "corr_bwd": WINDOWED_CORR_BWD_KERNEL.launches,
+            "tf32_general": WINDOWED_CORR_TF32_GENERAL_KERNEL.launches,
+            "mma_general": WINDOWED_CORR_MMA_GENERAL_KERNEL.launches,
+            "corr_bwd_general": WINDOWED_CORR_BWD_GENERAL_KERNEL.launches}
 
 
 def expect_counts(label: str, got: dict, splat: int, tf32: int = 0, splat_bwd: int = 0,
-                  phase: int = 10, corr_bwd: int = 0):
+                  phase: int = 10, corr_bwd: int = 0, tf32_general: int = 0,
+                  corr_bwd_general: int = 0):
     """Exact launch counts of a phase 10 to 13 path: `splat` sorted splats,
-    `splat_bwd` splat backwards, `tf32` float32 windowed lookups, `corr_bwd`
-    windowed lookup backwards, no atomic splat, no bf16 or CUDA-core
-    lookup."""
+    `splat_bwd` splat backwards, `tf32` float32 windowed lookups and
+    `tf32_general` of their general case, `corr_bwd` windowed lookup
+    backwards and `corr_bwd_general` of their general case, no atomic
+    splat, no bf16 or CUDA-core lookup."""
     want = {"splat": splat, "splat_atomic": 0, "splat_bwd": splat_bwd, "tf32": tf32, "mma": 0,
-            "cuda_core": 0, "corr_bwd": corr_bwd}
+            "cuda_core": 0, "corr_bwd": corr_bwd, "tf32_general": tf32_general,
+            "mma_general": 0, "corr_bwd_general": corr_bwd_general}
     if got != want:
         raise AssertionError(f"[{phase}] {label}: launches {got}, expected {want}")
 
@@ -2588,6 +2917,35 @@ def check_vfi_step_gpu_vs_cpu() -> dict:
     return readings
 
 
+def check_wide_radius_step() -> dict:
+    """Phase 12 (f): one stage-2 step of GIMMVFI_R(raft_iters=2,
+    corr_radius=5, corr_max_volume_bytes=0) at 128x128, batch 2, on the card
+    and on the CPU from the same seeded weights and batch: RAFT's 2 x 2
+    lookups (radius 4) and their backwards on the fast cases, the AMT's 2
+    (radius 5) on the 3xTF32 kernel's general case and the backward's,
+    counted exactly; (b)'s bounds (`hold_stage2_step`)."""
+    cfg = load_config(RECIPE2)
+    kw = {"corr_radius": 5, "corr_max_volume_bytes": 0}
+    torch.manual_seed(SEED + 26)
+    weights = GIMMVFI_R(raft_iters=2, device="cpu", **kw).state_dict()
+    batch = vfi_batch(2, (128, 128), SEED + 27, device="cpu")
+    cpu = vfi_step_fields(cfg, "cpu", weights, batch, **kw)
+    reset_counts()
+    gpu = vfi_step_fields(cfg, "cuda", weights, batch, **kw)
+    got = counts()
+    expect_counts("(f) the radius-5 windowed step", got, STEP_SPLATS, tf32=4, splat_bwd=STEP_SPLATS,
+                  phase=12, corr_bwd=4, tf32_general=2, corr_bwd_general=2)
+    readings = stage2_readings()
+    hold_stage2_step(cpu, gpu, "[12] (f) radius 5 windowed", readings, SEED + 26)
+    print(f"[12] (f) one stage-2 step of GIMMVFI_R(raft_iters=2, corr_radius=5, "
+          f"corr_max_volume_bytes=0) at 128x128, batch 2, GPU vs CPU: launches {got}; "
+          f"{fmt_stage2(readings)}", flush=True)
+    del cpu, gpu, weights, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, **readings}
+
+
 def run_windowed_step(smi: str, lpips_path: Path, p12_step: dict) -> dict:
     """Phase 12 (e): (a)'s recipe step with `corr_max_volume_bytes=0`, so
     that RAFT's lookups and the AMT's go to the float32 windowed kernel and
@@ -2784,6 +3142,7 @@ def run_phase12(smi: str, stage1_ckpt: str) -> dict:
     parts = {"step": lambda: run_stage2_step(smi, RECIPE2, GIMMVFI_R, "a", TIMED_STEPS, lpips_path,
                                              True, raft_iters=load_config(RECIPE2).arch.raft_iter),
              "gpu_vs_cpu": check_vfi_step_gpu_vs_cpu,
+             "wide_radius_step": check_wide_radius_step,
              "cli": lambda: run_stage2_cli(smi, stage1_ckpt, lpips_path),
              "f_step": lambda: run_stage2_step(smi, RECIPE2_F, GIMMVFI_F, "d", 3, lpips_path, False)}
     res, seconds = {}, {}
@@ -3282,6 +3641,22 @@ def run_phase15(main_res: dict, ds: dict, f720: dict, benches: dict, smi: str) -
     return res
 
 
+def general_numbers(readings, key):
+    """A general case's numbers: at radius 8 (4 levels) as its own, at
+    6 levels (radius 4) and the fast case at radius 4 (4 levels) of the
+    same run beside them, where read."""
+    main = readings[f"{key}_r8_l4"]
+    out = {k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_device_ms")}
+    out["radius"], out["levels"] = 8, 4
+    for label, reading in (("levels6", readings.get(f"{key}_r4_l6")),
+                           ("fast_r4", readings.get(f"{key}_r4_l4"))):
+        if reading is not None:
+            out.update({f"{label}_{k}": reading[k] for k in ("ms", "device_ms", "bound_ms",
+                                                             "bound_by", "library_ms")})
+    return out
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3293,6 +3668,15 @@ def main():
     options_db = {label: check_small_e2e(4, (128, 192), None, limit, **R_OPTIONS)
                   for label, limit in (("materialized", corr_ops.MAX_VOLUME_BYTES),
                                        ("windowed", 0))}
+    # the general case on small paths: the AMT at radius 6 in both dtypes,
+    # RAFT at 5 levels and radius 5
+    wide_small = {}
+    for dtype, general in ((torch.float32, WINDOWED_CORR_TF32_GENERAL_KERNEL),
+                           (torch.bfloat16, WINDOWED_CORR_MMA_GENERAL_KERNEL)):
+        db, fast = check_small_e2e(4, (128, 192), None, 0, dtype=dtype, corr_radius=6)
+        wide_small[str(dtype)[6:]] = {"db": db, "fast_launches": fast,
+                                      "general_launches": general.launches}
+    raft_l5 = check_raft_gpu_vs_cpu()
     splat_launches, main_splat, main_res = run_main_path()
     torch.cuda.empty_cache()
     conv_err = check_conv()
@@ -3316,9 +3700,13 @@ def main():
           f"{conv['plain_ms']:.4f} ms; {smi}",
           flush=True)
     torch.cuda.empty_cache()
+    t7 = time.perf_counter()
     wstats = check_windowed()
+    wstats["readings"] = window_readings(smi)
     bstats = check_windowed_backward(smi)
+    print(f"[7] phase 7 took {time.perf_counter() - t7:.2f} s", flush=True)
     ds = run_ds_paths()
+    wide = run_wide_radius_path(smi)
     f720 = run_f_path(smi)
     benches = run_bench_entries()
     f_db = {label: check_small_e2e(9, (128, 192), None, limit, family=GIMMVFI_F)
@@ -3400,7 +3788,6 @@ def main():
                max_abs_err_cases_bf16=wstats["max_abs_err_cases_bf16"],
                max_abs_err_radius3=wstats["max_abs_err_radius3_bf16"],
                library_max_abs_err=wstats["in_frame"]["library_max_abs_err"],
-               refusals=wstats["refusals"],
                tolerance=wstats["tolerance"], **windowed_numbers("mma"),
                extent_in_frame=fmt_extent(wstats["in_frame"]),
                extent_smooth=fmt_extent(wstats["smooth"]),
@@ -3477,11 +3864,45 @@ def main():
     ] + [
         record(GATHERS[name][0], launches[name], max_abs_err=gather_err[name], **gathers[name])
         for name in GATHERS
+    ] + [
+        # the general cases: their launches on their own paths, their times
+        # at radius 8 beside the fast case's and at 6 levels in the same run
+        record(WINDOWED_CORR_MMA_GENERAL_KERNEL,
+               wide["general_launches"][WINDOWED_CORR_MMA_GENERAL_KERNEL.name],
+               max_abs_err=max(wstats["general"]["max_abs_err_bf16"],
+                               *(r["max_abs_err"] for k, r in wstats["readings"].items()
+                                 if k.startswith("mma"))),
+               launches_phase4_bf16=wide_small["bfloat16"]["general_launches"],
+               phase8_d={k: wide[k] for k in ("fps", "pair_ms", "prepare_ms", "decode_ms",
+                                              "peak_bytes", "windowed_launches")},
+               **general_numbers(wstats["readings"], "mma")),
+        record(WINDOWED_CORR_TF32_GENERAL_KERNEL, wide_small["float32"]["general_launches"],
+               max_abs_err=max(wstats["general"]["max_abs_err_f32"],
+                               *(r["max_abs_err"] for k, r in wstats["readings"].items()
+                                 if k.startswith("tf32"))),
+               launches_raft_levels5=raft_l5["launches"],
+               launches_phase12_wide_step=p12["wide_radius_step"]["launches"]["tf32_general"],
+               **general_numbers(wstats["readings"], "tf32")),
+        record(WINDOWED_CORR_BWD_GENERAL_KERNEL,
+               p12["wide_radius_step"]["launches"]["corr_bwd_general"],
+               max_abs_err=max(bstats["general"]["max_abs_err_f32"],
+                               bstats["general"]["max_abs_err_bf16"],
+                               *(r["max_abs_err"] for r in bstats["readings"].values()
+                                 if r["max_abs_err"] is not None)),
+               coords_max_abs_err=bstats["general"]["coords_max_abs_err"],
+               **general_numbers(bstats["readings"], "b"),
+               **{f"{key}_{k}": bstats["readings"][key][k]
+                  for key in ("a_r4_l4", "a_r8_l4", "c_r8_l4", "c_r4_l6")
+                  for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}),
     ]
     print(f"[4] GIMMVFI_R(2, {', '.join(f'{k}={v}' for k, v in R_OPTIONS.items())}) GPU vs CPU: "
           f"{options_db['materialized'][0]:.2f} dB materialized, {options_db['windowed'][0]:.2f} "
-          f"dB windowed ({options_db['windowed'][1]} windowed_corr_tf32 launches at radius 3)",
-          flush=True)
+          f"dB windowed ({options_db['windowed'][1]} windowed_corr_tf32 launches at radius 3); "
+          f"GIMMVFI_R(2, corr_radius=6, corr_max_volume_bytes=0) "
+          + ", ".join(f"{k} {v['db']:.2f} dB ({v['fast_launches']} fast, {v['general_launches']} "
+                      f"general launches)" for k, v in wide_small.items())
+          + f"; RAFT at 5 levels, radius 5: flows {raft_l5['max_abs_err'] / raft_l5['scale']:.2e} "
+          f"relative", flush=True)
     print(f"[9] F path: {f720['fps']:.4f} fps at 720p; bench lines "
           f"{json.dumps(benches)}; GPU vs CPU F {f_db['materialized'][0]:.2f} dB materialized, "
           f"{f_db['windowed'][0]:.2f} dB windowed", flush=True)

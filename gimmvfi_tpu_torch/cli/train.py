@@ -138,16 +138,15 @@ def add_subsample(batch: dict, rng: np.random.Generator, ratio: float,
 
 
 def build_model(cfg, arch: str, device: torch.device) -> torch.nn.Module:
-    """The config's model, float32, from torch's global generator, with the
-    config's `fwarp_type` and `coord_range`."""
-    kw = {"coord_range": tuple(cfg.arch.coord_range), "fwarp_type": cfg.arch.fwarp_type,
-          "device": device}
+    """The config's model, float32, from torch's global generator, built as
+    the JAX CLI builds it (`gimmvfi_tpu/cli/train.py`): every option at its
+    default except GIMM-VFI-R's `raft_iters`, the config's `arch.raft_iter`."""
     if arch == "gimm":
-        return GIMM(**kw)
+        return GIMM(device=device)
     if arch == "gimmvfi_r":
-        return GIMMVFI_R(raft_iters=cfg.arch.raft_iter, **kw)
+        return GIMMVFI_R(raft_iters=cfg.arch.raft_iter, device=device)
     if arch == "gimmvfi_f":
-        return GIMMVFI_F(**kw)
+        return GIMMVFI_F(device=device)
     raise ValueError(f"unknown arch: {arch}")
 
 

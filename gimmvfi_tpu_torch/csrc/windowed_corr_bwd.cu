@@ -106,6 +106,30 @@
 // destination kernel 128 (16 bytes of spill stores, both dtypes).
 // chip_smoke.py phase 12 (e): the windowed stage-2 step's 42 backwards
 // 6.96 ms of their own kernels' time (31.30 before).
+//
+// That is the fast case: at most 4 levels and a radius of at most 4. Any
+// other radius and level count takes the general case, the same two parts
+// with three changes:
+//   - levels in groups of at most 4, each group a backward of its own (its
+//     keys, sort, plan and destination side; its first level's index gives
+//     the coordinates' scale and g's channels); the query side
+//     (`windowed_corr_bwd_query_general_kernel`) takes a block a (tile,
+//     level) and writes float32 parts of d_f1 and d_coords a level, which
+//     `windowed_corr_bwd_level_sum` adds over all levels in level order;
+//   - the window in tap tiles of at most 9 x 9 outputs, as the forward
+//     kernels' general case: the query side computes every tap's ds from g
+//     (in global memory) into the scratch first, then walks each tile's
+//     (ni+1) x (nj+1) taps as the fast case walks its window: the dots of
+//     the tile's taps give the tile's outputs' terms of dfx and dfy, and
+//     d_f1 takes ds x pixel on the taps the tile owns (its first ni and nj
+//     tap columns and rows, the last tile of a row or column also the
+//     window's last), so each tap counts once;
+//   - the key geometry follows the span: keys are 8x8 tiles of window bases
+//     on the map padded by pad = 8 ceil((span - 1) / 8) on its low sides, and
+//     a destination tile's candidates are the reach x reach key tiles from
+//     its own (reach = pad / 8 + 1; the fast case keeps pad 16 and reach 3);
+//     the destination side stages, for each kept candidate, the 8x8 block of
+//     its ds that falls on the tile (zeros off its window).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,7 +140,9 @@ constexpr int kMaxC = 256;
 constexpr int kMaxLevels = 4;
 constexpr int kMaxRadius = 4;
 constexpr int kMaxSpan = 2 * kMaxRadius + 2;
+constexpr int kMaxWin = kMaxSpan - 1;  // outputs a tap tile of the general case a side
 constexpr int kKeyPad = 16;  // a live window's base x0 >= -(span - 1) >= -9, so x0 + 16 >= 0
+constexpr int kReach = 3;    // key tiles a side of a destination tile's candidates (fast case)
 constexpr int kTile = 8;     // destination tiles: 8x8 pixels of a level's map
 constexpr int kFar = 1 << 30;  // an empty extent is [kFar, -kFar)
 constexpr unsigned kAll = 0xffffffffu;
@@ -154,27 +180,36 @@ struct LevelGrads {
 };
 
 // The levels' sizes, key tiles and destination tiles. Keys: level l's
-// (KY_l, KX_l) = ((h_l + 23) / 8, (w_l + 23) / 8) tiles of 8x8 bases of the
-// map padded by 16 on the low sides; image n, level l, base (x0, y0) has key
-// n * keys_per_image + key_base[l] + ((y0 + 16) / 8) * KX_l + (x0 + 16) / 8;
-// a window off the map (or a non-finite coordinate) the sentinel
-// n_images * keys_per_image. Destination tiles: (TY_l, TX_l) = ((h_l + 7) /
-// 8, (w_l + 7) / 8) a level, numbered image, level, row, column.
+// (KY_l, KX_l) = ((h_l + pad + 7) / 8, (w_l + pad + 7) / 8) tiles of 8x8
+// bases of the map padded by `pad` on the low sides (16 in the fast case:
+// (h_l + 23) / 8); image n, level l, base (x0, y0) has key n *
+// keys_per_image + key_base[l] + ((y0 + pad) / 8) * KX_l + (x0 + pad) / 8;
+// a window off the map (or a non-finite coordinate) the sentinel n_images *
+// keys_per_image. A destination tile's candidates are the reach x reach key
+// tiles from its own row and column. Destination tiles: (TY_l, TX_l) =
+// ((h_l + 7) / 8, (w_l + 7) / 8) a level, numbered image, level, row, column.
 struct Geometry {
   int h[kMaxLevels], w[kMaxLevels];
   int kx[kMaxLevels], key_base[kMaxLevels];
   int tx[kMaxLevels], tile_base[kMaxLevels];
   int keys_per_image, tiles_per_image, sentinel;
+  int pad, reach;
 };
 
-Geometry make_geometry(int n, int levels, const int* h, const int* w) {
+// The key padding of a span's general case: a live window's base x0 >=
+// -(span - 1), padded to a multiple of 8.
+int general_pad(int span) { return 8 * ((span - 1 + 7) / 8); }
+
+Geometry make_geometry(int n, int levels, const int* h, const int* w, int pad = kKeyPad) {
   Geometry geo = {};
+  geo.pad = pad;
+  geo.reach = pad / 8 + 1;
   for (int l = 0; l < levels; ++l) {
     geo.h[l] = h[l];
     geo.w[l] = w[l];
-    geo.kx[l] = (w[l] + 23) / 8;
+    geo.kx[l] = (w[l] + pad + 7) / 8;
     geo.key_base[l] = geo.keys_per_image;
-    geo.keys_per_image += geo.kx[l] * ((h[l] + 23) / 8);
+    geo.keys_per_image += geo.kx[l] * ((h[l] + pad + 7) / 8);
     geo.tx[l] = (w[l] + 7) / 8;
     geo.tile_base[l] = geo.tiles_per_image;
     geo.tiles_per_image += geo.tx[l] * ((h[l] + 7) / 8);
@@ -196,7 +231,7 @@ __device__ __forceinline__ void tile_coords(const Geometry& geo, int levels, int
 }
 
 // The first key of a destination tile's first candidate key row: its key
-// rows are ty, ty + 1, ty + 2, each the key tiles tx, tx + 1, tx + 2.
+// rows are ty .. ty + reach - 1, each the key tiles tx .. tx + reach - 1.
 __device__ __forceinline__ int first_candidate_key(const Geometry& geo, int n, int l, int ty, int tx) {
   return n * geo.keys_per_image + geo.key_base[l] + ty * geo.kx[l] + tx;
 }
@@ -212,6 +247,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 // 16 bytes, of which the first src_bytes come from src and the rest are zeros
 __device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+// 4 bytes, from src if src_bytes is 4, else a zero
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -448,7 +487,11 @@ struct Stage {
   int y, x, end;
 };
 
-template <typename T>
+// kGeneral: a block a (tile, level) of the group [level0, level0 + levels) of
+// a lookup of out_levels levels, the window in tap tiles, float32 parts of
+// d_f1 and d_coords a level; else the fast case (level0 0, out_levels =
+// levels, one tile, `split` choosing the blocks).
+template <typename T, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 windowed_corr_bwd_query_kernel(const T* __restrict__ f1, Levels<T> lv, Geometry geo,
                                const float* __restrict__ coords, const T* __restrict__ g,
@@ -456,7 +499,7 @@ windowed_corr_bwd_query_kernel(const T* __restrict__ f1, Levels<T> lv, Geometry 
                                float* __restrict__ d_f1_part, float* __restrict__ d_coords_part,
                                float* __restrict__ ds_out, int* __restrict__ keys,
                                int* __restrict__ bases, int h, int w, int c, int levels,
-                               int radius, int split) {
+                               int radius, int split, int level0, int out_levels) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // this warp's channel slice: k-steps [ks0, ks0 + nks) of 8 channels
@@ -468,14 +511,18 @@ windowed_corr_bwd_query_kernel(const T* __restrict__ f1, Levels<T> lv, Geometry 
   const int stage_elems = kStagePx * rs;
   T* ring = reinterpret_cast<T*>(smem) + warp * kStages * stage_elems;  // this warp's
   float* red = reinterpret_cast<float*>(smem + ring_bytes<T>(c));      // [2][kWarps][kElems][32]
-  float* s = red + 2 * kWarps * kElems * 32;   // [kTileQ][kSRow]: a level's g, then its dots
-  float* sds = s + kTileQ * kSRow;             // [kTileQ][kSRow]: a level's ds
+  // [kTileQ][kSRow]: a level's g, then its dots (general: a tap tile's dots)
+  float* s = red + 2 * kWarps * kElems * 32;
+  // [kTileQ][kSRow]: a level's ds (general: a tap tile's, on the taps it owns)
+  float* sds = s + kTileQ * kSRow;
   float* sfxy = sds + kTileQ * kSRow;          // [kTileQ][2]: fx, fy
   float* spart = sfxy + 2 * kTileQ;            // [kWarps][kTileQ][2]: dfx, dfy partials
   int* sxy = reinterpret_cast<int*>(spart + 2 * kWarps * kTileQ);  // [kTileQ][2]: x0, y0
   int* sbad = sxy + 2 * kTileQ;  // [kTileQ]: a non-finite ds on a tap off the map, any level
 
   const int win = 2 * radius + 1, span = win + 1, nout = win * win, ntaps = span * span;
+  // tap tiles a side: ceil(win / kMaxWin) in the general case
+  const int parts = kGeneral ? (win + kMaxWin - 1) / kMaxWin : 1;
   const int p = h * w;
   const int tiles_x = (w + kTileQ - 1) / kTileQ;
   // split: a block a (tile, level), level 0's (the longest walks) first;
@@ -521,250 +568,318 @@ windowed_corr_bwd_query_kernel(const T* __restrict__ f1, Levels<T> lv, Geometry 
   for (int l = l_begin; l < l_end; ++l) {
     const int hl = geo.h[l], wl = geo.w[l];
     const T* __restrict__ f2 = lv.f2[l] + (int64_t)n * hl * wl * c + kw0;
-    const float scale = 1.0f / (float)(1 << l);  // exact: a power of two
+    // exact: a power of two
+    const float scale = kGeneral ? ldexpf(1.0f, -(level0 + l)) : 1.0f / (float)(1 << l);
     const float cx = cx_full * scale, cy = cy_full * scale;
     const float flx = floorf(cx), fly = floorf(cy);
     const float fx = cx - flx, fy = cy - fly;
-    int x0 = window_start(flx, radius, span, wl);
-    const int y0 = window_start(fly, radius, span, hl);
-    if (!q_ok) x0 = -span - 1;  // a query past the image row takes no tap
-    // the window's part on the map; empty off it (and for non-finite coordinates)
-    int wx0 = max(x0, 0), wx1 = min(x0 + span, wl);
-    int wy0 = max(y0, 0), wy1 = min(y0 + span, hl);
-    const bool live = wx0 < wx1 && wy0 < wy1;
-    if (!live) {
-      wx0 = wy0 = kFar;
-      wx1 = wy1 = -kFar;
-    }
-    const int x0_lo = __shfl_sync(kAll, x0, gq), y0_lo = __shfl_sync(kAll, y0, gq);
-    const int x0_hi = __shfl_sync(kAll, x0, gq + 8), y0_hi = __shfl_sync(kAll, y0, gq + 8);
-    const int uy0 = __reduce_min_sync(kAll, wy0), uy1 = __reduce_max_sync(kAll, wy1);
+    int x0_full = window_start(flx, radius, span, wl);
+    const int y0_full = window_start(fly, radius, span, hl);
+    if (!q_ok) x0_full = -span - 1;  // a query past the image row takes no tap
+    // the whole window on the map (its key), or off it
+    const bool live = max(x0_full, 0) < min(x0_full + span, wl) && max(y0_full, 0) < min(y0_full + span, hl);
+    const int pad = kGeneral ? geo.pad : kKeyPad;
     const int64_t entry0 = ((int64_t)n * levels + l) * p + pq0;  // the tile's first entry
 
     __syncthreads();  // the last level's readers of s, sds and the geometry are done
     if (warp == 0 && lane < kTileQ) {
       sfxy[2 * lane] = fx;
       sfxy[2 * lane + 1] = fy;
-      sxy[2 * lane] = x0;
-      sxy[2 * lane + 1] = y0;
+      sxy[2 * lane] = x0_full;
+      sxy[2 * lane + 1] = y0_full;
       if (q_ok) {
         keys[entry0 + lane] = live ? n * geo.keys_per_image + geo.key_base[l] +
-                                         ((y0 + kKeyPad) >> 3) * geo.kx[l] + ((x0 + kKeyPad) >> 3)
+                                         ((y0_full + pad) >> 3) * geo.kx[l] + ((x0_full + pad) >> 3)
                                    : geo.sentinel;
-        bases[entry0 + lane] = (x0 & 0xffff) | (int)((uint32_t)y0 << 16);
+        bases[entry0 + lane] = (x0_full & 0xffff) | (int)((uint32_t)y0_full << 16);
       }
     }
-    // this level's g of the tile's queries, gv[q][i * win + j], read along P
-    const T* __restrict__ gl = g + ((int64_t)n * levels * nout + (int64_t)l * nout) * p + pq0;
-    for (int e = tid; e < nout * kTileQ; e += kThreads) {
-      const int k = e >> 4, qq = e & (kTileQ - 1);
-      s[qq * kSRow + k] = qq < nq ? to_float(gl[(int64_t)k * p + qq]) : 0.0f;
-    }
-    __syncthreads();
-
-    // ds of each query and tap, into sds and the scratch (the tile's
-    // entries' rows are contiguous there)
-    for (int e = tid; e < nq * ntaps; e += kThreads) {
-      const int qq = e / ntaps, t = e - qq * ntaps;
-      const int a = t / span, b = t - a * span;
-      const float qfx = sfxy[2 * qq], qfy = sfxy[2 * qq + 1];
-      const float ofx = 1.0f - qfx, ofy = 1.0f - qfy;
-      const float* gv = s + qq * kSRow;  // gv[i * win + j]
-      auto dsy = [&](int j) {
-        return b == 0     ? gv[j] * ofx
-               : b == win ? gv[(win - 1) * win + j] * qfx
-                          : gv[b * win + j] * ofx + gv[(b - 1) * win + j] * qfx;
-      };
-      const float d = a == 0 ? dsy(0) * ofy : a == win ? dsy(win - 1) * qfy : dsy(a) * ofy + dsy(a - 1) * qfy;
-      sds[qq * kSRow + t] = d;
-      ds_out[entry0 * ntaps + e] = d;
-      const int y = sxy[2 * qq + 1] + a, x = sxy[2 * qq] + b;
-      if (!(y >= 0 && y < hl && x >= 0 && x < wl) && !isfinite(d)) sbad[qq] = 1;
-    }
-    __syncthreads();
-    if (want_coords) {
-      float4* s4 = reinterpret_cast<float4*>(s);
-      for (int i = tid; i < kTileQ * kSRow / 4; i += kThreads) s4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    // this level's g of the tile's queries, gv[i * win + j] at (i * win + j) * p
+    const T* __restrict__ gl =
+        g + ((int64_t)n * (kGeneral ? out_levels : levels) * nout +
+             (int64_t)(kGeneral ? level0 + l : l) * nout) * p + pq0;
+    if (kGeneral) {
       __syncthreads();
-    }
-
-    // the next union row at or after y that some window covers, as a stage
-    // at its first column; y == uy1 when there is none (every warp walks
-    // the same rows)
-    auto row_from = [&](int y) -> Stage {
-      for (; y < uy1; ++y) {
-        const bool in = wy0 <= y && y < wy1;
-        const int rx0 = __reduce_min_sync(kAll, in ? wx0 : kFar);
-        const int rx1 = __reduce_max_sync(kAll, in ? wx1 : -kFar);
-        if (rx0 < rx1) return Stage{y, rx0, rx1};
-      }
-      return Stage{uy1, 0, 0};
-    };
-    auto next = [&](Stage st) -> Stage {
-      return st.x + kStagePx < st.end ? Stage{st.y, st.x + kStagePx, st.end} : row_from(st.y + 1);
-    };
-    auto issue = [&](Stage st, int slot) {
-      stage_pixels<T>(ring + slot * stage_elems, f2 + ((int64_t)st.y * wl + st.x) * c,
-                      min(kStagePx, st.end - st.x), kw, c, rs, lane);
-    };
-
-    Stage load = row_from(uy0 < uy1 ? uy0 : uy1);
-    Stage comp = load;
-#pragma unroll
-    for (int i = 0; i < kStages - 1; ++i) {
-      if (load.y < uy1) {
-        issue(load, i);
-        load = next(load);
-      }
-      cp_async_commit();
-    }
-    int slot = 0;
-    while (comp.y < uy1) {
-      // the slot kStages - 1 ahead was computed last step (and synced)
-      if (load.y < uy1) {
-        issue(load, slot == 0 ? kStages - 1 : slot - 1);
-        load = next(load);
-      }
-      cp_async_commit();
-      cp_async_wait<kStages - 1>();
-      __syncwarp();
-
-      const int npx = min(kStagePx, comp.end - comp.x);
-      const T* stage = ring + slot * stage_elems;
-      if (want_coords) {
-        // the dots of the tile's queries with the piece's pixels, summed
-        // over the warp's channels, then over the warps
-        float dacc[kNT][2][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < kMaxKs; ++ks) {
-          if (ks < nks) {
-            if (npx > 8) {
-              Feat<T>::template dots<2>(dacc, af[ks], stage, rs, 8 * ks, gq, t4);
-            } else {
-              Feat<T>::template dots<1>(dacc, af[ks], stage, rs, 8 * ks, gq, t4);
-            }
-          }
-        }
-        float* part = red + buf * kWarps * kElems * 32;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            part[(warp * kElems + 4 * nt + e) * 32 + lane] = dacc[nt][0][e] + dacc[nt][1][e];
-          }
-        }
-        __syncthreads();
-        // warp w owns elements w, w + kWarps, ...: their sums over the warps
-        // in a fixed order, each (query, pixel) into the query's dots if the
-        // pixel is in its window
-#pragma unroll
-        for (int i = warp; i < kElems; i += kWarps) {
-          const int nt = i >> 2, hi = (i >> 1) & 1, px = 8 * nt + 2 * t4 + (i & 1);
-          const int dy = comp.y - (hi ? y0_hi : y0_lo);
-          const int dx = comp.x + px - (hi ? x0_hi : x0_lo);
-          if (px < npx && (unsigned)dy < (unsigned)span && (unsigned)dx < (unsigned)span) {
-            float v = part[i * 32 + lane];
-#pragma unroll
-            for (int u = 1; u < kWarps; ++u) v += part[(u * kElems + i) * 32 + lane];
-            s[(gq + 8 * hi) * kSRow + dy * span + dx] = v;
-          }
-        }
-        buf ^= 1;
-      }
-      // d_f1 += ds_piece x pixels: k-step kp takes the piece's pixels
-      // 8kp .. 8kp + 7 (lane's: 8kp + t4 and 8kp + t4 + 4); pixels past the
-      // piece are zeros on both sides (their ring rows hold stale values).
-      // The slice's groups of 4 n-tiles take channel 32 j + 4 n + r as
-      // n-tile 4 j + r's column n (one load of 4 channels a pixel); the
-      // n-tiles past the last whole group take channel 8 nt + n.
-      const float* row_lo = sds + gq * kSRow + (comp.y - y0_lo) * span;
-      const float* row_hi = sds + (gq + 8) * kSRow + (comp.y - y0_hi) * span;
-      const bool in_lo = (unsigned)(comp.y - y0_lo) < (unsigned)span;
-      const bool in_hi = (unsigned)(comp.y - y0_hi) < (unsigned)span;
-#pragma unroll
-      for (int kp = 0; kp < kNT; ++kp) {
-        if (nks > 0 && 8 * kp < npx) {
-          const int px0 = 8 * kp + t4, px1 = px0 + 4;
-          const bool ok0 = px0 < npx, ok1 = px1 < npx;
-          const int dx_lo = comp.x + px0 - x0_lo, dx_hi = comp.x + px0 - x0_hi;
-          uint32_t ahi[4], alo[4];
-          split_tf32(ok0 && in_lo && (unsigned)dx_lo < (unsigned)span ? row_lo[dx_lo] : 0.0f,
-                     ahi[0], alo[0]);
-          split_tf32(ok0 && in_hi && (unsigned)dx_hi < (unsigned)span ? row_hi[dx_hi] : 0.0f,
-                     ahi[1], alo[1]);
-          split_tf32(ok1 && in_lo && (unsigned)(dx_lo + 4) < (unsigned)span ? row_lo[dx_lo + 4] : 0.0f,
-                     ahi[2], alo[2]);
-          split_tf32(ok1 && in_hi && (unsigned)(dx_hi + 4) < (unsigned)span ? row_hi[dx_hi + 4] : 0.0f,
-                     ahi[3], alo[3]);
-          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int jg = 0; jg < kMaxKs / 4; ++jg) {
-            if (4 * jg + 3 < nks) {
-              const float4 b0 = ok0 ? load4(stage + px0 * rs + 32 * jg + 4 * gq) : zero;
-              const float4 b1 = ok1 ? load4(stage + px1 * rs + 32 * jg + 4 * gq) : zero;
-              Feat<T>::product(acc[4 * jg], ahi, alo, b0.x, b1.x);
-              Feat<T>::product(acc[4 * jg + 1], ahi, alo, b0.y, b1.y);
-              Feat<T>::product(acc[4 * jg + 2], ahi, alo, b0.z, b1.z);
-              Feat<T>::product(acc[4 * jg + 3], ahi, alo, b0.w, b1.w);
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < kMaxKs; ++nt) {
-            if (nt >= nks / 4 * 4 && nt < nks) {
-              const float b0 = ok0 ? Feat<T>::pixel(stage, rs, px0, 8 * nt + gq) : 0.0f;
-              const float b1 = ok1 ? Feat<T>::pixel(stage, rs, px1, 8 * nt + gq) : 0.0f;
-              Feat<T>::product(acc[nt], ahi, alo, b0, b1);
-            }
-          }
-        }
-      }
-      __syncwarp();
-      comp = next(comp);
-      slot = slot + 1 == kStages ? 0 : slot + 1;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every piece's dots are in
-
-    if (want_coords) {
-      // dfx and dfy of each query: 8 threads a query, each a share of the
-      // (j, b) terms, added over the threads in a fixed order
-      const int qq = tid & (kTileQ - 1), part = tid >> 4;
-      float pfx = 0.0f, pfy = 0.0f;
-      if (qq < nq) {
+      // ds of each query and tap into the scratch (the tile's entries' rows
+      // are contiguous there), g read from global memory
+      for (int64_t e = tid; e < (int64_t)nq * ntaps; e += kThreads) {
+        const int qq = (int)(e / ntaps), t = (int)(e - (int64_t)qq * ntaps);
+        const int a = t / span, b = t - a * span;
         const float qfx = sfxy[2 * qq], qfy = sfxy[2 * qq + 1];
         const float ofx = 1.0f - qfx, ofy = 1.0f - qfy;
-        const T* __restrict__ gq_ = gl + qq;  // gv[i * win + j] at (i * win + j) * p
-        const float* sq = s + qq * kSRow;
-        for (int k = part; k < win * span; k += kThreads / kTileQ) {
-          const int j = k / span, b = k - j * span;
-          const float g0 = b < win ? to_float(gq_[(int64_t)(b * win + j) * p]) : 0.0f;
-          const float g1 = b > 0 ? to_float(gq_[(int64_t)((b - 1) * win + j) * p]) : 0.0f;
-          const float d = b == 0 ? g0 * ofx : b == win ? g1 * qfx : g0 * ofx + g1 * qfx;
-          const float s0 = sq[j * span + b], s1 = sq[(j + 1) * span + b];
-          pfy += d * (s1 - s0);
-          if (b < win) {
-            const float sy0 = s0 * ofy + s1 * qfy;
-            const float sy1 = sq[j * span + b + 1] * ofy + sq[(j + 1) * span + b + 1] * qfy;
-            pfx += g0 * (sy1 - sy0);
-          }
-        }
+        const T* gv = gl + qq;
+        auto gat = [&](int i, int j) { return to_float(gv[((int64_t)i * win + j) * p]); };
+        auto dsy = [&](int j) {
+          return b == 0     ? gat(0, j) * ofx
+                 : b == win ? gat(win - 1, j) * qfx
+                            : gat(b, j) * ofx + gat(b - 1, j) * qfx;
+        };
+        const float d = a == 0 ? dsy(0) * ofy : a == win ? dsy(win - 1) * qfy : dsy(a) * ofy + dsy(a - 1) * qfy;
+        ds_out[(entry0 + qq) * ntaps + t] = d;
+        const int y = sxy[2 * qq + 1] + a, x = sxy[2 * qq] + b;
+        if (!(y >= 0 && y < hl && x >= 0 && x < wl) && !isfinite(d)) sbad[qq] = 1;
       }
-      pfx += __shfl_xor_sync(kAll, pfx, 16);
-      pfy += __shfl_xor_sync(kAll, pfy, 16);
-      if (lane < kTileQ) {
-        spart[2 * (warp * kTileQ + lane)] = pfx;
-        spart[2 * (warp * kTileQ + lane) + 1] = pfy;
+    } else {
+      for (int e = tid; e < nout * kTileQ; e += kThreads) {
+        const int k = e >> 4, qq = e & (kTileQ - 1);
+        s[qq * kSRow + k] = qq < nq ? to_float(gl[(int64_t)k * p + qq]) : 0.0f;
       }
       __syncthreads();
-      if (warp == 0 && lane < kTileQ) {
-        float sx = 0.0f, sy = 0.0f;
-#pragma unroll
-        for (int u = 0; u < kWarps; ++u) {
-          sx += spart[2 * (u * kTileQ + lane)];
-          sy += spart[2 * (u * kTileQ + lane) + 1];
+
+      // ds of each query and tap, into sds and the scratch (the tile's
+      // entries' rows are contiguous there)
+      for (int e = tid; e < nq * ntaps; e += kThreads) {
+        const int qq = e / ntaps, t = e - qq * ntaps;
+        const int a = t / span, b = t - a * span;
+        const float qfx = sfxy[2 * qq], qfy = sfxy[2 * qq + 1];
+        const float ofx = 1.0f - qfx, ofy = 1.0f - qfy;
+        const float* gv = s + qq * kSRow;  // gv[i * win + j]
+        auto dsy = [&](int j) {
+          return b == 0     ? gv[j] * ofx
+                 : b == win ? gv[(win - 1) * win + j] * qfx
+                            : gv[b * win + j] * ofx + gv[(b - 1) * win + j] * qfx;
+        };
+        const float d = a == 0 ? dsy(0) * ofy : a == win ? dsy(win - 1) * qfy : dsy(a) * ofy + dsy(a - 1) * qfy;
+        sds[qq * kSRow + t] = d;
+        ds_out[entry0 * ntaps + e] = d;
+        const int y = sxy[2 * qq + 1] + a, x = sxy[2 * qq] + b;
+        if (!(y >= 0 && y < hl && x >= 0 && x < wl) && !isfinite(d)) sbad[qq] = 1;
+      }
+    }
+    __syncthreads();
+
+    for (int tt = 0; tt < parts * parts; ++tt) {
+      // tap tile (ti, tj): outputs x offset i0 .. i0 + ni - 1, y offset j0 ..
+      // j0 + nj - 1, from the integer taps sx = ni + 1 a row, sy = nj + 1
+      // rows; it owns its first ni columns and nj rows of them (the last
+      // tile of a row or column also the window's last)
+      const int ti = tt / parts, tj = tt - ti * parts;
+      const int i0 = kGeneral ? ti * win / parts : 0, j0 = kGeneral ? tj * win / parts : 0;
+      const int ni = kGeneral ? (ti + 1) * win / parts - i0 : win;
+      const int nj = kGeneral ? (tj + 1) * win / parts - j0 : win;
+      const int sx = kGeneral ? ni + 1 : span, sy = kGeneral ? nj + 1 : span;
+      const int x0 = x0_full + i0, y0 = y0_full + j0;
+      // the tile's window part on the map; empty off it (and for non-finite
+      // coordinates: their window starts off the map)
+      int wx0 = max(x0, 0), wx1 = min(x0 + sx, wl);
+      int wy0 = max(y0, 0), wy1 = min(y0 + sy, hl);
+      if (wx0 >= wx1 || wy0 >= wy1) {
+        wx0 = wy0 = kFar;
+        wx1 = wy1 = -kFar;
+      }
+      const int x0_lo = __shfl_sync(kAll, x0, gq), y0_lo = __shfl_sync(kAll, y0, gq);
+      const int x0_hi = __shfl_sync(kAll, x0, gq + 8), y0_hi = __shfl_sync(kAll, y0, gq + 8);
+      const int uy0 = __reduce_min_sync(kAll, wy0), uy1 = __reduce_max_sync(kAll, wy1);
+
+      if (kGeneral) {
+        // the tile's ds on the taps it owns, zeros on the others
+        const int ox = ni + (ti == parts - 1), oy = nj + (tj == parts - 1);
+        __syncthreads();  // the last tile's readers of s and sds are done
+        for (int e = tid; e < nq * sy * sx; e += kThreads) {
+          const int qq = e / (sy * sx), r = e - qq * (sy * sx);
+          const int da = r / sx, db = r - da * sx;
+          sds[qq * kSRow + r] =
+              da < oy && db < ox ? __ldcg(ds_out + (entry0 + qq) * ntaps + (j0 + da) * span + i0 + db)
+                                 : 0.0f;
         }
-        dcx += sx * scale;
-        dcy += sy * scale;
+      }
+      if (want_coords) {
+        float4* s4 = reinterpret_cast<float4*>(s);
+        for (int i = tid; i < kTileQ * kSRow / 4; i += kThreads) s4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (kGeneral || want_coords) __syncthreads();
+
+      // the next union row at or after y that some window covers, as a stage
+      // at its first column; y == uy1 when there is none (every warp walks
+      // the same rows)
+      auto row_from = [&](int y) -> Stage {
+        for (; y < uy1; ++y) {
+          const bool in = wy0 <= y && y < wy1;
+          const int rx0 = __reduce_min_sync(kAll, in ? wx0 : kFar);
+          const int rx1 = __reduce_max_sync(kAll, in ? wx1 : -kFar);
+          if (rx0 < rx1) return Stage{y, rx0, rx1};
+        }
+        return Stage{uy1, 0, 0};
+      };
+      auto next = [&](Stage st) -> Stage {
+        return st.x + kStagePx < st.end ? Stage{st.y, st.x + kStagePx, st.end} : row_from(st.y + 1);
+      };
+      auto issue = [&](Stage st, int slot) {
+        stage_pixels<T>(ring + slot * stage_elems, f2 + ((int64_t)st.y * wl + st.x) * c,
+                        min(kStagePx, st.end - st.x), kw, c, rs, lane);
+      };
+
+      Stage load = row_from(uy0 < uy1 ? uy0 : uy1);
+      Stage comp = load;
+#pragma unroll
+      for (int i = 0; i < kStages - 1; ++i) {
+        if (load.y < uy1) {
+          issue(load, i);
+          load = next(load);
+        }
+        cp_async_commit();
+      }
+      int slot = 0;
+      while (comp.y < uy1) {
+        // the slot kStages - 1 ahead was computed last step (and synced)
+        if (load.y < uy1) {
+          issue(load, slot == 0 ? kStages - 1 : slot - 1);
+          load = next(load);
+        }
+        cp_async_commit();
+        cp_async_wait<kStages - 1>();
+        __syncwarp();
+
+        const int npx = min(kStagePx, comp.end - comp.x);
+        const T* stage = ring + slot * stage_elems;
+        if (want_coords) {
+          // the dots of the tile's queries with the piece's pixels, summed
+          // over the warp's channels, then over the warps
+          float dacc[kNT][2][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < kMaxKs; ++ks) {
+            if (ks < nks) {
+              if (npx > 8) {
+                Feat<T>::template dots<2>(dacc, af[ks], stage, rs, 8 * ks, gq, t4);
+              } else {
+                Feat<T>::template dots<1>(dacc, af[ks], stage, rs, 8 * ks, gq, t4);
+              }
+            }
+          }
+          float* part = red + buf * kWarps * kElems * 32;
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              part[(warp * kElems + 4 * nt + e) * 32 + lane] = dacc[nt][0][e] + dacc[nt][1][e];
+            }
+          }
+          __syncthreads();
+          // warp w owns elements w, w + kWarps, ...: their sums over the warps
+          // in a fixed order, each (query, pixel) into the query's dots if the
+          // pixel is in its window
+#pragma unroll
+          for (int i = warp; i < kElems; i += kWarps) {
+            const int nt = i >> 2, hi = (i >> 1) & 1, px = 8 * nt + 2 * t4 + (i & 1);
+            const int dy = comp.y - (hi ? y0_hi : y0_lo);
+            const int dx = comp.x + px - (hi ? x0_hi : x0_lo);
+            if (px < npx && (unsigned)dy < (unsigned)sy && (unsigned)dx < (unsigned)sx) {
+              float v = part[i * 32 + lane];
+#pragma unroll
+              for (int u = 1; u < kWarps; ++u) v += part[(u * kElems + i) * 32 + lane];
+              s[(gq + 8 * hi) * kSRow + dy * sx + dx] = v;
+            }
+          }
+          buf ^= 1;
+        }
+        // d_f1 += ds_piece x pixels: k-step kp takes the piece's pixels
+        // 8kp .. 8kp + 7 (lane's: 8kp + t4 and 8kp + t4 + 4); pixels past the
+        // piece are zeros on both sides (their ring rows hold stale values).
+        // The slice's groups of 4 n-tiles take channel 32 j + 4 n + r as
+        // n-tile 4 j + r's column n (one load of 4 channels a pixel); the
+        // n-tiles past the last whole group take channel 8 nt + n.
+        const float* row_lo = sds + gq * kSRow + (comp.y - y0_lo) * sx;
+        const float* row_hi = sds + (gq + 8) * kSRow + (comp.y - y0_hi) * sx;
+        const bool in_lo = (unsigned)(comp.y - y0_lo) < (unsigned)sy;
+        const bool in_hi = (unsigned)(comp.y - y0_hi) < (unsigned)sy;
+#pragma unroll
+        for (int kp = 0; kp < kNT; ++kp) {
+          if (nks > 0 && 8 * kp < npx) {
+            const int px0 = 8 * kp + t4, px1 = px0 + 4;
+            const bool ok0 = px0 < npx, ok1 = px1 < npx;
+            const int dx_lo = comp.x + px0 - x0_lo, dx_hi = comp.x + px0 - x0_hi;
+            uint32_t ahi[4], alo[4];
+            split_tf32(ok0 && in_lo && (unsigned)dx_lo < (unsigned)sx ? row_lo[dx_lo] : 0.0f,
+                       ahi[0], alo[0]);
+            split_tf32(ok0 && in_hi && (unsigned)dx_hi < (unsigned)sx ? row_hi[dx_hi] : 0.0f,
+                       ahi[1], alo[1]);
+            split_tf32(ok1 && in_lo && (unsigned)(dx_lo + 4) < (unsigned)sx ? row_lo[dx_lo + 4] : 0.0f,
+                       ahi[2], alo[2]);
+            split_tf32(ok1 && in_hi && (unsigned)(dx_hi + 4) < (unsigned)sx ? row_hi[dx_hi + 4] : 0.0f,
+                       ahi[3], alo[3]);
+            const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int jg = 0; jg < kMaxKs / 4; ++jg) {
+              if (4 * jg + 3 < nks) {
+                const float4 b0 = ok0 ? load4(stage + px0 * rs + 32 * jg + 4 * gq) : zero;
+                const float4 b1 = ok1 ? load4(stage + px1 * rs + 32 * jg + 4 * gq) : zero;
+                Feat<T>::product(acc[4 * jg], ahi, alo, b0.x, b1.x);
+                Feat<T>::product(acc[4 * jg + 1], ahi, alo, b0.y, b1.y);
+                Feat<T>::product(acc[4 * jg + 2], ahi, alo, b0.z, b1.z);
+                Feat<T>::product(acc[4 * jg + 3], ahi, alo, b0.w, b1.w);
+              }
+            }
+#pragma unroll
+            for (int nt = 0; nt < kMaxKs; ++nt) {
+              if (nt >= nks / 4 * 4 && nt < nks) {
+                const float b0 = ok0 ? Feat<T>::pixel(stage, rs, px0, 8 * nt + gq) : 0.0f;
+                const float b1 = ok1 ? Feat<T>::pixel(stage, rs, px1, 8 * nt + gq) : 0.0f;
+                Feat<T>::product(acc[nt], ahi, alo, b0, b1);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        comp = next(comp);
+        slot = slot + 1 == kStages ? 0 : slot + 1;
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // every piece's dots are in
+
+      if (want_coords) {
+        // dfx and dfy of each query: 8 threads a query, each a share of the
+        // terms, added over the threads in a fixed order
+        const int qq = tid & (kTileQ - 1), part = tid >> 4;
+        float pfx = 0.0f, pfy = 0.0f;
+        if (qq < nq) {
+          const float qfx = sfxy[2 * qq], qfy = sfxy[2 * qq + 1];
+          const float ofx = 1.0f - qfx, ofy = 1.0f - qfy;
+          const T* __restrict__ gq_ = gl + qq;  // gv[i * win + j] at (i * win + j) * p
+          const float* sq = s + qq * kSRow;
+          if (kGeneral) {
+            // the tile's outputs (x offset i0 + i, y offset j0 + j): g times
+            // the derivatives of their blends in x and in y
+            for (int k = part; k < ni * nj; k += kThreads / kTileQ) {
+              const int i = k / nj, j = k - i * nj;
+              const float gv = to_float(gq_[((int64_t)(i0 + i) * win + j0 + j) * p]);
+              const float s00 = sq[j * sx + i], s01 = sq[j * sx + i + 1];
+              const float s10 = sq[(j + 1) * sx + i], s11 = sq[(j + 1) * sx + i + 1];
+              pfx += gv * ((s01 * ofy + s11 * qfy) - (s00 * ofy + s10 * qfy));
+              pfy += gv * (ofx * (s10 - s00) + qfx * (s11 - s01));
+            }
+          } else {
+            for (int k = part; k < win * span; k += kThreads / kTileQ) {
+              const int j = k / span, b = k - j * span;
+              const float g0 = b < win ? to_float(gq_[(int64_t)(b * win + j) * p]) : 0.0f;
+              const float g1 = b > 0 ? to_float(gq_[(int64_t)((b - 1) * win + j) * p]) : 0.0f;
+              const float d = b == 0 ? g0 * ofx : b == win ? g1 * qfx : g0 * ofx + g1 * qfx;
+              const float s0 = sq[j * span + b], s1 = sq[(j + 1) * span + b];
+              pfy += d * (s1 - s0);
+              if (b < win) {
+                const float sy0 = s0 * ofy + s1 * qfy;
+                const float sy1 = sq[j * span + b + 1] * ofy + sq[(j + 1) * span + b + 1] * qfy;
+                pfx += g0 * (sy1 - sy0);
+              }
+            }
+          }
+        }
+        pfx += __shfl_xor_sync(kAll, pfx, 16);
+        pfy += __shfl_xor_sync(kAll, pfy, 16);
+        if (lane < kTileQ) {
+          spart[2 * (warp * kTileQ + lane)] = pfx;
+          spart[2 * (warp * kTileQ + lane) + 1] = pfy;
+        }
+        __syncthreads();
+        if (warp == 0 && lane < kTileQ) {
+          float sx_ = 0.0f, sy_ = 0.0f;
+#pragma unroll
+          for (int u = 0; u < kWarps; ++u) {
+            sx_ += spart[2 * (u * kTileQ + lane)];
+            sy_ += spart[2 * (u * kTileQ + lane) + 1];
+          }
+          dcx += sx_ * scale;
+          dcy += sy_ * scale;
+        }
       }
     }
   }
@@ -776,12 +891,14 @@ windowed_corr_bwd_query_kernel(const T* __restrict__ f1, Levels<T> lv, Geometry 
   const float nan_hi = sbad[gq + 8] ? __int_as_float(0x7fc00000) : 0.0f;
   // the queries of all images: a level's part of d_f1 holds nq_all rows
   const int64_t nq_all = (int64_t)ntiles / (h * tiles_x) * p;
+  // the level's index among the parts
+  const int64_t l_part = kGeneral ? level0 + l_begin : l_begin;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (gq + 8 * r < nq) {
       const int64_t q = q0 + gq + 8 * r;
       const float nan = r ? nan_hi : nan_lo;
-      float* part = d_f1_part + ((int64_t)l_begin * nq_all + q) * c + kw0;
+      float* part = d_f1_part + (l_part * nq_all + q) * c + kw0;
       T* out = d_f1 + q * c + kw0;
       // a whole group's D: channels 32 j + 8 t .. + 7
 #pragma unroll
@@ -814,7 +931,7 @@ windowed_corr_bwd_query_kernel(const T* __restrict__ f1, Levels<T> lv, Geometry 
     }
   }
   if (want_coords && warp == 0 && lane < kTileQ && q_ok) {
-    float* dc = split ? d_coords_part + (int64_t)l_begin * 2 * nq_all : d_coords;
+    float* dc = split ? d_coords_part + l_part * 2 * nq_all : d_coords;
     dc[(int64_t)2 * n * p + pq0 + lane] = dcx;
     dc[(int64_t)(2 * n + 1) * p + pq0 + lane] = dcy;
   }
@@ -859,9 +976,11 @@ windowed_corr_bwd_offsets_kernel(const int* __restrict__ sorted_keys, int entrie
   for (int k = prev + 1; k <= cur; ++k) offsets[k] = i;
 }
 
-// One block: each destination tile's candidates (the entries of its 3 key
-// rows' runs), its chunks max(1, ceil(count / chunk_q)) and their first
-// index by an exclusive scan in tile order; chunk_start[tiles] is the total.
+// One block: each destination tile's candidates (the entries of its reach
+// key rows' runs: 3 in the fast case), its chunks max(1, ceil(count /
+// chunk_q)) and their first index by an exclusive scan in tile order;
+// chunk_start[tiles] is the total.
+template <bool kGeneral>
 __global__ void __launch_bounds__(kPlanThreads)
 windowed_corr_bwd_plan_kernel(const int* __restrict__ offsets, Geometry geo, int levels, int tiles,
                               int chunk_q, int* __restrict__ chunk_start) {
@@ -875,9 +994,12 @@ windowed_corr_bwd_plan_kernel(const int* __restrict__ offsets, Geometry geo, int
       int n, l, ty, tx;
       tile_coords(geo, levels, tile, n, l, ty, tx);
       const int k0 = first_candidate_key(geo, n, l, ty, tx);
+      const int reach = kGeneral ? geo.reach : kReach;
       int m = 0;
 #pragma unroll
-      for (int r = 0; r < 3; ++r) m += offsets[k0 + r * geo.kx[l] + 3] - offsets[k0 + r * geo.kx[l]];
+      for (int r = 0; r < reach; ++r) {
+        m += offsets[k0 + r * geo.kx[l] + reach] - offsets[k0 + r * geo.kx[l]];
+      }
       count = max(1, (m + chunk_q - 1) / chunk_q);
     }
     int v = count;  // inclusive scan in the warp
@@ -921,14 +1043,22 @@ __host__ __device__ constexpr int ds_stride(int ntaps) { return ntaps + ((8 - nt
 
 
 // Bytes of the destination side's dynamic shared memory: kDestStages
-// batches of f1 rows, ds rows, bases and entries, and the batches' counts.
+// batches of f1 rows, ds rows, bases and entries, and the batches' counts;
+// in the general case the ds rows are the 8x8 blocks on the tile, and the
+// candidates' reach runs (start, first position) follow.
 template <typename T>
 __host__ __device__ constexpr int dest_smem_bytes(int c, int ntaps) {
   return kDestStages * (kBatch * (f1_stride<T>(c) * (int)sizeof(T) + ds_stride(ntaps) * 4 + 8) + 4);
 }
+template <typename T>
+__host__ __device__ constexpr int dest_general_smem_bytes(int c, int reach) {
+  return dest_smem_bytes<T>(c, kTile * kTile) + 2 * (reach + 1) * 4;
+}
 
 // One chunk a block: D (the tile's 64 pixels x C) += DS (64 pixels x the
 // chunk's entries) x F1 (entries x C) on the tensor cores, in list order.
+// kGeneral: reach x reach candidate key tiles (runs in shared memory), and
+// each kept candidate's ds staged as the 8x8 block on the tile.
 // The chunk's candidates come in batches of kBatch; warp 0 keeps only those
 // whose window reaches the tile (in list order), and the block stages their
 // f1 and ds rows by cp.async. k-steps of 8 entries: warp w owns the pixel
@@ -939,7 +1069,7 @@ __host__ __device__ constexpr int dest_smem_bytes(int c, int ntaps) {
 // n, so one load of 4 channels gives a lane its B values of all 4, and its
 // D values are 8 consecutive channels a pixel. A float32 f1 is split too
 // (3 products), a bf16 one is exact (2).
-template <typename T>
+template <typename T, bool kGeneral>
 __global__ void __launch_bounds__(kDestThreads, 2)
 windowed_corr_bwd_dest_kernel(const T* __restrict__ f1, const float* __restrict__ ds,
                               const int64_t* __restrict__ order, const int* __restrict__ bases,
@@ -951,7 +1081,8 @@ windowed_corr_bwd_dest_kernel(const T* __restrict__ f1, const float* __restrict_
   if (chunk >= chunk_start[tiles]) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int span = 2 * radius + 2, ntaps = span * span;
-  const int fs = f1_stride<T>(c), dst = ds_stride(ntaps);
+  // a staged ds row: the window's taps, or (general) the 8x8 block on the tile
+  const int fs = f1_stride<T>(c), dst = ds_stride(kGeneral ? kTile * kTile : ntaps);
   // the chunk's tile: the last tile whose first chunk is <= chunk
   int lo = 0, hi = tiles;
   while (hi - lo > 1) {
@@ -966,33 +1097,62 @@ windowed_corr_bwd_dest_kernel(const T* __restrict__ f1, const float* __restrict_
   tile_coords(geo, levels, tile, n, l, ty, tx);
   const int hl = geo.h[l], wl = geo.w[l];
   const int k0 = first_candidate_key(geo, n, l, ty, tx);
-  int run_start[3], run_len[3];
+  int run_start[kReach], run_len[kReach];
+  int m = 0;
+  if (!kGeneral) {
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    run_start[r] = offsets[k0 + r * geo.kx[l]];
-    run_len[r] = offsets[k0 + r * geo.kx[l] + 3] - run_start[r];
+    for (int r = 0; r < kReach; ++r) {
+      run_start[r] = offsets[k0 + r * geo.kx[l]];
+      run_len[r] = offsets[k0 + r * geo.kx[l] + kReach] - run_start[r];
+    }
+    m = run_len[0] + run_len[1] + run_len[2];
   }
-  const int m = run_len[0] + run_len[1] + run_len[2];
-  const int begin = j * chunk_q, end = min(m, begin + chunk_q);
-  const int nbatch = (end - begin + kBatch - 1) / kBatch;
   const int64_t level_entry0 = ((int64_t)n * levels + l) * p;
   const int col0 = tx * kTile, row0 = ty * kTile;
 
   // [kDestStages][kBatch][fs] f1 rows, [..][kBatch][dst] ds rows,
-  // [..][kBatch] bases, [..][kBatch] entries, [..] counts
+  // [..][kBatch] bases, [..][kBatch] entries, [..] counts; general: the
+  // runs' starts [reach] and first positions [reach + 1]
   T* sf1 = reinterpret_cast<T*>(smem);
   float* sds = reinterpret_cast<float*>(smem + kDestStages * kBatch * fs * sizeof(T));
   int* sbase = reinterpret_cast<int*>(sds + kDestStages * kBatch * dst);
   int* sentry = sbase + kDestStages * kBatch;
   int* scount = sentry + kDestStages * kBatch;
+  int* srun = scount + kDestStages;
+  int* spos = srun + geo.reach + 1;
+  if (kGeneral) {
+    // the reach key rows' runs, each reach key tiles; their first positions
+    // in the tile's list by a scan in row order (thread 0)
+    const int reach = geo.reach;
+    if (tid == 0) {
+      int pos = 0;
+      for (int r = 0; r < reach; ++r) {
+        srun[r] = offsets[k0 + r * geo.kx[l]];
+        spos[r] = pos;
+        pos += offsets[k0 + r * geo.kx[l] + reach] - srun[r];
+      }
+      spos[reach] = pos;
+    }
+    __syncthreads();
+    m = spos[reach];
+  }
+  const int begin = j * chunk_q, end = min(m, begin + chunk_q);
+  const int nbatch = (end - begin + kBatch - 1) / kBatch;
 
   // candidate i of batch bi: its entry (key rows in order), if in the chunk
   auto candidate = [&](int bi, int i, int& e) -> bool {
     const int pos = begin + bi * kBatch + i;
     if (pos >= end) return false;
-    const int idx = pos < run_len[0]                ? run_start[0] + pos
-                    : pos < run_len[0] + run_len[1] ? run_start[1] + pos - run_len[0]
-                                                    : run_start[2] + pos - run_len[0] - run_len[1];
+    int idx;
+    if (kGeneral) {
+      int r = 0;
+      while (spos[r + 1] <= pos) ++r;
+      idx = srun[r] + pos - spos[r];
+    } else {
+      idx = pos < run_len[0]                ? run_start[0] + pos
+            : pos < run_len[0] + run_len[1] ? run_start[1] + pos - run_len[0]
+                                            : run_start[2] + pos - run_len[0] - run_len[1];
+    }
     e = (int)order[idx];
     return true;
   };
@@ -1023,7 +1183,19 @@ windowed_corr_bwd_dest_kernel(const T* __restrict__ f1, const float* __restrict_
       }
       const float* dsrc = ds + (int64_t)e * ntaps;
       float* dto = sds + (slot * kBatch + k) * dst;
-      for (int r = lane; r < ntaps / 4; r += 32) cp_async16(smem_addr(dto + 4 * r), dsrc + 4 * r);
+      if (kGeneral) {
+        // the 8x8 block of ds on the tile: pixel (row0 + r, col0 + q) is tap
+        // (row0 + r - y0, col0 + q - x0) of the window, zero off it
+        const int base = sbase[slot * kBatch + k];
+        const int x0 = (int)(int16_t)(base & 0xffff), y0 = base >> 16;
+        for (int u = lane; u < kTile * kTile; u += 32) {
+          const int dy = row0 + (u >> 3) - y0, dx = col0 + (u & 7) - x0;
+          const bool in = (unsigned)dy < (unsigned)span && (unsigned)dx < (unsigned)span;
+          cp_async4z(smem_addr(dto + u), in ? dsrc + dy * span + dx : dsrc, in ? 4 : 0);
+        }
+      } else {
+        for (int r = lane; r < ntaps / 4; r += 32) cp_async16(smem_addr(dto + 4 * r), dsrc + 4 * r);
+      }
     }
   };
 
@@ -1093,7 +1265,10 @@ windowed_corr_bwd_dest_kernel(const T* __restrict__ f1, const float* __restrict_
       for (int u = 0; u < 2; ++u) {
         const int k = kk + t4 + 4 * u;
         float v0 = 0.0f, v1 = 0.0f;
-        if (k < count) {
+        if (k < count && kGeneral) {
+          v0 = dss[k * dst + (2 * mt) * kTile + gq];
+          v1 = dss[k * dst + (2 * mt + 1) * kTile + gq];
+        } else if (k < count) {
           const int base = bs[k];
           const int x0 = (int)(int16_t)(base & 0xffff), y0 = base >> 16;
           const int dx = pcol - x0, dy = prow - y0;
@@ -1206,20 +1381,37 @@ cudaError_t allow_smem(K* kernel, int bytes, bool& configured) {
   return err;
 }
 
-template <typename T>
+template <typename T, bool kGeneral>
 cudaError_t configure() {
   static bool query = false, dest = false;
-  cudaError_t err = allow_smem(windowed_corr_bwd_query_kernel<T>, query_smem_bytes<T>(kMaxC), query);
-  if (err == cudaSuccess) {
-    err = allow_smem(windowed_corr_bwd_dest_kernel<T>,
+  cudaError_t err = allow_smem(windowed_corr_bwd_query_kernel<T, kGeneral>,
+                               query_smem_bytes<T>(kMaxC), query);
+  if (err == cudaSuccess && !kGeneral) {
+    err = allow_smem(windowed_corr_bwd_dest_kernel<T, false>,
                      dest_smem_bytes<T>(kMaxC, kMaxSpan * kMaxSpan), dest);
   }
   return err;
 }
 
-bool bad_args(int64_t entries, int n, int c, int levels, int radius, const int* hs, const int* ws) {
+// The general destination side's shared memory grows with the reach: its
+// limit is raised to what a launch asks, once for each larger ask.
+template <typename T>
+cudaError_t allow_general_dest_smem(int bytes) {
+  static int allowed = 0;
+  if (bytes <= allowed) return cudaSuccess;
+  bool configured = false;
+  const cudaError_t err = allow_smem(windowed_corr_bwd_dest_kernel<T, true>, bytes, configured);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
+
+// The arguments a launch of either side refuses: the fast case takes 1-4
+// levels and a radius of 0-4, the general case 1-4 levels (a group) and any
+// radius whose span fits a window base's 16 bits.
+bool bad_args(int64_t entries, int n, int c, int levels, int radius, const int* hs, const int* ws,
+              bool general) {
   if (entries >= ((int64_t)1 << 31) || n < 0 || c < 8 || c > kMaxC || c % 8 || levels < 1 ||
-      levels > kMaxLevels || radius < 0 || radius > kMaxRadius) {
+      levels > kMaxLevels || radius < 0 || (general ? 2 * (int64_t)radius + 2 > 32000 : radius > kMaxRadius)) {
     return true;
   }
   for (int l = 0; l < levels; ++l) {
@@ -1229,53 +1421,144 @@ bool bad_args(int64_t entries, int n, int c, int levels, int radius, const int* 
 }
 
 template <typename T>
+void launch_level_sum(const float* d_f1_part, const float* d_coords_part, void* d_f1,
+                      float* d_coords, int64_t nq, int c, int levels, cudaStream_t s) {
+  const int64_t nf4 = nq * c / 4;
+  const int64_t nc = d_coords != nullptr ? 2 * nq : 0;
+  const int64_t most = nf4 > nc ? nf4 : nc;
+  windowed_corr_bwd_level_sum_kernel<T><<<(int)((most + kSumThreads - 1) / kSumThreads),
+                                          kSumThreads, 0, s>>>(
+      d_f1_part, d_coords_part, static_cast<T*>(d_f1), d_coords, nf4, nc, levels);
+}
+
+template <typename T, bool kGeneral>
 void launch_query(const void* f1, const void* const* f2, const float* coords, const void* g,
                   void* d_f1, float* d_coords, float* d_f1_part, float* d_coords_part, float* ds,
                   int* keys, int* bases, const Geometry& geo, int n, int h, int w, int c,
-                  int levels, int radius, int split, cudaStream_t s) {
+                  int levels, int radius, int split, int level0, int out_levels, cudaStream_t s) {
   Levels<T> lv = {};
   for (int l = 0; l < levels; ++l) lv.f2[l] = static_cast<const T*>(f2[l]);
   const int64_t tiles = (int64_t)n * h * ((w + kTileQ - 1) / kTileQ);
-  windowed_corr_bwd_query_kernel<T><<<(int)(split ? tiles * levels : tiles), kThreads,
-                                      query_smem_bytes<T>(c), s>>>(
+  windowed_corr_bwd_query_kernel<T, kGeneral><<<(int)(split ? tiles * levels : tiles), kThreads,
+                                                query_smem_bytes<T>(c), s>>>(
       static_cast<const T*>(f1), lv, geo, coords, static_cast<const T*>(g), static_cast<T*>(d_f1),
       split ? nullptr : d_coords, d_f1_part, split && d_coords ? d_coords_part : nullptr, ds, keys,
-      bases, h, w, c, levels, radius, split);
-  if (split) {
-    const int64_t nq = (int64_t)n * h * w, nf4 = nq * c / 4;
-    const int64_t nc = d_coords != nullptr ? 2 * nq : 0;
-    const int64_t most = nf4 > nc ? nf4 : nc;
-    windowed_corr_bwd_level_sum_kernel<T><<<(int)((most + kSumThreads - 1) / kSumThreads),
-                                            kSumThreads, 0, s>>>(
-        d_f1_part, d_coords_part, static_cast<T*>(d_f1), d_coords, nf4, nc, levels);
+      bases, h, w, c, levels, radius, split, level0, out_levels);
+  if (split && !kGeneral) {
+    launch_level_sum<T>(d_f1_part, d_coords_part, d_f1, d_coords, (int64_t)n * h * w, c, levels, s);
   }
 }
 
-template <typename T>
-void launch_dest(const void* f1, const float* ds, const int64_t* order, const int* bases,
-                 const int* offsets, const int* chunk_start, float* partial, void* const* d_f2,
-                 const Geometry& geo, int n, int p, int c, int levels, int radius, int chunk_q,
-                 int tiles, int64_t max_chunks, cudaStream_t s) {
+template <typename T, bool kGeneral>
+cudaError_t launch_dest(const void* f1, const float* ds, const int64_t* order, const int* bases,
+                        const int* offsets, int* chunk_start, float* partial,
+                        void* const* d_f2, const Geometry& geo, int n, int p, int c, int levels,
+                        int radius, int chunk_q, int tiles, int64_t max_chunks, cudaStream_t s) {
   LevelGrads<T> out = {};
   for (int l = 0; l < levels; ++l) out.f2[l] = static_cast<T*>(d_f2[l]);
   const int ntaps = (2 * radius + 2) * (2 * radius + 2);
-  windowed_corr_bwd_dest_kernel<T><<<(int)max_chunks, kDestThreads, dest_smem_bytes<T>(c, ntaps), s>>>(
+  const int smem = kGeneral ? dest_general_smem_bytes<T>(c, geo.reach) : dest_smem_bytes<T>(c, ntaps);
+  if (kGeneral) {
+    const cudaError_t err = allow_general_dest_smem<T>(smem);
+    if (err != cudaSuccess) return err;
+  }
+  windowed_corr_bwd_plan_kernel<kGeneral><<<1, kPlanThreads, 0, s>>>(offsets, geo, levels, tiles,
+                                                                     chunk_q, chunk_start);
+  windowed_corr_bwd_dest_kernel<T, kGeneral><<<(int)max_chunks, kDestThreads, smem, s>>>(
       static_cast<const T*>(f1), ds, order, bases, offsets, chunk_start, geo, partial, out, p, c,
       levels, radius, chunk_q, tiles);
   windowed_corr_bwd_chunk_sum_kernel<T><<<dim3(tiles, kTile), kSumThreads, 0, s>>>(
       chunk_start, geo, partial, out, c, levels);
+  return cudaSuccess;
+}
+
+template <bool kGeneral>
+int query_side(const void* f1, const void* f2_0, const void* f2_1, const void* f2_2,
+               const void* f2_3, const float* coords, const void* g, void* d_f1, float* d_coords,
+               float* d_f1_part, float* d_coords_part, float* ds, int* keys, int* bases, int n,
+               int h, int w, int c, int levels, int radius, int is_bf16, int split, int level0,
+               int out_levels, int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
+               void* stream) {
+  const int hs[kMaxLevels] = {h0, h1, h2, h3}, ws[kMaxLevels] = {w0, w1, w2, w3};
+  if (h < 0 || w < 0 || bad_args((int64_t)n * levels * h * w, n, c, levels, radius, hs, ws, kGeneral) ||
+      (kGeneral && (level0 < 0 || level0 + levels > out_levels)) ||
+      (split && (d_f1_part == nullptr || (d_coords != nullptr && d_coords_part == nullptr) ||
+                 (int64_t)n * h * ((w + kTileQ - 1) / kTileQ) * levels >= ((int64_t)1 << 31)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry geo =
+      make_geometry(n, levels, hs, ws, kGeneral ? general_pad(2 * radius + 2) : kKeyPad);
+  const void* f2[kMaxLevels] = {f2_0, f2_1, f2_2, f2_3};
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((int64_t)n * h * w > 0) {
+    const cudaError_t err = is_bf16 ? configure<uint16_t, kGeneral>() : configure<float, kGeneral>();
+    if (err != cudaSuccess) return (int)err;
+    if (is_bf16) {
+      launch_query<uint16_t, kGeneral>(f1, f2, coords, g, d_f1, d_coords, d_f1_part, d_coords_part,
+                                       ds, keys, bases, geo, n, h, w, c, levels, radius, split,
+                                       level0, out_levels, s);
+    } else {
+      launch_query<float, kGeneral>(f1, f2, coords, g, d_f1, d_coords, d_f1_part, d_coords_part,
+                                    ds, keys, bases, geo, n, h, w, c, levels, radius, split,
+                                    level0, out_levels, s);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kGeneral>
+int dest_side(const void* f1, const float* ds, const int* sorted_keys, const int64_t* order,
+              const int* bases, int* offsets, int* chunk_start, float* partial, void* d_f2_0,
+              void* d_f2_1, void* d_f2_2, void* d_f2_3, int n, int p, int c, int levels, int radius,
+              int is_bf16, int chunk_q, int h0, int h1, int h2, int h3, int w0, int w1, int w2,
+              int w3, void* stream) {
+  const int hs[kMaxLevels] = {h0, h1, h2, h3}, ws[kMaxLevels] = {w0, w1, w2, w3};
+  const int64_t entries = (int64_t)n * levels * p;
+  if (p < 0 || chunk_q < 1 || bad_args(entries, n, c, levels, radius, hs, ws, kGeneral)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry geo =
+      make_geometry(n, levels, hs, ws, kGeneral ? general_pad(2 * radius + 2) : kKeyPad);
+  const int64_t tiles = (int64_t)n * geo.tiles_per_image;
+  // each entry is a candidate of at most reach x reach tiles
+  const int64_t reach = kGeneral ? geo.reach : kReach;
+  const int64_t max_chunks = tiles + (reach * reach * entries + chunk_q - 1) / chunk_q;
+  if (max_chunks >= ((int64_t)1 << 31) || (int64_t)n * geo.keys_per_image >= ((int64_t)1 << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  void* d_f2[kMaxLevels] = {d_f2_0, d_f2_1, d_f2_2, d_f2_3};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tiles > 0) {
+    cudaError_t err = is_bf16 ? configure<uint16_t, kGeneral>() : configure<float, kGeneral>();
+    if (err != cudaSuccess) return (int)err;
+    windowed_corr_bwd_offsets_kernel<<<(int)((entries + kOffsetThreads) / kOffsetThreads),
+                                       kOffsetThreads, 0, s>>>(sorted_keys, (int)entries,
+                                                               geo.sentinel, offsets);
+    if (is_bf16) {
+      err = launch_dest<uint16_t, kGeneral>(f1, ds, order, bases, offsets, chunk_start, partial,
+                                            d_f2, geo, n, p, c, levels, radius, chunk_q,
+                                            (int)tiles, max_chunks, s);
+    } else {
+      err = launch_dest<float, kGeneral>(f1, ds, order, bases, offsets, chunk_start, partial, d_f2,
+                                         geo, n, p, c, levels, radius, chunk_q, (int)tiles,
+                                         max_chunks, s);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The query side. f1 (N, P, C); f2_l (N, h_l, w_l, C) for l < levels (unused
-// pointers may be null); coords (N, 2, H, W) float32 with H*W = P; g (N,
-// levels*(2r+1)^2, H, W); d_f1 (N, P, C); d_coords (N, 2, H, W) float32, or
-// null to skip it (and the dots); with `split`, a block a (tile, level) and
-// d_f1_part (levels, N, P, C) and d_coords_part (levels, N, 2, P) float32
-// scratch, added in level order by a second kernel (else they may be null);
-// ds (N, levels, P, (2r+2)^2) float32; keys and bases (N, levels, P) int32. f1, the levels, g and d_f1 are float32, or
-// bf16 when is_bf16; all are contiguous, 16-byte aligned device pointers. C a
+// The query side (fast case). f1 (N, P, C); f2_l (N, h_l, w_l, C) for l <
+// levels (unused pointers may be null); coords (N, 2, H, W) float32 with H*W
+// = P; g (N, levels*(2r+1)^2, H, W); d_f1 (N, P, C); d_coords (N, 2, H, W)
+// float32, or null to skip it (and the dots); with `split`, a block a (tile,
+// level) and d_f1_part (levels, N, P, C) and d_coords_part (levels, N, 2,
+// P) float32 scratch, added in level order by a second kernel (else they
+// may be null); ds (N, levels, P, (2r+2)^2) float32; keys and bases (N,
+// levels, P) int32. f1, the levels, g and d_f1 are float32, or bf16 when
+// is_bf16; all are contiguous, 16-byte aligned device pointers. C a
 // multiple of 8 in [8, 256], 1 <= levels <= 4, 0 <= radius <= 4, N*levels*P
 // < 2**31, level sizes <= 32000. Launches on `stream`; returns
 // cudaGetLastError().
@@ -1287,33 +1570,59 @@ extern "C" int windowed_corr_bwd_query(const void* f1, const void* f2_0, const v
                                        int levels, int radius, int is_bf16, int split, int h0,
                                        int h1, int h2, int h3, int w0, int w1, int w2, int w3,
                                        void* stream) {
-  const int hs[kMaxLevels] = {h0, h1, h2, h3}, ws[kMaxLevels] = {w0, w1, w2, w3};
-  if (h < 0 || w < 0 || bad_args((int64_t)n * levels * h * w, n, c, levels, radius, hs, ws) ||
-      (split && (d_f1_part == nullptr || (d_coords != nullptr && d_coords_part == nullptr) ||
-                 (int64_t)n * h * ((w + kTileQ - 1) / kTileQ) * levels >= ((int64_t)1 << 31)))) {
+  return query_side<false>(f1, f2_0, f2_1, f2_2, f2_3, coords, g, d_f1, d_coords, d_f1_part,
+                           d_coords_part, ds, keys, bases, n, h, w, c, levels, radius, is_bf16,
+                           split, 0, levels, h0, h1, h2, h3, w0, w1, w2, w3, stream);
+}
+
+// The query side of the general case, for the group of levels [level0,
+// level0 + levels) (1 <= levels <= 4, their maps f2_0 ..) of a lookup of
+// out_levels levels, any radius with 2r + 2 <= 32000: g (N,
+// out_levels*(2r+1)^2, H, W); a block a (tile, level); d_f1_part
+// (out_levels, N, P, C) and d_coords_part (out_levels, N, 2, P) float32
+// (null: no d_coords, no dots), this group's levels' parts written;
+// ds (N, levels, P, (2r+2)^2) float32, keys and bases (N, levels, P) int32
+// of the group. `windowed_corr_bwd_level_sum` adds the parts once every
+// group's are in. The rest as the fast case's.
+extern "C" int windowed_corr_bwd_query_general(const void* f1, const void* f2_0, const void* f2_1,
+                                               const void* f2_2, const void* f2_3,
+                                               const float* coords, const void* g,
+                                               float* d_f1_part, float* d_coords_part, float* ds,
+                                               int* keys, int* bases, int n, int h, int w, int c,
+                                               int levels, int radius, int is_bf16, int level0,
+                                               int out_levels, int h0, int h1, int h2, int h3,
+                                               int w0, int w1, int w2, int w3, void* stream) {
+  return query_side<true>(f1, f2_0, f2_1, f2_2, f2_3, coords, g, nullptr, d_coords_part, d_f1_part,
+                          d_coords_part, ds, keys, bases, n, h, w, c, levels, radius, is_bf16, 1,
+                          level0, out_levels, h0, h1, h2, h3, w0, w1, w2, w3, stream);
+}
+
+// d_f1 (N*P, C) in the features' dtype and d_coords (N, 2, P) float32 (null:
+// none) as the sums of `levels` float32 parts (levels, N*P, C) and (levels,
+// N, 2, P), added in level order. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int windowed_corr_bwd_level_sum(const float* d_f1_part, const float* d_coords_part,
+                                           void* d_f1, float* d_coords, int64_t nq, int c,
+                                           int levels, int is_bf16, void* stream) {
+  if (nq < 0 || c < 8 || c % 8 || levels < 1 || (d_coords != nullptr && d_coords_part == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Geometry geo = make_geometry(n, levels, hs, ws);
-  const void* f2[kMaxLevels] = {f2_0, f2_1, f2_2, f2_3};
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((int64_t)n * h * w > 0) {
-    const cudaError_t err = is_bf16 ? configure<uint16_t>() : configure<float>();
-    if (err != cudaSuccess) return (int)err;
+  if (nq > 0) {
     if (is_bf16) {
-      launch_query<uint16_t>(f1, f2, coords, g, d_f1, d_coords, d_f1_part, d_coords_part, ds,
-                             keys, bases, geo, n, h, w, c, levels, radius, split, s);
+      launch_level_sum<uint16_t>(d_f1_part, d_coords_part, d_f1, d_coords, nq, c, levels,
+                                 (cudaStream_t)stream);
     } else {
-      launch_query<float>(f1, f2, coords, g, d_f1, d_coords, d_f1_part, d_coords_part, ds, keys,
-                          bases, geo, n, h, w, c, levels, radius, split, s);
+      launch_level_sum<float>(d_f1_part, d_coords_part, d_f1, d_coords, nq, c, levels,
+                              (cudaStream_t)stream);
     }
   }
   return (int)cudaGetLastError();
 }
 
-// The destination side, after the wrapper's stable sort of the keys:
-// sorted_keys (N*levels*P) int32 and order (its int64 entry indices); f1, ds
-// and bases as the query side's; offsets (keys + 1) and chunk_start (tiles
-// + 1) int32 scratch; partial float32 scratch of max_chunks x 64 x C
+// The destination side (fast case), after the wrapper's stable sort of the
+// keys: sorted_keys (N*levels*P) int32 and order (its int64 entry indices);
+// f1, ds and bases as the query side's; offsets (keys + 1) and chunk_start
+// (tiles + 1) int32 scratch; partial float32 scratch of max_chunks x 64 x C
 // (max_chunks = tiles + ceil(9 N levels P / chunk_q), which bounds the
 // chunks); d_f2_l (N, h_l, w_l, C) in f1's dtype, every element written.
 // Launches the offsets, plan, destination and chunk-sum kernels on `stream`;
@@ -1324,34 +1633,23 @@ extern "C" int windowed_corr_bwd(const void* f1, const float* ds, const int* sor
                                  void* d_f2_2, void* d_f2_3, int n, int p, int c, int levels,
                                  int radius, int is_bf16, int chunk_q, int h0, int h1, int h2,
                                  int h3, int w0, int w1, int w2, int w3, void* stream) {
-  const int hs[kMaxLevels] = {h0, h1, h2, h3}, ws[kMaxLevels] = {w0, w1, w2, w3};
-  const int64_t entries = (int64_t)n * levels * p;
-  if (p < 0 || chunk_q < 1 || bad_args(entries, n, c, levels, radius, hs, ws)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Geometry geo = make_geometry(n, levels, hs, ws);
-  const int64_t tiles = (int64_t)n * geo.tiles_per_image;
-  const int64_t max_chunks = tiles + (9 * entries + chunk_q - 1) / chunk_q;
-  if (max_chunks >= ((int64_t)1 << 31) || (int64_t)n * geo.keys_per_image >= ((int64_t)1 << 30)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  void* d_f2[kMaxLevels] = {d_f2_0, d_f2_1, d_f2_2, d_f2_3};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (tiles > 0) {
-    const cudaError_t err = is_bf16 ? configure<uint16_t>() : configure<float>();
-    if (err != cudaSuccess) return (int)err;
-    windowed_corr_bwd_offsets_kernel<<<(int)((entries + kOffsetThreads) / kOffsetThreads),
-                                       kOffsetThreads, 0, s>>>(sorted_keys, (int)entries,
-                                                               geo.sentinel, offsets);
-    windowed_corr_bwd_plan_kernel<<<1, kPlanThreads, 0, s>>>(offsets, geo, levels, (int)tiles,
-                                                             chunk_q, chunk_start);
-    if (is_bf16) {
-      launch_dest<uint16_t>(f1, ds, order, bases, offsets, chunk_start, partial, d_f2, geo, n, p, c,
-                            levels, radius, chunk_q, (int)tiles, max_chunks, s);
-    } else {
-      launch_dest<float>(f1, ds, order, bases, offsets, chunk_start, partial, d_f2, geo, n, p, c,
-                         levels, radius, chunk_q, (int)tiles, max_chunks, s);
-    }
-  }
-  return (int)cudaGetLastError();
+  return dest_side<false>(f1, ds, sorted_keys, order, bases, offsets, chunk_start, partial, d_f2_0,
+                          d_f2_1, d_f2_2, d_f2_3, n, p, c, levels, radius, is_bf16, chunk_q, h0,
+                          h1, h2, h3, w0, w1, w2, w3, stream);
+}
+
+// The destination side of the general case, for one group of levels (the
+// query side's): the key geometry of the span (pad 8 ceil((2r + 1) / 8),
+// reach pad / 8 + 1), max_chunks = tiles + ceil(reach^2 N levels P /
+// chunk_q); the rest as the fast case's.
+extern "C" int windowed_corr_bwd_general(const void* f1, const float* ds, const int* sorted_keys,
+                                         const int64_t* order, const int* bases, int* offsets,
+                                         int* chunk_start, float* partial, void* d_f2_0,
+                                         void* d_f2_1, void* d_f2_2, void* d_f2_3, int n, int p,
+                                         int c, int levels, int radius, int is_bf16, int chunk_q,
+                                         int h0, int h1, int h2, int h3, int w0, int w1, int w2,
+                                         int w3, void* stream) {
+  return dest_side<true>(f1, ds, sorted_keys, order, bases, offsets, chunk_start, partial, d_f2_0,
+                         d_f2_1, d_f2_2, d_f2_3, n, p, c, levels, radius, is_bf16, chunk_q, h0, h1,
+                         h2, h3, w0, w1, w2, w3, stream);
 }

@@ -56,6 +56,20 @@
 // is no faster (they hide under the rest); without the staging copies it
 // saves ~0.1 ms; the walk, the scatter, the blend and the stores take the
 // remaining ~0.25 ms, with ~2 warps a scheduler to hide their latency.
+//
+// That is the fast case: at most 4 levels and a radius of at most 4, every
+// path's lookups. Any other radius and level count takes the general case,
+// `windowed_corr_mma_lookup_general`, the same kernel with two additions:
+//   - the levels in groups of at most 4, a launch a group; a launch takes
+//     its first level's index (the coordinates' scale 2^-l) and the total
+//     level count (the output's channels are level-major);
+//   - the window in tap tiles: the (2r+1)^2 outputs cut into a grid of
+//     tiles of at most 9 x 9 (the fast case's largest window), tile (i, j)
+//     needing the (ni+1) x (nj+1) integer taps from (x0 + i0, y0 + j0). Each
+//     tile is walked, scattered and blended as the fast case walks its one
+//     window, in the same shared memory, so any radius fits; a tile shares
+//     its last tap row and column with the next tile's first, which are
+//     dotted twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +87,7 @@ constexpr int kMaxKSteps = kMaxC / 16;
 constexpr int kMaxLevels = 4;
 constexpr int kMaxRadius = 4;
 constexpr int kMaxSpan = 2 * kMaxRadius + 2;
+constexpr int kMaxWin = kMaxSpan - 1;  // outputs a tap tile of the general case a side
 // a query's integer taps in shared memory, an odd count so that the blend's
 // 16 queries read 16 banks
 constexpr int kSRow = kMaxSpan * kMaxSpan + 1;
@@ -187,10 +202,13 @@ __device__ __forceinline__ void stage_pixels(uint32_t dst, const uint16_t* __res
   }
 }
 
+// kGeneral: levels [level0, level0 + levels) of out_levels, the window in
+// tap tiles; else the fast case (level0 0, out_levels = levels, one tile)
+template <bool kGeneral>
 __global__ void __launch_bounds__(32)
 windowed_corr_mma_kernel(const uint16_t* __restrict__ f1, Levels lv,
                          const float* __restrict__ coords, uint16_t* __restrict__ out, int h,
-                         int w, int c, int levels, int radius) {
+                         int w, int c, int levels, int radius, int level0, int out_levels) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int nch = c >> 3;                // 8-channel chunks of a pixel
@@ -203,6 +221,8 @@ windowed_corr_mma_kernel(const uint16_t* __restrict__ f1, Levels lv,
   float* s = reinterpret_cast<float*>(smem + kStages * stage_bytes);  // [kTileQ][kSRow]
 
   const int win = 2 * radius + 1, span = win + 1, nout = win * win;
+  // tap tiles a side: ceil(win / kMaxWin) in the general case
+  const int parts = kGeneral ? (win + kMaxWin - 1) / kMaxWin : 1;
   const int p = h * w;
   const int tiles_x = (w + kTileQ - 1) / kTileQ;
   const int n = blockIdx.x / (h * tiles_x);
@@ -248,142 +268,169 @@ windowed_corr_mma_kernel(const uint16_t* __restrict__ f1, Levels lv,
   for (int l = 0; l < levels; ++l) {
     const int hl = lv.h[l], wl = lv.w[l];
     const uint16_t* __restrict__ f2 = lv.f2[l] + (int64_t)n * hl * wl * c;
-    const float scale = 1.0f / (float)(1 << l);  // exact: a power of two
+    // exact: a power of two
+    const float scale = kGeneral ? ldexpf(1.0f, -(level0 + l)) : 1.0f / (float)(1 << l);
     const float cx = cx_full * scale, cy = cy_full * scale;
     const float flx = floorf(cx), fly = floorf(cy);
     const float fx = cx - flx, fy = cy - fly;
-    int x0 = window_start(flx, radius, span, wl);
-    const int y0 = window_start(fly, radius, span, hl);
-    if (!q_ok) x0 = -span - 1;  // a query past the image row takes no tap
-    // the window's part on the map; empty off it (and for non-finite coordinates)
-    int wx0 = max(x0, 0), wx1 = min(x0 + span, wl);
-    int wy0 = max(y0, 0), wy1 = min(y0 + span, hl);
-    if (wx0 >= wx1 || wy0 >= wy1) {
-      wx0 = wy0 = kFar;
-      wx1 = wy1 = -kFar;
-    }
-    const int x0_lo = __shfl_sync(kAll, x0, g), y0_lo = __shfl_sync(kAll, y0, g);
-    const int x0_hi = __shfl_sync(kAll, x0, g + 8), y0_hi = __shfl_sync(kAll, y0, g + 8);
-    const int uy0 = __reduce_min_sync(kAll, wy0), uy1 = __reduce_max_sync(kAll, wy1);
-
-    // the next union row at or after y that some window covers, as a stage
-    // at its first column; y == uy1 when there is none
-    auto row_from = [&](int y) -> Stage {
-      for (; y < uy1; ++y) {
-        const bool in = wy0 <= y && y < wy1;
-        const int rx0 = __reduce_min_sync(kAll, in ? wx0 : kFar);
-        const int rx1 = __reduce_max_sync(kAll, in ? wx1 : -kFar);
-        if (rx0 < rx1) return Stage{y, rx0, rx1};
+    int x0_full = window_start(flx, radius, span, wl);
+    const int y0_full = window_start(fly, radius, span, hl);
+    if (!q_ok) x0_full = -span - 1;  // a query past the image row takes no tap
+    for (int tile = 0; tile < parts * parts; ++tile) {
+      // tap tile (ti, tj): outputs x offset i0 .. i0 + ni - 1, y offset j0 ..
+      // j0 + nj - 1, from the integer taps sx = ni + 1 a row, sy = nj + 1 rows
+      const int ti = tile / parts, tj = tile - ti * parts;
+      const int i0 = kGeneral ? ti * win / parts : 0, j0 = kGeneral ? tj * win / parts : 0;
+      const int ni = kGeneral ? (ti + 1) * win / parts - i0 : win;
+      const int nj = kGeneral ? (tj + 1) * win / parts - j0 : win;
+      const int sx = kGeneral ? ni + 1 : span, sy = kGeneral ? nj + 1 : span;
+      const int x0 = x0_full + i0, y0 = y0_full + j0;
+      // the tile's window part on the map; empty off it (and for non-finite
+      // coordinates: their window starts off the map)
+      int wx0 = max(x0, 0), wx1 = min(x0 + sx, wl);
+      int wy0 = max(y0, 0), wy1 = min(y0 + sy, hl);
+      if (wx0 >= wx1 || wy0 >= wy1) {
+        wx0 = wy0 = kFar;
+        wx1 = wy1 = -kFar;
       }
-      return Stage{uy1, 0, 0};
-    };
-    auto next = [&](Stage st) -> Stage {
-      return st.x + kStagePx < st.end ? Stage{st.y, st.x + kStagePx, st.end} : row_from(st.y + 1);
-    };
-    auto issue = [&](Stage st, int slot) {
-      stage_pixels(ring + slot * stage_bytes, f2 + ((int64_t)st.y * wl + st.x) * c, f1,
-                   min(kStagePx, st.end - st.x), c, nch, kch, px_bytes, lane, dq, dr);
-    };
+      const int x0_lo = __shfl_sync(kAll, x0, g), y0_lo = __shfl_sync(kAll, y0, g);
+      const int x0_hi = __shfl_sync(kAll, x0, g + 8), y0_hi = __shfl_sync(kAll, y0, g + 8);
+      const int uy0 = __reduce_min_sync(kAll, wy0), uy1 = __reduce_max_sync(kAll, wy1);
 
-    float4* s4 = reinterpret_cast<float4*>(s);
-    for (int i = lane; i < kTileQ * kSRow / 4; i += 32) s4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncwarp();
+      // the next union row at or after y that some window covers, as a stage
+      // at its first column; y == uy1 when there is none
+      auto row_from = [&](int y) -> Stage {
+        for (; y < uy1; ++y) {
+          const bool in = wy0 <= y && y < wy1;
+          const int rx0 = __reduce_min_sync(kAll, in ? wx0 : kFar);
+          const int rx1 = __reduce_max_sync(kAll, in ? wx1 : -kFar);
+          if (rx0 < rx1) return Stage{y, rx0, rx1};
+        }
+        return Stage{uy1, 0, 0};
+      };
+      auto next = [&](Stage st) -> Stage {
+        return st.x + kStagePx < st.end ? Stage{st.y, st.x + kStagePx, st.end} : row_from(st.y + 1);
+      };
+      auto issue = [&](Stage st, int slot) {
+        stage_pixels(ring + slot * stage_bytes, f2 + ((int64_t)st.y * wl + st.x) * c, f1,
+                     min(kStagePx, st.end - st.x), c, nch, kch, px_bytes, lane, dq, dr);
+      };
 
-    Stage load = row_from(uy0 < uy1 ? uy0 : uy1);
-    Stage comp = load;
-#pragma unroll
-    for (int i = 0; i < kStages - 1; ++i) {
-      if (load.y < uy1) {
-        issue(load, i);
-        load = next(load);
-      }
-      cp_async_commit();
-    }
-    int slot = 0;
-    while (comp.y < uy1) {
-      // the slot kStages - 1 ahead was computed last step (and synced)
-      if (load.y < uy1) {
-        issue(load, slot == 0 ? kStages - 1 : slot - 1);
-        load = next(load);
-      }
-      cp_async_commit();
-      cp_async_wait<kStages - 1>();
+      float4* s4 = reinterpret_cast<float4*>(s);
+      for (int i = lane; i < kTileQ * kSRow / 4; i += 32) s4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       __syncwarp();
 
-      const int npx = min(kStagePx, comp.end - comp.x);
-      const int nt = (npx + 7) >> 3;
-      float acc[kNT][2][4] = {};
-      const uint32_t bbase = ring + slot * stage_bytes + b_row * px_bytes + b_chunk * 16;
-      if (nt == 2) {
-        stage_dots<2>(a, bbase, nks, acc);
-      } else {
-        stage_dots<1>(a, bbase, nks, acc);
+      Stage load = row_from(uy0 < uy1 ? uy0 : uy1);
+      Stage comp = load;
+#pragma unroll
+      for (int i = 0; i < kStages - 1; ++i) {
+        if (load.y < uy1) {
+          issue(load, i);
+          load = next(load);
+        }
+        cp_async_commit();
       }
-      // scatter: (query, pixel) into the query's sums if the pixel is in its
-      // window; columns past the piece hold no copied pixel
+      int slot = 0;
+      while (comp.y < uy1) {
+        // the slot kStages - 1 ahead was computed last step (and synced)
+        if (load.y < uy1) {
+          issue(load, slot == 0 ? kStages - 1 : slot - 1);
+          load = next(load);
+        }
+        cp_async_commit();
+        cp_async_wait<kStages - 1>();
+        __syncwarp();
+
+        const int npx = min(kStagePx, comp.end - comp.x);
+        const int nt = (npx + 7) >> 3;
+        float acc[kNT][2][4] = {};
+        const uint32_t bbase = ring + slot * stage_bytes + b_row * px_bytes + b_chunk * 16;
+        if (nt == 2) {
+          stage_dots<2>(a, bbase, nks, acc);
+        } else {
+          stage_dots<1>(a, bbase, nks, acc);
+        }
+        // scatter: (query, pixel) into the query's sums if the pixel is in its
+        // window; columns past the piece hold no copied pixel
 #pragma unroll
-      for (int t = 0; t < kNT; ++t) {
+        for (int t = 0; t < kNT; ++t) {
 #pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const int dy = comp.y - (hi ? y0_hi : y0_lo);
+          for (int hi = 0; hi < 2; ++hi) {
+            const int dy = comp.y - (hi ? y0_hi : y0_lo);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int px = 8 * t + col + j;
-            const int dx = comp.x + px - (hi ? x0_hi : x0_lo);
-            if (px < npx && (unsigned)dy < (unsigned)span && (unsigned)dx < (unsigned)span) {
-              s[(g + 8 * hi) * kSRow + dy * span + dx] = acc[t][0][2 * hi + j] + acc[t][1][2 * hi + j];
+            for (int j = 0; j < 2; ++j) {
+              const int px = 8 * t + col + j;
+              const int dx = comp.x + px - (hi ? x0_hi : x0_lo);
+              if (px < npx && (unsigned)dy < (unsigned)sy && (unsigned)dx < (unsigned)sx) {
+                s[(g + 8 * hi) * kSRow + dy * sx + dx] = acc[t][0][2 * hi + j] + acc[t][1][2 * hi + j];
+              }
             }
+          }
+        }
+        __syncwarp();
+        comp = next(comp);
+        slot = slot + 1 == kStages ? 0 : slot + 1;
+      }
+      cp_async_wait<0>();
+      __syncwarp();
+
+      // tent blend, no contraction into FMAs: the plain version's order; lanes
+      // 0-15 and 16-31 take two output channels, 16 queries each
+      const float ofy = 1.0f - fy, ofx = 1.0f - fx;
+      const float* sq = s + rq * kSRow;
+      uint16_t* o = out + ((int64_t)n * (kGeneral ? out_levels : levels) * nout +
+                           (int64_t)(kGeneral ? level0 + l : l) * nout) * p +
+                    (int64_t)qy * w + qx0 + rq;
+      if (kGeneral) {
+        // the tile's outputs k = il * nj + jl, channel (i0 + il) * win + j0 + jl
+        for (int k = lane >> 4; k < ni * nj; k += 2) {
+          const int il = k / nj, jl = k - il * nj;
+          const float* r0 = sq + jl * sx + il;
+          const float* r1 = r0 + sx;
+          const float sy0 = __fadd_rn(__fmul_rn(r0[0], ofy), __fmul_rn(r1[0], fy));
+          const float sy1 = __fadd_rn(__fmul_rn(r0[1], ofy), __fmul_rn(r1[1], fy));
+          const float v = __fadd_rn(__fmul_rn(sy0, ofx), __fmul_rn(sy1, fx));
+          if (q_ok) {
+            o[(int64_t)((i0 + il) * win + j0 + jl) * p] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+          }
+        }
+      } else {
+        int k = lane >> 4;
+        int i = 0, j = k;  // k = i * win + j: x offset i (outer), y offset j
+        for (; k < nout; k += 2) {
+          const float* r0 = sq + j * span + i;
+          const float* r1 = r0 + span;
+          const float sy0 = __fadd_rn(__fmul_rn(r0[0], ofy), __fmul_rn(r1[0], fy));
+          const float sy1 = __fadd_rn(__fmul_rn(r0[1], ofy), __fmul_rn(r1[1], fy));
+          const float v = __fadd_rn(__fmul_rn(sy0, ofx), __fmul_rn(sy1, fx));
+          if (q_ok) o[(int64_t)k * p] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+          j += 2;
+          if (j >= win) {
+            j -= win;
+            ++i;
           }
         }
       }
       __syncwarp();
-      comp = next(comp);
-      slot = slot + 1 == kStages ? 0 : slot + 1;
     }
-    cp_async_wait<0>();
-    __syncwarp();
-
-    // tent blend, no contraction into FMAs: the plain version's order; lanes
-    // 0-15 and 16-31 take two output channels, 16 queries each
-    const float ofy = 1.0f - fy, ofx = 1.0f - fx;
-    const float* sq = s + rq * kSRow;
-    uint16_t* o = out + ((int64_t)n * levels * nout + (int64_t)l * nout) * p +
-                  (int64_t)qy * w + qx0 + rq;
-    int k = lane >> 4;
-    int i = 0, j = k;  // k = i * win + j: x offset i (outer), y offset j
-    for (; k < nout; k += 2) {
-      const float* r0 = sq + j * span + i;
-      const float* r1 = r0 + span;
-      const float sy0 = __fadd_rn(__fmul_rn(r0[0], ofy), __fmul_rn(r1[0], fy));
-      const float sy1 = __fadd_rn(__fmul_rn(r0[1], ofy), __fmul_rn(r1[1], fy));
-      const float v = __fadd_rn(__fmul_rn(sy0, ofx), __fmul_rn(sy1, fx));
-      if (q_ok) o[(int64_t)k * p] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-      j += 2;
-      if (j >= win) {
-        j -= win;
-        ++i;
-      }
-    }
-    __syncwarp();
   }
 }
 
 }  // namespace
 
-// f1 (N, H*W, C); f2_l (N, h_l, w_l, C) for l < levels (unused pointers may
-// be null); coords (N, 2, H, W) float32; out (N, levels*(2r+1)^2, H, W).
-// f1, the levels and out are bf16 (their bits); all are contiguous, 16-byte
-// aligned device pointers. C a multiple of 8 in [8, 256], 1 <= levels <= 4,
-// 0 <= radius <= 4, N*H*W < 2**31. Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int windowed_corr_mma_lookup(const void* f1, const void* f2_0, const void* f2_1,
-                                        const void* f2_2, const void* f2_3, const float* coords,
-                                        void* out, int n, int h, int w, int c, int levels,
-                                        int radius, int h0, int h1, int h2, int h3, int w0,
-                                        int w1, int w2, int w3, void* stream) {
+namespace {
+
+template <bool kGeneral>
+int launch(const void* f1, const void* f2_0, const void* f2_1, const void* f2_2, const void* f2_3,
+           const float* coords, void* out, int n, int h, int w, int c, int levels, int radius,
+           int level0, int out_levels, int h0, int h1, int h2, int h3, int w0, int w1, int w2,
+           int w3, void* stream) {
   const int64_t nq = (int64_t)n * h * w;
   if (nq >= ((int64_t)1 << 31) || n < 0 || h < 0 || w < 0 || c < 8 || c > kMaxC || c % 8 ||
-      levels < 1 || levels > kMaxLevels || radius < 0 || radius > kMaxRadius) {
+      levels < 1 || levels > kMaxLevels || radius < 0 ||
+      (kGeneral ? (int64_t)(2 * radius + 2) * (2 * radius + 2) >= ((int64_t)1 << 31) || level0 < 0 ||
+                      level0 + levels > out_levels
+                : radius > kMaxRadius)) {
     return (int)cudaErrorInvalidValue;
   }
   const Levels lv = {{static_cast<const uint16_t*>(f2_0), static_cast<const uint16_t*>(f2_1),
@@ -397,9 +444,41 @@ extern "C" int windowed_corr_mma_lookup(const void* f1, const void* f2_0, const 
   if (tiles > 0) {
     const int kch = ((c + 15) >> 4) << 1;
     const size_t smem = (size_t)kStages * kStagePx * (kch * 16 + 16) + kTileQ * kSRow * sizeof(float);
-    windowed_corr_mma_kernel<<<(int)tiles, 32, smem, (cudaStream_t)stream>>>(
+    windowed_corr_mma_kernel<kGeneral><<<(int)tiles, 32, smem, (cudaStream_t)stream>>>(
         static_cast<const uint16_t*>(f1), lv, coords, static_cast<uint16_t*>(out), h, w, c,
-        levels, radius);
+        levels, radius, level0, out_levels);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The fast case. f1 (N, H*W, C); f2_l (N, h_l, w_l, C) for l < levels
+// (unused pointers may be null); coords (N, 2, H, W) float32; out (N,
+// levels*(2r+1)^2, H, W). f1, the levels and out are bf16 (their bits); all
+// are contiguous, 16-byte aligned device pointers. C a multiple of 8 in
+// [8, 256], 1 <= levels <= 4, 0 <= radius <= 4, N*H*W < 2**31. Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int windowed_corr_mma_lookup(const void* f1, const void* f2_0, const void* f2_1,
+                                        const void* f2_2, const void* f2_3, const float* coords,
+                                        void* out, int n, int h, int w, int c, int levels,
+                                        int radius, int h0, int h1, int h2, int h3, int w0,
+                                        int w1, int w2, int w3, void* stream) {
+  return launch<false>(f1, f2_0, f2_1, f2_2, f2_3, coords, out, n, h, w, c, levels, radius, 0,
+                       levels, h0, h1, h2, h3, w0, w1, w2, w3, stream);
+}
+
+// The general case: any radius >= 0, and levels [level0, level0 + levels)
+// (1 <= levels <= 4, their maps f2_0 ..) of a lookup of out_levels levels,
+// written to their channels of out (N, out_levels*(2r+1)^2, H, W); the rest
+// as the fast case's.
+extern "C" int windowed_corr_mma_lookup_general(const void* f1, const void* f2_0,
+                                                const void* f2_1, const void* f2_2,
+                                                const void* f2_3, const float* coords, void* out,
+                                                int n, int h, int w, int c, int levels, int radius,
+                                                int level0, int out_levels, int h0, int h1, int h2,
+                                                int h3, int w0, int w1, int w2, int w3,
+                                                void* stream) {
+  return launch<true>(f1, f2_0, f2_1, f2_2, f2_3, coords, out, n, h, w, c, levels, radius, level0,
+                      out_levels, h0, h1, h2, h3, w0, w1, w2, w3, stream);
 }

@@ -75,6 +75,13 @@
 // an SM. tools/windowed_ablate.py --tf32 (in-frame): without the staging
 // copies it is 0.11 ms faster, without the mma 0.12 ms; 8-pixel stages and
 // a 4-deep ring are slower.
+//
+// That is the fast case: at most 4 levels and a radius of at most 4. Any
+// other radius and level count takes the general case,
+// `windowed_corr_tf32_lookup_general`, with windowed_corr_mma.cu's two
+// additions: levels in groups of at most 4 (a launch a group, with its first
+// level's index and the total level count), and the window in tap tiles of
+// at most 9 x 9 outputs, each walked as the fast case walks its window.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +103,7 @@ constexpr int kMaxKs = kMaxC / 8 / kWarps;  // k-steps a warp at most
 constexpr int kMaxLevels = 4;
 constexpr int kMaxRadius = 4;
 constexpr int kMaxSpan = 2 * kMaxRadius + 2;
+constexpr int kMaxWin = kMaxSpan - 1;  // outputs a tap tile of the general case a side
 // a query's integer taps in shared memory, an odd count so that the blend's
 // 16 queries read 16 banks
 constexpr int kSRow = kMaxSpan * kMaxSpan + 1;
@@ -238,10 +246,13 @@ struct Stage {
   int y, x, end;
 };
 
+// kGeneral: levels [level0, level0 + levels) of out_levels, the window in
+// tap tiles; else the fast case (level0 0, out_levels = levels, one tile)
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 windowed_corr_tf32_kernel(const float* __restrict__ f1, Levels lv,
                           const float* __restrict__ coords, float* __restrict__ out, int h,
-                          int w, int c, int levels, int radius) {
+                          int w, int c, int levels, int radius, int level0, int out_levels) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // this warp's channel slice: k-steps [ks0, ks0 + nks)
@@ -256,6 +267,8 @@ windowed_corr_tf32_kernel(const float* __restrict__ f1, Levels lv,
   float* s = red + 2 * kWarps * kElems * 32;              // [kTileQ][kSRow]
 
   const int win = 2 * radius + 1, span = win + 1, nout = win * win;
+  // tap tiles a side: ceil(win / kMaxWin) in the general case
+  const int parts = kGeneral ? (win + kMaxWin - 1) / kMaxWin : 1;
   const int p = h * w;
   const int tiles_x = (w + kTileQ - 1) / kTileQ;
   const int n = blockIdx.x / (h * tiles_x);
@@ -290,146 +303,161 @@ windowed_corr_tf32_kernel(const float* __restrict__ f1, Levels lv,
   for (int l = 0; l < levels; ++l) {
     const int hl = lv.h[l], wl = lv.w[l];
     const float* __restrict__ f2 = lv.f2[l] + (int64_t)n * hl * wl * c + kw0;
-    const float scale = 1.0f / (float)(1 << l);  // exact: a power of two
+    // exact: a power of two
+    const float scale = kGeneral ? ldexpf(1.0f, -(level0 + l)) : 1.0f / (float)(1 << l);
     const float cx = cx_full * scale, cy = cy_full * scale;
     const float flx = floorf(cx), fly = floorf(cy);
     const float fx = cx - flx, fy = cy - fly;
-    int x0 = window_start(flx, radius, span, wl);
-    const int y0 = window_start(fly, radius, span, hl);
-    if (!q_ok) x0 = -span - 1;  // a query past the image row takes no tap
-    // the window's part on the map; empty off it (and for non-finite coordinates)
-    int wx0 = max(x0, 0), wx1 = min(x0 + span, wl);
-    int wy0 = max(y0, 0), wy1 = min(y0 + span, hl);
-    if (wx0 >= wx1 || wy0 >= wy1) {
-      wx0 = wy0 = kFar;
-      wx1 = wy1 = -kFar;
-    }
-    const int x0_lo = __shfl_sync(kAll, x0, g), y0_lo = __shfl_sync(kAll, y0, g);
-    const int x0_hi = __shfl_sync(kAll, x0, g + 8), y0_hi = __shfl_sync(kAll, y0, g + 8);
-    const int uy0 = __reduce_min_sync(kAll, wy0), uy1 = __reduce_max_sync(kAll, wy1);
-
-    // the next union row at or after y that some window covers, as a stage
-    // at its first column; y == uy1 when there is none (every warp walks
-    // the same rows)
-    auto row_from = [&](int y) -> Stage {
-      for (; y < uy1; ++y) {
-        const bool in = wy0 <= y && y < wy1;
-        const int rx0 = __reduce_min_sync(kAll, in ? wx0 : kFar);
-        const int rx1 = __reduce_max_sync(kAll, in ? wx1 : -kFar);
-        if (rx0 < rx1) return Stage{y, rx0, rx1};
+    int x0_full = window_start(flx, radius, span, wl);
+    const int y0_full = window_start(fly, radius, span, hl);
+    if (!q_ok) x0_full = -span - 1;  // a query past the image row takes no tap
+    for (int tile = 0; tile < parts * parts; ++tile) {
+      // tap tile (ti, tj): outputs x offset i0 .. i0 + ni - 1, y offset j0 ..
+      // j0 + nj - 1, from the integer taps sx = ni + 1 a row, sy = nj + 1 rows
+      const int ti = tile / parts, tj = tile - ti * parts;
+      const int i0 = kGeneral ? ti * win / parts : 0, j0 = kGeneral ? tj * win / parts : 0;
+      const int ni = kGeneral ? (ti + 1) * win / parts - i0 : win;
+      const int nj = kGeneral ? (tj + 1) * win / parts - j0 : win;
+      const int sx = kGeneral ? ni + 1 : span, sy = kGeneral ? nj + 1 : span;
+      const int x0 = x0_full + i0, y0 = y0_full + j0;
+      // the tile's window part on the map; empty off it (and for non-finite
+      // coordinates: their window starts off the map)
+      int wx0 = max(x0, 0), wx1 = min(x0 + sx, wl);
+      int wy0 = max(y0, 0), wy1 = min(y0 + sy, hl);
+      if (wx0 >= wx1 || wy0 >= wy1) {
+        wx0 = wy0 = kFar;
+        wx1 = wy1 = -kFar;
       }
-      return Stage{uy1, 0, 0};
-    };
-    auto next = [&](Stage st) -> Stage {
-      return st.x + kStagePx < st.end ? Stage{st.y, st.x + kStagePx, st.end} : row_from(st.y + 1);
-    };
-    auto issue = [&](Stage st, int slot) {
-      stage_pixels(ring + slot * stage_floats, f2 + ((int64_t)st.y * wl + st.x) * c,
-                   min(kStagePx, st.end - st.x), kw, c, rs, lane);
-    };
+      const int x0_lo = __shfl_sync(kAll, x0, g), y0_lo = __shfl_sync(kAll, y0, g);
+      const int x0_hi = __shfl_sync(kAll, x0, g + 8), y0_hi = __shfl_sync(kAll, y0, g + 8);
+      const int uy0 = __reduce_min_sync(kAll, wy0), uy1 = __reduce_max_sync(kAll, wy1);
 
-    __syncthreads();  // the last level's blend has read the sums
-    float4* s4 = reinterpret_cast<float4*>(s);
-    for (int i = threadIdx.x; i < kTileQ * kSRow / 4; i += kThreads) {
-      s4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-
-    Stage load = row_from(uy0 < uy1 ? uy0 : uy1);
-    Stage comp = load;
-#pragma unroll
-    for (int i = 0; i < kStages - 1; ++i) {
-      if (load.y < uy1) {
-        issue(load, i);
-        load = next(load);
-      }
-      cp_async_commit();
-    }
-    int slot = 0;
-    while (comp.y < uy1) {
-      // the slot kStages - 1 ahead was computed last step (and synced)
-      if (load.y < uy1) {
-        issue(load, slot == 0 ? kStages - 1 : slot - 1);
-        load = next(load);
-      }
-      cp_async_commit();
-      cp_async_wait<kStages - 1>();
-      __syncwarp();
-
-      const int npx = min(kStagePx, comp.end - comp.x);
-      float acc[kNT][2][4] = {};
-      const float* stage = ring + slot * stage_floats;
-      if (nks == kMaxKs) {
-        if (kNT == 2 && npx > 8) {
-          stage_dots<kNT, true>(ahi, alo, stage, rs, nks, g, t4, acc);
-        } else {
-          stage_dots<1, true>(ahi, alo, stage, rs, nks, g, t4, acc);
+      // the next union row at or after y that some window covers, as a stage
+      // at its first column; y == uy1 when there is none (every warp walks
+      // the same rows)
+      auto row_from = [&](int y) -> Stage {
+        for (; y < uy1; ++y) {
+          const bool in = wy0 <= y && y < wy1;
+          const int rx0 = __reduce_min_sync(kAll, in ? wx0 : kFar);
+          const int rx1 = __reduce_max_sync(kAll, in ? wx1 : -kFar);
+          if (rx0 < rx1) return Stage{y, rx0, rx1};
         }
-      } else if (kNT == 2 && npx > 8) {
-        stage_dots<kNT, false>(ahi, alo, stage, rs, nks, g, t4, acc);
-      } else {
-        stage_dots<1, false>(ahi, alo, stage, rs, nks, g, t4, acc);
-      }
-      // the warp's partial sums, element e of n-tile t at [buf][warp][4t + e][lane]
-      float* part = red + buf * kWarps * kElems * 32;
-#pragma unroll
-      for (int t = 0; t < kNT; ++t) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          part[(warp * kElems + 4 * t + e) * 32 + lane] = acc[t][0][e] + acc[t][1][e];
-        }
+        return Stage{uy1, 0, 0};
+      };
+      auto next = [&](Stage st) -> Stage {
+        return st.x + kStagePx < st.end ? Stage{st.y, st.x + kStagePx, st.end} : row_from(st.y + 1);
+      };
+      auto issue = [&](Stage st, int slot) {
+        stage_pixels(ring + slot * stage_floats, f2 + ((int64_t)st.y * wl + st.x) * c,
+                     min(kStagePx, st.end - st.x), kw, c, rs, lane);
+      };
+
+      __syncthreads();  // the last tile's blend has read the sums
+      float4* s4 = reinterpret_cast<float4*>(s);
+      for (int i = threadIdx.x; i < kTileQ * kSRow / 4; i += kThreads) {
+        s4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
       __syncthreads();
-      // warp w owns elements w, w + kWarps, ...: their sums over the warps
-      // in a fixed order, each (query, pixel) into the query's sums if the
-      // pixel is in its window; columns past the piece hold no copied pixel
-#pragma unroll
-      for (int i = warp; i < kElems; i += kWarps) {
-        const int t = i >> 2, hi = (i >> 1) & 1, px = 8 * t + col + (i & 1);
-        const int dy = comp.y - (hi ? y0_hi : y0_lo);
-        const int dx = comp.x + px - (hi ? x0_hi : x0_lo);
-        if (px < npx && (unsigned)dy < (unsigned)span && (unsigned)dx < (unsigned)span) {
-          float v = part[i * 32 + lane];
-#pragma unroll
-          for (int u = 1; u < kWarps; ++u) v += part[(u * kElems + i) * 32 + lane];
-          s[(g + 8 * hi) * kSRow + dy * span + dx] = v;
-        }
-      }
-      buf ^= 1;
-      __syncwarp();
-      comp = next(comp);
-      slot = slot + 1 == kStages ? 0 : slot + 1;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every piece's sums are in
 
-    // tent blend, no contraction into FMAs: the plain version's order; each
-    // half-warp takes an output channel, 16 queries
-    const float ofy = 1.0f - fy, ofx = 1.0f - fx;
-    const float* sq = s + rq * kSRow;
-    float* o = out + ((int64_t)n * levels * nout + (int64_t)l * nout) * p + (int64_t)qy * w +
-               qx0 + rq;
-    for (int k = 2 * warp + (lane >> 4); k < nout; k += 2 * kWarps) {
-      const int i = k / win, j = k - i * win;  // x offset i (outer), y offset j
-      const float* r0 = sq + j * span + i;
-      const float* r1 = r0 + span;
-      const float sy0 = __fadd_rn(__fmul_rn(r0[0], ofy), __fmul_rn(r1[0], fy));
-      const float sy1 = __fadd_rn(__fmul_rn(r0[1], ofy), __fmul_rn(r1[1], fy));
-      const float v = __fadd_rn(__fmul_rn(sy0, ofx), __fmul_rn(sy1, fx));
-      if (q_ok) o[(int64_t)k * p] = v;
+      Stage load = row_from(uy0 < uy1 ? uy0 : uy1);
+      Stage comp = load;
+#pragma unroll
+      for (int i = 0; i < kStages - 1; ++i) {
+        if (load.y < uy1) {
+          issue(load, i);
+          load = next(load);
+        }
+        cp_async_commit();
+      }
+      int slot = 0;
+      while (comp.y < uy1) {
+        // the slot kStages - 1 ahead was computed last step (and synced)
+        if (load.y < uy1) {
+          issue(load, slot == 0 ? kStages - 1 : slot - 1);
+          load = next(load);
+        }
+        cp_async_commit();
+        cp_async_wait<kStages - 1>();
+        __syncwarp();
+
+        const int npx = min(kStagePx, comp.end - comp.x);
+        float acc[kNT][2][4] = {};
+        const float* stage = ring + slot * stage_floats;
+        if (nks == kMaxKs) {
+          if (kNT == 2 && npx > 8) {
+            stage_dots<kNT, true>(ahi, alo, stage, rs, nks, g, t4, acc);
+          } else {
+            stage_dots<1, true>(ahi, alo, stage, rs, nks, g, t4, acc);
+          }
+        } else if (kNT == 2 && npx > 8) {
+          stage_dots<kNT, false>(ahi, alo, stage, rs, nks, g, t4, acc);
+        } else {
+          stage_dots<1, false>(ahi, alo, stage, rs, nks, g, t4, acc);
+        }
+        // the warp's partial sums, element e of n-tile t at [buf][warp][4t + e][lane]
+        float* part = red + buf * kWarps * kElems * 32;
+#pragma unroll
+        for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            part[(warp * kElems + 4 * t + e) * 32 + lane] = acc[t][0][e] + acc[t][1][e];
+          }
+        }
+        __syncthreads();
+        // warp w owns elements w, w + kWarps, ...: their sums over the warps
+        // in a fixed order, each (query, pixel) into the query's sums if the
+        // pixel is in its window; columns past the piece hold no copied pixel
+#pragma unroll
+        for (int i = warp; i < kElems; i += kWarps) {
+          const int t = i >> 2, hi = (i >> 1) & 1, px = 8 * t + col + (i & 1);
+          const int dy = comp.y - (hi ? y0_hi : y0_lo);
+          const int dx = comp.x + px - (hi ? x0_hi : x0_lo);
+          if (px < npx && (unsigned)dy < (unsigned)sy && (unsigned)dx < (unsigned)sx) {
+            float v = part[i * 32 + lane];
+#pragma unroll
+            for (int u = 1; u < kWarps; ++u) v += part[(u * kElems + i) * 32 + lane];
+            s[(g + 8 * hi) * kSRow + dy * sx + dx] = v;
+          }
+        }
+        buf ^= 1;
+        __syncwarp();
+        comp = next(comp);
+        slot = slot + 1 == kStages ? 0 : slot + 1;
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // every piece's sums are in
+
+      // tent blend, no contraction into FMAs: the plain version's order; each
+      // half-warp takes an output channel, 16 queries
+      const float ofy = 1.0f - fy, ofx = 1.0f - fx;
+      const float* sq = s + rq * kSRow;
+      float* o = out + ((int64_t)n * (kGeneral ? out_levels : levels) * nout +
+                        (int64_t)(kGeneral ? level0 + l : l) * nout) * p + (int64_t)qy * w + qx0 + rq;
+      // the tile's outputs k = i * nj + j, x offset i0 + i (outer), y offset j0 + j
+      for (int k = 2 * warp + (lane >> 4); k < ni * nj; k += 2 * kWarps) {
+        const int i = k / nj, j = k - i * nj;
+        const float* r0 = sq + j * sx + i;
+        const float* r1 = r0 + sx;
+        const float sy0 = __fadd_rn(__fmul_rn(r0[0], ofy), __fmul_rn(r1[0], fy));
+        const float sy1 = __fadd_rn(__fmul_rn(r0[1], ofy), __fmul_rn(r1[1], fy));
+        const float v = __fadd_rn(__fmul_rn(sy0, ofx), __fmul_rn(sy1, fx));
+        if (q_ok) o[(int64_t)((i0 + i) * win + j0 + j) * p] = v;
+      }
     }
   }
 }
 
 // Above 48 KB a block's dynamic shared memory must be allowed; the carveout
-// asks for all of the SM's 228 KB as shared memory. Set once.
+// asks for all of the SM's 228 KB as shared memory. Set once an instance.
+template <bool kGeneral>
 cudaError_t configure() {
   static bool configured = false;
   if (configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      windowed_corr_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kMaxC));
+  cudaError_t err = cudaFuncSetAttribute(windowed_corr_tf32_kernel<kGeneral>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes(kMaxC));
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(windowed_corr_tf32_kernel,
+    err = cudaFuncSetAttribute(windowed_corr_tf32_kernel<kGeneral>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   }
@@ -437,36 +465,17 @@ cudaError_t configure() {
   return err;
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory a block takes at C = c.
-extern "C" int windowed_corr_tf32_smem_bytes(int c) { return smem_bytes(c); }
-
-// Blocks of the kernel an SM holds at C = c (each kWarps warps), or -1 on an
-// error.
-extern "C" int windowed_corr_tf32_blocks_per_sm(int c) {
-  int blocks = 0;
-  if (configure() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, windowed_corr_tf32_kernel, kThreads,
-                                                    smem_bytes(c)) != cudaSuccess) {
-    return -1;
-  }
-  return blocks;
-}
-
-// f1 (N, H*W, C); f2_l (N, h_l, w_l, C) for l < levels (unused pointers may
-// be null); coords (N, 2, H, W); out (N, levels*(2r+1)^2, H, W); all
-// float32, contiguous, 16-byte aligned device pointers. C a multiple of 8 in
-// [8, 256], 1 <= levels <= 4, 0 <= radius <= 4, N*H*W < 2**31. Launches on
-// `stream`; returns the first CUDA error (cudaGetLastError()).
-extern "C" int windowed_corr_tf32_lookup(const void* f1, const void* f2_0, const void* f2_1,
-                                         const void* f2_2, const void* f2_3, const float* coords,
-                                         void* out, int n, int h, int w, int c, int levels,
-                                         int radius, int h0, int h1, int h2, int h3, int w0,
-                                         int w1, int w2, int w3, void* stream) {
+template <bool kGeneral>
+int launch(const void* f1, const void* f2_0, const void* f2_1, const void* f2_2, const void* f2_3,
+           const float* coords, void* out, int n, int h, int w, int c, int levels, int radius,
+           int level0, int out_levels, int h0, int h1, int h2, int h3, int w0, int w1, int w2,
+           int w3, void* stream) {
   const int64_t nq = (int64_t)n * h * w;
   if (nq >= ((int64_t)1 << 31) || n < 0 || h < 0 || w < 0 || c < 8 || c > kMaxC || c % 8 ||
-      levels < 1 || levels > kMaxLevels || radius < 0 || radius > kMaxRadius) {
+      levels < 1 || levels > kMaxLevels || radius < 0 ||
+      (kGeneral ? (int64_t)(2 * radius + 2) * (2 * radius + 2) >= ((int64_t)1 << 31) || level0 < 0 ||
+                      level0 + levels > out_levels
+                : radius > kMaxRadius)) {
     return (int)cudaErrorInvalidValue;
   }
   const Levels lv = {{static_cast<const float*>(f2_0), static_cast<const float*>(f2_1),
@@ -478,11 +487,58 @@ extern "C" int windowed_corr_tf32_lookup(const void* f1, const void* f2_0, const
   }
   const int64_t tiles = (int64_t)n * h * ((w + kTileQ - 1) / kTileQ);
   if (tiles > 0) {
-    const cudaError_t err = configure();
+    const cudaError_t err = configure<kGeneral>();
     if (err != cudaSuccess) return (int)err;
-    windowed_corr_tf32_kernel<<<(int)tiles, kThreads, smem_bytes(c), (cudaStream_t)stream>>>(
+    windowed_corr_tf32_kernel<kGeneral><<<(int)tiles, kThreads, smem_bytes(c), (cudaStream_t)stream>>>(
         static_cast<const float*>(f1), lv, coords, static_cast<float*>(out), h, w, c, levels,
-        radius);
+        radius, level0, out_levels);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory a block takes at C = c.
+extern "C" int windowed_corr_tf32_smem_bytes(int c) { return smem_bytes(c); }
+
+// Blocks of the kernel an SM holds at C = c (each kWarps warps), or -1 on an
+// error.
+extern "C" int windowed_corr_tf32_blocks_per_sm(int c) {
+  int blocks = 0;
+  if (configure<false>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, windowed_corr_tf32_kernel<false>, kThreads,
+                                                    smem_bytes(c)) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+// The fast case. f1 (N, H*W, C); f2_l (N, h_l, w_l, C) for l < levels
+// (unused pointers may be null); coords (N, 2, H, W); out (N,
+// levels*(2r+1)^2, H, W); all float32, contiguous, 16-byte aligned device
+// pointers. C a multiple of 8 in [8, 256], 1 <= levels <= 4, 0 <= radius <=
+// 4, N*H*W < 2**31. Launches on `stream`; returns the first CUDA error
+// (cudaGetLastError()).
+extern "C" int windowed_corr_tf32_lookup(const void* f1, const void* f2_0, const void* f2_1,
+                                         const void* f2_2, const void* f2_3, const float* coords,
+                                         void* out, int n, int h, int w, int c, int levels,
+                                         int radius, int h0, int h1, int h2, int h3, int w0,
+                                         int w1, int w2, int w3, void* stream) {
+  return launch<false>(f1, f2_0, f2_1, f2_2, f2_3, coords, out, n, h, w, c, levels, radius, 0,
+                       levels, h0, h1, h2, h3, w0, w1, w2, w3, stream);
+}
+
+// The general case: any radius >= 0, and levels [level0, level0 + levels)
+// (1 <= levels <= 4, their maps f2_0 ..) of a lookup of out_levels levels,
+// written to their channels of out (N, out_levels*(2r+1)^2, H, W); the rest
+// as the fast case's.
+extern "C" int windowed_corr_tf32_lookup_general(const void* f1, const void* f2_0,
+                                                 const void* f2_1, const void* f2_2,
+                                                 const void* f2_3, const float* coords, void* out,
+                                                 int n, int h, int w, int c, int levels,
+                                                 int radius, int level0, int out_levels, int h0,
+                                                 int h1, int h2, int h3, int w0, int w1, int w2,
+                                                 int w3, void* stream) {
+  return launch<true>(f1, f2_0, f2_1, f2_2, f2_3, coords, out, n, h, w, c, levels, radius, level0,
+                      out_levels, h0, h1, h2, h3, w0, w1, w2, w3, stream);
 }

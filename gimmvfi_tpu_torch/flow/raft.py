@@ -199,8 +199,8 @@ class RAFT(nn.Module):
 
     `corr_levels` and `corr_radius` (JAX's fields, 4 and 4 by default) set
     every lookup and the motion encoder's input, levels x (2r+1)^2 planes.
-    On the card the windowed kernels take 1-4 levels and a radius of 0-4:
-    past that a windowed lookup raises there (`ops/corr.py`).
+    On the card the windowed kernels take any of them: past 4 levels or
+    radius 4 a windowed lookup takes their general case (`ops/corr.py`).
 
     Above `corr_max_volume_bytes` (both directions' pyramids together) no
     volume is formed: the loop looks up the windowed state

@@ -96,8 +96,8 @@ class GIMMVFI_R(nn.Module):
     latent splat's mode ("linear" or "softmax", with zero-eps
     normalisation; another raises here); `corr_radius`, the AMT's lookups
     (RAFT keeps its own 4) and the width of the update blocks that read
-    them (on the card the windowed kernels take 0-4, and past that the
-    lookup raises there); `coord_range`, the HypoNet's coordinate span."""
+    them (on the card a windowed lookup past radius 4 takes the kernels'
+    general case); `coord_range`, the HypoNet's coordinate span."""
 
     def __init__(self, raft_iters=20, dtype=None, device=None,
                  corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES, num_flows=NUM_FLOWS,

@@ -19,7 +19,10 @@ takes both dtypes; no route sends it a lookup. A CUDA lookup goes through
 `WindowedCorrLookup`, whose backward is the hand-written
 `csrc/windowed_corr_bwd.cu` (its plain version
 `windowed_corr_lookup_backward_plain`); on the CPU autograd differentiates
-the plain lookup.
+the plain lookup. The kernels take any radius and level count: at most 4
+levels and a radius of at most 4 (every path's lookups) take their fast
+case, the rest their general case (`fast_case`), a launch for each group of
+at most 4 levels (`level_groups`).
 """
 
 from __future__ import annotations
@@ -291,15 +294,39 @@ def windowed_corr_lookup_backward_plain(wc: WindowedCorr, coords: torch.Tensor, 
     return d_f1, tuple(d_levels), d_coords.reshape(n, 2, h, w)
 
 
+LEVEL_GROUP = 4  # levels a kernel launch takes: the fast case's most, the general case's group
+FAST_RADIUS = 4  # the fast case's largest radius
+WINDOWED_REPLACES = "gimmvfi_tpu/ops/corr.py:249"
+
+
+def fast_case(levels: int, radius: int) -> bool:
+    """Whether a lookup (or its backward) of `levels` levels at `radius`
+    takes the kernels' fast case, else their general case (tap tiles of at
+    most 9 x 9 outputs, a launch a group of levels)."""
+    return levels <= LEVEL_GROUP and radius <= FAST_RADIUS
+
+
+def level_groups(levels: int) -> list[tuple[int, int]]:
+    """(first level, levels) of each general-case launch: consecutive groups
+    of at most LEVEL_GROUP levels."""
+    return [(l0, min(LEVEL_GROUP, levels - l0)) for l0 in range(0, levels, LEVEL_GROUP)]
+
+
+def level_args(levels) -> tuple[list[int], list[int]]:
+    """A launch's level pointers and sizes: the pointers, then the heights
+    and the widths, each padded to LEVEL_GROUP."""
+    pad = [0] * (LEVEL_GROUP - len(levels))
+    return ([f2.data_ptr() for f2 in levels] + pad,
+            [f2.shape[1] for f2 in levels] + pad + [f2.shape[2] for f2 in levels] + pad)
+
+
 class WindowedCorrCudaKernel(CudaKernel):
     """What the windowed lookup's kernels and its backward take: C a
-    multiple of 8 in [8, 256], 1-4 levels and a radius of 0-4, in the
+    multiple of 8 in [8, 256], at least one level and a radius >= 0, in the
     subclass's `DTYPES`. Built at first use, with a launch counter; each
-    launcher takes `pointers` device pointers, six ints and the levels'
-    heights and widths (padded to MAX_LEVELS)."""
+    launcher takes `pointers` device pointers, six ints and the heights and
+    widths of up to LEVEL_GROUP levels."""
 
-    MAX_LEVELS = 4
-    MAX_RADIUS = 4
     MAX_C = 256
     DTYPES = (torch.float32, torch.bfloat16)
 
@@ -308,23 +335,29 @@ class WindowedCorrCudaKernel(CudaKernel):
             name=name,
             source=source,
             symbol=symbol,
-            argtypes=[ctypes.c_void_p] * pointers + [ctypes.c_int] * (6 + 2 * self.MAX_LEVELS),
-            replaces="gimmvfi_tpu/ops/corr.py:249",
+            argtypes=[ctypes.c_void_p] * pointers + [ctypes.c_int] * (6 + 2 * LEVEL_GROUP),
+            replaces=WINDOWED_REPLACES,
         )
 
     def checked(self, wc: WindowedCorr, coords: torch.Tensor, radius: int):
         """A lookup's checks: raise on what the kernel does not take; returns
-        an empty output, the level pointers and sizes and (N, C)."""
-        ptrs, sizes, (n, c) = self.validated(wc, coords, radius)
+        an empty output and (N, C)."""
+        n, c = self.validated(wc, coords, radius)
         h, w = coords.shape[-2:]
         out = torch.empty((n, len(wc.f2_levels) * (2 * radius + 1) ** 2, h, w),
                           dtype=wc.f1.dtype, device=wc.f1.device)
-        return out, ptrs, sizes, (n, c)
+        return out, (n, c)
+
+    def refuse_window(self, levels: int, radius: int) -> None:
+        """Raise on a level count or radius the kernel does not take."""
+        if levels < 1 or radius < 0:
+            raise ValueError(f"{self.name}: takes at least one level and a radius >= 0, got "
+                             f"{levels} and {radius}")
 
     def validated(self, wc: WindowedCorr, coords: torch.Tensor, radius: int, *extra):
         """Raise on what the kernel does not take (and on `extra` specs, as
-        `CudaKernel.check` takes them, checked with the inputs); returns the
-        level pointers and sizes (padded to MAX_LEVELS) and (N, C)."""
+        `CudaKernel.check` takes them, checked with the inputs); returns (N,
+        C)."""
         f1, levels = wc.f1, wc.f2_levels
         if torch.is_grad_enabled() and any(t.requires_grad for t in (f1, coords, *levels)):
             raise NotImplementedError(
@@ -341,9 +374,7 @@ class WindowedCorrCudaKernel(CudaKernel):
             raise TypeError(f"{self.name}: f1 must be {names}, got {f1.dtype}")
         if c % 8 or not 8 <= c <= self.MAX_C:
             raise ValueError(f"{self.name}: takes C a multiple of 8 in [8, {self.MAX_C}], got {c}")
-        if not 1 <= len(levels) <= self.MAX_LEVELS or not 0 <= radius <= self.MAX_RADIUS:
-            raise ValueError(f"{self.name}: takes 1-{self.MAX_LEVELS} levels and radius "
-                             f"0-{self.MAX_RADIUS}, got {len(levels)} and {radius}")
+        self.refuse_window(len(levels), radius)
         if n * p >= 2**31 or h * w != p:
             raise ValueError(f"{self.name}: needs N*P < 2**31 and H*W == P, got "
                              f"f1 {tuple(f1.shape)}, coords {tuple(coords.shape)}")
@@ -354,24 +385,27 @@ class WindowedCorrCudaKernel(CudaKernel):
                                  f"got {tuple(f2.shape)}")
             specs.append((f"level {i}", f2, f1.dtype, tuple(f2.shape), f1.device))
         self.check(*specs, *extra)
-        pad = [0] * (self.MAX_LEVELS - len(levels))
-        ptrs = [f2.data_ptr() for f2 in levels] + pad
-        sizes = [f2.shape[1] for f2 in levels] + pad + [f2.shape[2] for f2 in levels] + pad
-        return ptrs, sizes, (n, c)
+        return n, c
 
 
 class WindowedCorrKernel(WindowedCorrCudaKernel):
     """The CUDA-core windowed-correlation lookup (`csrc/windowed_corr.cu`),
-    in float32 or bf16; the tensor-core kernels took over both routes, and
-    it stays to be timed beside them."""
+    in float32 or bf16, 1-4 levels and a radius of 0-4; the tensor-core
+    kernels took over both routes, and it stays to be timed beside them."""
 
     def __init__(self, name="windowed_corr", source="gimmvfi_tpu_torch/csrc/windowed_corr.cu",
                  symbol="windowed_corr_lookup"):
         super().__init__(name, source, symbol)
 
+    def refuse_window(self, levels: int, radius: int) -> None:
+        if not 1 <= levels <= LEVEL_GROUP or not 0 <= radius <= FAST_RADIUS:
+            raise ValueError(f"{self.name}: takes 1-{LEVEL_GROUP} levels and radius "
+                             f"0-{FAST_RADIUS}, got {levels} and {radius}")
+
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
-        out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
+        out, (n, c) = self.checked(wc, coords, radius)
         f1 = wc.f1
+        ptrs, sizes = level_args(wc.f2_levels)
         self.launch(f1.device, f1.data_ptr(), *ptrs, coords.data_ptr(), out.data_ptr(),
                     n, f1.shape[1], c, len(wc.f2_levels), radius,
                     int(f1.dtype == torch.bfloat16), *sizes)
@@ -381,13 +415,31 @@ class WindowedCorrKernel(WindowedCorrCudaKernel):
 class WindowedCorrTileKernel(WindowedCorrCudaKernel):
     """The tensor-core windowed-correlation lookups' launcher: 16-query
     tiles of one image row, the union of their windows staged once in
-    shared memory, `mma.sync` dots, in the subclass's `DTYPES`."""
+    shared memory, `mma.sync` dots, in the subclass's `DTYPES`. A lookup of
+    the fast case launches the source's `symbol`, counted here; any other
+    launches its general case, `<symbol>_general`, once for each group of
+    levels, counted on `general`."""
+
+    def __init__(self, name: str, source: str, symbol: str):
+        super().__init__(name, source, symbol)
+        self.general = CudaKernel(
+            name=f"{name}_general", source=source, symbol=f"{symbol}_general",
+            argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * (8 + 2 * LEVEL_GROUP),
+            replaces=WINDOWED_REPLACES)
 
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
-        out, ptrs, sizes, (n, c) = self.checked(wc, coords, radius)
+        out, (n, c) = self.checked(wc, coords, radius)
         h, w = coords.shape[-2:]
-        self.launch(wc.f1.device, wc.f1.data_ptr(), *ptrs, coords.data_ptr(), out.data_ptr(),
-                    n, h, w, c, len(wc.f2_levels), radius, *sizes)
+        levels, dev = wc.f2_levels, wc.f1.device
+        head = (wc.f1.data_ptr(),)
+        tail = (coords.data_ptr(), out.data_ptr(), n, h, w, c)
+        if fast_case(len(levels), radius):
+            ptrs, sizes = level_args(levels)
+            self.launch(dev, *head, *ptrs, *tail, len(levels), radius, *sizes)
+            return out
+        for l0, count in level_groups(len(levels)):
+            ptrs, sizes = level_args(levels[l0:l0 + count])
+            self.general.launch(dev, *head, *ptrs, *tail, count, radius, l0, len(levels), *sizes)
         return out
 
 
@@ -416,18 +468,26 @@ class WindowedCorrTf32Kernel(WindowedCorrTileKernel):
 
 
 BWD_TILE = 8  # destination tiles of the backward: 8x8 pixels of a level's map
-BWD_KEY_PAD = 16  # the key tiles' padding of a level's map on its low sides
+BWD_KEY_PAD = 16  # the fast case's key tiles' padding of a level's map on its low sides
+BWD_REACH = 3  # the fast case's candidate key tiles a side of a destination tile
 
 
-def bwd_chunk_queries(entries: int) -> int:
+def bwd_key_pad(radius: int, general: bool) -> int:
+    """The key tiles' padding of a level's map on its low sides: 16 in the
+    fast case; in the general case a live window's base x0 >= -(2r + 1)
+    padded to a multiple of 8 (`csrc/windowed_corr_bwd.cu: general_pad`)."""
+    return 8 * -(-(2 * radius + 1) // 8) if general else BWD_KEY_PAD
+
+
+def bwd_chunk_queries(entries: int, reach: int = BWD_REACH) -> int:
     """The entries a chunk of the backward's destination side takes, from
-    N*levels*P: a power of two in [128, 1024], about 9 x entries / 1024
-    (the candidates of all tiles number ~9 x entries), so that a large
-    lookup's chunks number a few per SM and a small one's coarse tiles
-    still split; the best of 64-4096 at each of the three shapes timed on
-    the card (`PERF.md` §6). A function of the shape alone, so the order of
-    every sum is the same from call to call."""
-    q = 1 << max(0, (9 * entries // 1024).bit_length() - 1)
+    N*levels*P: a power of two in [128, 1024], about reach^2 x entries / 1024
+    (the candidates of all tiles number ~reach^2 x entries: 9 x in the fast
+    case), so that a large lookup's chunks number a few per SM and a small
+    one's coarse tiles still split; the best of 64-4096 at each of the three
+    shapes timed on the card (`PERF.md` §6). A function of the shape alone,
+    so the order of every sum is the same from call to call."""
+    q = 1 << max(0, (reach * reach * entries // 1024).bit_length() - 1)
     return min(1024, max(128, q))
 
 
@@ -441,16 +501,20 @@ def bwd_split_levels(n: int, h: int, w: int) -> bool:
     training's 28x28 lookups (224 tiles) and 720p F's AMT lookup (920),
     where it was faster on the card, and not at the 2K RAFT lookup (4,352),
     where it was slower (`PERF.md` §6); the levels' parts of d_f1 and
-    d_coords are then added in level order. A function of the shape alone."""
+    d_coords are then added in level order. A function of the shape alone.
+    The general case always splits."""
     return n * h * -(-w // 16) < BWD_SPLIT_BELOW
 
 
 class BwdPlanSizes(NamedTuple):
     """The backward's keys and destination tiles (`csrc/windowed_corr_bwd.cu:
-    make_geometry`): level l has (KY_l, KX_l) = ((h_l + 23) // 8, (w_l + 23)
-    // 8) key tiles and (TY_l, TX_l) = ((h_l + 7) // 8, (w_l + 7) // 8)
+    make_geometry`) for one launch's levels: level l has (KY_l, KX_l) =
+    ((h_l + pad + 7) // 8, (w_l + pad + 7) // 8) key tiles ((h_l + 23) // 8
+    in the fast case) and (TY_l, TX_l) = ((h_l + 7) // 8, (w_l + 7) // 8)
     destination tiles; keys and tiles are numbered image, level, row,
-    column; the sentinel key (a window off the map) is N * keys_per_image."""
+    column; the sentinel key (a window off the map) is N * keys_per_image;
+    a destination tile's candidates are the reach x reach key tiles from
+    its own row and column."""
 
     kx: tuple[int, ...]
     key_base: tuple[int, ...]
@@ -461,22 +525,28 @@ class BwdPlanSizes(NamedTuple):
     tiles: int
     entries: int
     chunk_q: int
-    max_chunks: int  # tiles + ceil(9 entries / chunk_q): no plan has more chunks
+    max_chunks: int  # tiles + ceil(reach^2 entries / chunk_q): no plan has more chunks
+    pad: int
+    reach: int
 
 
-def bwd_plan_sizes(level_hw, n: int, p: int) -> BwdPlanSizes:
-    """`BwdPlanSizes` of levels of (h_l, w_l), N images and P queries."""
-    kx = tuple((w + 23) // 8 for _, w in level_hw)
-    ky = tuple((h + 23) // 8 for h, _ in level_hw)
+def bwd_plan_sizes(level_hw, n: int, p: int, radius: int = 4,
+                   general: bool = False) -> BwdPlanSizes:
+    """`BwdPlanSizes` of levels of (h_l, w_l), N images and P queries, in the
+    fast case's key geometry or (`general`) the radius's."""
+    pad = bwd_key_pad(radius, general)
+    reach = pad // 8 + 1
+    kx = tuple((w + pad + 7) // 8 for _, w in level_hw)
+    ky = tuple((h + pad + 7) // 8 for h, _ in level_hw)
     tx = tuple((w + 7) // 8 for _, w in level_hw)
     ty = tuple((h + 7) // 8 for h, _ in level_hw)
     key_sizes = [a * b for a, b in zip(kx, ky)]
     key_base = tuple(sum(key_sizes[:i]) for i in range(len(key_sizes)))
     entries = n * len(level_hw) * p
-    chunk_q = bwd_chunk_queries(entries)
+    chunk_q = bwd_chunk_queries(entries, reach)
     tiles = n * sum(a * b for a, b in zip(tx, ty))
     return BwdPlanSizes(kx, key_base, sum(key_sizes), tx, ty, n * sum(key_sizes), tiles, entries,
-                        chunk_q, tiles + -(-9 * entries // chunk_q))
+                        chunk_q, tiles + -(-reach * reach * entries // chunk_q), pad, reach)
 
 
 class WindowedCorrBwdKernel(WindowedCorrCudaKernel):
@@ -489,17 +559,33 @@ class WindowedCorrBwdKernel(WindowedCorrCudaKernel):
     `torch.sort(stable=True)` of the keys, then the destination side
     (`windowed_corr_bwd`, whose launches the counter counts: one a call),
     which writes every element of d_levels once, summed in a fixed order:
-    d_levels are bitwise the same from call to call."""
+    d_levels are bitwise the same from call to call. That is the fast case
+    (`fast_case`); any other radius and level count runs the general case
+    for each group of levels (`windowed_corr_bwd_query_general`, the sort,
+    `windowed_corr_bwd_general`, counted on `general`: one a group), then
+    `windowed_corr_bwd_level_sum` adds the levels' float32 parts of d_f1 and
+    d_coords in level order."""
 
     QUERY_SYMBOL = "windowed_corr_bwd_query"
+    GENERAL_QUERY_SYMBOL = "windowed_corr_bwd_query_general"
+    LEVEL_SUM_SYMBOL = "windowed_corr_bwd_level_sum"
 
     def __init__(self):
         super().__init__("windowed_corr_bwd", "gimmvfi_tpu_torch/csrc/windowed_corr_bwd.cu",
                          "windowed_corr_bwd")
-        ints = [ctypes.c_int] * (7 + 2 * self.MAX_LEVELS)
+        ints = [ctypes.c_int] * (7 + 2 * LEVEL_GROUP)
         self.argtypes = [ctypes.c_void_p] * 12 + ints + [ctypes.c_void_p]
-        self.query_argtypes = [ctypes.c_void_p] * 14 + ints + [ctypes.c_int, ctypes.c_void_p]
-        self._query_fn = None
+        self.general = CudaKernel("windowed_corr_bwd_general", self.source,
+                                  "windowed_corr_bwd_general",
+                                  argtypes=[ctypes.c_void_p] * 12 + ints, replaces=WINDOWED_REPLACES)
+        self.launchers = {
+            self.QUERY_SYMBOL: [ctypes.c_void_p] * 14 + ints + [ctypes.c_int, ctypes.c_void_p],
+            self.GENERAL_QUERY_SYMBOL: ([ctypes.c_void_p] * 12 + [ctypes.c_int] * (9 + 2 * LEVEL_GROUP)
+                                        + [ctypes.c_void_p]),
+            self.LEVEL_SUM_SYMBOL: [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
+                                   + [ctypes.c_void_p],
+        }
+        self._fns = {}
 
     def build(self) -> str:
         log = super().build()
@@ -507,28 +593,47 @@ class WindowedCorrBwdKernel(WindowedCorrCudaKernel):
         return log
 
     def attach(self, lib) -> None:
-        """Bind the query side's launcher of library `lib` (the counted
-        launcher is bound as every kernel's)."""
-        fn = getattr(lib, self.QUERY_SYMBOL)
-        fn.argtypes = self.query_argtypes
-        fn.restype = ctypes.c_int
-        self._query_fn = fn
+        """Bind the query side's launchers and the level sum of library
+        `lib` (the counted launchers are bound as every kernel's)."""
+        for symbol, argtypes in self.launchers.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            self._fns[symbol] = fn
+
+    def _run(self, symbol: str, device, *args) -> None:
+        """An uncounted launcher of the library on `device`'s current stream."""
+        with torch.cuda.device(device):
+            err = self._fns[symbol](*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
 
     def __call__(self, wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor, radius: int = 4,
                  need_coords: bool = True):
         g_shape = (coords.shape[0], len(wc.f2_levels) * (2 * radius + 1) ** 2, *coords.shape[-2:])
-        ptrs, sizes, (n, c) = self.validated(wc, coords, radius,
-                                             ("g", g, wc.f1.dtype, g_shape, wc.f1.device))
+        n, c = self.validated(wc, coords, radius,
+                              ("g", g, wc.f1.dtype, g_shape, wc.f1.device))
+        levels = wc.f2_levels
+        p = wc.f1.shape[1]
+        group = min(len(levels), LEVEL_GROUP)
+        sizes = [tuple(f2.shape[1:3]) for f2 in levels]
+        if (n * group * p >= 2**31 or max(max(hw) for hw in sizes) > 32000
+                or 2 * radius + 2 > 32000):
+            raise ValueError(f"{self.name}: needs N*levels*P < 2**31 (levels of a group of "
+                             f"{LEVEL_GROUP}), level sizes <= 32000 and 2r + 2 <= 32000, got "
+                             f"{n * group * p} entries, levels {sizes}, radius {radius}")
+        if self._fn is None:
+            self.build()
+        if fast_case(len(levels), radius):
+            return self._fast(wc, coords, g, radius, need_coords, n, c)
+        return self._general(wc, coords, g, radius, need_coords, n, c)
+
+    def _fast(self, wc, coords, g, radius, need_coords, n, c):
         f1, levels = wc.f1, wc.f2_levels
         p = f1.shape[1]
         h, w = coords.shape[-2:]
         plan = bwd_plan_sizes([tuple(f2.shape[1:3]) for f2 in levels], n, p)
-        if plan.entries >= 2**31 or max(max(f2.shape[1:3]) for f2 in levels) > 32000:
-            raise ValueError(f"{self.name}: needs N*levels*P < 2**31 and level sizes <= 32000, "
-                             f"got {plan.entries} entries, levels "
-                             f"{[tuple(f2.shape[1:3]) for f2 in levels]}")
-        if self._fn is None:
-            self.build()
+        ptrs, sizes = level_args(levels)
         dev = f1.device
         ntaps = (2 * radius + 2) ** 2
         is_bf16 = int(f1.dtype == torch.bfloat16)
@@ -540,25 +645,67 @@ class WindowedCorrBwdKernel(WindowedCorrCudaKernel):
         ds = torch.empty((n, len(levels), p, ntaps), dtype=torch.float32, device=dev)
         keys = torch.empty(plan.entries, dtype=torch.int32, device=dev)
         bases = torch.empty(plan.entries, dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            err = self._query_fn(f1.data_ptr(), *ptrs, coords.data_ptr(), g.data_ptr(),
-                                 *[0 if t is None else t.data_ptr() for t in (d_f1, d_coords, *parts)],
-                                 ds.data_ptr(), keys.data_ptr(), bases.data_ptr(), n, h, w, c,
-                                 len(levels), radius, is_bf16, int(split), *sizes,
-                                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self.QUERY_SYMBOL} launch failed: cudaError {err}")
-        sorted_keys, order = torch.sort(keys, stable=True)
+        self._run(self.QUERY_SYMBOL, dev, f1.data_ptr(), *ptrs, coords.data_ptr(), g.data_ptr(),
+                  *[0 if t is None else t.data_ptr() for t in (d_f1, d_coords, *parts)],
+                  ds.data_ptr(), keys.data_ptr(), bases.data_ptr(), n, h, w, c, len(levels),
+                  radius, is_bf16, int(split), *sizes)
+        d_levels = [torch.empty_like(f2) for f2 in levels]
+        self._destination(self, plan, f1, ds, keys, bases, d_levels, radius, is_bf16, sizes)
+        return d_f1, tuple(d_levels), d_coords
+
+    @staticmethod
+    def _destination(counted: CudaKernel, plan: BwdPlanSizes, f1, ds, keys, bases, d_levels,
+                     radius: int, is_bf16: int, sizes) -> None:
+        """The destination side of one launch's levels: the stable sort of
+        their `keys` (the first `plan.entries`), then `counted`'s launcher
+        (the fast or the general one), which writes `d_levels`."""
+        n, p, c = f1.shape
+        dev = f1.device
+        sorted_keys, order = torch.sort(keys[:plan.entries], stable=True)
         offsets = torch.empty(plan.sentinel + 1, dtype=torch.int32, device=dev)
         chunk_start = torch.empty(plan.tiles + 1, dtype=torch.int32, device=dev)
         partial = torch.empty((plan.max_chunks, BWD_TILE * BWD_TILE, c), dtype=torch.float32,
                               device=dev)
+        outs, _ = level_args(d_levels)
+        counted.launch(dev, f1.data_ptr(), ds.data_ptr(), sorted_keys.data_ptr(),
+                       order.data_ptr(), bases.data_ptr(), offsets.data_ptr(),
+                       chunk_start.data_ptr(), partial.data_ptr(), *outs, n, p, c, len(d_levels),
+                       radius, is_bf16, plan.chunk_q, *sizes)
+
+    def _general(self, wc, coords, g, radius, need_coords, n, c):
+        f1, levels = wc.f1, wc.f2_levels
+        p = f1.shape[1]
+        h, w = coords.shape[-2:]
+        dev = f1.device
+        ntaps = (2 * radius + 2) ** 2
+        is_bf16 = int(f1.dtype == torch.bfloat16)
+        nl = len(levels)
+        # every level's float32 parts of d_f1 and d_coords, added once at the end
+        d_f1_part = torch.empty((nl, n * p, c), dtype=torch.float32, device=dev)
+        d_coords_part = (torch.empty((nl, n, 2, p), dtype=torch.float32, device=dev)
+                         if need_coords else None)
+        # one group's scratch, taken by each group in turn (on one stream)
+        group = min(nl, LEVEL_GROUP)
+        ds = torch.empty((n, group, p, ntaps), dtype=torch.float32, device=dev)
+        keys = torch.empty(n * group * p, dtype=torch.int32, device=dev)
+        bases = torch.empty(n * group * p, dtype=torch.int32, device=dev)
         d_levels = [torch.empty_like(f2) for f2 in levels]
-        pad = [0] * (self.MAX_LEVELS - len(levels))
-        self.launch(dev, f1.data_ptr(), ds.data_ptr(), sorted_keys.data_ptr(), order.data_ptr(),
-                    bases.data_ptr(), offsets.data_ptr(), chunk_start.data_ptr(),
-                    partial.data_ptr(), *[d.data_ptr() for d in d_levels], *pad, n, p, c,
-                    len(levels), radius, is_bf16, plan.chunk_q, *sizes)
+        for l0, count in level_groups(nl):
+            mine = levels[l0:l0 + count]
+            plan = bwd_plan_sizes([tuple(f2.shape[1:3]) for f2 in mine], n, p, radius, general=True)
+            ptrs, sizes = level_args(mine)
+            self._run(self.GENERAL_QUERY_SYMBOL, dev, f1.data_ptr(), *ptrs, coords.data_ptr(),
+                      g.data_ptr(), d_f1_part.data_ptr(),
+                      0 if d_coords_part is None else d_coords_part.data_ptr(), ds.data_ptr(),
+                      keys.data_ptr(), bases.data_ptr(), n, h, w, c, count, radius, is_bf16, l0,
+                      nl, *sizes)
+            self._destination(self.general, plan, f1, ds, keys, bases, d_levels[l0:l0 + count],
+                              radius, is_bf16, sizes)
+        d_f1 = torch.empty_like(f1)
+        d_coords = torch.empty_like(coords) if need_coords else None
+        self._run(self.LEVEL_SUM_SYMBOL, dev, d_f1_part.data_ptr(),
+                  0 if d_coords_part is None else d_coords_part.data_ptr(), d_f1.data_ptr(),
+                  0 if d_coords is None else d_coords.data_ptr(), n * p, c, nl, is_bf16)
         return d_f1, tuple(d_levels), d_coords
 
 
@@ -566,11 +713,16 @@ WINDOWED_CORR_KERNEL = WindowedCorrKernel()
 WINDOWED_CORR_MMA_KERNEL = WindowedCorrMmaKernel()
 WINDOWED_CORR_TF32_KERNEL = WindowedCorrTf32Kernel()
 WINDOWED_CORR_BWD_KERNEL = WindowedCorrBwdKernel()
+# the general cases' counted launchers
+WINDOWED_CORR_MMA_GENERAL_KERNEL = WINDOWED_CORR_MMA_KERNEL.general
+WINDOWED_CORR_TF32_GENERAL_KERNEL = WINDOWED_CORR_TF32_KERNEL.general
+WINDOWED_CORR_BWD_GENERAL_KERNEL = WINDOWED_CORR_BWD_KERNEL.general
 
 
 def windowed_corr_kernel_for(dtype: torch.dtype) -> WindowedCorrTileKernel:
     """The kernel a CUDA lookup of this feature dtype goes to, on the tensor
-    cores: bf16 `mma` for bf16, 3xTF32 `mma` for float32; an error for any
+    cores: bf16 `mma` for bf16, 3xTF32 `mma` for float32 (each at any
+    radius and level count: its fast or its general case); an error for any
     other."""
     if dtype == torch.bfloat16:
         return WINDOWED_CORR_MMA_KERNEL

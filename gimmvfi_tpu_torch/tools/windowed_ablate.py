@@ -163,6 +163,26 @@ WINDOWED_BWD_CASES = [
     (40, torch.float32, "smooth", 2, 4, (1, 13, 23)),
     (40, torch.bfloat16, "border", 2, 3, (2, 12, 20)),
 ]
+# the kernels' general case (radius past 4 or more than 4 levels): each
+# (radius, levels) in both dtypes, in-frame, border and far or non-finite
+# coordinates, every level at least 2 px a side
+BIG_WINDOW_CASES = [
+    (256, torch.bfloat16, "in_frame", 5, 4, (2, 40, 48)),
+    (256, torch.float32, "border", 5, 4, (2, 40, 48)),
+    (64, torch.bfloat16, "far", 8, 4, (1, 36, 64)),
+    (256, torch.float32, "in_frame", 8, 4, (1, 36, 64)),
+    (32, torch.float32, "far", 4, 5, (1, 40, 48)),
+    (256, torch.bfloat16, "border", 4, 5, (1, 40, 48)),
+    (40, torch.bfloat16, "in_frame", 4, 6, (1, 64, 64)),
+    (256, torch.float32, "far", 4, 6, (1, 64, 72)),
+    (24, torch.float32, "in_frame", 6, 5, (2, 40, 48)),
+    (256, torch.bfloat16, "far", 6, 5, (1, 48, 64)),
+]
+# (radius, levels) of the readings: the fast case, then the general case at
+# radius 8 and at 6 levels
+WINDOW_READINGS = [(4, 4), (8, 4), (4, 6)]
+# the AMT lookup of a stage-2 training step (batch 4 at 224x224, float32)
+STAGE2_AMT = (4, 28, 28)
 TILE_Q = 16  # queries a tile of csrc/windowed_corr_mma.cu: the mma's M
 DEST_BATCH = 32  # candidates a staging batch of csrc/windowed_corr_bwd.cu's destination side
 DEST_KSTEP = 8  # entries a k-step of its products (the mma's K)
@@ -276,11 +296,11 @@ BWD_PRODUCTS_TF32 = {torch.float32: 3, torch.bfloat16: 2}
 
 # ablations of csrc/windowed_corr_bwd.cu for `--bwd`, which do not compute
 # the backward: name -> substitutions
-_BWD_DEST = "  if (tiles > 0) {\n    const cudaError_t err"
+_BWD_DEST = "  if (tiles > 0) {\n    cudaError_t err"
 _BWD_STAGE = "    cp_async16(smem_addr(dst + px * rs + per * ch), src + px * c + per * ch);\n"
 BWD_VARIANTS = {
     # part 2 skipped: the sort still runs, nothing writes d_levels
-    "bwd_no_levels": [(_BWD_DEST, "  if (false) {\n    const cudaError_t err")],
+    "bwd_no_levels": [(_BWD_DEST, "  if (false) {\n    cudaError_t err")],
     # part 1 without the cp.async of the window rows (the rings' stale
     # contents are multiplied; the walk, the waits and the products stay)
     "bwd_no_stage": [(_BWD_STAGE, "    (void)src;\n")],
@@ -504,6 +524,34 @@ def _level_windows(coords: torch.Tensor, radius: int, level: int, hl: int, wl: i
 
 
 EXTENT_KEYS = ("rows", "blocks", "pixels")
+TAP_TILE = 9  # outputs a side of the kernels' general case's tap tiles
+
+
+def tap_tiles(radius: int, levels: int) -> list[tuple[int, int, int, int]]:
+    """The kernels' tap tiles (i0, ni, j0, nj), each the outputs of x offset
+    i0 .. i0 + ni - 1 and y offset j0 .. j0 + nj - 1 and the (ni + 1) x
+    (nj + 1) integer taps from (x0 + i0, y0 + j0): the whole window in the
+    fast case (`ops/corr.py: fast_case`); in the general case the 2r + 1
+    offsets of each axis cut into parts = ceil((2r + 1) / TAP_TILE) pieces,
+    piece t from t (2r + 1) // parts, in the kernels' order (the x piece
+    outer)."""
+    win = 2 * radius + 1
+    if corr_ops.fast_case(levels, radius):
+        return [(0, win, 0, win)]
+    parts = -(-win // TAP_TILE)
+    cuts = [t * win // parts for t in range(parts + 1)]
+    return [(cuts[ti], cuts[ti + 1] - cuts[ti], cuts[tj], cuts[tj + 1] - cuts[tj])
+            for ti in range(parts) for tj in range(parts)]
+
+
+def _tile_windows(x0, y0, i0: int, ni: int, j0: int, nj: int, hl: int, wl: int):
+    """A tap tile's windows from the full windows' starts (x0, y0): the
+    tile's start, and its part on the map [wx0, wx1) x [wy0, wy1) with
+    `live` false where it is empty."""
+    tx0, ty0 = x0 + i0, y0 + j0
+    wx0, wx1 = tx0.clamp(min=0), (tx0 + ni + 1).clamp(max=wl)
+    wy0, wy1 = ty0.clamp(min=0), (ty0 + nj + 1).clamp(max=hl)
+    return tx0, ty0, (wx0 < wx1) & (wy0 < wy1), wx0, wx1, wy0, wy1
 
 
 def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
@@ -513,20 +561,22 @@ def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
     on the host (slow: a Python loop over tiles and rows).
 
     Tiles of 16 consecutive queries of one image row (the last one of a row
-    short). For each level, the union of the tile's windows over its live
-    queries (finite coordinates, window touching the map), clipped to the
-    map; walked one union row at a time, a row's columns those of the
-    windows that cover it, in blocks of 8 pixels (the last one past the
-    row's end zero); each block a (16 x C) @ (C x 8) product by `dot`
-    (float32 sums, or `split_tf32_dot`); each product element (query,
-    pixel) put into the query's (2r+2)^2 sums `s` if the pixel lies in its
-    window; then the plain version's tent blend and one cast. Returns (out (N, L*(2r+1)^2, H, W), extents): `extents` maps
+    short). For each level and tap tile (`tap_tiles`: the whole window in
+    the fast case), the union of the tile's windows over its live queries
+    (finite coordinates, window touching the map), clipped to the map;
+    walked one union row at a time, a row's columns those of the windows
+    that cover it, in blocks of 8 pixels (the last one past the row's end
+    zero); each block a (16 x C) @ (C x 8) product by `dot` (float32 sums,
+    or `split_tf32_dot`); each product element (query, pixel) put into the
+    query's sums `s` of the tile's taps if the pixel lies in its window;
+    then the plain version's tent blend of the tile's outputs and one cast.
+    Returns (out (N, L*(2r+1)^2, H, W), extents): `extents` maps
     "rows" (union rows walked), "blocks" (8-pixel blocks over those rows,
     the n-tiles a k-step multiplies) and "pixels" (pixels staged) to
-    (L, N, H, tiles a row) integer tensors."""
+    (L, N, H, tiles a row) integer tensors, summed over the tap tiles."""
     n, _, c = wc.f1.shape
     h, w = coords.shape[-2:]
-    win, span = 2 * radius + 1, 2 * radius + 2
+    win = 2 * radius + 1
     nl = len(wc.f2_levels)
     tiles_x = -(-w // TILE_Q)
     f1 = wc.f1.float().reshape(n, h, w, c)
@@ -535,39 +585,43 @@ def mma_tile_walk(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4,
     for lvl, f2 in enumerate(wc.f2_levels):
         hl, wl = f2.shape[1:3]
         f2 = f2.float()
-        x0, y0, fx, fy, live, wx0, wx1, wy0, wy1 = _level_windows(coords, radius, lvl, hl, wl)
-        for b in range(n):
-            for qy in range(h):
-                for tx in range(tiles_x):
-                    q = slice(tx * TILE_Q, min(w, (tx + 1) * TILE_Q))
-                    m = q.stop - q.start
-                    a = torch.zeros(TILE_Q, c)
-                    a[:m] = f1[b, qy, q]
-                    s = torch.zeros(TILE_Q, span, span)
-                    ok, ty0, ty1 = live[b, qy, q], wy0[b, qy, q], wy1[b, qy, q]
-                    rows = range(int(ty0[ok].min()), int(ty1[ok].max())) if ok.any() else ()
-                    for y in rows:
-                        cover = ok & (ty0 <= y) & (y < ty1)
-                        if not cover.any():
-                            continue
-                        rx0, rx1 = int(wx0[b, qy, q][cover].min()), int(wx1[b, qy, q][cover].max())
-                        nb = -(-(rx1 - rx0) // 8)
-                        pix = torch.zeros(nb * 8, c)
-                        pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
-                        prod = dot(a, pix.view(nb, 8, c)).reshape(TILE_Q, -1)
-                        cols = rx0 + torch.arange(nb * 8)
-                        dy = y - y0[b, qy, q]
-                        dx = cols.view(1, -1) - x0[b, qy, q].view(-1, 1)
-                        take = (((dy >= 0) & (dy < span)).view(-1, 1) & (dx >= 0) & (dx < span)
-                                & (cols < rx1).view(1, -1))
-                        r, k = take.nonzero(as_tuple=True)
-                        s[r, dy[r], dx[r, k]] = prod[r, k]
-                        for key, v in zip(EXTENT_KEYS, (1, nb, rx1 - rx0)):
-                            extents[key][lvl, b, qy, tx] += v
-                    fyq, fxq = fy[b, qy, q].view(m, 1, 1), fx[b, qy, q].view(m, 1, 1)
-                    sy = s[:m, :win] * (1.0 - fyq) + s[:m, 1:] * fyq
-                    v = sy[..., :win] * (1.0 - fxq) + sy[..., 1:] * fxq  # (query, y, x)
-                    out[b, lvl, :, :, qy, q] = v.permute(2, 1, 0)
+        x0_full, y0_full, fx, fy, *_ = _level_windows(coords, radius, lvl, hl, wl)
+        for i0, ni, j0, nj in tap_tiles(radius, nl):
+            x0, y0, live, wx0, wx1, wy0, wy1 = _tile_windows(x0_full, y0_full, i0, ni, j0, nj,
+                                                             hl, wl)
+            for b in range(n):
+                for qy in range(h):
+                    for tx in range(tiles_x):
+                        q = slice(tx * TILE_Q, min(w, (tx + 1) * TILE_Q))
+                        m = q.stop - q.start
+                        a = torch.zeros(TILE_Q, c)
+                        a[:m] = f1[b, qy, q]
+                        s = torch.zeros(TILE_Q, nj + 1, ni + 1)
+                        ok, ty0, ty1 = live[b, qy, q], wy0[b, qy, q], wy1[b, qy, q]
+                        rows = range(int(ty0[ok].min()), int(ty1[ok].max())) if ok.any() else ()
+                        for y in rows:
+                            cover = ok & (ty0 <= y) & (y < ty1)
+                            if not cover.any():
+                                continue
+                            rx0 = int(wx0[b, qy, q][cover].min())
+                            rx1 = int(wx1[b, qy, q][cover].max())
+                            nb = -(-(rx1 - rx0) // 8)
+                            pix = torch.zeros(nb * 8, c)
+                            pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
+                            prod = dot(a, pix.view(nb, 8, c)).reshape(TILE_Q, -1)
+                            cols = rx0 + torch.arange(nb * 8)
+                            dy = y - y0[b, qy, q]
+                            dx = cols.view(1, -1) - x0[b, qy, q].view(-1, 1)
+                            take = (((dy >= 0) & (dy <= nj)).view(-1, 1) & (dx >= 0) & (dx <= ni)
+                                    & (cols < rx1).view(1, -1))
+                            r, k = take.nonzero(as_tuple=True)
+                            s[r, dy[r], dx[r, k]] = prod[r, k]
+                            for key, v in zip(EXTENT_KEYS, (1, nb, rx1 - rx0)):
+                                extents[key][lvl, b, qy, tx] += v
+                        fyq, fxq = fy[b, qy, q].view(m, 1, 1), fx[b, qy, q].view(m, 1, 1)
+                        sy = s[:m, :nj] * (1.0 - fyq) + s[:m, 1:] * fyq
+                        v = sy[..., :ni] * (1.0 - fxq) + sy[..., 1:] * fxq  # (query, y, x)
+                        out[b, lvl, i0:i0 + ni, j0:j0 + nj, qy, q] = v.permute(2, 1, 0)
     return out.reshape(n, nl * win * win, h, w).to(wc.f1.dtype), extents
 
 
@@ -587,21 +641,23 @@ def mma_tile_extents(wc: WindowedCorr, coords: torch.Tensor, radius: int = 4) ->
     per_level = {k: [] for k in EXTENT_KEYS}
     for lvl, f2 in enumerate(wc.f2_levels):
         hl, wl = f2.shape[1:3]
-        _, _, _, _, live, wx0, wx1, wy0, wy1 = _level_windows(coords, radius, lvl, hl, wl)
-        live, wx0, wx1, wy0, wy1 = (tiles(t, f) for t, f in
-                                    ((live, False), (wx0, 0), (wx1, 0), (wy0, 0), (wy1, 0)))
-        uy0 = torch.where(live, wy0, far).amin(-1)
-        height = (torch.where(live, wy1, -far).amax(-1) - uy0).clamp(min=0)
+        x0, y0, *_ = _level_windows(coords, radius, lvl, hl, wl)
         got = {k: torch.zeros((n, h, tiles_x), dtype=torch.long, device=coords.device)
                for k in EXTENT_KEYS}
-        for d in range(int(height.max()) if height.numel() else 0):
-            y = (uy0 + d).unsqueeze(-1)
-            cover = live & (wy0 <= y) & (y < wy1)
-            width = (torch.where(cover, wx1, -far).amax(-1)
-                     - torch.where(cover, wx0, far).amin(-1)).clamp(min=0)
-            got["rows"] += width > 0
-            got["blocks"] += (width + 7) // 8
-            got["pixels"] += width
+        for i0, ni, j0, nj in tap_tiles(radius, len(wc.f2_levels)):
+            _, _, live, wx0, wx1, wy0, wy1 = _tile_windows(x0, y0, i0, ni, j0, nj, hl, wl)
+            live, wx0, wx1, wy0, wy1 = (tiles(t, f) for t, f in
+                                        ((live, False), (wx0, 0), (wx1, 0), (wy0, 0), (wy1, 0)))
+            uy0 = torch.where(live, wy0, far).amin(-1)
+            height = (torch.where(live, wy1, -far).amax(-1) - uy0).clamp(min=0)
+            for d in range(int(height.max()) if height.numel() else 0):
+                y = (uy0 + d).unsqueeze(-1)
+                cover = live & (wy0 <= y) & (y < wy1)
+                width = (torch.where(cover, wx1, -far).amax(-1)
+                         - torch.where(cover, wx0, far).amin(-1)).clamp(min=0)
+                got["rows"] += width > 0
+                got["blocks"] += (width + 7) // 8
+                got["pixels"] += width
         for k in EXTENT_KEYS:
             per_level[k].append(got[k])
     return {k: torch.stack(v) for k, v in per_level.items()}
@@ -634,149 +690,189 @@ def bwd_order_model(wc: WindowedCorr, coords: torch.Tensor, g: torch.Tensor, rad
     over tiles, rows and entries). The written statement of the order the
     kernel sums d_levels in.
 
+    The levels go as one group in the fast case (`ops/corr.py: fast_case`),
+    else in groups of `LEVEL_GROUP` (`level_groups`), each a backward of its
+    own with the radius's key geometry (`bwd_plan_sizes(..., general=True)`).
+
     Query side: tiles of 16 consecutive queries of one image row. For each
     level, every query's ds (`bwd_query_ds`), key and base: a live window
     (finite coordinate, touching the map) has key n * keys_per_image +
-    key_base[l] + ((y0 + 16) // 8) * KX_l + (x0 + 16) // 8
-    (`ops/corr.py: bwd_plan_sizes`), any other the sentinel. The union of
+    key_base[l] + ((y0 + pad) // 8) * KX_l + (x0 + pad) // 8 (pad 16 in the
+    fast case; the group's level index l), any other the sentinel. For each
+    tap tile (`tap_tiles`: the whole window in the fast case), the union of
     the tile's live windows is walked as `mma_tile_walk` walks it, a row at
     a time in blocks of 8 pixels: d_f1 += ds_block (16 queries x 8 pixels,
-    zero off a query's window) @ pixels, and the dots (by `dot`) into each
-    query's (2r+2)^2 sums, from which dfx, dfy. A non-finite ds on a tap off
-    the map makes the query's d_f1 NaN.
+    ds on the taps the tile owns, zero elsewhere and off a query's window) @
+    pixels, and the dots (by `dot`) into each query's sums of the tile's
+    taps, from which the tile's outputs' dfx, dfy. A non-finite ds on a tap
+    off the map makes the query's d_f1 NaN.
 
-    Destination side: the entries (N, levels, P) sorted stably by key, so a
-    key's run holds its entries in index order; a destination tile (8x8
-    pixels of level l) takes as candidates the runs of its 3 key rows, ty ..
-    ty + 2, each the key tiles tx .. tx + 2, in row order; the list is cut
-    into chunks of `chunk_q` entries (default `bwd_chunk_queries`; at least
-    one chunk, maybe empty); a chunk takes its candidates in batches of
-    `DEST_BATCH`, keeps those whose window reaches the tile, in list order,
-    and adds their ds x f1 over the tile's pixels to its partial a k-step of
-    `DEST_KSTEP` entries at a time (the tensor cores sum a k-step's products
-    in an order of their own); the tile's d_f2 is the partials added in
-    chunk order, cast once to the features' dtype.
+    Destination side, for each group: its entries (N, levels of the group,
+    P) sorted stably by key, so a key's run holds its entries in index
+    order; a destination tile (8x8 pixels of level l) takes as candidates
+    the runs of its reach key rows, ty .. ty + reach - 1, each the key tiles
+    tx .. tx + reach - 1, in row order (reach 3 in the fast case); the list
+    is cut into chunks of `chunk_q` entries (default `bwd_chunk_queries`; at
+    least one chunk, maybe empty); a chunk takes its candidates in batches
+    of `DEST_BATCH`, keeps those whose window reaches the tile, in list
+    order, and adds their ds x f1 over the tile's pixels to its partial a
+    k-step of `DEST_KSTEP` entries at a time (the tensor cores sum a
+    k-step's products in an order of their own); the tile's d_f2 is the
+    partials added in chunk order, cast once to the features' dtype.
 
     Returns ((d_f1, d_levels, d_coords) in the kernel's dtypes, plan): plan
-    holds `sorted_keys`, `order`, `offsets` (each key's first sorted
-    entry), `sizes` (`BwdPlanSizes`), and `tiles`, one dict a destination
-    tile: (n, l, ty, tx), its `runs` (start, end) in sorted order, its
+    holds, for the first group, `sorted_keys`, `order`, `offsets` (each
+    key's first sorted entry), `sizes` (`BwdPlanSizes`), and `tiles` of
+    every group, one dict a destination tile: (n, l, ty, tx) (l the level's
+    index in the lookup), its `runs` (start, end) in sorted order, its
     `list` of entries, its `chunks` (start, end) in the list and their
     `partials` (8, 8, C)."""
     n, p, c = wc.f1.shape
     h, w = coords.shape[-2:]
     win, span = 2 * radius + 1, 2 * radius + 2
     nl = len(wc.f2_levels)
-    sizes = corr_ops.bwd_plan_sizes([tuple(f2.shape[1:3]) for f2 in wc.f2_levels], n, p)
-    q_size = chunk_q or sizes.chunk_q
+    general = not corr_ops.fast_case(nl, radius)
+    groups = corr_ops.level_groups(nl) if general else [(0, nl)]
     tiles_x = -(-w // TILE_Q)
     f1 = wc.f1.float().reshape(n, h, w, c)
     d_f1 = torch.zeros((n, h, w, c))
     d_coords = torch.zeros((n, 2, h, w))
     bad = torch.zeros((n, h, w), dtype=torch.bool)
     ds_all, x0_all, y0_all = [], [], []
-    keys = torch.empty((n, nl, h, w), dtype=torch.long)
+    sizes_of = [corr_ops.bwd_plan_sizes([tuple(f2.shape[1:3]) for f2 in wc.f2_levels[l0:l0 + k]],
+                                        n, p, radius, general) for l0, k in groups]
+    keys = [torch.empty((n, k, h, w), dtype=torch.long) for _, k in groups]
     for lvl, f2 in enumerate(wc.f2_levels):
         hl, wl = f2.shape[1:3]
         f2 = f2.float()
-        x0, y0, fx, fy, live, wx0, wx1, wy0, wy1 = _level_windows(coords, radius, lvl, hl, wl)
+        gi = lvl // corr_ops.LEVEL_GROUP if general else 0
+        sizes, lg = sizes_of[gi], lvl - groups[gi][0]
+        x0, y0, fx, fy, live, *_ = _level_windows(coords, radius, lvl, hl, wl)
         ds, dsy, gv = bwd_query_ds(wc, coords, g, radius, lvl)
         ds_all.append(ds)
         x0_all.append(x0)
         y0_all.append(y0)
-        key = (torch.arange(n).view(n, 1, 1) * sizes.keys_per_image + sizes.key_base[lvl]
-               + torch.div(y0 + corr_ops.BWD_KEY_PAD, 8, rounding_mode="floor") * sizes.kx[lvl]
-               + torch.div(x0 + corr_ops.BWD_KEY_PAD, 8, rounding_mode="floor"))
-        keys[:, lvl] = torch.where(live, key, sizes.sentinel)
+        key = (torch.arange(n).view(n, 1, 1) * sizes.keys_per_image + sizes.key_base[lg]
+               + torch.div(y0 + sizes.pad, 8, rounding_mode="floor") * sizes.kx[lg]
+               + torch.div(x0 + sizes.pad, 8, rounding_mode="floor"))
+        keys[gi][:, lg] = torch.where(live, key, sizes.sentinel)
         ty_ = y0.view(n, h, w, 1, 1) + torch.arange(span).view(1, 1, 1, span, 1)
         tx_ = x0.view(n, h, w, 1, 1) + torch.arange(span).view(1, 1, 1, 1, span)
         off = (ty_ < 0) | (ty_ >= hl) | (tx_ < 0) | (tx_ >= wl)
         bad |= (off & ~torch.isfinite(ds)).flatten(3).any(-1)
         fxq, fyq = fx[..., None, None], fy[..., None, None]
-        for b in range(n):
-            for qy in range(h):
-                for tx in range(tiles_x):
-                    q = slice(tx * TILE_Q, min(w, (tx + 1) * TILE_Q))
-                    m = q.stop - q.start
-                    a = f1[b, qy, q]
-                    s = torch.zeros(m, span, span)
-                    ok, ty0, ty1 = live[b, qy, q], wy0[b, qy, q], wy1[b, qy, q]
-                    rows = range(int(ty0[ok].min()), int(ty1[ok].max())) if ok.any() else ()
-                    for y in rows:
-                        cover = ok & (ty0 <= y) & (y < ty1)
-                        if not cover.any():
-                            continue
-                        rx0, rx1 = int(wx0[b, qy, q][cover].min()), int(wx1[b, qy, q][cover].max())
-                        nb = -(-(rx1 - rx0) // 8)
-                        pix = torch.zeros(nb * 8, c)
-                        pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
-                        cols = rx0 + torch.arange(nb * 8)
-                        dy = (y - y0[b, qy, q]).view(-1, 1)
-                        dx = cols.view(1, -1) - x0[b, qy, q].view(-1, 1)
-                        take = ((dy >= 0) & (dy < span) & (dx >= 0) & (dx < span)
-                                & (cols < rx1).view(1, -1))
-                        r, k = take.nonzero(as_tuple=True)
-                        block = torch.zeros(m, nb * 8)
-                        block[r, k] = ds[b, qy, q][r, dy[r, 0], dx[r, k]]
-                        for i in range(nb):  # k-steps of 8 pixels
-                            d_f1[b, qy, q] += block[:, 8 * i:8 * i + 8] @ pix[8 * i:8 * i + 8]
-                        prod = dot(a, pix.view(nb, 8, c)).reshape(m, -1)
-                        s[r, dy[r, 0], dx[r, k]] = prod[r, k]
-                    sy = s[:, :win] * (1.0 - fyq[b, qy, q]) + s[:, 1:] * fyq[b, qy, q]
-                    dfx = (gv[b, qy, q] * (sy[..., 1:] - sy[..., :win])).sum(dim=(1, 2))
-                    dfy = (dsy[b, qy, q] * (s[:, 1:] - s[:, :win])).sum(dim=(1, 2))
-                    d_coords[b, 0, qy, q] += dfx / 2.0**lvl
-                    d_coords[b, 1, qy, q] += dfy / 2.0**lvl
+        tiles = tap_tiles(radius, nl)
+        parts = int(round(len(tiles) ** 0.5))
+        for t, (i0, ni, j0, nj) in enumerate(tiles):
+            tx0, ty0, tlive, wx0, wx1, wy0, wy1 = _tile_windows(x0, y0, i0, ni, j0, nj, hl, wl)
+            # the taps the tile owns: its first ni columns and nj rows, the
+            # last tile of a row or column also the window's last
+            ox, oy = ni + (t // parts == parts - 1), nj + (t % parts == parts - 1)
+            own = torch.zeros((n, h, w, nj + 1, ni + 1))
+            own[..., :oy, :ox] = ds[..., j0:j0 + oy, i0:i0 + ox]
+            for b in range(n):
+                for qy in range(h):
+                    for tx in range(tiles_x):
+                        q = slice(tx * TILE_Q, min(w, (tx + 1) * TILE_Q))
+                        m = q.stop - q.start
+                        a = f1[b, qy, q]
+                        s = torch.zeros(m, nj + 1, ni + 1)
+                        ok, ry0, ry1 = tlive[b, qy, q], wy0[b, qy, q], wy1[b, qy, q]
+                        rows = range(int(ry0[ok].min()), int(ry1[ok].max())) if ok.any() else ()
+                        for y in rows:
+                            cover = ok & (ry0 <= y) & (y < ry1)
+                            if not cover.any():
+                                continue
+                            rx0 = int(wx0[b, qy, q][cover].min())
+                            rx1 = int(wx1[b, qy, q][cover].max())
+                            nb = -(-(rx1 - rx0) // 8)
+                            pix = torch.zeros(nb * 8, c)
+                            pix[:rx1 - rx0] = f2[b, y, rx0:rx1]
+                            cols = rx0 + torch.arange(nb * 8)
+                            dy = (y - ty0[b, qy, q]).view(-1, 1)
+                            dx = cols.view(1, -1) - tx0[b, qy, q].view(-1, 1)
+                            take = ((dy >= 0) & (dy <= nj) & (dx >= 0) & (dx <= ni)
+                                    & (cols < rx1).view(1, -1))
+                            r, k = take.nonzero(as_tuple=True)
+                            block = torch.zeros(m, nb * 8)
+                            block[r, k] = own[b, qy, q][r, dy[r, 0], dx[r, k]]
+                            for i in range(nb):  # k-steps of 8 pixels
+                                d_f1[b, qy, q] += block[:, 8 * i:8 * i + 8] @ pix[8 * i:8 * i + 8]
+                            prod = dot(a, pix.view(nb, 8, c)).reshape(m, -1)
+                            s[r, dy[r, 0], dx[r, k]] = prod[r, k]
+                        fyb, fxb = fyq[b, qy, q], fxq[b, qy, q]
+                        if general:
+                            # the tile's outputs: g times their blends' x and y derivatives
+                            gt = gv[b, qy, q, j0:j0 + nj, i0:i0 + ni]
+                            sy = s[:, :nj] * (1.0 - fyb) + s[:, 1:] * fyb
+                            dfx = (gt * (sy[..., 1:] - sy[..., :ni])).sum(dim=(1, 2))
+                            dfy = (gt * ((1.0 - fxb) * (s[:, 1:, :ni] - s[:, :nj, :ni])
+                                         + fxb * (s[:, 1:, 1:] - s[:, :nj, 1:]))).sum(dim=(1, 2))
+                        else:
+                            sy = s[:, :win] * (1.0 - fyb) + s[:, 1:] * fyb
+                            dfx = (gv[b, qy, q] * (sy[..., 1:] - sy[..., :win])).sum(dim=(1, 2))
+                            dfy = (dsy[b, qy, q] * (s[:, 1:] - s[:, :win])).sum(dim=(1, 2))
+                        d_coords[b, 0, qy, q] += dfx / 2.0**lvl
+                        d_coords[b, 1, qy, q] += dfy / 2.0**lvl
     d_f1 = d_f1 + torch.where(bad, float("nan"), 0.0).unsqueeze(-1)
 
-    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
-    offsets = torch.searchsorted(sorted_keys, torch.arange(sizes.sentinel + 1))
     d_levels = [torch.zeros(f2.shape) for f2 in wc.f2_levels]
-    plan_tiles = []
-    for b in range(n):
-        for lvl, f2 in enumerate(wc.f2_levels):
-            hl, wl = f2.shape[1:3]
-            kx = sizes.kx[lvl]
-            for ty in range(sizes.ty[lvl]):
-                for tx in range(sizes.tx[lvl]):
-                    k0 = b * sizes.keys_per_image + sizes.key_base[lvl] + ty * kx + tx
-                    runs = [(int(offsets[k0 + r * kx]), int(offsets[k0 + r * kx + 3]))
-                            for r in range(3)]
-                    lst = torch.cat([order[s0:s1] for s0, s1 in runs])
-                    bounds = [(i, min(i + q_size, len(lst)))
-                              for i in range(0, max(1, len(lst)), q_size)]
-                    partials = []
-                    for c0, c1 in bounds:
-                        acc = torch.zeros(8, 8, c)
-                        cand = lst[c0:c1].tolist()
-                        for s0 in range(0, len(cand), DEST_BATCH):
-                            kept = []  # the batch's candidates whose window reaches the tile
-                            for e in cand[s0:s0 + DEST_BATCH]:
-                                qy, qx = divmod(e - (b * nl + lvl) * p, w)
-                                ex0, ey0 = int(x0_all[lvl][b, qy, qx]), int(y0_all[lvl][b, qy, qx])
-                                ya, yb = max(ey0, 8 * ty), min(ey0 + span, 8 * ty + 8)
-                                xa, xb = max(ex0, 8 * tx), min(ex0 + span, 8 * tx + 8)
-                                if ya < yb and xa < xb:
-                                    kept.append((qy, qx, ex0, ey0, ya, yb, xa, xb))
-                            for k in range(0, len(kept), DEST_KSTEP):
-                                step = torch.zeros(8, 8, c)  # one k-step's products
-                                for qy, qx, ex0, ey0, ya, yb, xa, xb in kept[k:k + DEST_KSTEP]:
-                                    d = ds_all[lvl][b, qy, qx, ya - ey0:yb - ey0, xa - ex0:xb - ex0]
-                                    step[ya - 8 * ty:yb - 8 * ty, xa - 8 * tx:xb - 8 * tx] += (
-                                        d.unsqueeze(-1) * f1[b, qy, qx])
-                                acc = acc + step
-                        partials.append(acc)
-                    total = partials[0]
-                    for part in partials[1:]:
-                        total = total + part
-                    rows, cols = min(8, hl - 8 * ty), min(8, wl - 8 * tx)
-                    d_levels[lvl][b, 8 * ty:8 * ty + rows, 8 * tx:8 * tx + cols] = total[:rows, :cols]
-                    plan_tiles.append({"tile": (b, lvl, ty, tx), "runs": runs, "list": lst,
-                                       "chunks": bounds, "partials": partials})
+    plan_tiles, first = [], None
+    for (l0, count), sizes, gkeys in zip(groups, sizes_of, keys):
+        sorted_keys, order = torch.sort(gkeys.reshape(-1), stable=True)
+        offsets = torch.searchsorted(sorted_keys, torch.arange(sizes.sentinel + 1))
+        first = first or (sorted_keys, order, offsets, sizes)
+        q_size = chunk_q or sizes.chunk_q
+        reach = sizes.reach
+        for b in range(n):
+            for lg in range(count):
+                lvl = l0 + lg
+                hl, wl = wc.f2_levels[lvl].shape[1:3]
+                kx = sizes.kx[lg]
+                for ty in range(sizes.ty[lg]):
+                    for tx in range(sizes.tx[lg]):
+                        k0 = b * sizes.keys_per_image + sizes.key_base[lg] + ty * kx + tx
+                        runs = [(int(offsets[k0 + r * kx]), int(offsets[k0 + r * kx + reach]))
+                                for r in range(reach)]
+                        lst = torch.cat([order[s0:s1] for s0, s1 in runs])
+                        bounds = [(i, min(i + q_size, len(lst)))
+                                  for i in range(0, max(1, len(lst)), q_size)]
+                        partials = []
+                        for c0, c1 in bounds:
+                            acc = torch.zeros(8, 8, c)
+                            cand = lst[c0:c1].tolist()
+                            for s0 in range(0, len(cand), DEST_BATCH):
+                                kept = []  # the batch's candidates whose window reaches the tile
+                                for e in cand[s0:s0 + DEST_BATCH]:
+                                    qy, qx = divmod(e - (b * count + lg) * p, w)
+                                    ex0 = int(x0_all[lvl][b, qy, qx])
+                                    ey0 = int(y0_all[lvl][b, qy, qx])
+                                    ya, yb = max(ey0, 8 * ty), min(ey0 + span, 8 * ty + 8)
+                                    xa, xb = max(ex0, 8 * tx), min(ex0 + span, 8 * tx + 8)
+                                    if ya < yb and xa < xb:
+                                        kept.append((qy, qx, ex0, ey0, ya, yb, xa, xb))
+                                for k in range(0, len(kept), DEST_KSTEP):
+                                    step = torch.zeros(8, 8, c)  # one k-step's products
+                                    for qy, qx, ex0, ey0, ya, yb, xa, xb in kept[k:k + DEST_KSTEP]:
+                                        d = ds_all[lvl][b, qy, qx, ya - ey0:yb - ey0,
+                                                        xa - ex0:xb - ex0]
+                                        step[ya - 8 * ty:yb - 8 * ty, xa - 8 * tx:xb - 8 * tx] += (
+                                            d.unsqueeze(-1) * f1[b, qy, qx])
+                                    acc = acc + step
+                            partials.append(acc)
+                        total = partials[0]
+                        for part in partials[1:]:
+                            total = total + part
+                        rows, cols = min(8, hl - 8 * ty), min(8, wl - 8 * tx)
+                        d_levels[lvl][b, 8 * ty:8 * ty + rows, 8 * tx:8 * tx + cols] = (
+                            total[:rows, :cols])
+                        plan_tiles.append({"tile": (b, lvl, ty, tx), "runs": runs, "list": lst,
+                                           "chunks": bounds, "partials": partials})
     dtype = wc.f1.dtype
     grads = (d_f1.reshape(n, p, c).to(dtype), tuple(d.to(dtype) for d in d_levels), d_coords)
+    sorted_keys, order, offsets, sizes = first
     plan = {"sorted_keys": sorted_keys, "order": order, "offsets": offsets, "sizes": sizes,
-            "chunk_q": q_size, "tiles": plan_tiles}
+            "chunk_q": chunk_q or sizes.chunk_q, "tiles": plan_tiles}
     return grads, plan
 
 

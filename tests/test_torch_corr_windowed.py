@@ -74,7 +74,7 @@ def _both(f1, f2, coords, radius, levels, jdt=jnp.float32, tdt=torch.float32):
     return wc, twc, np.asarray(ref.astype(jnp.float32)), nhwc(got)
 
 
-@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 4), (3, 2), (1, 1)])
+@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 4), (3, 2), (1, 1), (5, 4), (8, 2), (4, 6)])
 def test_windowed_pyramid_and_lookup_match_jax(rng, radius, levels):
     f1, f2 = _maps(rng, 2, 12, 17, 32)
     coords = _coords(rng, 2, 12, 17, "span")
@@ -199,18 +199,34 @@ WRAPPERS = [("cuda_core", torch.float32, "float32 or bfloat16"), ("mma", torch.b
             ("tf32", torch.float32, "float32")]
 # the backward kernel's wrapper, which also takes the output's gradient g
 BWD_WRAPPER = ("bwd", torch.float32, "float32 or bfloat16")
+# the two tensor-core wrappers and the backward's take any level count and
+# radius (their general case): at 5 levels and at radius 5 and 8, CPU tensors
+# are refused only for lying on the CPU
+GENERAL = {"levels": "must be a CUDA tensor", "radius": "must be a CUDA tensor",
+           "radius8": "must be a CUDA tensor"}
+
+
+def _faults(wrapper):
+    if wrapper == "cuda_core":
+        return FAULTS
+    out = [(fault, GENERAL.get(fault, match)) for fault, match in FAULTS]
+    i = [fault for fault, _ in out].index("radius") + 1
+    return out[:i] + [("radius8", GENERAL["radius8"])] + out[i:]
 
 
 @pytest.mark.parametrize("fault,match,wrapper", [
     pytest.param(fault, match.format(dtypes=names, dtype=str(dtype)[6:]), wrapper,
                  id=f"{fault}-{match.format(dtypes=names, dtype=str(dtype)[6:])}"
                  if wrapper == "cuda_core" else f"{wrapper}-{fault}")
-    for wrapper, dtype, names in WRAPPERS + [BWD_WRAPPER] for fault, match in FAULTS
+    for wrapper, dtype, names in WRAPPERS + [BWD_WRAPPER] for fault, match in _faults(wrapper)
 ])
 def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper):
     """The wrappers' checks run before any build, so they hold on the CPU;
     the bf16 tensor-core wrapper takes bf16 only, the 3xTF32 one float32
-    only, the backward's both (with g of the output's shape)."""
+    only, the backward's both (with g of the output's shape). The CUDA-core
+    kernel takes 1-4 levels and a radius of 0-4; the others any level count
+    and radius, so their `levels` (5 levels), `radius` (5) and `radius8`
+    cases meet only the CPU tensor's refusal. No case launches anything."""
     kernel = {"cuda_core": tcorr.WINDOWED_CORR_KERNEL, "mma": tcorr.WINDOWED_CORR_MMA_KERNEL,
               "tf32": tcorr.WINDOWED_CORR_TF32_KERNEL, "bwd": tcorr.WINDOWED_CORR_BWD_KERNEL}[wrapper]
     dtype = dict((w, d) for w, d, _ in WRAPPERS + [BWD_WRAPPER])[wrapper]
@@ -225,7 +241,7 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(rng, fault, match, wrapper
         wc = wc._replace(f2_levels=(wc.f2_levels[0], wc.f2_levels[1].half(), wc.f2_levels[2]))
     elif fault == "level_shape":
         wc = wc._replace(f2_levels=wc.f2_levels[:2] + (wc.f2_levels[2][..., :8],))
-    radius = 5 if fault == "radius" else 4
+    radius = {"radius": 5, "radius8": 8}.get(fault, 4)
     g = torch.zeros((1, len(wc.f2_levels) * (2 * radius + 1) ** 2, *coords.shape[-2:]),
                     dtype=wc.f1.dtype)
     before = kernel.launches

@@ -3,9 +3,9 @@
 Inputs come from a seeded numpy generator: f1 (N, P, C), the levels
 (N, h_l, w_l, C) pooled from one map, coordinates (N, 2, H, W) and the
 output's gradient g, fed to every side as they are (JAX's coordinates and
-g channels-last). N = 2 and a 12x20 query map; C 32 and 40, radius 0, 2 and
-4, 1-4 levels, in-frame, smooth, border and far (finite) coordinates, and
-an odd level size (13x23 pools to 6x11, 3x5, 1x2). Tolerances: float32
+g channels-last). N = 2 and a 12x20 query map; C 32 and 40, radius 0, 2, 4
+and 5, 1-4 and 6 levels, in-frame, smooth, border and far (finite)
+coordinates, and an odd level size (13x23 pools to 6x11, 3x5, 1x2). Tolerances: float32
 d_f1 and d_levels <= 1e-5 x max(1, max|ref|), d_coords <= 1e-4 x max(1,
 max|ref|) (float32 sums taken in other orders; d_coords sums the blend's
 differences of the dots over the window and the levels):
@@ -90,6 +90,10 @@ CASES = [
     (40, 4, 2, "far", (12, 20)),
     (40, 2, 4, "border", (13, 23)),
     (32, 4, 4, "smooth", (13, 23)),
+    # the kernels' general case: radius 5 (tap tiles), and 6 levels (two
+    # groups of levels) on a map whose smallest level is 2x2
+    (32, 5, 4, "in_frame", (12, 20)),
+    (40, 2, 6, "border", (64, 80)),
 ]
 HW = (12, 20)
 

@@ -82,10 +82,12 @@ def _walk_agrees(wc, coords, radius):
     return extents
 
 
-@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 2), (1, 1)])
+@pytest.mark.parametrize("radius,levels", [(4, 4), (3, 2), (1, 1), (5, 4), (8, 2), (2, 6)])
 @pytest.mark.parametrize("kind", ["in_frame", "smooth", "span", "border", "far"])
 def test_tile_walk_matches_plain(rng, kind, radius, levels):
-    """C = 24 (K padded to 32), odd level sizes, a row of 23 queries."""
+    """C = 24 (K padded to 32), odd level sizes, a row of 23 queries; the
+    kernels' general case (`tap_tiles`) at radius 5 and 8 and at 6 levels
+    (the last two 0x1 and 0x0 maps)."""
     wc, coords = _torch(*_inputs(rng, SHAPE, 24, kind), levels)
     extents = _walk_agrees(wc, coords, radius)
     assert extents["rows"].shape == (levels, 2, 13, 2)

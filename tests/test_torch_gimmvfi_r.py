@@ -13,7 +13,10 @@ pairs, the softmax splat, AMT lookups of radius 3, a coordinate span of
 dB, flowt <= 1e-4 of max|ref|, materialized and, in the port, windowed
 (`corr_max_volume_bytes=0`: the plain radius-3 lookup); the converter
 round trip at those widths consumes every key; `fwarp_type="avg"` raises
-(JAX's `softsplat` asserts that "avg" takes no metric).
+(JAX's `softsplat` asserts that "avg" takes no metric). The AMT at radius 5
+(the lookup kernels' general case on the card), windowed in both packages
+(`corr_max_volume_bytes=0`), float32 >= 60 dB and flowt <= 1e-4 of
+max|ref|, from a JAX init in the options' fixture.
 """
 
 import jax
@@ -127,26 +130,35 @@ def test_weight_round_trip_is_exact(setup):
             assert x.dtype == y.dtype and np.array_equal(x, y)
 
 
-@pytest.fixture(scope="module")
-def options_setup(setup):
-    """One JAX init with `OPTIONS`, its `interpolate_sequential` on the
-    fixture's pair, and the port model with its weights."""
-    img = setup[0]
-    jm = JaxGIMMVFI_R(raft_iters=2, remat=False, **OPTIONS)
-    variables = jax.jit(lambda r, x: jm.init(r, x, (0.5,)))(jax.random.PRNGKey(1),
+WIDE = {"corr_radius": 5, "corr_max_volume_bytes": 0}
+
+
+def _init_and_run(img, seed, **fields):
+    """A JAX init of GIMMVFI_R(raft_iters=2, **fields) on `img` and its
+    `interpolate_sequential`: (params, batch stats, results) as numpy."""
+    jm = JaxGIMMVFI_R(raft_iters=2, remat=False, **fields)
+    variables = jax.jit(lambda r, x: jm.init(r, x, (0.5,)))(jax.random.PRNGKey(seed),
                                                           jnp.asarray(img))
     ref = jax.jit(lambda v, x: jax_interpolate_sequential(jm, v, x, jnp.asarray(T_VALUES)))(
         variables, jnp.asarray(img))
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
-    return img, params, stats, {k: np.asarray(v) for k, v in ref.items()}
+    return params, stats, {k: np.asarray(v) for k, v in ref.items()}
+
+
+@pytest.fixture(scope="module")
+def options_setup(setup):
+    """One JAX init with `OPTIONS`, its `interpolate_sequential` on the
+    fixture's pair; and one with the AMT at radius 5, windowed (`WIDE`)."""
+    img = setup[0]
+    return (img, *_init_and_run(img, 1, **OPTIONS), _init_and_run(img, 2, **WIDE))
 
 
 @pytest.mark.parametrize("limit", [None, 0])
 def test_constructor_options_match_jax(options_setup, limit, record_property):
     """At the default limit (materialized) and at 0 (the windowed plain
     lookup at radius 3), both against JAX's materialized run."""
-    img, params, stats, ref = options_setup
+    img, params, stats, ref, _ = options_setup
     kw = {} if limit is None else {"corr_max_volume_bytes": limit}
     model = load_jax_params(GIMMVFI_R(raft_iters=2, device="cpu", **OPTIONS, **kw), params, stats)
     assert model.amt_final_decoder.num_flows == 2 and model.coord_range == (-0.5, 0.5)
@@ -160,8 +172,22 @@ def test_constructor_options_match_jax(options_setup, limit, record_property):
     assert np.abs(got["flowt"] - ref["flowt"]).max() <= 1e-4 * float(np.abs(ref["flowt"]).max())
 
 
+def test_radius_five_windowed_matches_jax(options_setup):
+    """GIMMVFI_R(2, corr_radius=5, corr_max_volume_bytes=0): the AMT's
+    radius-5 lookups windowed in both packages (the plain lookup here, the
+    kernels' general case on the card), float32 >= 60 dB."""
+    img, *_, (params, stats, ref) = options_setup
+    model = load_jax_params(GIMMVFI_R(raft_iters=2, device="cpu", **WIDE), params, stats)
+    assert model.amt_update4_low.convc1.in_channels == 2 * 4 * 11**2
+    got = {k: v.numpy() for k, v in interpolate_sequential(model, torch.from_numpy(img),
+                                                            T_VALUES).items()}
+    assert got["flowt"].shape == ref["flowt"].shape == (3, 1, 128, 192, 2)
+    assert _psnr(got["imgt_pred"], ref["imgt_pred"]) >= 60.0
+    assert np.abs(got["flowt"] - ref["flowt"]).max() <= 1e-4 * float(np.abs(ref["flowt"]).max())
+
+
 def test_weight_round_trip_with_options_consumes_every_key(options_setup, monkeypatch):
-    _, params, stats, _ = options_setup
+    _, params, stats, _, _ = options_setup
     trees = []
 
     class Recording(jax_convert._Tree):

@@ -5,7 +5,9 @@ Weights come from the JAX `model.init` and go through
 (float32 convolutions summed in another order, through 2 GRU iterations).
 RAFT's `corr_levels` and `corr_radius` off JAX's defaults (3 and 3, one
 JAX init): the flows within 1e-4 of max|ref|, materialized and windowed
-(`corr_max_volume_bytes=0` on both sides).
+(`corr_max_volume_bytes=0` on both sides); and at 5 levels and radius 5
+(the kernels' general case on the card) on a 256x256 pair, whose 32x32
+feature map pools to 2x2 at its fifth level, the same way.
 """
 
 import jax
@@ -85,6 +87,36 @@ def test_raft_levels_and_radius_match_jax(raft_pair, raft_options, limit):
         flow = model(*(torch.from_numpy(x).permute(0, 3, 1, 2) for x in (img1, img2)))[0]
     got = flow.permute(0, 2, 3, 1).numpy()
     assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-4 * float(np.abs(ref).max())
+
+
+@pytest.fixture(scope="module")
+def raft_wide():
+    """A seeded 256x256 pair and one JAX init of RAFT(iters=2,
+    corr_levels=5, corr_radius=5) on it."""
+    rng = np.random.default_rng(5)
+    img1, img2 = ((rng.random((1, 256, 256, 3)) * 255).astype(np.float32) for _ in range(2))
+    model = JaxRAFT(iters=2, corr_levels=5, corr_radius=5)
+    variables = jax.jit(lambda r, a, b: model.init(r, a, b, bidir=True))(
+        jax.random.PRNGKey(2), jnp.asarray(img1), jnp.asarray(img2))
+    return img1, img2, {k: jax.tree_util.tree_map(np.asarray, v) for k, v in variables.items()}
+
+
+@pytest.mark.parametrize("limit", [2 << 30, 0])
+def test_raft_five_levels_radius_five_match_jax(raft_wide, limit):
+    img1, img2, variables = raft_wide
+    kw = {"corr_max_volume_bytes": limit, "corr_levels": 5, "corr_radius": 5}
+    jm = JaxRAFT(iters=2, **kw)
+    ref = np.asarray(jax.jit(lambda v, a, b: jm.apply(v, a, b, bidir=True)[0])(
+        variables, jnp.asarray(img1), jnp.asarray(img2)))
+    model = RAFT(iters=2, device="cpu", **kw)
+    model.load_state_dict(jax_raft_params_to_torch(variables["params"],
+                                                   variables["batch_stats"]), strict=True)
+    assert model.update_block.encoder.convc1.in_channels == 5 * 11**2
+    with torch.inference_mode():
+        flow = model(*(torch.from_numpy(x).permute(0, 3, 1, 2) for x in (img1, img2)))[0]
+    got = flow.permute(0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape == (2, 256, 256, 2)
     assert np.abs(got - ref).max() <= 1e-4 * float(np.abs(ref).max())
 
 

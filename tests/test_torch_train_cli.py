@@ -11,7 +11,11 @@ float32 backward, ROADMAP C1). Both CLIs' writers are replaced by
 recorders, so the numbers are compared unrounded. Then the port resumes
 for a second epoch, and its checkpoint loads into the JAX
 `load_torch_state_dict` + `convert_gimm` and into the port's
-`load_reference_state_dict`. The JAX CLI runs once, in a module fixture.
+`load_reference_state_dict`. The JAX CLI runs once, in a module fixture. With a config off the
+defaults (the softmax splat, coordinates in [-0.5, 0.5], 3 RAFT
+iterations), `build_model` builds the model the JAX CLI builds for each
+architecture: its `fwarp_type`, `coord_range` and flow iterations are the
+flax module's fields (read without an init).
 """
 
 import os
@@ -21,10 +25,12 @@ import numpy as np
 import pytest
 import torch
 
+from gimmvfi_tpu.cli import train as jax_train_cli
 from gimmvfi_tpu.utils.convert import convert_gimm, load_torch_state_dict
 from gimmvfi_tpu_torch.cli import train as train_cli
 from gimmvfi_tpu_torch.data.frame_io import write_flo
 from gimmvfi_tpu_torch.models.gimm import GIMM
+from gimmvfi_tpu_torch.utils.config import load_config
 from gimmvfi_tpu_torch.utils.convert import jax_gimm_params_to_torch, load_reference_state_dict
 
 torch.set_num_threads(1)
@@ -201,3 +207,51 @@ def test_cli_refuses_stage2_and_a_missing_card(tree, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA card"):
             train_cli.main(["--config", "configs/gimm/gimm.yaml", "--result-path",
                             str(tmp_path)])
+
+
+class _Built(Exception):
+    """Stops the JAX CLI just after it builds its model."""
+
+
+class _NoItems:
+    """Stands in for a dataset: the JAX CLI reads none before its model."""
+
+    meta_data = []
+
+
+ARCH_OFF_DEFAULTS = ["arch.fwarp_type=softmax", "arch.coord_range=[-0.5,0.5]", "arch.raft_iter=3"]
+
+
+@pytest.mark.parametrize("arch,config", [("gimm", "configs/gimm/gimm.yaml"),
+                                         ("gimmvfi_r", "configs/gimmvfi/gimmvfi_r_arb.yaml"),
+                                         ("gimmvfi_f", "configs/gimmvfi/gimmvfi_f_arb.yaml")])
+def test_build_model_builds_what_the_jax_cli_builds(arch, config, tmp_path):
+    """The config sets `fwarp_type`, `coord_range` and `raft_iter` off their
+    defaults; the JAX CLI, run up to its `create_model` call, reads only
+    `raft_iter` (GIMM-VFI-R's), and `build_model` gives the same fields."""
+    built = []
+
+    def create_model(*args, **kwargs):
+        built.append(real_create(*args, **kwargs))
+        raise _Built
+
+    real_create = jax_train_cli.create_model
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_train_cli, "create_model", create_model)
+        mp.setattr(jax_train_cli, "create_dataset", lambda *a, **k: (_NoItems(), _NoItems()))
+        mp.setattr("gimmvfi_tpu.utils.writer.Writer", Recorder)
+        with pytest.raises(_Built):
+            jax_train_cli.main(["--config", config, "--result-path", str(tmp_path),
+                                "--overrides", *ARCH_OFF_DEFAULTS])
+    ref = built[0]
+    cfg = load_config(config, ARCH_OFF_DEFAULTS)
+    assert (cfg.arch.fwarp_type, tuple(cfg.arch.coord_range), cfg.arch.raft_iter) == (
+        "softmax", (-0.5, 0.5), 3)
+    torch.manual_seed(0)
+    model = train_cli.build_model(cfg, arch, torch.device("cpu"))
+    assert model.fwarp_type == ref.fwarp_type == "linear"
+    assert tuple(model.coord_range) == tuple(ref.coord_range) == (-1.0, 1.0)
+    if arch == "gimmvfi_r":
+        assert model.flow_estimator.iters == ref.raft_iters == 3
+    elif arch == "gimmvfi_f":
+        assert model.flow_estimator.iters == ref.ff_iters == 32
