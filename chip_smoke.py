@@ -11,7 +11,8 @@ once on one CUDA card;
 the windowed correlation lookup's backward kernel held to its plain
 version, and stage-2 training's recipe step on the windowed route; the
 pipeline FLOP count at every path, and both training recipes through the
-training-throughput tool.
+training-throughput tool; both recipes with remat and without it, and
+stage-2 training at a crop whose AMT correlation goes windowed.
 
     python3 chip_smoke.py
 
@@ -204,7 +205,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      with a seeded LPIPS checkpoint; VTF and VSF on seeded 256x448 `.flo`
      files with a seeded GIMM checkpoint; each JSON result finite, exact
      launch counts, each harness's seconds;
- 11. stage-1 GIMM training, float32 (TF32 off), in build/chip_smoke_phase11/:
+ 11. stage-1 GIMM training, float32 (TF32 off), in build/chip_smoke_phase11/;
+     every GIMM trained here (and in 13, 15 (c)) has remat on, as the
+     train CLI builds it; every stage-2 model of 12, 13 and 15 (c) too, its
+     default:
      (a) the splat's backward kernel (`csrc/softsplat_bwd.cu`) against
      `splat_sum_backward_plain` in `tools/splat_ablate.py: BWD_CASES` (the
      recipe step's (32, 256, 256, 17) on a random, a smooth and a
@@ -317,7 +321,30 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      the bench's; (c) `tools.train_throughput.main` at 20 steps a stage
      (stage 1: GIMM, batch 32 at 256x256; stage 2: GIMMVFI_R(raft_iters=20),
      batch 4 at 224x224, no perceptual loss): its record printed last,
-     finite losses, exactly 160 forward and 160 backward splat launches.
+     finite losses, exactly 160 forward and 160 backward splat launches;
+ 16. remat (activation recomputation), float32 (TF32 off), in
+     build/chip_smoke_phase16/: (a) each recipe's step (stage 1: GIMM,
+     batch 32 at 256x256; stage 2: GIMMVFI_R(raft_iters=20) and
+     GIMMVFI_F(), batch 4 at 224x224, a seeded LPIPS) from one seed and
+     batch with remat off, on, and off again: each first step counted from
+     0 (exact splat launches, no windowed one: no recompute launches a
+     kernel again) with its peak allocated, 2 more timed by events (median
+     ms a step); the loss and the BatchNorm running statistics bitwise
+     between the modes; each gradient within 1e-5 x max(1, max|g|), the
+     tensors bitwise under remat and between the two steps without it
+     counted, with each one's largest gap (the backward adds with atomics
+     in `grid_sample`: two steps agree bitwise only by chance); remat's
+     peak below; (b)
+     one recipe step of GIMMVFI_R(raft_iters=20) with remat at batch 1,
+     960x960 (`TRIGGER`; batch 4 at 704x704 and batch 2 at 832x832, the
+     other crops where the AMT goes windowed and RAFT does not, run out of
+     memory): the AMT's bidirectional volume passes the 2 GiB limit,
+     RAFT's stays materialized; exact launches (the AMT's 2
+     `windowed_corr_tf32` lookups and their 2 backwards on the fast cases,
+     6 + 6 splats), 2 steps timed after the counted one, the peak, finite
+     losses, the 2 windowed backward calls of the last step by CUDA
+     events (the host waiting for the card before each), the step without
+     remat reckoned from (a)'s peak by pixels.
 Phase 2 prints ptxas's registers, spills and warnings for each source and
 whether it serialised `wgmma.mma_async`. Phases 3 and 6 time each kernel
 with CUDA events around each call (`ms`) and also read its own device time
@@ -344,7 +371,10 @@ splat's and the bf16 tensor-core lookup's records carry each rank's phase 14 cou
 (`launches_phase14`); the windowed backward's `launches` are those of
 phase 12 (e)'s counted step, 0 on every inference path (asserted), and the
 3xTF32 kernel's record carries that step's count too
-(`launches_phase12_windowed_step`).
+(`launches_phase12_windowed_step`); the sorted splat's, the splat
+backward's, the 3xTF32 kernel's and the windowed backward's records carry
+phase 16 (b)'s counts (`launches_phase16_trigger_step`), the windowed
+backward's also its calls' times there (`phase16_trigger_step_bwd_ms`).
 The line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2404,10 +2434,11 @@ def flow_batch(n: int, hw, seed: int, device="cuda") -> dict:
             "ori_flows": torch.stack([flows[:, 0], -flows[:, 2]], dim=1).to(device)}
 
 
-def recipe_state(cfg, device=None, seed=SEED):
-    """GIMM from a seed (its own initialization) and the recipe's optimizer."""
+def recipe_state(cfg, device=None, seed=SEED, remat=True):
+    """GIMM from a seed (its own initialization), with remat as the train
+    CLI builds it unless told, and the recipe's optimizer."""
     torch.manual_seed(seed)
-    model = GIMM(device=device)
+    model = GIMM(device=device, remat=remat)
     o = cfg.optimizer
     opt, sched = create_optimizer(model, o.type, init_lr=o.init_lr, weight_decay=o.weight_decay,
                                   betas=tuple(o.betas), ft=o.ft, max_grad_norm=o.max_gn)
@@ -2720,8 +2751,9 @@ def vfi_batch(n: int, hw, seed: int, device="cuda") -> dict:
 
 
 def vfi_state(cfg, family=GIMMVFI_R, device=None, seed=SEED, **model_kw):
-    """A stage-2 model from a seed (its own initialization) and the
-    recipe's optimizer (AdamW with the ft groups) and EMA."""
+    """A stage-2 model from a seed (its own initialization; remat on, its
+    default and the train CLI's, unless `model_kw` says) and the recipe's
+    optimizer (AdamW with the ft groups) and EMA."""
     torch.manual_seed(seed)
     model = family(device=device, **model_kw)
     o = cfg.optimizer
@@ -3641,6 +3673,247 @@ def run_phase15(main_res: dict, ds: dict, f720: dict, benches: dict, smi: str) -
     return res
 
 
+# ------------------------------------------------------------------ phase 16
+WORK16 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase16"
+REMAT_TIMED = 2  # steps timed a mode in (a), after the counted one
+# (b): a (batch, side) crop at which the AMT's bidirectional float32 volume
+# (2 N (side/8)^4 x 4 B x 4/3) passes `corr_ops.MAX_VOLUME_BYTES` while
+# RAFT's one-direction volume (half of it) stays materialized: of 4 x 704^2,
+# 2 x 832^2 and 1 x 960^2, tried in that order, the first whose remat step
+# fits one card
+TRIGGER = (1, 960)
+TRIGGER_WHY = ("batch 4 at 704^2 and batch 2 at 832^2 run out of the 80 GB card's memory with "
+               "remat, batch 1 at 960^2 fits")
+TRIGGER_TIMED = 2  # steps timed in (b), after the counted one
+
+
+class BwdEvents:
+    """Stands in for the windowed backward kernel in `ops.corr` and times
+    each call by CUDA events, the host first waiting for the card, so that
+    the events hold the call's own work (its kernels, its sort and plan)
+    and none queued before it. A profiler trace of a whole step at (b)'s
+    crop takes minutes to read."""
+
+    def __init__(self, kernel=WINDOWED_CORR_BWD_KERNEL):
+        self.kernel, self.events = kernel, []
+
+    def __call__(self, wc, coords, g, radius=4, need_coords=True):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.kernel(wc, coords, g, radius, need_coords)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def remat_turn(make_state, step, batch, splats: int, timed: int, label: str) -> dict:
+    """One mode of phase 16 (a): a fresh seeded state (`make_state()`), its
+    first step counted from 0 (exactly `splats` forward and backward splat
+    launches, no windowed one) and its peak allocated, then `timed` steps
+    by CUDA events. Returns the first step's loss, gradients and running
+    statistics (kept on the card), the peak and the times."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = make_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    got = counts()
+    expect_counts(f"(a) {label}", got, splats, splat_bwd=splats, phase=16)
+    model = state.model
+    res = {"loss": float(metrics["loss_total"]), "peak_bytes": peak, "launches": got,
+           "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+           "stats": {k: v.detach().clone() for k, v in model.state_dict().items()
+                     if "running_" in k}}
+    res["times"] = [bench.timed(lambda: step(state, batch), torch.device("cuda"))[1]
+                    for _ in range(timed)]
+    res["step_ms"] = statistics.median(res["times"]) if timed else None
+    del state, model, metrics
+    gc.collect()  # the optimizer and its schedule's hook hold each other
+    torch.cuda.empty_cache()
+    return res
+
+
+def hold_remat(plain: dict, again: dict, remat: dict, where: str) -> dict:
+    """Phase 16 (a)'s bounds on one recipe: the loss and the running
+    statistics bitwise between the modes (and the plain step's loss
+    bitwise again); each gradient within 1e-5 x max(1, max|g|) of the
+    plain one. The step's backward is not deterministic on the card
+    (`grid_sample`'s backward adds with atomics), so two plain steps agree
+    bitwise on a tensor only by chance: the readings count the tensors
+    bitwise under remat, those bitwise between the two plain steps, and
+    give the largest gap of each beside the other. Raises on a miss."""
+    if remat["loss"] != plain["loss"] or again["loss"] != plain["loss"]:
+        raise AssertionError(f"{where}: losses {plain['loss']!r} (plain), {again['loss']!r} "
+                             f"(plain again), {remat['loss']!r} (remat)")
+    for k, v in plain["stats"].items():
+        if not torch.equal(remat["stats"][k], v):
+            raise AssertionError(f"{where}: running statistic {k} differs under remat")
+    res = {"loss": plain["loss"], "tensors": len(plain["grads"]), "stats": len(plain["stats"])}
+    for label, other in (("remat", remat), ("plain_again", again)):
+        bitwise, worst = 0, (0.0, None)
+        for name, g in plain["grads"].items():
+            if torch.equal(other["grads"][name], g):
+                bitwise += 1
+                continue
+            gap = float((other["grads"][name] - g).abs().max()) / max(1.0, float(g.abs().max()))
+            if not gap <= 1e-5:
+                raise AssertionError(f"{where}: the gradient of {name} is {gap:.3e} x max(1, "
+                                     f"max|g|) off ({label} against plain)")
+            worst = max(worst, (gap, name))
+        res.update({f"{label}_bitwise": bitwise, f"{label}_worst_gap": worst[0],
+                    f"{label}_worst_gap_name": worst[1]})
+    return res
+
+
+def run_remat_recipes(smi: str, lpips_path: Path) -> dict:
+    """Phase 16 (a): each recipe's step (stage 1: GIMM, batch 32 at 256^2;
+    stage 2: GIMMVFI_R(raft_iters=20) and GIMMVFI_F(), batch 4 at 224^2, the
+    perceptual loss), float32 with TF32 off, from one seed, with remat off,
+    on and off again (`remat_turn`, `hold_remat`): ms a step and the peak
+    in both modes, the loss, statistics and gradients held."""
+    cfg1, cfg2, cfg2f = (load_config(c) for c in (RECIPE, RECIPE2, RECIPE2_F))
+    n1 = cfg1.experiment.batch_size
+    gimm_batch = flow_batch(n1, (CROP, CROP), SEED + 41)
+    gimm_batch["t_id"] = np.full((n1,), 1, np.int32)
+    vfi = vfi_batch(cfg2.experiment.batch_size, (CROP2, CROP2), SEED + 42)
+    lpips_fn = train_cli.lpips_loss_fn(str(lpips_path), torch.device("cuda"))
+    recipes = {
+        "stage1": (lambda remat: recipe_state(cfg1, remat=remat),
+                   make_gimm_train_step(use_ema=bool(cfg1.arch.ema)), gimm_batch, 2),
+        "stage2_r": (lambda remat: vfi_state(cfg2, raft_iters=cfg2.arch.raft_iter, remat=remat),
+                     make_gimmvfi_train_step(cfg2.arch.rec_weight, lpips_fn,
+                                             use_ema=bool(cfg2.arch.ema)), vfi, STEP_SPLATS),
+        "stage2_f": (lambda remat: vfi_state(cfg2f, GIMMVFI_F, remat=remat),
+                     make_gimmvfi_train_step(cfg2f.arch.rec_weight, lpips_fn,
+                                             use_ema=bool(cfg2f.arch.ema)), vfi, STEP_SPLATS),
+    }
+    res = {}
+    for name, (make_state, step, batch, splats) in recipes.items():
+        turns = {}
+        for label, remat, timed in (("plain", False, REMAT_TIMED), ("remat", True, REMAT_TIMED),
+                                    ("plain_again", False, 0)):
+            turns[label] = remat_turn(lambda: make_state(remat), step, batch, splats, timed,
+                                      f"{name} {label}")
+        held = hold_remat(turns["plain"], turns["plain_again"], turns["remat"], f"[16] (a) {name}")
+        res[name] = {**held, **{f"{label}_{k}": turns[label][k]
+                                for label in ("plain", "remat") for k in ("step_ms", "times",
+                                                                          "peak_bytes")}}
+        r = res[name]
+        print(f"[16] (a) {name}: remat off {r['plain_step_ms']:.2f} ms a step (median of "
+              f"{REMAT_TIMED} by events), peak {r['plain_peak_bytes'] / 2**20:.1f} MiB; remat on "
+              f"{r['remat_step_ms']:.2f} ms, peak {r['remat_peak_bytes'] / 2**20:.1f} MiB "
+              f"({100 * r['remat_peak_bytes'] / r['plain_peak_bytes']:.1f}% of off); loss "
+              f"{r['loss']!r} bitwise in both modes, {r['stats']} running statistics bitwise; "
+              f"gradients on against off bitwise in {r['remat_bitwise']} of {r['tensors']} "
+              f"tensors, the largest gap {r['remat_worst_gap']:.3e} x max(1, max|g|) "
+              f"({r['remat_worst_gap_name']}); off against off again bitwise in "
+              f"{r['plain_again_bitwise']}, the largest gap {r['plain_again_worst_gap']:.3e} "
+              f"({r['plain_again_worst_gap_name']}); launches a step "
+              f"{turns['remat']['launches']} in both; {smi}", flush=True)
+        del turns
+        if not r["remat_peak_bytes"] < r["plain_peak_bytes"]:
+            raise AssertionError(f"[16] (a) {name}: remat's peak {r['remat_peak_bytes']} is not "
+                                 f"below {r['plain_peak_bytes']}")
+    return res
+
+
+def run_trigger_step(smi: str, lpips_path: Path, plain_peak_224: int, shape=TRIGGER) -> dict:
+    """Phase 16 (b): one recipe step of GIMMVFI_R(raft_iters=20) with remat
+    on (its default), float32, the perceptual loss, at `shape` (batch,
+    side): there the AMT's bidirectional volume passes the 2 GiB limit and
+    its lookups go to the windowed kernels, RAFT's stays materialized
+    (asserted from the shapes and by exact launches: the AMT's 2 float32
+    windowed lookups and their 2 backwards on the fast cases, 6 + 6
+    splats, no other). One step counted from 0, `TRIGGER_TIMED` timed by
+    CUDA events, the last of them with each windowed backward call timed
+    by events too (`BwdEvents`: the host waits for the card before each);
+    the peak, finite losses; the step without remat reckoned from (a)'s
+    peak at 224^2, by pixels."""
+    cfg = load_config(RECIPE2)
+    n, side = shape
+    amt_bytes = 2 * n * (side // 8) ** 4 * 4 * 4 // 3
+    if not amt_bytes > corr_ops.MAX_VOLUME_BYTES >= amt_bytes // 2:
+        raise AssertionError(f"[16] (b) {n} x {side}^2 is no windowed trigger: the AMT's volume "
+                             f"{amt_bytes} B, the limit {corr_ops.MAX_VOLUME_BYTES}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = vfi_state(cfg, raft_iters=cfg.arch.raft_iter)
+    if not state.model.remat:
+        raise AssertionError("[16] (b) the recipe's model is built without remat")
+    lpips_fn = train_cli.lpips_loss_fn(str(lpips_path), torch.device("cuda"))
+    step = make_gimmvfi_train_step(cfg.arch.rec_weight, lpips_fn, use_ema=bool(cfg.arch.ema))
+    batch = vfi_batch(n, (side, side), SEED + 43)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, first_ms = bench.timed(lambda: step(state, batch), torch.device("cuda"))
+    got = counts()
+    expect_counts("(b) the trigger-shape step", got, STEP_SPLATS, tf32=2, splat_bwd=STEP_SPLATS,
+                  phase=16, corr_bwd=2)
+    losses = [float(metrics["loss_total"])]
+    times, recorder = [], BwdEvents()
+    for i in range(TRIGGER_TIMED):
+        if i == TRIGGER_TIMED - 1:
+            corr_ops.WINDOWED_CORR_BWD_KERNEL = recorder
+        try:
+            metrics, ms = bench.timed(lambda: step(state, batch), torch.device("cuda"))
+        finally:
+            corr_ops.WINDOWED_CORR_BWD_KERNEL = WINDOWED_CORR_BWD_KERNEL
+        times.append(ms)
+        losses.append(float(metrics["loss_total"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[16] (b) losses {losses}")
+    bwd_ms = recorder.ms()
+    if len(bwd_ms) != 2:
+        raise AssertionError(f"[16] (b) {len(bwd_ms)} windowed backward calls timed, expected 2")
+    med = statistics.median(times)
+    reckoned = plain_peak_224 * n * side ** 2 / (4 * CROP2 ** 2)
+    print(f"[16] (b) one recipe step of GIMMVFI_R(raft_iters={cfg.arch.raft_iter}) with remat, "
+          f"float32, the perceptual loss, batch {n} at {side}x{side} ({TRIGGER_WHY}): the AMT's "
+          f"volume {amt_bytes / 1e9:.3f} GB > the {corr_ops.MAX_VOLUME_BYTES / 2**30:.0f} GiB "
+          f"limit, RAFT's {amt_bytes // 2 / 1e9:.3f} GB materialized; launches {got}; "
+          f"{med:.2f} ms a step (median of {TRIGGER_TIMED} by events; "
+          f"{', '.join(f'{t:.2f}' for t in times)}; the counted first {first_ms:.2f}); peak "
+          f"allocated {peak / 2**20:.1f} MiB (without remat reckoned {reckoned / 2**20:.0f} MiB "
+          f"from (a)'s 224^2 peak by pixels); losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; the 2 windowed backward calls "
+          f"{', '.join(f'{x:.4f}' for x in bwd_ms)} ms by events in the last step; {smi}",
+          flush=True)
+    del state, batch, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": n, "side": side, "amt_volume_bytes": amt_bytes, "launches": got,
+            "step_ms": med, "step_ms_all": times, "first_ms": first_ms, "peak_bytes": peak,
+            "plain_peak_reckoned_bytes": reckoned, "losses": losses, "bwd_ms": bwd_ms}
+
+
+def run_phase16(smi: str) -> dict:
+    """Phase 16: remat (activation recomputation) in both training
+    recipes, float32, TF32 off, in build/chip_smoke_phase16/."""
+    t0 = time.perf_counter()
+    shutil.rmtree(WORK16, ignore_errors=True)
+    WORK16.mkdir(parents=True)
+    lpips_path = WORK16 / "lpips_seeded.pt"
+    torch.manual_seed(SEED)
+    torch.save(LPIPS(device="cpu").state_dict(), lpips_path)
+    res = {"recipes": run_remat_recipes(smi, lpips_path)}
+    res["trigger"] = run_trigger_step(smi, lpips_path,
+                                      res["recipes"]["stage2_r"]["plain_peak_bytes"])
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[16] phase 16 took {res['seconds']:.2f} s", flush=True)
+    return res
+
+
 def general_numbers(readings, key):
     """A general case's numbers: at radius 8 (4 levels) as its own, at
     6 levels (radius 4) and the fast case at radius 4 (4 levels) of the
@@ -3724,6 +3997,9 @@ def main():
     p14 = run_phase14(smi)
     torch.cuda.empty_cache()
     p15 = run_phase15(main_res, ds, f720, benches, smi)
+    torch.cuda.empty_cache()
+    p16 = run_phase16(smi)
+    t16 = p16["trigger"]
     p14_launches = {key: {label: [x[key] for x in p14[label]["launches"]]
                           for label, *_ in SPATIAL_CASES}
                     for key in (SPLAT_SORTED_KERNEL.name, WINDOWED_CORR_MMA_KERNEL.name,
@@ -3763,6 +4039,7 @@ def main():
                launches_phase12_step=p12["step"]["launches"]["splat"],
                launches_phase13_step=p13["step"]["launches"]["splat"],
                launches_phase14=p14_launches[SPLAT_SORTED_KERNEL.name],
+               launches_phase16_trigger_step=t16["launches"]["splat"],
                phase11_step_device_ms=p11["step"]["splat_fwd_device_ms"],
                phase12_step_device_ms=p12["step"]["splat_fwd_device_ms"]),
         # the atomic splat, on no route (0 launches on every path, asserted):
@@ -3781,6 +4058,7 @@ def main():
                launches_phase11_cli=p11["cli"]["launches"]["splat_bwd"],
                launches_phase12_step=p12["step"]["launches"]["splat_bwd"],
                launches_phase13_step=p13["step"]["launches"]["splat_bwd"],
+               launches_phase16_trigger_step=t16["launches"]["splat_bwd"],
                phase12_step_device_ms=p12["step"]["splat_bwd_device_ms"]),
         record(WINDOWED_CORR_MMA_KERNEL, ds["c"]["windowed_launches"],
                max_abs_err=max(wstats["path_err"], ds["lookups"]["first"]["max_abs_err"],
@@ -3815,7 +4093,8 @@ def main():
                materialized_device_ms=lk["materialized_device_ms"], extent=lk["extent"],
                decode_one_ms=f720["decode_turns"]["tf32"],
                launches_phase10=p10_launches["tf32"],
-               launches_phase12_windowed_step=p12["windowed_step"]["launches"]["tf32"]),
+               launches_phase12_windowed_step=p12["windowed_step"]["launches"]["tf32"],
+               launches_phase16_trigger_step=t16["launches"]["tf32"]),
         # the windowed lookup's backward: its launches in the windowed recipe
         # step (phase 12 (e), counted from 0; 0 on every inference path,
         # asserted), its times there on the captured AMT lookup (a), beside
@@ -3835,6 +4114,8 @@ def main():
                forward_device_ms=wa["forward_device_ms"],
                d_levels_bitwise_repeat=True, parts_device_ms=wa["parts_device_ms"],
                step_bwd_device_ms=p12["windowed_step"]["bwd_device_ms"],
+               launches_phase16_trigger_step=t16["launches"]["corr_bwd"],
+               phase16_trigger_step_bwd_ms=t16["bwd_ms"],
                **{f"{key}_{k}": bstats[key][k] for key in ("b", "c")
                   for k in ("ms", "device_ms", "parts_device_ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "library_device_ms", "forward_ms", "forward_device_ms")},
@@ -3962,6 +4243,14 @@ def main():
           f"{t15['stage1']['steps_per_sec']:.3f} steps/s, stage 2 "
           f"{t15['stage2']['steps_per_sec']:.3f} steps/s; {p15['seconds']:.2f} s; {smi}",
           flush=True)
+    print(f"[16] remat: "
+          + "; ".join(f"{k} {v['plain_step_ms']:.2f} ms and {v['plain_peak_bytes'] / 2**20:.1f} MiB "
+                      f"off, {v['remat_step_ms']:.2f} ms and {v['remat_peak_bytes'] / 2**20:.1f} "
+                      f"MiB on" for k, v in p16["recipes"].items())
+          + f"; stage 2 R with remat at batch {t16['batch']}, {t16['side']}x{t16['side']} (the "
+          f"AMT windowed): {t16['step_ms']:.2f} ms a step, peak {t16['peak_bytes'] / 2**20:.1f} "
+          f"MiB, its 2 windowed backward calls {sum(t16['bwd_ms']):.4f} ms by events; "
+          f"{p16['seconds']:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

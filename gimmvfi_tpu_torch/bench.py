@@ -5,18 +5,19 @@ GIMM-VFI-F, on one CUDA card: the counterpart of the repo's `bench.py`.
         [--ds 0.5] [--f32] [--profile] [--trace-dir DIR] [--append-results]
 
 `--model r` builds GIMMVFI_R(raft_iters=20), `--model f`
-GIMMVFI_F(ff_iters=32); bf16 unless `--f32`; random weights (normal 0.02
-from a seed, `init_normal_`) and a seeded random frame pair of `--size`
-(HxW), 7 timesteps through `interpolate_sequential`, with DS_SCALE
-`--ds`. TF32 is off. One warm-up call, then the median of 3 calls timed
-with CUDA events (their min and max on an earlier line). `--profile` first
-prints the stage split of one more pair: `prepare`, each `decode_one`, and
-the flow estimator alone. `--trace-dir DIR` writes a `torch.profiler`
-Chrome trace (CPU and, on the card, CUDA activity) of one more call after
-the warm-up, untimed, as the JAX bench's `--trace-dir` does: `prepare` and
-each `decode_one` sit in spans of those names (`interpolate_sequential`);
-its path is printed. The last line is one JSON object with the JAX
-bench's metric label (`interp_frames_per_sec_720p_8x`, or
+GIMMVFI_F(ff_iters=32), both without remat as JAX's bench does; bf16
+unless `--f32`; random weights (normal 0.02 from a seed, `init_normal_`)
+and a seeded random frame pair of `--size` (HxW), 7 timesteps through
+`interpolate_sequential`, with DS_SCALE `--ds`. TF32 is off. One warm-up
+call, then the median of 3 calls timed with CUDA events (their min and max
+on an earlier line). `--profile` first prints the stage split of one more
+pair: `prepare`, each `decode_one`, and the flow estimator alone.
+`--trace-dir DIR` writes a `torch.profiler` Chrome trace (CPU and, on the
+card, CUDA activity) of one more call after the warm-up, untimed, as the
+JAX bench's `--trace-dir` does: `prepare` and each `decode_one` sit in
+spans of those names (`interpolate_sequential`); its path is printed. The
+last line is one JSON object with the JAX bench's metric label
+(`interp_frames_per_sec_720p_8x`, or
 `interp_frames_per_sec_{size}_ds{ds}_8x`; `_f` appended for F), the
 allocator's peak (`peak_mib`) and the card's name and power limit from
 `nvidia-smi`. `--append-results` appends that line to
@@ -120,9 +121,9 @@ def timed(fn, device: torch.device):
 def build(args, device: torch.device) -> GIMMVFI_R:
     dtype = None if args.f32 else torch.bfloat16
     if args.model == "f":
-        model = GIMMVFI_F(ff_iters=32, dtype=dtype, device=device)
+        model = GIMMVFI_F(ff_iters=32, dtype=dtype, device=device, remat=False)
     else:
-        model = GIMMVFI_R(raft_iters=20, dtype=dtype, device=device)
+        model = GIMMVFI_R(raft_iters=20, dtype=dtype, device=device, remat=False)
     return init_normal_(model, SEED)
 
 

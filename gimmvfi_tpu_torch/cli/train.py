@@ -140,9 +140,10 @@ def add_subsample(batch: dict, rng: np.random.Generator, ratio: float,
 def build_model(cfg, arch: str, device: torch.device) -> torch.nn.Module:
     """The config's model, float32, from torch's global generator, built as
     the JAX CLI builds it (`gimmvfi_tpu/cli/train.py`): every option at its
-    default except GIMM-VFI-R's `raft_iters`, the config's `arch.raft_iter`."""
+    default except GIMM-VFI-R's `raft_iters`, the config's `arch.raft_iter`,
+    and GIMM's `remat`, on (GIMM-VFI-R and -F remat by default)."""
     if arch == "gimm":
-        return GIMM(device=device)
+        return GIMM(device=device, remat=True)
     if arch == "gimmvfi_r":
         return GIMMVFI_R(raft_iters=cfg.arch.raft_iter, device=device)
     if arch == "gimmvfi_f":

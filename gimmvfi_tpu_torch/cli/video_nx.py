@@ -68,7 +68,8 @@ def images_to_video(frames: list[np.ndarray], path: str, fps: int = 30) -> str:
 def load_model(ckpt_path: str, model_type: str = "gimmvfi_r", flow_iters: int | None = None,
                device=None) -> GIMMVFI_R:
     """GIMM-VFI-R (`raft_iters` 20) or -F (`ff_iters` 32) at full width,
-    float32, on `device` (the card when None), with a reference
+    float32, without remat (inference, as JAX's CLI builds it), on
+    `device` (the card when None), with a reference
     `.pt`/`.pth` checkpoint loaded strictly. The port reads no orbax
     checkpoint: that is the JAX package's own format."""
     if not ckpt_path.endswith((".pt", ".pth")):
@@ -77,9 +78,9 @@ def load_model(ckpt_path: str, model_type: str = "gimmvfi_r", flow_iters: int | 
     if model_type == "gimmvfi_f":
         from ..models.gimmvfi_f import GIMMVFI_F
 
-        model = GIMMVFI_F(ff_iters=flow_iters or 32, device=device)
+        model = GIMMVFI_F(ff_iters=flow_iters or 32, device=device, remat=False)
     else:
-        model = GIMMVFI_R(raft_iters=flow_iters or 20, device=device)
+        model = GIMMVFI_R(raft_iters=flow_iters or 20, device=device, remat=False)
     return load_reference_state_dict(ckpt_path, model).eval()
 
 

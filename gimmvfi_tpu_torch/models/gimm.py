@@ -10,6 +10,11 @@ follow the reference GIMM state dict; float32.
 
 Entry points take channels-last flows like the reference and return
 channels-last outputs; internals are NCHW.
+
+`remat` (JAX's field, off by default as there; the train CLI and the
+training tool turn it on as JAX's do): the motion encoder and the latent
+refiner are remat units (`nn/layers.py: remat_call`), recomputed in the
+backward; the HypoNet is not. The state dict is the same either way.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..nn.layers import remat_call
 from ..ops.coords import sample_coords_3d, sample_coords_3d_per_sample
 from .gimm_core import (
     check_fwarp_type,
@@ -36,9 +42,10 @@ class GIMM(nn.Module):
     raises. Inputs are moved to the model's device."""
 
     def __init__(self, coord_range: tuple[float, float] = (-1.0, 1.0), device=None,
-                 fwarp_type: str = "linear"):
+                 fwarp_type: str = "linear", remat: bool = False):
         super().__init__()
         self.coord_range = tuple(coord_range)
+        self.remat = remat
         self.fwarp_type = check_fwarp_type(fwarp_type)
         self.cnn_encoder = motion_encoder()
         self.res_conv = latent_refiner()
@@ -56,7 +63,9 @@ class GIMM(nn.Module):
         flow01 = ori_flow[:, 0].permute(0, 3, 1, 2)
         flow10 = ori_flow[:, 1].permute(0, 3, 1, 2)
         w1, w2 = splatting_weights(flow01, flow10, self.alpha_v, self.alpha_fe)
-        latents = self.cnn_encoder(torch.cat([xs[:, 0], xs[:, 1]], dim=0).permute(0, 3, 1, 2))
+        latents = remat_call(self.cnn_encoder,
+                             torch.cat([xs[:, 0], xs[:, 1]], dim=0).permute(0, 3, 1, 2),
+                             remat=self.remat)
         return latents[:n], latents[n:], flow01, flow10, w1, w2
 
     def forward(self, xs: torch.Tensor, ori_flow: torch.Tensor, t: torch.Tensor,
@@ -72,7 +81,7 @@ class GIMM(nn.Module):
         latent0, latent1, flow01, flow10, w1, w2 = self._encode(xs, ori_flow)
         t = torch.as_tensor(t, dtype=torch.float32, device=latent0.device).reshape(n)
         pixel_latent = splat_fuse_latents(self.res_conv, latent0, latent1, flow01, flow10,
-                                          w1, w2, t, self.fwarp_type)
+                                          w1, w2, t, self.fwarp_type, self.remat)
         if coord is None:
             coord = sample_coords_3d_per_sample(t, (h, w), self.coord_range)
         return self.hyponet(coord.to(t.device), pixel_latent)

@@ -1,5 +1,7 @@
 """Shared GIMM machinery (`gimmvfi_tpu/models/gimm_core.py`), NCHW: motion
-encoder, latent refiner, splatting weights and the latent splat."""
+encoder, latent refiner, splatting weights and the latent splat. With
+`remat` the refiner is a remat unit (`nn/layers.py: remat_call`); the
+splat before it is not."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import conv
+from ..nn.layers import conv, remat_call
 from ..ops.interp import warp
 from ..ops.softsplat import softsplat
 from .synthesis import LateralBlock
@@ -108,20 +110,21 @@ def splat_latents(latent0, latent1, flow01, flow10, w1, w2, t, fwarp_type="linea
     return torch.cat([s0, s1], dim=1)
 
 
-def refine_latents(refiner, latent0, latent1, fused, lo=0, hi=None):
+def refine_latents(refiner, latent0, latent1, fused, lo=0, hi=None, remat=False):
     """The fused latent, `fused` plus the refiner's residual, on the columns
-    [lo, hi) of the (N, C, H, W) inputs (all of them by default). The
-    refiner reads zeros (its reflect conv, reflections) past the window's
-    edges, so a narrower window is exact only as far from its inner edges
-    as the refiner's receptive radius (`parallel/spatial.py`)."""
+    [lo, hi) of the (N, C, H, W) inputs (all of them by default); the
+    refiner is a remat unit under `remat`. The refiner reads zeros (its
+    reflect conv, reflections) past the window's edges, so a narrower
+    window is exact only as far from its inner edges as the refiner's
+    receptive radius (`parallel/spatial.py`)."""
     cols = slice(lo, hi)
     x = torch.cat([latent0[..., cols], latent1[..., cols], fused[..., cols]], dim=1)
-    return fused[..., cols] + refiner(x)
+    return fused[..., cols] + remat_call(refiner, x, remat=remat)
 
 
 def splat_fuse_latents(refiner, latent0, latent1, flow01, flow10, w1, w2, t,
-                       fwarp_type="linear"):
+                       fwarp_type="linear", remat=False):
     """Forward-splat both latents to time t (`splat_latents`) and fuse them
-    (`refine_latents`). t (N,). Returns the (N, 32, H, W) latent."""
+    (`refine_latents`, its `remat`). t (N,). Returns the (N, 32, H, W) latent."""
     fused = splat_latents(latent0, latent1, flow01, flow10, w1, w2, t, fwarp_type)
-    return refine_latents(refiner, latent0, latent1, fused)
+    return refine_latents(refiner, latent0, latent1, fused, remat=remat)

@@ -24,7 +24,9 @@ from .gimmvfi_r import GIMMVFI_R
 
 
 class GIMMVFI_F(GIMMVFI_R):
-    """GIMMVFI_R's constructor options, with FlowFormer's `ff_iters`."""
+    """GIMMVFI_R's constructor options (`remat` on by default, as JAX's
+    GIMMVFI_F inherits it; FlowFormer is no remat unit, as RAFT is none),
+    with FlowFormer's `ff_iters`."""
 
     def __init__(self, ff_iters=32, dtype=None, device=None,
                  corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES, **options):

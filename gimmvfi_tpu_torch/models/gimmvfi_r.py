@@ -31,6 +31,15 @@ every stage runs at the working size, and only the final flows, masks and
 residuals are upsampled for the full-resolution blend. `imgt_pred` comes
 back at full resolution, `flowt` at the working size.
 
+`remat` (JAX's field, on by default as there; the inference entry points
+turn it off as JAX's do): under grad the motion encoder, the latent
+refiner, the HypoNet, both decoders (each call, the upsample heads' too)
+and both update blocks are remat units (`nn/layers.py: remat_call`),
+and inside the decoders each upsample head and ResBlock too, as JAX's
+`nn.remat` wraps them. None of them launches a hand kernel: the splat
+and the correlation lookups run outside them. The state dict is the same
+either way, and so are the outputs, the loss and the gradients.
+
 Entry points take `img_xs` (N, 2, H, W, 3) in [0, 1], channels-last like
 the reference, and return channels-last outputs; internals are NCHW.
 Parameter names follow the reference GIMM-VFI-R state dict.
@@ -46,7 +55,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..flow.raft import RAFT
-from ..nn.layers import conv
+from ..nn.layers import conv, remat_call
 from ..ops import corr as corr_ops
 from ..ops.coords import (
     coords_grid,
@@ -97,12 +106,14 @@ class GIMMVFI_R(nn.Module):
     normalisation; another raises here); `corr_radius`, the AMT's lookups
     (RAFT keeps its own 4) and the width of the update blocks that read
     them (on the card a windowed lookup past radius 4 takes the kernels'
-    general case); `coord_range`, the HypoNet's coordinate span."""
+    general case); `coord_range`, the HypoNet's coordinate span; `remat`,
+    the training backward's activation recomputation (module docstring)."""
 
     def __init__(self, raft_iters=20, dtype=None, device=None,
                  corr_max_volume_bytes=corr_ops.MAX_VOLUME_BYTES, num_flows=NUM_FLOWS,
-                 fwarp_type="linear", corr_radius=4, coord_range=(-1.0, 1.0)):
+                 fwarp_type="linear", corr_radius=4, coord_range=(-1.0, 1.0), remat=True):
         super().__init__()
+        self.remat = remat
         device = torch.device("cuda") if device is None else torch.device(device)
         self.dtype = dtype
         self.corr_max_volume_bytes = corr_max_volume_bytes
@@ -114,8 +125,8 @@ class GIMMVFI_R(nn.Module):
         skip = f1 // 2
         self._setup_flow_estimator(raft_iters, device)
         corr_planes = 2 * 4 * (2 * corr_radius + 1) ** 2  # both directions, the AMT's 4 levels
-        self.amt_init_decoder = InitDecoder(f0, skip, dtype)
-        self.amt_final_decoder = MultiFlowDecoder(f1, skip, dtype, num_flows)
+        self.amt_init_decoder = InitDecoder(f0, skip, dtype, remat)
+        self.amt_final_decoder = MultiFlowDecoder(f1, skip, dtype, num_flows, remat)
         self.amt_update4_low = UpdateBlock(2.0, dtype, corr_planes)
         self.amt_update4_high = UpdateBlock(None, dtype, corr_planes)
         self.amt_comb_block = comb_block(dtype, num_flows)
@@ -125,6 +136,10 @@ class GIMMVFI_R(nn.Module):
         self.alpha_v = nn.Parameter(torch.ones(1))
         self.alpha_fe = nn.Parameter(torch.ones(1))
         self.to(device)
+
+    def _unit(self, fn, *args, **kwargs):
+        """`fn(*args, **kwargs)`, a remat unit under `self.remat`."""
+        return remat_call(fn, *args, remat=self.remat, **kwargs)
 
     # ------------------------------------------------------------------ flow
     def _setup_flow_estimator(self, iters, device):
@@ -177,7 +192,7 @@ class GIMMVFI_R(nn.Module):
         n = flow01.shape[0]
         flow01, flow10 = flow01.detach(), flow10.detach()
         w1, w2 = splatting_weights(flow01, flow10, self.alpha_v, self.alpha_fe)
-        latents = self.cnn_encoder(torch.cat([nflows[:, 0], nflows[:, 1]], dim=0))
+        latents = self._unit(self.cnn_encoder, torch.cat([nflows[:, 0], nflows[:, 1]], dim=0))
         return {"flow01": flow01, "flow10": flow10, "w1": w1, "w2": w2,
                 "latent0": latents[:n], "latent1": latents[n:]}
 
@@ -187,9 +202,9 @@ class GIMMVFI_R(nn.Module):
         (N, T, h, w, 2), or (N, K, 2) at the (N, K) `sub_idx` points."""
         pixel_latent = splat_fuse_latents(
             self.res_conv, lat["latent0"], lat["latent1"], lat["flow01"], lat["flow10"],
-            lat["w1"], lat["w2"], t, self.fwarp_type,
+            lat["w1"], lat["w2"], t, self.fwarp_type, self.remat,
         )
-        return self.hyponet(coord, pixel_latent, sub_idx)
+        return self._unit(self.hyponet, coord, pixel_latent, sub_idx)
 
     def flow_strip(self, prep: dict, tv: float, strip: tuple[int, int],
                    window: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -206,9 +221,11 @@ class GIMMVFI_R(nn.Module):
         fused = splat_latents(prep["latent0"], prep["latent1"], prep["flow01"], prep["flow10"],
                               prep["w1"], prep["w2"], t, self.fwarp_type)
         (a, b), (lo, hi) = strip, window
-        latent = refine_latents(self.res_conv, prep["latent0"], prep["latent1"], fused, lo, hi)
-        ninr = self.hyponet(sample_coords_3d(n, (h, w), tv, dev, self.coord_range, cols=strip),
-                            latent[..., a - lo:b - lo])
+        latent = refine_latents(self.res_conv, prep["latent0"], prep["latent1"], fused, lo, hi,
+                                self.remat)
+        ninr = self._unit(self.hyponet,
+                          sample_coords_3d(n, (h, w), tv, dev, self.coord_range, cols=strip),
+                          latent[..., a - lo:b - lo])
         return unnormalize_flow(ninr, prep["scalers"])[:, 0], ninr
 
     def predict_flow(self, nflows, flows, t, coord, sub_idx=None):
@@ -223,8 +240,12 @@ class GIMMVFI_R(nn.Module):
         features (forward rows :N, backward N:): (f8_up pair, f4_up pair).
         One batched call each, or with `train` one a direction (per-direction
         BatchNorm batch statistics)."""
-        up8 = self.amt_init_decoder.upsample_features
-        up4 = self.amt_final_decoder.upsample_features
+        def up8(f, train=False):
+            return self._unit(self.amt_init_decoder.upsample_features, f, train)
+
+        def up4(f, train=False):
+            return self._unit(self.amt_final_decoder.upsample_features, f, train)
+
         n = features[0].shape[0] // 2
         if train:
             return ((up8(features[1][:n], True), up8(features[1][n:], True)),
@@ -283,8 +304,8 @@ class GIMMVFI_R(nn.Module):
         flow_t1_4 = 0.25 * resize(flow_t * (1.0 - cur_t), 0.25)
 
         # ---- scale 1/4
-        flowt0_4, flowt1_4, ft_4_ = self.amt_init_decoder(
-            f8_up[0], f8_up[1], flow_t0_4, flow_t1_4, img0, img1
+        flowt0_4, flowt1_4, ft_4_ = self._unit(
+            self.amt_init_decoder, f8_up[0], f8_up[1], flow_t0_4, flow_t1_4, img0, img1
         )
         mask_4_, ft_4_ = ft_4_[:, :1], ft_4_[:, 1:]
         init = (flowt0_4, flowt1_4, mask_4_)
@@ -292,14 +313,14 @@ class GIMMVFI_R(nn.Module):
         corr_4, flow_4_lr = self._corr_scale_lookup(
             corr_pyrs, lookup_coord, flowt0_4, flowt1_4, cur_t
         )
-        d_ft, d_flow = self.amt_update4_low(ft_4_, flow_4_lr, corr_4)
+        d_ft, d_flow = self._unit(self.amt_update4_low, ft_4_, flow_4_lr, corr_4)
         flowt0_4 = flowt0_4 + d_flow[:, :2]
         flowt1_4 = flowt1_4 + d_flow[:, 2:4]
         ft_4_ = ft_4_ + d_ft
 
         corr_4 = resize(corr_4, 2.0)
-        d_ft, d_flow = self.amt_update4_high(
-            ft_4_, torch.cat([flowt0_4, flowt1_4], dim=1), corr_4
+        d_ft, d_flow = self._unit(
+            self.amt_update4_high, ft_4_, torch.cat([flowt0_4, flowt1_4], dim=1), corr_4
         )
         flowt0_4 = flowt0_4 + d_flow[:, :2]
         flowt1_4 = flowt1_4 + d_flow[:, 2:4]
@@ -323,9 +344,10 @@ class GIMMVFI_R(nn.Module):
         full-resolution frames. Returns (N, 3, H', (b - a) s) in [0, 1]."""
         (a, b), (lo, hi) = strip, window
         cols = slice(lo // 4, hi // 4)
-        flowt0_1, flowt1_1, mask, img_res = self.amt_final_decoder(
-            q["ft_4"][..., cols], f4_up[0], f4_up[1], q["flowt0_4"][..., cols],
-            q["flowt1_4"][..., cols], q["mask_4"][..., cols], img0, img1, x0=lo,
+        flowt0_1, flowt1_1, mask, img_res = self._unit(
+            self.amt_final_decoder, q["ft_4"][..., cols], f4_up[0], f4_up[1],
+            q["flowt0_4"][..., cols], q["flowt1_4"][..., cols], q["mask_4"][..., cols], img0, img1,
+            x0=lo,
         )
         scale = 1
         if full_img is not None:

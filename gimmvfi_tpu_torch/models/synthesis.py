@@ -6,6 +6,11 @@ Parameter names follow the reference state dict: `upsample.<i>` and
 float32 in both compute modes. The upsample heads' BatchNorm takes batch
 statistics only when `upsample_features` is given `train=True` (stage-2
 training); every other path keeps the running ones.
+
+With `remat` (JAX's field, on by default as there) each decoder recomputes
+its upsample head and each ResBlock of its conv block in the backward
+(`nn/layers.py: remat_call`, JAX's `_block_classes`); GIMMVFI_R wraps the
+decoders' and the update blocks' calls as units of their own around them.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import BatchNorm2d, PReLU, conv, conv_prelu, leaky_relu
+from ..nn.layers import BatchNorm2d, PReLU, conv, conv_prelu, leaky_relu, remat_call
 from ..ops.interp import resize, warp
 
 NUM_FLOWS = 3  # the default flow pairs the MultiFlowDecoder predicts and the combine blends
@@ -94,6 +99,13 @@ def _conv_block(cin, c, skip, cout, first_k, dtype) -> nn.Sequential:
     )
 
 
+def _run_conv_block(block: nn.Sequential, x, remat: bool):
+    """`block(x)` (`_conv_block`), each ResBlock a remat unit under `remat`."""
+    for layer in block:
+        x = remat_call(layer, x, remat=remat) if isinstance(layer, ResBlock) else layer(x)
+    return x
+
+
 def _warp_with_image(feat, img, flow, x0=0):
     """Warp features and image with one sample per flow; `flow` may be a
     window of columns from `x0` of the whole `feat` and `img` (`warp`)."""
@@ -107,14 +119,15 @@ class InitDecoder(nn.Module):
     flows and a (1 mask + features) tensor. `upsample` is t-invariant and
     runs once per pair (`upsample_features`)."""
 
-    def __init__(self, in_ch=256, skip_ch=64, dtype=None):
+    def __init__(self, in_ch=256, skip_ch=64, dtype=None, remat=True):
         super().__init__()
+        self.remat = remat
         self.upsample = UpsampleHead(in_ch, 1, dtype)
         c = in_ch // 2
         self.convblock = _conv_block(2 * c + 2 * 2 + 4 * 3, c, skip_ch, c + 5, 1, dtype)
 
     def upsample_features(self, f, train=False):
-        return self.upsample(f, train)
+        return remat_call(self.upsample, f, train, remat=self.remat)
 
     def forward(self, f0, f1, flow0_in, flow1_in, img0, img1):
         scale = f0.shape[2] / img0.shape[2]
@@ -123,7 +136,7 @@ class InitDecoder(nn.Module):
         f0w, w0 = _warp_with_image(f0, img0, flow0_in)
         f1w, w1 = _warp_with_image(f1, img1, flow1_in)
         f_in = torch.cat([f0w, f1w, flow0_in, flow1_in, img0, img1, w0, w1], dim=1)
-        out = self.convblock(f_in)
+        out = _run_conv_block(self.convblock, f_in, self.remat)
         flow0 = flow0_in + out[:, :2].float()
         flow1 = flow1_in + out[:, 2:4].float()
         return flow0, flow1, out[:, 4:]
@@ -185,16 +198,17 @@ class MultiFlowDecoder(nn.Module):
     at global positions (the concat takes the window's columns of the
     images). With x0 = 0 and a whole-width state it decodes the frame."""
 
-    def __init__(self, in_ch=128, skip_ch=64, dtype=None, num_flows=NUM_FLOWS):
+    def __init__(self, in_ch=128, skip_ch=64, dtype=None, num_flows=NUM_FLOWS, remat=True):
         super().__init__()
         self.num_flows = num_flows
+        self.remat = remat
         self.upsample = UpsampleHead(in_ch, 2, dtype)
         c_feat = in_ch // 2
         cin = in_ch + 2 * c_feat + 2 * 2 + 1 + 4 * 3
         self.convblock = _conv_block(cin, 2 * in_ch, skip_ch, 8 * num_flows, 3, dtype)
 
     def upsample_features(self, f, train=False):
-        return self.upsample(f, train)
+        return remat_call(self.upsample, f, train, remat=self.remat)
 
     def forward(self, ft_, f0, f1, flow0, flow1, mask, img0, img1, x0=0):
         n = self.num_flows
@@ -207,7 +221,7 @@ class MultiFlowDecoder(nn.Module):
         cols = slice(x0, x0 + flow0.shape[3])
         f_in = torch.cat([ft_, f0w, f1w, flow0, flow1, mask, img0[..., cols], img1[..., cols],
                           w0, w1], dim=1)
-        out = self.convblock(f_in).float()
+        out = _run_conv_block(self.convblock, f_in, self.remat).float()
         d_flow0, d_flow1, d_mask, img_res = torch.split(out, [2 * n, 2 * n, n, 3 * n], dim=1)
         mask = torch.sigmoid(d_mask + mask.float().repeat(1, n, 1, 1))
         flow0 = d_flow0 + flow0.repeat(1, n, 1, 1)

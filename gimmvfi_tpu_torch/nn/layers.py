@@ -9,6 +9,9 @@ runs a conv stack on a window of columns; `receptive_radius` and
 `strided_reach` bound how far past a window's edge its convs read, and
 inside `instance_norm_shard` every `InstanceNorm` takes the whole frame's
 statistics (`instance_norm_sharded`).
+
+`remat_call` is JAX's `nn.remat` for a unit of a model: under grad the
+unit keeps only its inputs and recomputes its activations in the backward.
 """
 
 from __future__ import annotations
@@ -21,8 +24,49 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel import dist as dist_ops
+
+_RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar("recomputing", default=False)
+
+
+class _Recompute:
+    """Marks the backward's recompute of a `remat_call` unit (nested
+    units re-enter it)."""
+
+    def __init__(self):
+        self._tokens = []
+
+    def __enter__(self):
+        self._tokens.append(_RECOMPUTING.set(True))
+
+    def __exit__(self, *exc):
+        _RECOMPUTING.reset(self._tokens.pop())
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _Recompute()
+
+
+def recomputing() -> bool:
+    """True inside the backward's recompute of a `remat_call` unit."""
+    return _RECOMPUTING.get()
+
+
+def remat_call(fn, *args, remat: bool, **kwargs):
+    """`fn(*args, **kwargs)`; with `remat` and grad on, as JAX's `nn.remat`
+    unit: `torch.utils.checkpoint` (non-reentrant) keeps only the inputs,
+    and the backward runs `fn` again for its activations. The autograd
+    graph is the same as the plain call's, so where the kernels are
+    deterministic (the CPU's) the gradients are bitwise the same. The
+    recompute runs under `recomputing()`, in which BatchNorm does not move
+    its running statistics a second time (flax's `nn.remat` drops the
+    recompute's `batch_stats`). Without grad (inference) a plain call. No
+    module is wrapped: the state dict keeps its keys."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts, **kwargs)
 
 
 class Conv2d(nn.Conv2d):
@@ -93,12 +137,16 @@ class BatchNorm2d(nn.Module):
         (`E[x^2] - E[x]^2`, clipped at 0, flax's fast variance) and then
         moves the running statistics, `running = 0.9 running + 0.1 batch`,
         with that same biased variance (torch's BatchNorm2d would use the
-        unbiased one).
+        unbiased one); a remat unit's recompute (`recomputing()`) takes
+        the same batch statistics and leaves the running ones, so they
+        move once a step.
 
     Under a process group of more than one rank (`parallel/dist.py`), the
     batch is the global one, as under JAX's sharded batch: the per-channel
     sums of x and x^2 are all-reduced (differentiably) and divided by the
-    global count, every rank holding a batch of the same shape.
+    global count, every rank holding a batch of the same shape. A remat
+    recompute all-reduces again in the backward, in the same order on
+    every rank, before the step's gradient all-reduce.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -124,10 +172,11 @@ class BatchNorm2d(nn.Module):
             else:
                 mean, mean2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+            if not recomputing():
+                with torch.no_grad():
+                    m = BN_MOMENTUM
+                    self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight

@@ -4,8 +4,8 @@ in turns, on one card.
     python -m gimmvfi_tpu_torch.tools.dp_ablate [--steps 6] [--warmup 2]
 
 Card only: without CUDA `main` raises. The R recipe's step
-(`configs/gimmvfi/gimmvfi_r_arb.yaml`: GIMMVFI_R(raft_iters=20) from seed
-0, AdamW with the ft groups, EMA, the perceptual loss of a seeded LPIPS,
+(`configs/gimmvfi/gimmvfi_r_arb.yaml`: GIMMVFI_R(raft_iters=20), remat on
+as the train CLI builds it, from seed 0, AdamW with the ft groups, EMA, the perceptual loss of a seeded LPIPS,
 batch 4 at 224x224, float32, TF32 off) on a seeded random batch, in the
 turns: `plain` (no process group), `group` (a process group of one NCCL
 rank: the gradients' flat all-reduce and the metrics' mean run),

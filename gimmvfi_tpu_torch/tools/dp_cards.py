@@ -4,7 +4,10 @@ one process, and the recipe step's time with and without the group.
     torchrun --standalone --nproc_per_node N -m gimmvfi_tpu_torch.tools.dp_cards [--steps 6]
 
 One rank a card (`--device cpu`: gloo ranks on the CPU, for a rehearsal).
-Every rank, first without a process group:
+Every model is built as the train CLI builds it, remat on (GIMMVFI_R's
+default): under the group each rank's backward recomputes its remat units,
+BatchNorm's sums all-reduced again. Every rank, first without a process
+group:
   1. the check's reference: one stage-2 step (`configs/gimmvfi/
      gimmvfi_r_arb.yaml`'s AdamW with the ft groups and EMA, no perceptual
      loss) of GIMMVFI_R(raft_iters=2) from seed 0 on a seeded batch of N at

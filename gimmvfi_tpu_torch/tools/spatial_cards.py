@@ -9,8 +9,8 @@ rehearsal at a small `--points` and `--raft-iters` / `--ff-iters`). For
 each point (`--points`, HxW, default 2048x1088 and 4096x2176 at DS 1.0
 for R, 2048x1088 for F) the ranks build GIMMVFI_R(raft_iters=20,
 dtype=bfloat16), or with `--model f` GIMMVFI_F(ff_iters=32,
-dtype=bfloat16), with seeded weights and a seeded pair, 7 timesteps; for
-each world w of 1, 2 and the node's ranks (1 alone on one card), the
+dtype=bfloat16), without remat as the inference entry points, with
+seeded weights and a seeded pair, 7 timesteps; for each world w of 1, 2 and the node's ranks (1 alone on one card), the
 first w ranks (a subgroup; the others wait) run
 `parallel/spatial.py: interpolate_spatial_sharded`: one warm-up call,
 then `--repeats` calls timed by CUDA events (fps = 7 / the call, the
@@ -117,7 +117,8 @@ def main(argv=None) -> dict:
     try:
         for point in points.split(","):
             h, w = (int(x) for x in point.split("x"))
-            model = init_normal_(family(iters, dtype=torch.bfloat16, device=device), SEED)
+            model = init_normal_(family(iters, dtype=torch.bfloat16, device=device, remat=False),
+                                 SEED)
             gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
             img_xs = torch.rand((1, 2, h, w, 3), generator=gen).to(device)
             ref = None

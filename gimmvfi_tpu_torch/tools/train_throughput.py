@@ -8,11 +8,11 @@ Runs each stage for `--steps` real steps on fabricated data, drawn from
 (`init_normal_`, normal 0.02 from seed 0; BatchNorm statistics 0 / 1),
 float32 with TF32 off:
 
-  stage 1 (GIMM motion pretraining): GIMM, batch 32 at 256x256, AdamW
+  stage 1 (GIMM motion pretraining): GIMM(remat=True), batch 32 at 256x256, AdamW
       at 1e-4 without the ft groups, EMA, one shared `t_id` a step
       (`configs/gimm/gimm.yaml`);
-  stage 2 (GIMM-VFI-R fine-tuning): GIMMVFI_R(raft_iters=20), batch 4 at
-      224x224, AdamW at 8e-5 with the ft groups, EMA, no perceptual loss
+  stage 2 (GIMM-VFI-R fine-tuning): GIMMVFI_R(raft_iters=20) (remat on,
+      its default), batch 4 at 224x224, AdamW at 8e-5 with the ft groups, EMA, no perceptual loss
       (`configs/gimmvfi/gimmvfi_r_arb.yaml`), the same batch every step.
 
 Each stage reports `TRAIN_TPU.json`'s fields: steps/sec over steps 1..N-1
@@ -120,13 +120,14 @@ def run_steps(stage: int, shape: str, steps: int, step_fn, device: torch.device)
 
 
 def run_stage1(steps: int, device="cuda", batch: int = 32, hw=(256, 256)) -> dict:
-    """Stage 1: GIMM, AdamW at 1e-4 without the ft groups, EMA, at the
-    recipe's batch and crop (`configs/gimm/gimm.yaml`) unless given."""
+    """Stage 1: GIMM(remat=True), as the JAX tool builds it, AdamW at 1e-4
+    without the ft groups, EMA, at the recipe's batch and crop
+    (`configs/gimm/gimm.yaml`) unless given."""
     device = torch.device(device)
     data = stage1_data(steps, batch, hw)
     xs = torch.from_numpy(data["xs"]).to(device)
     ori = torch.from_numpy(data["ori_flows"]).to(device)
-    model = init_normal_(GIMM(device=device), SEED)
+    model = init_normal_(GIMM(device=device, remat=True), SEED)
     opt, sched = create_optimizer(model, ft=False, init_lr=1e-4)
     state = create_train_state(model, opt, sched, use_ema=True)
     train_step = make_gimm_train_step(use_ema=True)

@@ -14,7 +14,11 @@ on the CPU.
     rounding; each rank's input gradient is 2x the one-process gradient
     of its rows, the gradient of the ranks' summed losses that data
     parallelism averages;
-  * after the step every rank's tensors are bitwise the same.
+  * after the step every rank's tensors are bitwise the same;
+  * the same BatchNorm as a remat unit (`nn/layers.py: remat_call`): the
+    backward recomputes it, all-reducing its sums again on both ranks, and
+    every reading is bitwise the plain one's on that rank, the running
+    statistics included (moved once, against one process without remat).
 Without a group every helper is the identity and BatchNorm computes what
 it did before data parallelism, bit for bit; `init` refuses a topology
 that is not one of equal nodes, and `spawn_ranks` raises when a rank fails.
@@ -26,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from gimmvfi_tpu_torch.nn.layers import BatchNorm2d
+from gimmvfi_tpu_torch.nn.layers import BatchNorm2d, remat_call
 from gimmvfi_tpu_torch.parallel import dist as dist_ops
 
 torch.set_num_threads(1)
@@ -68,14 +72,15 @@ def _ops_worker(out_dir):
     res["mean"] = dist_ops.global_mean({"m": torch.tensor(float(r)), "n": torch.tensor(2.0)})
 
     xs, gs = _bn_inputs()
-    bn = _bn()
-    xr = xs[r:r + 1].clone().requires_grad_(True)
-    out = bn(xr, train=True)
-    (out * gs[r:r + 1]).mean().backward()
-    dist_ops.average_gradients_(bn.parameters())
-    res["bn"] = {"out": out.detach(), "x_grad": xr.grad, "weight_grad": bn.weight.grad,
-                 "bias_grad": bn.bias.grad, "running_mean": bn.running_mean.clone(),
-                 "running_var": bn.running_var.clone()}
+    for key, remat in (("bn", False), ("bn_remat", True)):
+        bn = _bn()
+        xr = xs[r:r + 1].clone().requires_grad_(True)
+        out = remat_call(bn, xr, True, remat=remat)
+        (out * gs[r:r + 1]).mean().backward()
+        dist_ops.average_gradients_(bn.parameters())
+        res[key] = {"out": out.detach(), "x_grad": xr.grad, "weight_grad": bn.weight.grad,
+                    "bias_grad": bn.bias.grad, "running_mean": bn.running_mean.clone(),
+                    "running_var": bn.running_var.clone()}
     torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
 
 
@@ -102,6 +107,19 @@ def test_average_gradients_and_global_mean(ranks):
 
 
 def test_batchnorm_across_ranks_is_the_global_batch(ranks):
+    _check_batchnorm_across_ranks(ranks, "bn")
+
+
+def test_batchnorm_across_ranks_with_remat_moves_statistics_once(ranks):
+    _check_batchnorm_across_ranks(ranks, "bn_remat")
+    for res in ranks:
+        for k, v in res["bn"].items():
+            assert torch.equal(res["bn_remat"][k], v), k
+
+
+def _check_batchnorm_across_ranks(ranks, key):
+    """The ranks' `key` readings against one process at batch 2, without
+    remat."""
     xs, gs = _bn_inputs()
     bn = _bn()
     x = xs.clone().requires_grad_(True)
@@ -109,7 +127,7 @@ def test_batchnorm_across_ranks_is_the_global_batch(ranks):
     (out * gs).mean().backward()
     close = lambda a, b: torch.allclose(a, b, rtol=1e-5, atol=1e-6)
     for r, res in enumerate(ranks):
-        got = res["bn"]
+        got = res[key]
         assert close(got["out"], out[r:r + 1].detach())
         assert close(got["x_grad"], WORLD * x.grad[r:r + 1])
         assert close(got["weight_grad"], bn.weight.grad) and close(got["bias_grad"], bn.bias.grad)
@@ -118,9 +136,9 @@ def test_batchnorm_across_ranks_is_the_global_batch(ranks):
     # the global statistics moved the running ones, not a rank's own
     own = _bn()
     own(xs[:1], train=True)
-    assert not close(ranks[0]["bn"]["running_var"], own.running_var)
+    assert not close(ranks[0][key]["running_var"], own.running_var)
     for k in ("weight_grad", "bias_grad", "running_mean", "running_var"):
-        assert torch.equal(ranks[0]["bn"][k], ranks[1]["bn"][k]), k
+        assert torch.equal(ranks[0][key][k], ranks[1][key][k]), k
 
 
 def test_without_a_group_nothing_changes():

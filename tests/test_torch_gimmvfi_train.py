@@ -27,6 +27,14 @@ all-reduced across them, the gradients averaged) against the same JAX step
 at batch 2, under the same bounds (the running statistics' is what catches
 statistics taken per rank); the alphas' terms are the ranks' fields, and
 the two ranks' parameters, buffers and EMA must be bitwise equal.
+The port's model trains with remat (its default, as JAX's), so these hold
+the port with remat against JAX without it; `test_remat_train_forward_matches_jax`
+holds it against JAX with remat (`JaxGIMMVFI_R(remat=True)` on the same
+init): `train_forward` in train mode, the moved running statistics and the
+loss terms (no perceptual loss) under the bounds above. The steps' running
+statistics are read after the backward, in which the port's remat units
+recompute: moved once, as JAX's; the world2 case's ranks recompute with
+the group up (BatchNorm's sums all-reduced again in the backward).
 The eval step and `interpolate` after a step are in
 `test_torch_gimmvfi_eval.py`. One JAX init for the file, in a module fixture.
 """
@@ -45,15 +53,21 @@ import torch
 from gimmvfi_tpu.models.gimmvfi_r import GIMMVFI_R as JaxGIMMVFI_R
 from gimmvfi_tpu.train import create_optimizer as jax_create_optimizer
 from gimmvfi_tpu.train import create_train_state as jax_create_train_state
+from gimmvfi_tpu.train import losses as jax_losses
 from gimmvfi_tpu.train.lpips import LPIPS as JaxLPIPS
 from gimmvfi_tpu.train.train_state import make_gimmvfi_train_step as jax_make_train_step
 from gimmvfi_tpu.utils.convert import convert_lpips
 from gimmvfi_tpu_torch.models import gimmvfi_r as gimmvfi_r_module
 from gimmvfi_tpu_torch.models.gimmvfi_r import GIMMVFI_R
 from gimmvfi_tpu_torch.parallel import dist as dist_ops
+from gimmvfi_tpu_torch.train import losses as port_losses
 from gimmvfi_tpu_torch.train.lpips import LPIPS
 from gimmvfi_tpu_torch.train.optim import create_optimizer
-from gimmvfi_tpu_torch.train.train_state import create_train_state, make_gimmvfi_train_step
+from gimmvfi_tpu_torch.train.train_state import (
+    _flow_rec_loss,
+    create_train_state,
+    make_gimmvfi_train_step,
+)
 from gimmvfi_tpu_torch.utils.convert import jax_params_to_torch, load_jax_params
 
 torch.set_num_threads(1)
@@ -194,6 +208,63 @@ def test_train_forward_matches_jax(setup):
     for k, v in got_stats.items():
         _close_rel(v.numpy(), ref_stats[k].numpy(), 1e-5, k)
     assert all(not torch.equal(v, before[k]) for k, v in got_stats.items())
+
+
+def _loss_terms(L, out, gt, rec):
+    """The stage-2 step's loss terms but the perceptual one, from package
+    `L`'s losses (the JAX package's or the port's) on `train_forward`'s
+    outputs; `rec`, the flow-reconstruction term, as that package's step
+    computes it."""
+    pred, aux = out["imgt_pred"], out["img_warp_4"]
+    terms = {name: fn(pred, gt) + 0.5 * fn(aux, gt) for name, fn in (
+        ("lap", L.lap_loss), ("census", L.census_loss), ("l1", L.charbonnier_l1))}
+    terms["rec"] = rec
+    terms["loss_total"] = terms["census"] + terms["l1"] + REC_WEIGHT * rec + terms["lap"]
+    terms["psnr"] = L.psnr(pred, gt)
+    return terms
+
+
+def test_remat_train_forward_matches_jax(setup):
+    _, params, stats, _, _ = setup
+    model = JaxGIMMVFI_R(raft_iters=2, remat=True)
+    b = _batch(3)
+
+    def fwd(v, x, gt, t, s0, s1):
+        out, mut = model.apply(v, x, t, s0, s1, method=model.train_forward,
+                               mutable=["batch_stats"])
+        nflow = out["nflow"]
+
+        def sub_target(i, idx):
+            return jnp.take_along_axis(nflow[:, i].reshape(N, -1, 2), idx[..., None], axis=1)
+
+        inr0, inr1 = out["ninrflow"]
+        rec = (0.5 * jnp.mean((inr0 - sub_target(0, s0)) ** 2)
+               + 0.5 * jnp.mean((inr1 - sub_target(1, s1)) ** 2))
+        return out, mut, _loss_terms(jax_losses, out, gt, rec)
+
+    ref, mut, ref_terms = jax.jit(fwd)({"params": params, "batch_stats": stats}, _img_xs(b),
+                                       b["gt"], b["t"], b["sub_idx0"], b["sub_idx1"])
+    m = load_jax_params(GIMMVFI_R(raft_iters=2, device="cpu", remat=True), params, stats)
+    s0, s1 = torch.from_numpy(b["sub_idx0"]).long(), torch.from_numpy(b["sub_idx1"]).long()
+    out = m.train_forward(torch.from_numpy(_img_xs(b)), torch.from_numpy(b["t"]), s0, s1)
+    terms = _loss_terms(port_losses, out, torch.from_numpy(b["gt"]),
+                        _flow_rec_loss(out, s0, s1))
+    for k in ("lap", "census", "l1", "rec", "loss_total", "psnr"):
+        got, want = float(terms[k].detach()), float(ref_terms[k])
+        assert abs(got - want) <= 1e-5 * abs(want), (k, got, want)
+    out = {k: ([x.detach().numpy() for x in v] if isinstance(v, list) else v.detach().numpy())
+           for k, v in out.items()}
+    for k in ("imgt_pred", "img_warp_4"):
+        assert _psnr(out[k], ref[k]) >= 60.0, k
+    for k in ("raft_flow", "nflow", "flowt"):
+        _close_rel(out[k], ref[k], 1e-4, k)
+    for i in range(2):
+        _close_rel(out["ninrflow"][i], ref["ninrflow"][i], 1e-4, f"ninrflow[{i}]")
+    ref_stats = _running_stats(jax_params_to_torch(params, mut["batch_stats"]))
+    got_stats = _running_stats(m.state_dict())
+    assert sorted(got_stats) == sorted(ref_stats) and len(got_stats) > 0
+    for k, v in got_stats.items():
+        _close_rel(v.numpy(), ref_stats[k].numpy(), 1e-5, k)
 
 
 @pytest.fixture(scope="module")

@@ -228,7 +228,9 @@ ARCH_OFF_DEFAULTS = ["arch.fwarp_type=softmax", "arch.coord_range=[-0.5,0.5]", "
 def test_build_model_builds_what_the_jax_cli_builds(arch, config, tmp_path):
     """The config sets `fwarp_type`, `coord_range` and `raft_iter` off their
     defaults; the JAX CLI, run up to its `create_model` call, reads only
-    `raft_iter` (GIMM-VFI-R's), and `build_model` gives the same fields."""
+    `raft_iter` (GIMM-VFI-R's), and `build_model` gives the same fields,
+    `remat` included (on for all three: GIMM's by the CLI, the others' by
+    default)."""
     built = []
 
     def create_model(*args, **kwargs):
@@ -250,6 +252,7 @@ def test_build_model_builds_what_the_jax_cli_builds(arch, config, tmp_path):
     torch.manual_seed(0)
     model = train_cli.build_model(cfg, arch, torch.device("cpu"))
     assert model.fwarp_type == ref.fwarp_type == "linear"
+    assert model.remat is ref.remat is True
     assert tuple(model.coord_range) == tuple(ref.coord_range) == (-1.0, 1.0)
     if arch == "gimmvfi_r":
         assert model.flow_estimator.iters == ref.raft_iters == 3

@@ -11,6 +11,10 @@
     step data-parallel on two gloo ranks at batch 1 each (`parallel/dist.py:
     spawn_ranks`) against the same JAX step at batch 2, under the same
     bounds, and the two ranks' parameters and EMA must be bitwise equal;
+    the `remat` case runs `GIMM(remat=True)` (the train CLI's) against the
+    JAX step of `GIMM(remat=True)` (JAX's CLI's) on `t_id0`'s batch, under
+    the same bounds (ROADMAP C3 says why a batch whose pre-activation sits
+    on a leaky kink misses them, with remat or without);
   * `create_optimizer` (adam, adamw, sgd; with and without the `ft` groups
     and clipping) against optax over 3 updates on fixed gradients;
   * `warmup_cosine_schedule` at every step of the JAX tests' schedule and
@@ -92,15 +96,18 @@ def jax_init():
 
 @pytest.fixture(scope="module")
 def jax_step(jax_init):
-    """One jitted JAX stage-1 step: SGD after the gradient-keeping pass,
-    with the EMA on."""
+    """One jitted JAX stage-1 step of `JaxGIMM(remat=remat)`: SGD after the
+    gradient-keeping pass, with the EMA on."""
     tx = optax.chain(_keep_grads(), jax_create_optimizer(
         jax_init, opt_type="sgd", init_lr=SGD_LR, weight_decay=0.0, ft=False))
-    step = jax.jit(jax_make_gimm_train_step(JaxGIMM(), tx, use_ema=True))
+    steps = {}
 
-    def run(batch):
+    def run(batch, remat=False):
+        if remat not in steps:
+            steps[remat] = jax.jit(jax_make_gimm_train_step(JaxGIMM(remat=remat), tx,
+                                                            use_ema=True))
         state = jax_create_train_state({"params": jax_init}, tx, use_ema=True)
-        new_state, metrics = step(state, batch)
+        new_state, metrics = steps[remat](state, batch)
         return jax.tree_util.tree_map(np.asarray, (new_state, metrics))
 
     return run
@@ -132,15 +139,16 @@ def _dp_step(weights, batch, out_dir, world):
     return ranks[0]
 
 
-@pytest.mark.parametrize("t_id,world", [pytest.param([0, 2], 1, id="t_id0"),
-                                        pytest.param([1, 1], 1, id="t_id1"),
-                                        pytest.param([0, 2], 2, id="world2")])
-def test_train_step_matches_jax(jax_init, jax_step, t_id, world, tmp_path):
+@pytest.mark.parametrize("t_id,world,remat", [pytest.param([0, 2], 1, False, id="t_id0"),
+                                              pytest.param([1, 1], 1, False, id="t_id1"),
+                                              pytest.param([0, 2], 2, False, id="world2"),
+                                              pytest.param([0, 2], 1, True, id="remat")])
+def test_train_step_matches_jax(jax_init, jax_step, t_id, world, remat, tmp_path):
     batch = _batch(sum(t_id), t_id)
-    new_state, ref = jax_step(batch)
+    new_state, ref = jax_step(batch, remat)
     weights = jax_gimm_params_to_torch(jax_init)
     if world == 1:
-        model = GIMM(device="cpu")
+        model = GIMM(device="cpu", remat=remat)
         model.load_state_dict(weights, strict=True)
         opt, sched = create_optimizer(model, "sgd", init_lr=SGD_LR, weight_decay=0.0, ft=False)
         state = create_train_state(model, opt, sched, use_ema=True)

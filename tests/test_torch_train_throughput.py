@@ -9,7 +9,9 @@ Its fabricated data are the JAX tool's draws, bitwise: a transcription of
 fails), 2 steps each through
 `main(["--device", "cpu", ...])`: the record printed last and written to
 `--out`, each stage with `TRAIN_TPU.json`'s keys (`first_step_s` in place
-of `compile_s`) and finite losses. Without a card the default raises.
+of `compile_s`) and finite losses; the models built as the JAX tool builds
+them (`tools/tpu_train_throughput.py:71,118`): `GIMM(remat=True)` and
+`GIMMVFI_R` at its default remat, on. Without a card the default raises.
 """
 
 import functools
@@ -68,8 +70,17 @@ def test_both_stages_on_the_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(tt, "run_stage1", functools.partial(tt.run_stage1, batch=2, hw=(64, 64)))
     monkeypatch.setattr(tt, "run_stage2", functools.partial(tt.run_stage2, batch=1, hw=(128, 128),
                                                             raft_iters=2))
+    built = []
+
+    def init_normal_(model, seed):
+        built.append(model)
+        return real_init(model, seed)
+
+    real_init = tt.init_normal_
+    monkeypatch.setattr(tt, "init_normal_", init_normal_)
     out = tmp_path / "train.json"
     record = tt.main(["--steps", "2", "--device", "cpu", "--out", str(out)])
+    assert [(type(m).__name__, m.remat) for m in built] == [("GIMM", True), ("GIMMVFI_R", True)]
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == record == json.loads(out.read_text())
     assert [line.split(":")[0] for line in lines[:-1]] == ["stage1", "stage2"]
